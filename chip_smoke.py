@@ -1,0 +1,429 @@
+#!/usr/bin/env python3
+"""Drive the port's build (repro_torch.build_knn_graph) on one CUDA card and
+check it. Run from the root of a checkout, on a machine with an H100:
+
+    python3 chip_smoke.py
+
+Phases, each printed as one JSON line:
+  device       the card (nvidia-smi name and power limit), torch and CUDA
+               versions; the capability must be (9, 0);
+  build_lib    nvcc builds src/repro_torch/kernels/csrc/knn_kernels.cu:
+               seconds, and registers / shared memory per kernel;
+  build_check  mnist_like(16000, 784), DescentConfig(k=20, rho=1.0), built
+               through the kernels and through their plain versions with
+               the same generator seed: both recalls against an exact fp32
+               k-NN computed here, which nothing in the port uses;
+  build        the main path: mnist_like(70000, 784), DescentConfig(k=20),
+               through the kernels, with every launch count set to 0 just
+               before and read just after; wall time, iterations, updates,
+               dist_evals, the reorder's host time, peak memory, recall@20;
+  profile      the same build once more under torch.profiler: device time
+               by kernel name and the device's idle share;
+  kernels      each kernel on the inputs the main path gave it (recorded
+               during that run), against its plain version: max error,
+               kernel / plain / library times, the card's lower bound.
+Then the line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+Any failure raises, and the script exits non-zero. With no CUDA card, or
+without the repository's src/ beside it, it exits 2 and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_FP32_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+REPLACES = {
+    "knn_join_dists": "src/repro/kernels/knn_join.py:82",
+    "knn_join_select": "src/repro/kernels/knn_join.py:152",
+    "knn_merge": "src/repro/kernels/knn_merge.py:156",
+}
+SOURCE = "src/repro_torch/kernels/csrc/knn_kernels.cu"
+N, CHECK_N, SEED = 70_000, 16_000, 0   # the main path's and the check's n
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def time_ms(fn, reps: int) -> float:
+    """Device time of one call: ``reps`` calls captured in a CUDA graph,
+    replayed between two CUDA events, after a warm-up. The graph keeps the
+    host's launch cost out of the number."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
+
+
+def exact_knn(x, k: int, chunk: int = 4096):
+    """Exact fp32 k-NN ids by matmul plus the norms, TF32 off, self
+    excluded by index. Held apart from the code under test."""
+    import torch
+    n = x.shape[0]
+    x2 = (x * x).sum(1)
+    out = torch.empty((n, k), dtype=torch.int64, device=x.device)
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        d = x2[s:e, None] + x2[None, :] - 2.0 * (x[s:e] @ x.T)
+        d[torch.arange(e - s, device=x.device),
+          torch.arange(s, e, device=x.device)] = torch.inf
+        out[s:e] = d.topk(k, dim=1, largest=False).indices
+    return out
+
+
+def check_graph(x, dist, idx, rows: int = 2048) -> float:
+    """The built graph is a graph of x: full rows of distinct ids, no
+    self-loops, ascending finite distances that match fp64 distances
+    recomputed for a sample of rows (to 1e-4 + 1e-5 * (|a|^2 + |b|^2): the
+    norm expansion's cancellation). Returns the worst error over tol."""
+    import torch
+    n, k = idx.shape
+    if not (torch.isfinite(dist).all() and (idx >= 0).all()
+            and (idx < n).all()):
+        raise AssertionError("build: lists are not full and finite")
+    if (dist[:, 1:] < dist[:, :-1]).any():
+        raise AssertionError("build: a row is not ascending")
+    rows_all = torch.arange(n, device=idx.device)[:, None]
+    if (idx == rows_all).any():
+        raise AssertionError("build: a self-loop")
+    srt = idx.sort(dim=1).values
+    if (srt[:, 1:] == srt[:, :-1]).any():
+        raise AssertionError("build: a repeated id in a row")
+    r = torch.randperm(n, device=x.device)[:rows]
+    xa = x[r].double()
+    xb = x[idx[r].long()].double()
+    d64 = ((xa[:, None, :] - xb) ** 2).sum(-1)
+    tol = 1e-4 + 1e-5 * ((xa * xa).sum(-1)[:, None] + (xb * xb).sum(-1))
+    worst = float(((dist[r].double() - d64).abs() / tol).max())
+    if worst > 1.0:
+        raise AssertionError(f"build: distances off by {worst:.3g} x tol")
+    return worst
+
+
+class Recorder:
+    """For one build: keeps a copy of the inputs of the second call of
+    each kernel entry point in ``kernels/ops.py`` (per select width) — for
+    the join distances that is the first iteration after the reorder,
+    where both candidate pools are full — and the host time of the greedy
+    reorder. It wraps the module attributes the build calls and restores
+    them on exit; the wrapped functions are the ones the build would
+    call, so each kernel launches as it would."""
+
+    NAMES = ("knn_join_dists", "knn_join_select", "knn_merge")
+
+    def __init__(self):
+        self.calls: dict[str, tuple] = {}
+        self.seen: dict[str, int] = {}
+        self.reorder_s: list[float] = []
+
+    def __enter__(self):
+        from repro_torch.core import nn_descent
+        from repro_torch.kernels import ops
+        self._ops, self._nd = ops, nn_descent
+        self._saved = {n: getattr(ops, n) for n in self.NAMES}
+        for name, fn in self._saved.items():
+            setattr(ops, name, self._wrap(name, fn))
+        self._reorder = nn_descent.greedy_reorder
+        nn_descent.greedy_reorder = self._timed_reorder
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self._ops, name, fn)
+        self._nd.greedy_reorder = self._reorder
+
+    def _wrap(self, name, fn):
+        import torch
+
+        def call(*args, **kw):
+            key = name
+            if name == "knn_join_select":
+                key = f"{name}:W={args[0].shape[1]}:c={args[3]}"
+            self.seen[key] = self.seen.get(key, 0) + 1
+            if self.seen[key] == 2:
+                self.calls[key] = tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args)
+            return fn(*args, **kw)
+        return call
+
+    def _timed_reorder(self, nl):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self._reorder(nl)
+        torch.cuda.synchronize()
+        self.reorder_s.append(time.perf_counter() - t0)
+        return out
+
+
+def profile_build(x, cfg, seed: int, top: int = 12) -> dict:
+    """One more build of the main path under ``torch.profiler``: device
+    time by kernel name, and the device's busy share of the (profiled)
+    wall time. The profiler's own cost lengthens the wall time, so the
+    idle share is an upper bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import build_knn_graph
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        build_knn_graph(x, k=cfg.k, cfg=cfg, generator=g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only: a CPU op's device time is its kernels'
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy_s = sum(r[0] for r in rows) * 1e-6
+    ours = {name: sum(r[0] for r in rows if f"{name}_kernel" in r[2]) * 1e-6
+            for name in ("join_dists", "join_select", "merge")}
+    # a profiler that saw no device activity measured nothing
+    idle = 1.0 - busy_s / wall if busy_s > 0 else "not measured"
+    return {
+        "profiled_wall_s": wall, "device_busy_s": busy_s,
+        "device_idle_share": idle, "our_kernels_s": ours,
+        "top": [{"name": k[:90], "calls": c, "device_s": t * 1e-6}
+                for t, c, k in rows[:top]],
+    }
+
+
+def check_kernel(name, args, reps):
+    """Kernel vs plain version on one recorded call; times and bound."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    fn = getattr(ops, name)
+    got = fn(*args)
+    want = fn(*args, backend="ref")
+    torch.cuda.synchronize()
+    entry = {"name": name, "shape": [list(a.shape) if hasattr(a, "shape")
+                                     else a for a in args]}
+    if name == "knn_join_dists":
+        (gd, gev), (wd, wev) = got, want
+        x, x2, ids, cn = args
+        if not torch.equal(torch.isinf(gd), torch.isinf(wd)):
+            raise AssertionError("knn_join_dists: +inf positions differ")
+        if not torch.equal(gev, wev):
+            raise AssertionError("knn_join_dists: evals differ")
+        fin = torch.isfinite(wd)
+        err = (gd - wd).abs()[fin]
+        # rtol 1e-5 against the operands' squared norms, not the
+        # cancelled result: x2[a] + x2[b] - 2ab loses the leading digits
+        # the norms share, and two fp32 sums of 896 products in another
+        # order differ by about eps * sqrt(dp) * |a||b|
+        safe = ids.clamp_min(0).long()
+        scale = x2[safe][:, :, None] + x2[safe][:, None, :]
+        tol = 1e-4 + 1e-5 * scale[fin]
+        worst = float((err / tol).max()) if err.numel() else 0.0
+        if worst > 1.0:
+            raise AssertionError(f"knn_join_dists: error {worst:.3g} x tol")
+        entry["max_abs_err"] = float(err.max()) if err.numel() else 0.0
+        entry["max_err_over_tol"] = worst
+        entry["tolerance"] = "1e-4 + 1e-5 * (x2[a] + x2[b]); inf, evals exact"
+        pairs = int(gev.sum())
+        flops = 2 * x.shape[1] * pairs
+        nbytes = 4 * (x.numel() + x2.numel() + ids.numel() + gd.numel()
+                      + gev.numel())
+        valid = ids >= 0
+        xg = torch.where(valid[:, :, None], x[safe], 0.0)
+        x2g = torch.where(valid, x2[safe], 0.0)
+        base = x2g[:, :, None] + x2g[:, None, :]
+        xgt = xg.transpose(1, 2)
+        ok = ref._join_ok(ids, cn)
+
+        def library():
+            dd = torch.baddbmm(base, xg, xgt, alpha=-2.0)
+            return torch.where(ok, dd.clamp_min(0.0), torch.inf)
+        entry["library_ms"] = time_ms(library, reps)
+        entry["library_call"] = "torch.baddbmm on gathered rows + mask"
+        del xg, xgt, base
+    else:
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name}: kernel and plain differ")
+        fin = torch.isfinite(want[0])
+        entry["max_abs_err"] = float((got[0] - want[0]).abs()[fin].max()) \
+            if fin.any() else 0.0
+        entry["tolerance"] = "bitwise"
+        if name == "knn_join_select":
+            gd, gi, kth, c = args
+            n, w = gd.shape
+            nbytes = 8 * n * w + 4 * n + 8 * n * c
+            flops = 2 * n * w                    # prefilter compares
+            pool = torch.where((gi >= 0) & (gd < kth[:, None]), gd, ref.BIG)
+            entry["library_ms"] = time_ms(
+                lambda: torch.sort(pool, dim=1, stable=True), reps)
+            entry["library_call"] = "torch.sort(stable=True) of masked keys"
+        else:
+            cd, ci, qd, qi = args
+            n, k = cd.shape
+            c = qd.shape[1]
+            nbytes = 8 * n * k + 8 * n * c + 8 * n * k + 4 * n
+            flops = n * (k * c + c * (c - 1) // 2 + k * (k + c))
+            entry["library_ms"] = None
+            entry["library_call"] = "none"
+    entry["ms"] = time_ms(lambda: fn(*args), reps)
+    entry["plain_ms"] = time_ms(lambda: fn(*args, backend="ref"),
+                                max(2, reps // 5))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_PER_S * 1e3
+    entry["bound_ms"] = max(t_bytes, t_ops)
+    entry["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    entry["bytes"] = nbytes
+    entry["operations"] = flops
+    return entry
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: run it from a checkout of the repository "
+              "(src/repro_torch not found)", file=sys.stderr)
+        return 2
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import DescentConfig, build_knn_graph, recall_at_k
+    from repro_torch.core import datasets
+    from repro_torch.core.nn_descent import pin_fp32
+    from repro_torch.kernels import _lib
+
+    pin_fp32()
+    dev = torch.device("cuda")
+
+    # -- device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    cap = torch.cuda.get_device_capability(0)
+    emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+         capability=list(cap), torch=torch.__version__,
+         cuda=torch.version.cuda, count=torch.cuda.device_count())
+    if cap != (9, 0):
+        raise RuntimeError(f"needs an sm_90 card; got capability {cap}")
+
+    # -- build_lib
+    _lib.build(force=True)
+    _lib.lib()
+    emit("build_lib", seconds=_lib.build_info["seconds"],
+         path=str(Path(_lib.build_info["path"]).relative_to(ROOT)),
+         kernels=_lib.build_info["kernels"])
+
+    # -- build_check: kernels vs plain versions, same generator seed
+    xc = datasets.mnist_like(CHECK_N, 784, seed=SEED + 1,
+                             device=dev)
+    truth_c = exact_knn(xc, 20)
+    check = {"auto": {"seconds": []}, "plain": {"seconds": []}}
+    for backend in ("plain", "auto", "auto", "plain"):   # in turns
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        cfg = DescentConfig(k=20, rho=1.0, backend=backend)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, idx, st = build_knn_graph(xc, k=20, cfg=cfg, generator=g)
+        torch.cuda.synchronize()
+        check[backend]["seconds"].append(time.perf_counter() - t0)
+        check[backend].update(recall=recall_at_k(idx, truth_c),
+                              iters=st.iters, dist_evals=st.dist_evals)
+    gap = abs(check["auto"]["recall"] - check["plain"]["recall"])
+    emit("build_check", n=CHECK_N, d=784, k=20, rho=1.0,
+         kernels=check["auto"], plain=check["plain"], recall_gap=gap)
+    if gap > 0.01 or min(v["recall"] for v in check.values()) < 0.84:
+        raise AssertionError(f"build_check failed: {check}")
+    del xc, truth_c
+
+    # -- build: the main path at the paper's headline shape
+    x = datasets.mnist_like(N, 784, seed=SEED, device=dev)
+    cfg = DescentConfig(k=20)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    with Recorder() as rec:
+        t0 = time.perf_counter()
+        dist, idx, st = build_knn_graph(x, k=20, cfg=cfg, generator=g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    graph_err = check_graph(x, dist, idx)
+    recall = recall_at_k(idx, exact_knn(x, 20))
+    emit("build", n=N, d=784, k=20, rho=cfg.rho, wall_s=wall,
+         iters=st.iters, updates=list(st.updates),
+         polish_updates=list(st.polish_updates), dist_evals=st.dist_evals,
+         reorder_host_s=rec.reorder_s, max_memory_allocated=peak,
+         launches=launches, recall_at_20=recall,
+         dist_err_over_tol=graph_err)
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"main path never launched {missing}")
+    del dist, idx
+
+    # -- profile: the same build again under torch.profiler
+    emit("profile", **profile_build(x, cfg, SEED))
+
+    # -- kernels: each against its plain version on the recorded inputs
+    entries = {}
+    for key, call in sorted(rec.calls.items()):
+        name = key.split(":")[0]
+        e = check_kernel(name, call, reps=20)
+        e.update(route="cuda", source=SOURCE, replaces=REPLACES[name],
+                 launches=launches[name], call=key)
+        emit("kernels", **e)
+        # the line keeps one entry per kernel: the widest select the main
+        # path runs (the receiver select) stands for knn_join_select
+        width = e["shape"][0][1]
+        if name not in entries or width > entries[name]["shape"][0][1]:
+            entries[name] = e
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    print(json.dumps({"kernels": [{k: entries[n][k] for k in keys}
+                                  for n in _lib.KERNELS]}), flush=True)
+
+    if any(m == "jax" or m.startswith(("jax.", "repro."))
+           for m in sys.modules):
+        raise AssertionError("the port imported JAX or the JAX package")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,39 @@
+"""repro_torch — the port of ``repro`` to PyTorch and hand-written CUDA
+kernels for Hopper (H100, sm_90a). ``repro`` (JAX) stays the reference.
+
+Public API so far (the build slice):
+  * ``repro_torch.build_knn_graph`` / ``repro_torch.core`` — NN-Descent
+    with turbosampling, the fused local join, the greedy reorder and the
+    terminal polish; runs on a CUDA device unless asked for the CPU.
+  * ``repro_torch.kernels`` — the three kernels (join distances, join
+    select, merge), their plain versions and the dispatch by device.
+"""
+from repro_torch.core import (
+    BuildDraws,
+    DescentConfig,
+    DescentStats,
+    NeighborLists,
+    apply_permutation,
+    build_knn_graph,
+    distance_recall,
+    greedy_reorder,
+    neighbor_lists_from_numpy,
+    nn_descent_iteration,
+    recall_at_k,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "BuildDraws",
+    "DescentConfig",
+    "DescentStats",
+    "NeighborLists",
+    "apply_permutation",
+    "build_knn_graph",
+    "distance_recall",
+    "greedy_reorder",
+    "neighbor_lists_from_numpy",
+    "nn_descent_iteration",
+    "recall_at_k",
+]

@@ -1,0 +1,27 @@
+"""The paper's contribution, ported slice by slice: fast K-NN-graph
+construction (NN-Descent with turbosampling selection, greedy memory
+reordering and blocked distance evaluation) on PyTorch and CUDA."""
+from repro_torch.core.heap import NeighborLists, neighbor_lists_from_numpy
+from repro_torch.core.nn_descent import (
+    BuildDraws,
+    DescentConfig,
+    DescentStats,
+    build_knn_graph,
+    nn_descent_iteration,
+)
+from repro_torch.core.recall import distance_recall, recall_at_k
+from repro_torch.core.reorder import apply_permutation, greedy_reorder
+
+__all__ = [
+    "BuildDraws",
+    "DescentConfig",
+    "DescentStats",
+    "NeighborLists",
+    "apply_permutation",
+    "build_knn_graph",
+    "distance_recall",
+    "greedy_reorder",
+    "neighbor_lists_from_numpy",
+    "nn_descent_iteration",
+    "recall_at_k",
+]

@@ -1,0 +1,342 @@
+"""NN-Descent (Dong et al., WWW'11) with the paper's optimizations
+(turbosampling selection, blocked distance evaluation, greedy memory
+reordering), on PyTorch with the build's CUDA kernels.
+
+One iteration:
+  1. selection (core/selection.py): bounded new/old candidate buffers;
+  2. fused local join (``local_join_fused``): the per-row pair tensor from
+     the ``knn_join_dists`` kernel; one stable sort of the n*C candidate
+     incidences tells every receiver which (row, slot) positions list it
+     (``invert_candidates``); each receiver gathers its incoming distance
+     rows and the ``knn_join_select`` kernel reduces them to the best
+     merge_k under the k-th-distance prefilter; receivers are contiguous
+     rows, so the merge is a chunked block merge (heap.merge_block);
+  3. convergence: stop when accepted updates <= delta * n * k.
+
+``build_knn_graph`` runs iterations from Python; the greedy reorder (§3.2)
+permutes the points between iterations 1 and 2, and two exhaustive polish
+rounds finish the build.
+
+Not ported yet (ROADMAP.md, Queue 1): the lexsort ``backend="ref"`` path,
+``heap``/``naive`` selection, ``precision`` other than f32 and
+``rerank_lists``. ``backend="plain"`` runs the fused path through the
+kernels' plain versions on any device (a reference build on the card).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Sequence
+
+import torch
+
+from repro_torch.core import heap, selection
+from repro_torch.core import metric as metric_mod
+from repro_torch.core.heap import NeighborLists
+from repro_torch.core.layout import pad_features
+from repro_torch.core.reorder import apply_permutation, greedy_reorder
+from repro_torch.kernels import ops
+
+BACKENDS = ("auto", "plain", "ref")
+
+
+@dataclasses.dataclass(frozen=True)
+class DescentConfig:
+    k: int = 20
+    rho: float = 0.5           # sample rate: rho*k candidates per pool
+    max_iters: int = 12
+    delta: float = 0.001       # stop when updates < delta*n*k (paper §2)
+    merge_size: int = 0        # merge buffer per node (0 = 3*k)
+    selection: str = "turbo"   # turbo (heap | naive: not ported yet)
+    reorder: bool = True       # paper §3.2 greedy reordering
+    reorder_after: int = 1     # run reorder after this iteration
+    polish: int = 2            # terminal exhaustive local-join rounds
+    backend: str = "auto"      # auto: kernels on a card, plain versions on
+                               # the CPU; plain: plain versions anywhere;
+                               # ref: the lexsort path (not ported yet)
+    block_k: int = 512         # kept for parity with the JAX config
+    fetch: str = "a2a"         # kept for parity (distributed build)
+    join_chunk: int = 2048     # fused join: receiver rows per chunk
+    join_src: int = 0          # per-receiver incidence buffer (0 = 2*C)
+    metric: str = "l2"         # l2 | cosine | mips (core/metric.py)
+    precision: str = "f32"     # f32 (bf16 | int8: not ported yet)
+
+    @property
+    def rho_k(self) -> int:
+        return max(1, int(round(self.rho * self.k)))
+
+    @property
+    def merge_k(self) -> int:
+        return self.merge_size or 3 * self.k
+
+
+@dataclasses.dataclass
+class DescentStats:
+    iters: int = 0
+    dist_evals: int = 0
+    updates: tuple = ()
+    polish_updates: tuple = ()
+    reordered: bool = False
+    frontier_rows: int = 0
+    padded_rows: int = 0
+
+    def flops(self, d: int) -> int:
+        """Paper §2 cost model: d subs + d mults + (d-1) adds per eval."""
+        return self.dist_evals * (3 * d - 1)
+
+
+class BuildDraws(NamedTuple):
+    """Injected randomness of a build: the raw (n, k) init ids in [0, n),
+    and per sampled iteration the (u, rnd_new, rnd_old) uniforms, each
+    (2*n*k,), of ``selection_turbo``."""
+    init: torch.Tensor
+    iters: Sequence[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+def _ops_backend(cfg: DescentConfig) -> str:
+    if cfg.backend not in BACKENDS:
+        raise ValueError(f"unknown backend {cfg.backend!r}; expected "
+                         f"{BACKENDS}")
+    if cfg.backend == "ref":
+        raise NotImplementedError(
+            "backend='ref' (the lexsort compact_pairs path) is not ported "
+            "yet (ROADMAP.md, Queue 1); use 'plain' for the fused path "
+            "through the plain versions")
+    if cfg.precision != "f32":
+        raise NotImplementedError(
+            f"precision={cfg.precision!r} is not ported yet (ROADMAP.md, "
+            "Queue 1: the quantized build)")
+    if cfg.selection != "turbo":
+        raise NotImplementedError(
+            f"selection={cfg.selection!r} is not ported yet (ROADMAP.md, "
+            "Queue 1)")
+    return "ref" if cfg.backend == "plain" else "auto"
+
+
+def invert_candidates(
+    cands: torch.Tensor, n_univ: int, src_cap: int,
+    prio: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Invert (row -> candidate) incidences: for every candidate id in
+    [0, n_univ), the (row, slot) positions that list it, compacted into
+    (n_univ, src_cap) buffers with a -1 tail. On overflow, ``prio`` (same
+    shape as ``cands``) keeps the lowest-priority incidences; without it,
+    the smallest (row, slot)."""
+    nr, c = cands.shape
+    dev = cands.device
+    flat = cands.reshape(-1)
+    key = torch.where(flat >= 0, flat, n_univ)
+    if prio is None:
+        order = torch.sort(key, stable=True).indices
+    else:
+        order = selection.lexsort_order(prio.reshape(-1), key)
+    rs = key[order]
+    first = torch.searchsorted(
+        rs, torch.arange(n_univ + 1, dtype=rs.dtype, device=dev))
+    pos = torch.arange(nr * c, device=dev) - first[rs.clamp(0, n_univ).long()]
+    keep = (rs < n_univ) & (pos < src_cap)   # JAX's mode="drop" writes
+    rows_of = torch.full((n_univ, src_cap), -1, dtype=torch.int32,
+                         device=dev)
+    slot_of = torch.full_like(rows_of, -1)
+    tgt = (rs[keep].long(), pos[keep])
+    rows_of[tgt] = (order[keep] // c).to(torch.int32)
+    slot_of[tgt] = (order[keep] % c).to(torch.int32)
+    return rows_of, slot_of
+
+
+def local_join_fused(
+    x: torch.Tensor,       # (n, dp) feature-padded points
+    x2: torch.Tensor,      # (n,) squared norms
+    nl: NeighborLists,
+    cn: torch.Tensor,      # (n, Cn) new candidates
+    co: torch.Tensor,      # (n, Co) old candidates
+    cfg: DescentConfig,
+) -> tuple[NeighborLists, int, int]:
+    """Fused local join + update routing: pair-distance kernel ->
+    incidence inversion -> per-receiver gather + prefiltered top-merge_k
+    select kernel -> chunked block merge. Returns (nl, accepted, evals)."""
+    backend = _ops_backend(cfg)
+    n, k = nl.idx.shape
+    cands = torch.cat([cn, co], dim=1)                 # (n, C)
+    c_all = cands.shape[1]
+    ids = torch.where(cands >= 0, cands, -1).to(torch.int32).contiguous()
+    dists, ev = ops.knn_join_dists(x, x2, ids, cn.shape[1],
+                                   backend=backend)   # (n, C, C), (n,)
+
+    kth = nl.dist[:, -1].contiguous()
+    s_cap = cfg.join_src or 2 * c_all
+    # overflow priority: the best distance an incidence can offer
+    inc_prio = dists.min(dim=2).values
+    rows_of, slot_of = invert_candidates(cands, n, s_cap, prio=inc_prio)
+
+    # receiver chunks: pad to a chunk multiple so every merge is a full
+    # in-bounds block (padding rows have no incidences)
+    r = min(cfg.join_chunk, ((n + 7) // 8) * 8)
+    npad = ((n + r - 1) // r) * r
+    pad = npad - n
+    rows_of = torch.nn.functional.pad(rows_of, (0, 0, 0, pad), value=-1)
+    slot_of = torch.nn.functional.pad(slot_of, (0, 0, 0, pad), value=-1)
+    kth_p = torch.nn.functional.pad(kth, (0, pad))
+    nl_p = NeighborLists(
+        torch.nn.functional.pad(nl.dist, (0, 0, 0, pad), value=torch.inf),
+        torch.nn.functional.pad(nl.idx, (0, 0, 0, pad), value=-1),
+        torch.nn.functional.pad(nl.new, (0, 0, 0, pad), value=False),
+    )
+    d_flat = dists.reshape(n * c_all, c_all)
+    upd = torch.zeros((), dtype=torch.int64, device=x.device)
+    for j in range(npad // r):
+        sl = rows_of[j * r:(j + 1) * r]
+        so = slot_of[j * r:(j + 1) * r]
+        ok = sl >= 0
+        lin = torch.where(ok, sl * c_all + so, 0).long()
+        gd = torch.where(ok[:, :, None], d_flat[lin], torch.inf)
+        gi = torch.where(ok[:, :, None], ids[torch.where(ok, sl, 0).long()],
+                         -1)
+        cd, ci = ops.knn_join_select(
+            gd.reshape(r, s_cap * c_all), gi.reshape(r, s_cap * c_all),
+            kth_p[j * r:(j + 1) * r], cfg.merge_k, backend=backend)
+        nl_p, u = heap.merge_block(nl_p, j * r, cd, ci, backend=backend)
+        upd += u.sum()
+    nl = NeighborLists(nl_p.dist[:n], nl_p.idx[:n], nl_p.new[:n])
+    return nl, int(upd), int(ev.sum())
+
+
+def nn_descent_iteration(
+    x: torch.Tensor,       # (n, dp) feature-padded
+    x2: torch.Tensor,      # (n,) squared norms
+    nl: NeighborLists,
+    cfg: DescentConfig,
+    *,
+    draws: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+    generator: torch.Generator | None = None,
+) -> tuple[NeighborLists, int, int]:
+    """One sampled iteration: selection, flag clearing, fused join.
+    Returns (nl, accepted, evals)."""
+    _ops_backend(cfg)
+    cands = selection.selection_turbo(nl, cfg.rho_k, draws=draws,
+                                      generator=generator)
+    nl = heap.mark_sampled_old(nl, cands.sampled_fwd)
+    return local_join_fused(x, x2, nl, cands.new_idx, cands.old_idx, cfg)
+
+
+def polish_iteration(
+    x: torch.Tensor,       # (n, dp) feature-padded
+    x2: torch.Tensor,      # (n,) squared norms
+    nl: NeighborLists,
+    backend: str = "auto",
+    *,
+    chunk: int = 2048,
+) -> tuple[NeighborLists, int, int]:
+    """One exhaustive local-join round: every node joins against ALL k*k
+    of its neighbors-of-neighbors (forward direction). The k*k candidate
+    row is reduced by the ``knn_join_select`` kernel (k-th prefilter +
+    best 6k) before the plain merge. The JAX version gathers x[nb] as one
+    (n, k*k, dp) array; on the card that would need n*k*k*dp*4 bytes (100
+    GB at 70000 x 400 x 896), so this one computes the distances
+    ``chunk`` rows at a time, with the same results.
+    ``backend`` is an ops backend (auto | ref). Returns (nl, accepted,
+    evals)."""
+    n, k = nl.idx.shape
+    ni = nl.idx
+    nbl = ni.clamp(0, n - 1).long()
+    nb = ni[nbl].reshape(n, k * k)
+    rows = torch.arange(n, dtype=torch.int32, device=ni.device)[:, None]
+    src_ok = (ni >= 0)[:, :, None].expand(n, k, k).reshape(n, k * k)
+    ok = src_ok & (nb >= 0) & (nb != rows)
+    nbc = nb.clamp(0, n - 1).long()
+    dd = torch.empty((n, k * k), dtype=torch.float32, device=x.device)
+    for s in range(0, n, chunk):
+        ii = nbc[s:s + chunk]
+        ab = torch.bmm(x[ii], x[s:s + chunk, :, None])[:, :, 0]
+        dd[s:s + chunk] = x2[s:s + chunk, None] + x2[ii] - 2.0 * ab
+    dd = torch.where(ok, dd.clamp_min(0.0), torch.inf)
+    evals = int(ok.sum())
+    cd, ci = ops.knn_join_select(
+        dd, torch.where(ok, nb, -1).contiguous(),
+        nl.dist[:, -1].contiguous(), min(6 * k, k * k), backend=backend)
+    nl, upd = heap.merge(nl, cd, ci)
+    return nl, int(upd.sum()), evals
+
+
+def pin_fp32() -> None:
+    """fp32 means fp32: no TF32 in any matrix product or convolution."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def build_knn_graph(
+    x,
+    k: int = 20,
+    *,
+    cfg: DescentConfig | None = None,
+    generator: torch.Generator | None = None,
+    device=None,
+    draws: BuildDraws | None = None,
+    callback: Callable | None = None,
+):
+    """Build an approximate K-NN graph of x (n, d).
+
+    Runs on ``device``, "cuda" unless the caller asks otherwise; with no
+    card present that raises. Returns (dist (n, k) f32 ascending, idx
+    (n, k) i32 in ORIGINAL ids, stats). Deterministic given ``generator``
+    (a ``torch.Generator`` on ``device``; a fresh one seeded 0 if None) or
+    given ``draws``, which replaces every random draw."""
+    cfg = cfg or DescentConfig(k=k)
+    if cfg.k != k:
+        cfg = dataclasses.replace(cfg, k=k)
+    backend = _ops_backend(cfg)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("build_knn_graph runs on a CUDA device by "
+                               "default and none is available; pass "
+                               "device='cpu' to run on the CPU")
+        pin_fp32()
+    if generator is None and draws is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    n = x.shape[0]
+    x, _ = metric_mod.transform_corpus(x, cfg.metric)
+    xp = pad_features(x).contiguous()
+    x2 = (xp * xp).sum(dim=1)
+
+    nl = heap.init_random_with_dists(
+        xp, cfg.k, idx=None if draws is None else draws.init,
+        generator=generator)
+    stats = DescentStats(dist_evals=n * cfg.k)
+    perm = torch.arange(n, dtype=torch.int32, device=device)
+
+    updates = []
+    for it in range(cfg.max_iters):
+        it_draws = None if draws is None else draws.iters[it]
+        nl, upd, ev = nn_descent_iteration(xp, x2, nl, cfg, draws=it_draws,
+                                           generator=generator)
+        stats.dist_evals += ev
+        updates.append(upd)
+        stats.iters = it + 1
+        if callback is not None:
+            callback(it, upd, nl)
+        if cfg.reorder and it + 1 == cfg.reorder_after:
+            sigma, sigma_inv = greedy_reorder(nl)
+            xp, nl = apply_permutation(xp, nl, sigma, sigma_inv)
+            x2 = x2[sigma_inv.long()]
+            perm = perm[sigma_inv.long()]
+            stats.reordered = True
+        if upd <= cfg.delta * n * cfg.k:
+            break
+    stats.updates = tuple(updates)
+
+    polish_updates = []
+    for _ in range(cfg.polish):
+        nl, upd_p, ev_p = polish_iteration(xp, x2, nl, backend)
+        polish_updates.append(upd_p)
+        stats.dist_evals += ev_p
+    stats.polish_updates = tuple(polish_updates)
+
+    # map back to original ids: row r describes original node perm[r]
+    pl = perm.long()
+    dist = torch.zeros_like(nl.dist)
+    dist[pl] = nl.dist
+    idx = torch.full_like(nl.idx, -1)
+    idx[pl] = torch.where(nl.idx >= 0, perm[nl.idx.clamp(0, n - 1).long()],
+                          -1)
+    return dist, idx, stats

@@ -1,0 +1,132 @@
+"""Build and load the kernel library (``csrc/knn_kernels.cu``).
+
+The source is compiled at first use by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, under
+``<repo>/build/repro_torch/libknn_kernels_<hash of the source>.so``, and
+loaded with ``ctypes``. Nothing here runs at import: the CPU tests import
+every module on a machine with no ``nvcc``.
+
+Launch counters live here too: each wrapper adds one to its kernel's count
+where it launches it, and nowhere else, so a run can show that the main
+path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "knn_kernels.cu"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+KERNELS = ("knn_join_dists", "knn_join_select", "knn_merge")
+LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # x, x2, ids, od, ev, N, n, C, dp, cn, stream
+    "knn_join_dists_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # gd, gi, kth, od, oi, n, W, c, stream
+    "knn_join_select_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # cd, ci, qd, qi, od, oi, upd, n, k, c, stream
+    "knn_merge_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+build_info: dict = {}
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       f"{SOURCE} at first use and need the CUDA toolkit")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"libknn_kernels_{digest}.so"
+
+
+def _parse_ptxas(log: str) -> dict:
+    """Registers and shared memory per kernel from ``-Xptxas -v``."""
+    out: dict[str, dict] = {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = next((k for k in ("join_dists", "join_select", "merge")
+                            if f"{k}_kernel" in m.group(1)), m.group(1))
+            out[current] = {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            out[current]["static_smem_bytes"] = int(s.group(1)) if s else 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[current]["spill_store_bytes"] = int(m.group(1))
+    return out
+
+
+def build(force: bool = False) -> Path:
+    """Compile the source unless its library exists (or ``force``).
+    Records the compile time and the ptxas report in ``build_info``."""
+    path = library_path()
+    if path.exists() and not force:
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, path)              # atomic: concurrent builds agree
+    build_info.update(
+        seconds=seconds, command=" ".join(cmd), path=str(path),
+        kernels=_parse_ptxas(proc.stdout + proc.stderr),
+    )
+    return path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded library, built first if needed."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.knn_error_string.argtypes = [ctypes.c_int]
+        handle.knn_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        msg = lib().knn_error_string(code).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")

@@ -1,0 +1,99 @@
+"""Wrappers of the fused local join's two CUDA kernels.
+
+* ``knn_join_dists_cuda`` replaces ``knn_join_dists_blocked``
+  (src/repro/kernels/knn_join.py:82, body ``_join_dists_kernel`` :49). It
+  takes the ids and the base rows and gathers in-kernel, so the (n, C, dp)
+  gathered copy the TPU kernel takes as input (n*C*dp*4 bytes, 5 GB on the
+  card at 70000 x 896, C = 20) is never made. Bound on this card: fp32
+  operations (the 190 dot products of 896 it computes per row at C = 20);
+  one block per row keeps its C rows in shared memory a 64-feature tile at
+  a time and each thread's pair sums in registers.
+* ``knn_join_select_cuda`` replaces ``knn_join_select_blocked``
+  (knn_join.py:152, body ``_join_select_kernel`` :125). Bound: bytes (8 in
+  per entry, 8 out per winner). One block per row sorts (distance bits,
+  position) keys bitonically in shared memory, so ties keep the lowest
+  position without a second key.
+
+Both check device, dtype, shape and contiguity, allocate their outputs
+with ``torch.empty``, launch on the current stream, raise on a non-zero
+launch code, and count their launches in ``_lib.LAUNCHES``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _lib
+
+JOIN_MAX_C = 64          # kJoinMaxC in csrc/knn_kernels.cu
+SELECT_MAX_PADDED = 8192  # kSelectMaxPadded
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+           device: torch.device) -> None:
+    if t.device != device or t.device.type != "cuda":
+        raise ValueError(f"{name} must lie on {device}, a CUDA device; "
+                         f"got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}; got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims; got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def knn_join_dists_cuda(
+    x: torch.Tensor, x2: torch.Tensor, ids: torch.Tensor, cn: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(N, dp) f32, (N,) f32, (n, C) i32 -> (n, C, C) f32, (n,) i32.
+    Ids outside [0, N) are invalid slots."""
+    dev = x.device
+    _check(x, "x", torch.float32, 2, dev)
+    _check(x2, "x2", torch.float32, 1, dev)
+    _check(ids, "ids", torch.int32, 2, dev)
+    big_n, dp = x.shape
+    n, c = ids.shape
+    if x2.shape[0] != big_n:
+        raise ValueError(f"x2 has {x2.shape[0]} rows, x has {big_n}")
+    if not 1 <= c <= JOIN_MAX_C:
+        raise ValueError(f"C must be in [1, {JOIN_MAX_C}]; got {c}")
+    od = torch.empty((n, c, c), dtype=torch.float32, device=dev)
+    ev = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return od, ev
+    code = _lib.lib().knn_join_dists_launch(
+        x.data_ptr(), x2.data_ptr(), ids.data_ptr(), od.data_ptr(),
+        ev.data_ptr(), big_n, n, c, dp, int(cn),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _lib.check(code, "knn_join_dists")
+    _lib.LAUNCHES["knn_join_dists"] += 1
+    return od, ev
+
+
+def knn_join_select_cuda(
+    gd: torch.Tensor, gi: torch.Tensor, kth: torch.Tensor, c: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(n, W) f32, (n, W) i32, (n,) f32 -> (n, c) f32, (n, c) i32."""
+    dev = gd.device
+    _check(gd, "gd", torch.float32, 2, dev)
+    _check(gi, "gi", torch.int32, 2, dev)
+    _check(kth, "kth", torch.float32, 1, dev)
+    n, w = gd.shape
+    if gi.shape != gd.shape or kth.shape[0] != n:
+        raise ValueError(f"shapes disagree: gd {tuple(gd.shape)}, "
+                         f"gi {tuple(gi.shape)}, kth {tuple(kth.shape)}")
+    if c < 1:
+        raise ValueError(f"c must be >= 1; got {c}")
+    padded = 1 << max(w - 1, 0).bit_length()
+    if padded > SELECT_MAX_PADDED:
+        raise ValueError(f"W={w} exceeds the kernel's {SELECT_MAX_PADDED}")
+    od = torch.empty((n, c), dtype=torch.float32, device=dev)
+    oi = torch.empty((n, c), dtype=torch.int32, device=dev)
+    if n == 0:
+        return od, oi
+    code = _lib.lib().knn_join_select_launch(
+        gd.data_ptr(), gi.data_ptr(), kth.data_ptr(), od.data_ptr(),
+        oi.data_ptr(), n, w, int(c),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _lib.check(code, "knn_join_select")
+    _lib.LAUNCHES["knn_join_select"] += 1
+    return od, oi

@@ -1,0 +1,50 @@
+"""Dispatch of the build's kernels, by the device of the tensors.
+
+* A tensor on the CPU goes to the plain version in ``ref.py``.
+* A tensor on a CUDA device goes to the hand-written kernel, or the call
+  raises: there is no fallback to the plain version on a card.
+* ``backend="ref"`` forces the plain version on any device. Tests and the
+  comparison phase of ``chip_smoke.py`` use it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.knn_join import (
+    knn_join_dists_cuda,
+    knn_join_select_cuda,
+)
+from repro_torch.kernels.knn_merge import knn_merge_cuda
+
+BACKENDS = ("auto", "ref")
+
+
+def _plain(t: torch.Tensor, backend: str) -> bool:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
+    return backend == "ref" or t.device.type == "cpu"
+
+
+def knn_join_dists(x, x2, ids, cn: int, *, backend: str = "auto"):
+    """(N, dp) rows, (N,) norms, (n, C) ids -> (n, C, C) pair distances,
+    (n,) valid unordered pair counts."""
+    if _plain(x, backend):
+        return ref.knn_join_dists(x, x2, ids, cn)
+    return knn_join_dists_cuda(x, x2, ids, cn)
+
+
+def knn_join_select(gd, gi, kth, c: int, *, backend: str = "auto"):
+    """(n, W) dists/ids, (n,) kth -> best c per row, (+inf, -1) fill."""
+    if _plain(gd, backend):
+        return ref.knn_join_select(gd, gi, kth, c)
+    return knn_join_select_cuda(gd, gi, kth, c)
+
+
+def knn_merge(cur_dist, cur_idx, cand_dist, cand_idx, *,
+              backend: str = "auto"):
+    """Merge (n, c) candidates into sorted (n, k) lists -> (dist, idx,
+    accepted)."""
+    if _plain(cur_dist, backend):
+        return ref.knn_merge(cur_dist, cur_idx, cand_dist, cand_idx)
+    return knn_merge_cuda(cur_dist, cur_idx, cand_dist, cand_idx)

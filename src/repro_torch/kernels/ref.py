@@ -1,0 +1,107 @@
+"""Plain PyTorch versions of the build's three kernels.
+
+Each function computes exactly what its CUDA kernel in ``csrc/knn_kernels.cu``
+computes. The CPU tests hold them against the JAX package's oracles, and
+``chip_smoke.py`` holds the kernels against them on the card. The wrappers in
+``ops.py`` reach them only for tensors that lie on the CPU (or when a caller
+asks for ``backend="ref"``).
+"""
+from __future__ import annotations
+
+import torch
+
+BIG = float(torch.finfo(torch.float32).max)
+
+
+def _join_ok(ids: torch.Tensor, cn: int) -> torch.Tensor:
+    """Join validity: at least one "new" endpoint, distinct slots, both
+    occupied, distinct node ids. (n, C) -> (n, C, C) bool."""
+    c = ids.shape[1]
+    slot = torch.arange(c, device=ids.device)
+    ok = (slot[:, None] < cn) | (slot[None, :] < cn)
+    ok &= slot[:, None] != slot[None, :]
+    ok = ok[None]
+    ok = ok & (ids[:, :, None] >= 0) & (ids[:, None, :] >= 0)
+    ok &= ids[:, :, None] != ids[:, None, :]
+    return ok
+
+
+def knn_join_dists(
+    x: torch.Tensor,     # (N, dp) f32 feature-padded points
+    x2: torch.Tensor,    # (N,) f32 squared norms
+    ids: torch.Tensor,   # (n, C) i32 candidate ids, -1 = invalid slot
+    cn: int,             # width of the "new" candidate prefix
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Local-join pair-distance tensor. Gathers the candidate rows itself:
+    id -1 is a zero row with a zero norm. Returns (dists (n, C, C) f32 with
+    +inf on invalid pairs, evals (n,) i32 — valid unordered pairs)."""
+    valid = ids >= 0
+    safe = torch.where(valid, ids, 0).long()
+    xg = torch.where(valid[:, :, None], x[safe], 0.0)
+    x2g = torch.where(valid, x2[safe], 0.0)
+    ab = torch.bmm(xg, xg.transpose(1, 2))
+    dd = x2g[:, :, None] + x2g[:, None, :] - 2.0 * ab
+    ok = _join_ok(ids, cn)
+    out = torch.where(ok, dd.clamp_min(0.0), torch.inf)
+    evals = (ok.sum(dim=(1, 2)) // 2).to(torch.int32)
+    return out, evals
+
+
+def knn_join_select(
+    gd: torch.Tensor,    # (n, W) f32 gathered incoming pair distances
+    gi: torch.Tensor,    # (n, W) i32 their candidate ids, -1 pad
+    kth: torch.Tensor,   # (n,) f32 receiver k-th distance (prefilter)
+    c: int,              # output width
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Entries with ``gi >= 0 & gd < kth`` survive; the c smallest, ties
+    to the lowest input position, come back as (dist (n, c) ascending,
+    idx (n, c)) with (+inf, -1) fill. A stable sort, not ``topk``, whose
+    order among ties is unspecified."""
+    n, w = gd.shape
+    pool = torch.where((gi >= 0) & (gd < kth[:, None]), gd, BIG)
+    if c > w:
+        pool = torch.cat([pool, pool.new_full((n, c - w), BIG)], dim=1)
+        gi = torch.cat([gi, gi.new_full((n, c - w), -1)], dim=1)
+    d, pos = torch.sort(pool, dim=1, stable=True)
+    d, pos = d[:, :c], pos[:, :c]
+    i = torch.gather(gi, 1, pos)
+    keep = d < BIG
+    return torch.where(keep, d, torch.inf), torch.where(keep, i, -1)
+
+
+def candidate_dups(cur_idx: torch.Tensor,
+                   cand_idx: torch.Tensor) -> torch.Tensor:
+    """(n, c) mask of candidates a merge drops: id < 0, already in the
+    row's list, or a repeat of an EARLIER candidate (by position)."""
+    c = cand_idx.shape[1]
+    dup = (cand_idx[:, :, None] == cur_idx[:, None, :]).any(-1)
+    eq = cand_idx[:, :, None] == cand_idx[:, None, :]
+    earlier = torch.ones(c, c, dtype=torch.bool,
+                         device=cand_idx.device).tril(-1)[None]
+    return dup | (eq & earlier).any(-1) | (cand_idx < 0)
+
+
+def knn_merge(
+    cur_dist: torch.Tensor,   # (n, k) f32 ascending, +inf = empty
+    cur_idx: torch.Tensor,    # (n, k) i32, -1 = empty
+    cand_dist: torch.Tensor,  # (n, c) f32
+    cand_idx: torch.Tensor,   # (n, c) i32, -1 = invalid
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Merge candidates into sorted k-lists, the merge kernel's contract:
+    a candidate is dropped if its id is < 0, sits in the row's list, or
+    repeats an EARLIER candidate (by position). The k smallest of
+    [current | candidates] win, ties to the lowest pool position; a slot
+    at the sentinel comes out (+inf, -1). Returns (dist, idx, accepted
+    (n,) i32 — candidate picks below the sentinel)."""
+    k = cur_dist.shape[1]
+    pool_d = torch.cat([
+        torch.where(torch.isinf(cur_dist), BIG, cur_dist),
+        torch.where(candidate_dups(cur_idx, cand_idx), BIG, cand_dist),
+    ], dim=1)
+    pool_i = torch.cat([cur_idx, cand_idx], dim=1)
+    d, pos = torch.sort(pool_d, dim=1, stable=True)
+    d, pos = d[:, :k], pos[:, :k]
+    i = torch.gather(pool_i, 1, pos)
+    keep = d < BIG
+    accepted = ((pos >= k) & keep).sum(dim=1).to(torch.int32)
+    return torch.where(keep, d, torch.inf), torch.where(keep, i, -1), accepted

@@ -1,0 +1,324 @@
+"""The port's core modules (repro_torch/core) against the JAX package's,
+on the same numpy inputs and the same random draws (the JAX draws are
+computed with the JAX package's own key schedule and injected).
+
+Lists, flags, buffers, counts and permutations are held exactly;
+distances at rtol 1e-5 (sums in another order)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import datasets as jdatasets
+from repro.core import heap as jheap
+from repro.core import metric as jmetric
+from repro.core import nn_descent as jnd
+from repro.core import recall as jrecall
+from repro.core import reorder as jreorder
+from repro.core import selection as jselection
+from repro.core.layout import pad_features as jpad_features
+from repro_torch.core import heap, metric, nn_descent, recall, reorder
+from repro_torch.core import selection
+from repro_torch.core.layout import pad_features
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _tnl(jnl):
+    return heap.neighbor_lists_from_numpy(*(np.asarray(a) for a in jnl))
+
+
+def _assert_nl(got, want, *, flags=True, rtol=1e-5):
+    gd, gi, gn = got.to_numpy()
+    wd, wi, wn = (np.asarray(a) for a in want)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(np.isinf(gd), np.isinf(wd))
+    np.testing.assert_allclose(np.where(np.isinf(gd), 0, gd),
+                               np.where(np.isinf(wd), 0, wd),
+                               rtol=rtol, atol=1e-4 if rtol else 0)
+    if flags:
+        np.testing.assert_array_equal(gn, wn)
+
+
+def _corpus(n, d, seed):
+    """Gaussian rows with small norms: the norm expansion's cancellation
+    error (about eps * |x|^2) then stays far below the gaps between
+    neighbor distances, so ids can be held exactly."""
+    x = np.asarray(jdatasets.gaussian(jax.random.key(seed), n, d))
+    xp = np.asarray(jpad_features(jnp.asarray(x)))
+    return x, xp, (xp * xp).sum(1).astype(np.float32)
+
+
+_jinit = jax.jit(jheap.init_random_with_dists, static_argnums=(2,))
+_jlocal_join = jax.jit(jnd.local_join_fused, static_argnames=("cfg",))
+
+
+def _turbo_draws(key, n, k):
+    """selection_turbo's three uniforms, by the JAX package's schedule."""
+    k_acc, k_new, k_old = jax.random.split(key, 3)
+    return tuple(np.array(jax.random.uniform(kk, (2 * n * k,)))
+                 for kk in (k_acc, k_new, k_old))
+
+
+def _random_lists(n, k, seed):
+    rng = np.random.RandomState(seed)
+    dist = np.sort(rng.rand(n, k).astype(np.float32), axis=1)
+    idx = rng.randint(0, n, size=(n, k)).astype(np.int32)
+    new = rng.rand(n, k) < 0.5
+    dist[1, k // 2:] = np.inf
+    idx[1, k // 2:] = -1
+    new[1, k // 2:] = False
+    return dist, idx, new
+
+
+# ---------------------------------------------------------------------------
+# heap
+# ---------------------------------------------------------------------------
+
+def test_init_random_matches_jax_with_injected_draws():
+    n, k = 50, 7
+    key = jax.random.key(3)
+    raw = np.asarray(jax.random.randint(key, (n, k), 0, n, dtype=jnp.int32))
+    _assert_nl(heap.init_random(n, k, idx=_t(raw)),
+               jheap.init_random(key, n, k), rtol=0)
+    _, xp, _ = _corpus(n, 9, 1)
+    _assert_nl(heap.init_random_with_dists(_t(xp), k, idx=_t(raw)),
+               _jinit(key, jnp.asarray(xp), k))
+
+
+@pytest.mark.parametrize("n,k,c", [(40, 6, 9), (33, 10, 30)])
+def test_heap_merge_matches_jax(n, k, c):
+    dist, idx, new = _random_lists(n, k, n)
+    rng = np.random.RandomState(c)
+    cd = (np.round(rng.rand(n, c) * 8) / 8).astype(np.float32)   # ties
+    ci = rng.randint(-1, n, size=(n, c)).astype(np.int32)
+    ci[2, 1:] = ci[2, 0]
+    ci[3, :k] = idx[3]
+    jnl = jheap.NeighborLists(jnp.asarray(dist), jnp.asarray(idx),
+                              jnp.asarray(new))
+    want, wu = jheap.merge(jnl, jnp.asarray(cd), jnp.asarray(ci))
+    got, gu = heap.merge(_tnl(jnl), _t(cd), _t(ci))
+    _assert_nl(got, want, rtol=0)
+    np.testing.assert_array_equal(gu.numpy(), np.asarray(wu))
+
+
+def test_merge_block_matches_jax_kernel_contract():
+    """merge_block (flags included) against the JAX version running the
+    Pallas merge kernel in interpret mode."""
+    n, k, c, start, r = 48, 8, 24, 16, 24
+    dist, idx, new = _random_lists(n, k, 5)
+    rng = np.random.RandomState(6)
+    cd = rng.rand(r, c).astype(np.float32)
+    ci = rng.randint(-1, n, size=(r, c)).astype(np.int32)
+    ci[0, :k] = idx[start]
+    jnl = jheap.NeighborLists(jnp.asarray(dist), jnp.asarray(idx),
+                              jnp.asarray(new))
+    want, wu = jheap.merge_block(jnl, start, jnp.asarray(cd),
+                                 jnp.asarray(ci), backend="interpret")
+    got, gu = heap.merge_block(_tnl(jnl), start, _t(cd), _t(ci))
+    _assert_nl(got, want, rtol=0)
+    np.testing.assert_array_equal(gu.numpy(), np.asarray(wu))
+
+
+def test_mark_sampled_old():
+    dist, idx, new = _random_lists(10, 4, 2)
+    mask = np.random.RandomState(0).rand(10, 4) < 0.5
+    jnl = jheap.NeighborLists(jnp.asarray(dist), jnp.asarray(idx),
+                              jnp.asarray(new))
+    got = heap.mark_sampled_old(_tnl(jnl), _t(mask))
+    want = jheap.mark_sampled_old(jnl, jnp.asarray(mask))
+    np.testing.assert_array_equal(got.new.numpy(), np.asarray(want.new))
+
+
+# ---------------------------------------------------------------------------
+# selection
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,k,rho_k", [(60, 6, 6), (97, 8, 4)])
+def test_selection_turbo_matches_jax_with_injected_draws(n, k, rho_k):
+    dist, idx, new = _random_lists(n, k, n + k)
+    jnl = jheap.NeighborLists(jnp.asarray(dist), jnp.asarray(idx),
+                              jnp.asarray(new))
+    key = jax.random.key(n)
+    want = jselection.selection_turbo(key, jnl, rho_k)
+    got = selection.selection_turbo(_tnl(jnl), rho_k,
+                                    draws=_turbo_draws(key, n, k))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_selection_variants_not_ported():
+    for fn in (selection.selection_heap, selection.selection_naive):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn(None, 4)
+
+
+# ---------------------------------------------------------------------------
+# incidence inversion and the fused local join
+# ---------------------------------------------------------------------------
+
+def test_invert_candidates_roundtrip_and_overflow():
+    cands = _t(np.array([[2, 0, -1], [2, 2, 1], [0, -1, 0]], np.int32))
+    r, s = nn_descent.invert_candidates(cands, 3, 4)
+    assert r.tolist() == [[0, 2, 2, -1], [1, -1, -1, -1], [0, 1, 1, -1]]
+    assert s.tolist() == [[1, 0, 2, -1], [2, -1, -1, -1], [0, 0, 1, -1]]
+    r, _ = nn_descent.invert_candidates(cands, 3, 2)
+    assert r[0].tolist() == [0, 2]
+    # prioritized overflow keeps the nearest sources (test_knn_join.py:232)
+    cands = torch.zeros((8, 1), dtype=torch.int32)
+    prio = torch.arange(8, 0, -1, dtype=torch.float32).reshape(8, 1)
+    r, s = nn_descent.invert_candidates(cands, 1, 4, prio=prio)
+    assert sorted(r[0].tolist()) == [4, 5, 6, 7]
+    assert (s[0] == 0).all()
+
+
+@pytest.mark.parametrize("use_prio", [False, True])
+def test_invert_candidates_matches_jax(use_prio):
+    rng = np.random.RandomState(7)
+    cands = rng.randint(-1, 30, size=(50, 6)).astype(np.int32)
+    prio = (np.round(rng.rand(50, 6) * 4) / 4).astype(np.float32)
+    prio[3] = np.inf
+    jp, tp = (jnp.asarray(prio), _t(prio)) if use_prio else (None, None)
+    wr, ws = jnd.invert_candidates(jnp.asarray(cands), 30, 5, prio=jp)
+    gr, gs = nn_descent.invert_candidates(_t(cands), 30, 5, prio=tp)
+    np.testing.assert_array_equal(gr.numpy(), np.asarray(wr))
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
+
+
+@pytest.mark.parametrize("n,k,chunk", [
+    (150, 8, 64),     # n not a multiple of the receiver chunk
+    (64, 6, 64),      # single exact chunk
+    (97, 5, 256),     # chunk larger than n
+])
+def test_local_join_fused_matches_jax(n, k, chunk):
+    """ids exact, dist rtol 1e-5, upd and evals exact; includes all-invalid
+    candidate rows and C < merge_k."""
+    rng = np.random.RandomState(n)
+    x = rng.randn(n, 24).astype(np.float32)
+    xp = np.asarray(jpad_features(jnp.asarray(x)))
+    x2 = (xp * xp).sum(1).astype(np.float32)
+    jnl = _jinit(jax.random.key(1), jnp.asarray(xp), k)
+    cn = rng.randint(-1, n, size=(n, k)).astype(np.int32)
+    co = rng.randint(-1, n, size=(n, k)).astype(np.int32)
+    cn[5] = -1
+    co[5] = -1
+    co[6] = -1
+    cfg_j = jnd.DescentConfig(k=k, join_chunk=chunk, join_src=8 * k)
+    cfg_t = nn_descent.DescentConfig(k=k, join_chunk=chunk, join_src=8 * k)
+    want, wu, we = _jlocal_join(
+        jnp.asarray(xp), jnp.asarray(x2), jnl, jnp.asarray(cn),
+        jnp.asarray(co), cfg_j)
+    got, gu, ge = nn_descent.local_join_fused(
+        _t(xp), _t(x2), _tnl(jnl), _t(cn), _t(co), cfg_t)
+    _assert_nl(got, want)
+    assert gu == int(wu)
+    assert ge == int(we)
+
+
+def test_nn_descent_iteration_matches_jax_with_injected_draws():
+    _, xp, x2 = _corpus(300, 16, 0)
+    jnl = _jinit(jax.random.key(2), jnp.asarray(xp), 8)
+    key = jax.random.key(3)
+    cfg_j = jnd.DescentConfig(k=8, rho=1.0, join_src=64)
+    cfg_t = nn_descent.DescentConfig(k=8, rho=1.0, join_src=64)
+    want, wu, we = jnd.nn_descent_iteration(key, jnp.asarray(xp),
+                                            jnp.asarray(x2), jnl, cfg_j)
+    got, gu, ge = nn_descent.nn_descent_iteration(
+        _t(xp), _t(x2), _tnl(jnl), cfg_t, draws=_turbo_draws(key, 300, 8))
+    _assert_nl(got, want)
+    assert gu == int(wu)
+    assert ge == int(we)
+
+
+def test_polish_iteration_matches_jax():
+    x = np.asarray(jdatasets.gaussian(jax.random.key(4), 256, 16))
+    xp = np.asarray(jpad_features(jnp.asarray(x)))
+    x2 = (xp * xp).sum(1).astype(np.float32)
+    jnl = _jinit(jax.random.key(6), jnp.asarray(xp), 6)
+    want, wu, we = jnd.polish_iteration(jnp.asarray(xp), jnp.asarray(x2),
+                                        jnl, "auto")
+    # a chunk smaller than n exercises the row-chunked distance pass
+    got, gu, ge = nn_descent.polish_iteration(_t(xp), _t(x2), _tnl(jnl),
+                                              chunk=100)
+    _assert_nl(got, want)
+    assert gu == int(wu)
+    assert ge == int(we)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("backend", "ref"), ("precision", "int8"), ("selection", "heap")])
+def test_unported_options_raise(field, value):
+    cfg = nn_descent.DescentConfig(k=4, **{field: value})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        nn_descent.build_knn_graph(np.zeros((16, 3), np.float32), k=4,
+                                   cfg=cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# reorder, metric, layout, recall
+# ---------------------------------------------------------------------------
+
+def test_greedy_reorder_and_apply_permutation_match_jax():
+    _, xp, _ = _corpus(200, 8, 2)
+    jnl = _jinit(jax.random.key(9), jnp.asarray(xp), 6)
+    ws, wsi = jreorder.greedy_reorder(jnl)
+    gs, gsi = reorder.greedy_reorder(_tnl(jnl))
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
+    np.testing.assert_array_equal(gsi.numpy(), np.asarray(wsi))
+    wx, wnl = jreorder.apply_permutation(jnp.asarray(xp), jnl, ws, wsi)
+    gx, gnl = reorder.apply_permutation(_t(xp), _tnl(jnl), gs, gsi)
+    np.testing.assert_array_equal(gx.numpy(), np.asarray(wx))
+    _assert_nl(gnl, wnl, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["l2", "cosine", "mips"])
+def test_transform_corpus_matches_jax(name):
+    rng = np.random.RandomState(1)
+    x = (rng.randn(20, 5) * 3).astype(np.float32)
+    x[4] = 0.0                                   # a zero row
+    wx, wm = jmetric.transform_corpus(jnp.asarray(x), name)
+    gx, gm = metric.transform_corpus(_t(x), name)
+    gx, wx = gx.numpy(), np.asarray(wx)
+    np.testing.assert_allclose(gx[:, :5], wx[:, :5], rtol=1e-6, atol=1e-6)
+    assert gm == pytest.approx(wm, rel=1e-6)
+    if name == "mips":
+        # sqrt(M^2 - |x|^2) cancels to ~0 on the longest row: compare the
+        # squares, at the cancellation bound (a few ulps of M^2)
+        np.testing.assert_allclose(gx[:, 5] ** 2, wx[:, 5] ** 2,
+                                   atol=8 * np.finfo(np.float32).eps * wm**2)
+    with pytest.raises(ValueError, match="unknown metric"):
+        metric.check_metric("hamming")
+
+
+def test_pad_features_matches_jax():
+    x = np.ones((3, 130), np.float32)
+    np.testing.assert_array_equal(pad_features(_t(x)).numpy(),
+                                  np.asarray(jpad_features(jnp.asarray(x))))
+    assert pad_features(_t(np.ones((2, 128), np.float32))).shape == (2, 128)
+
+
+def test_recall_metrics_match_jax():
+    rng = np.random.RandomState(2)
+    truth = np.stack([rng.permutation(40)[:5] for _ in range(30)])
+    approx = truth.copy()
+    approx[rng.rand(30, 5) < 0.3] = -1
+    approx[:, 0] = rng.randint(0, 40, size=30)
+    assert recall.recall_at_k(_t(approx), _t(truth), chunk=7) == \
+        pytest.approx(jrecall.recall_at_k(jnp.asarray(approx),
+                                          jnp.asarray(truth)), rel=1e-6)
+    td = np.sort(rng.rand(30, 5).astype(np.float32), axis=1)
+    ad = td + (rng.rand(30, 5) < 0.2) * 0.5
+    ad[0, 0] = np.inf
+    assert recall.distance_recall(_t(ad), _t(td)) == pytest.approx(
+        jrecall.distance_recall(jnp.asarray(ad), jnp.asarray(td)), rel=1e-6)

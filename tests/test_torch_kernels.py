@@ -1,0 +1,242 @@
+"""The port's plain kernel versions (repro_torch/kernels/ref.py) against
+the JAX package's oracles and its Pallas kernels in interpret mode, on the
+same numpy inputs, plus the dispatch rules of repro_torch/kernels/ops.py.
+
+Tolerances: ids, counts and evals exact; +inf positions exact; join
+distances rtol 1e-5 / atol 1e-4 (the dot products are summed in another
+order); select and merge bitwise (they only compare and copy)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.knn_join import (
+    knn_join_dists_blocked,
+    knn_join_select_blocked,
+)
+from repro.kernels.knn_merge import knn_merge_blocked
+from repro_torch.kernels import _lib, ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.knn_join import (
+    knn_join_dists_cuda,
+    knn_join_select_cuda,
+)
+from repro_torch.kernels.knn_merge import knn_merge_cuda
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ---------------------------------------------------------------------------
+# join distances
+# ---------------------------------------------------------------------------
+
+def _join_inputs(n, c, dp, seed):
+    rng = np.random.RandomState(seed)
+    big_n = 4 * n
+    x = rng.randn(big_n, dp).astype(np.float32)
+    x2 = (x * x).sum(1).astype(np.float32)
+    ids = rng.randint(-1, big_n, size=(n, c)).astype(np.int32)
+    ids[3] = -1                                  # an all-invalid row
+    ids[1, 1] = ids[1, 0]                        # a repeated id
+    return x, x2, ids
+
+
+@pytest.mark.parametrize("n,c,cn,dp,tb", [
+    (37, 12, 5, 16, 16),     # n not a multiple of the row block
+    (64, 8, 8, 32, 32),      # all candidates "new"
+    (10, 6, 0, 8, 4),        # all candidates "old" -> no valid pairs
+    (24, 20, 10, 256, 8),    # the main path's C = 2*rho_k at k = 20
+])
+def test_join_dists_plain_matches_jax(n, c, cn, dp, tb):
+    x, x2, ids = _join_inputs(n, c, dp, n + c)
+    valid = ids >= 0
+    safe = np.where(valid, ids, 0)
+    xg = jnp.asarray(x[safe])
+    x2g = jnp.asarray(np.where(valid, x2[safe], 0.0).astype(np.float32))
+    jd, jev = jref.knn_join_dists(xg, x2g, jnp.asarray(ids), cn)
+    kd, kev = knn_join_dists_blocked(xg, x2g, jnp.asarray(ids), cn=cn,
+                                     tb=tb, interpret=True)
+    td, tev = tref.knn_join_dists(_t(x), _t(x2), _t(ids), cn)
+    td = td.numpy()
+    for want_d, want_ev in ((np.asarray(jd), jev), (np.asarray(kd), kev)):
+        np.testing.assert_array_equal(np.isinf(td), np.isinf(want_d))
+        np.testing.assert_allclose(np.where(np.isinf(td), 0.0, td),
+                                   np.where(np.isinf(want_d), 0.0, want_d),
+                                   rtol=1e-5, atol=1e-4)
+        np.testing.assert_array_equal(tev.numpy(), np.asarray(want_ev))
+    assert int(tev[3]) == 0
+    if cn == 0:
+        assert int(tev.sum()) == 0
+
+
+# ---------------------------------------------------------------------------
+# join select
+# ---------------------------------------------------------------------------
+
+def _select_inputs(n, w, seed, ties):
+    rng = np.random.RandomState(seed)
+    if ties:                                     # few distinct values
+        gd = (rng.randint(0, 6, size=(n, w)) / 4.0).astype(np.float32)
+    else:
+        gd = rng.rand(n, w).astype(np.float32)
+    gd[rng.rand(n, w) < 0.2] = np.inf
+    gi = rng.randint(-1, 99, size=(n, w)).astype(np.int32)
+    kth = (rng.rand(n) * 1.5).astype(np.float32)
+    kth[0] = np.inf                              # no prefilter on row 0
+    gi[1] = -1                                   # an all-invalid row
+    return gd, gi, kth
+
+
+@pytest.mark.parametrize("n,w,c,tr,ties", [
+    (37, 23, 9, 16, False),      # n not a multiple of the row block
+    (16, 5, 12, 8, False),       # c > W (padded selection)
+    (50, 40, 40, 32, True),      # c == W, with ties
+    (16, 800, 60, 8, True),      # receiver select: W = s_cap*C, c = 3k
+    (16, 400, 120, 8, False),    # polish: W = k*k, c = 6k
+])
+def test_join_select_plain_matches_jax(n, w, c, tr, ties):
+    gd, gi, kth = _select_inputs(n, w, n + w, ties)
+    jd, ji = jref.knn_join_select(jnp.asarray(gd), jnp.asarray(gi),
+                                  jnp.asarray(kth), c)
+    kd, ki = knn_join_select_blocked(jnp.asarray(gd), jnp.asarray(gi),
+                                     jnp.asarray(kth), c=c, tr=tr,
+                                     interpret=True)
+    td, ti = tref.knn_join_select(_t(gd), _t(gi), _t(kth), c)
+    for want_d, want_i in ((jd, ji), (kd, ki)):
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(td.numpy(), np.asarray(want_d))
+
+
+def test_join_select_prefilter_strict():
+    """Only candidates strictly better than kth survive."""
+    sd, si = tref.knn_join_select(torch.tensor([[0.5, 0.3, 0.7]]),
+                                  torch.tensor([[1, 2, 3]], dtype=torch.int32),
+                                  torch.tensor([0.5]), 3)
+    assert si.tolist() == [[2, -1, -1]]
+    assert sd[0, 0].item() == pytest.approx(0.3)
+    assert torch.isinf(sd[0, 1:]).all()
+
+
+# ---------------------------------------------------------------------------
+# merge
+# ---------------------------------------------------------------------------
+
+def _merge_inputs(n, k, c, seed):
+    rng = np.random.RandomState(seed)
+    cur_d = np.sort(rng.rand(n, k).astype(np.float32), axis=1)
+    cur_i = rng.randint(0, 10 * n, size=(n, k)).astype(np.int32)
+    cand_d = rng.rand(n, c).astype(np.float32)
+    cand_i = rng.randint(-1, 10 * n, size=(n, c)).astype(np.int32)
+    # ties, duplicates, empty slots, placeholders and an all-invalid row
+    cand_d[:, c // 2:] = np.round(cand_d[:, c // 2:] * 4) / 4
+    cand_i[2, 1:] = cand_i[2, 0]
+    cand_i[4, : min(c, k)] = cur_i[4, : min(c, k)]
+    cur_d[5, k // 2:] = np.inf
+    cur_i[5, k // 2:] = -1
+    cur_d[6, -1] = np.float32(3.0e38)
+    cand_i[7] = -1
+    cand_d[8, 0] = np.inf
+    return cur_d, cur_i, cand_d, cand_i
+
+
+@pytest.mark.parametrize("n,k,c", [
+    (64, 8, 12), (100, 20, 7), (256, 4, 40),
+    (64, 20, 60),                # the main path: k = 20, merge_k = 3k
+])
+def test_merge_plain_matches_jax(n, k, c):
+    cur_d, cur_i, cand_d, cand_i = _merge_inputs(n, k, c, n + k)
+    args = [jnp.asarray(a) for a in (cur_d, cur_i, cand_d, cand_i)]
+    kd, ki, kup = knn_merge_blocked(*args, tm=32, interpret=True)
+    rd, ri, rup = jref.knn_merge(*args)
+    td, ti, tup = tref.knn_merge(*(_t(a) for a in (cur_d, cur_i, cand_d,
+                                                   cand_i)))
+    td, ti, tup = td.numpy(), ti.numpy(), tup.numpy()
+    # the Pallas kernel's contract: bitwise
+    np.testing.assert_array_equal(td, np.asarray(kd))
+    np.testing.assert_array_equal(ti, np.asarray(ki))
+    np.testing.assert_array_equal(tup, np.asarray(kup))
+    # JAX's ref may leave a stale id beside +inf: compare finite slots
+    rd, ri = np.asarray(rd), np.asarray(ri)
+    fin = np.isfinite(rd)
+    np.testing.assert_array_equal(np.isfinite(td), fin)
+    np.testing.assert_array_equal(td[fin], rd[fin])
+    np.testing.assert_array_equal(ti[fin], ri[fin])
+    np.testing.assert_array_equal(tup, np.asarray(rup))
+    assert (ti[~fin] == -1).all()
+
+
+def test_merge_dedup():
+    """Candidates already present must not be double-counted."""
+    d, i, upd = tref.knn_merge(
+        torch.tensor([[0.1, 0.2, float("inf")]]),
+        torch.tensor([[5, 7, -1]], dtype=torch.int32),
+        torch.tensor([[0.05, 0.1, 0.3]]),
+        torch.tensor([[7, 5, 9]], dtype=torch.int32))
+    assert int(upd[0]) == 1
+    assert sorted(i[0].tolist()) == [5, 7, 9]
+
+
+# ---------------------------------------------------------------------------
+# dispatch and wrappers
+# ---------------------------------------------------------------------------
+
+def test_ops_cpu_tensors_take_plain_versions():
+    gd, gi, kth = _select_inputs(8, 16, 3, False)
+    a = ops.knn_join_select(_t(gd), _t(gi), _t(kth), 5)
+    b = ops.knn_join_select(_t(gd), _t(gi), _t(kth), 5, backend="ref")
+    c = tref.knn_join_select(_t(gd), _t(gi), _t(kth), 5)
+    for got in (a, b):
+        torch.testing.assert_close(got, c, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="unknown backend"):
+        ops.knn_merge(*(_t(v) for v in _merge_inputs(9, 4, 3, 0)),
+                      backend="pallas")
+
+
+@pytest.mark.parametrize("wrapper,args", [
+    (knn_join_dists_cuda, lambda: (torch.zeros(4, 8), torch.zeros(4),
+                                   torch.zeros(2, 3, dtype=torch.int32), 1)),
+    (knn_join_select_cuda, lambda: (torch.zeros(2, 5),
+                                    torch.zeros(2, 5, dtype=torch.int32),
+                                    torch.zeros(2), 3)),
+    (knn_merge_cuda, lambda: (torch.zeros(2, 4),
+                              torch.zeros(2, 4, dtype=torch.int32),
+                              torch.zeros(2, 3),
+                              torch.zeros(2, 3, dtype=torch.int32))),
+])
+def test_cuda_wrappers_refuse_cpu_tensors(wrapper, args):
+    """A wrapper launches its kernel or raises; it never computes the
+    plain version itself, and counts nothing when it raises."""
+    before = dict(_lib.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA device"):
+        wrapper(*args())
+    assert _lib.LAUNCHES == before
+
+
+def test_ptxas_report_parsing():
+    log = (
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_117join_dists_kernelEPKfS1_PKiPfPiiiii' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN...\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, 4 bytes smem, 400 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_112merge_kernelEPKfPKiS1_S3_PfPiS5_iii' for "
+        "'sm_90a'\n"
+        "ptxas info    : Used 30 registers, 412 bytes cmem[0]\n")
+    got = _lib._parse_ptxas(log)
+    assert got["join_dists"] == {"spill_store_bytes": 0, "registers": 40,
+                                 "static_smem_bytes": 4}
+    assert got["merge"] == {"registers": 30, "static_smem_bytes": 0}
+    assert _lib.library_path().name.startswith("libknn_kernels_")
