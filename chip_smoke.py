@@ -1,33 +1,50 @@
 #!/usr/bin/env python3
-"""Drive the port's build (repro_torch.build_knn_graph) on one CUDA card and
-check it. Run from the root of a checkout, on a machine with an H100:
+"""Drive the port (repro_torch) on one CUDA card and check it: the build
+(build_knn_graph), its exact truth (brute_force_knn) and the query path
+(graph_search). Run from the root of a checkout, on a machine with an
+H100:
 
     python3 chip_smoke.py
 
 Phases, each printed as one JSON line:
   device       the card (nvidia-smi name and power limit), torch and CUDA
                versions; the capability must be (9, 0);
-  build_lib    nvcc builds src/repro_torch/kernels/csrc/knn_kernels.cu:
-               seconds, and registers / shared memory per kernel;
+  build_lib    nvcc builds src/repro_torch/kernels/csrc/*.cu (one nvcc per
+               source, all started together): seconds, and registers /
+               shared memory per kernel;
   build_check  mnist_like(16000, 784), DescentConfig(k=20, rho=1.0), built
                through the kernels and through their plain versions with
                the same generator seed: both recalls against an exact fp32
                k-NN computed here, which nothing in the port uses;
-  build        the main path: mnist_like(70000, 784), DescentConfig(k=20),
-               through the kernels, with every launch count set to 0 just
-               before and read just after; wall time, iterations, updates,
+  search_check 2048 queries (the corpus's first rows plus 0.01 N(0, 1))
+               against that kernel-built graph, SearchConfig(beam=32,
+               rounds=48, expand=6, q_block=512), k_out=10, through the
+               kernels, the plain versions and the greedy oracle with the
+               same entries; recall against brute_force_knn;
+  build        path 1: mnist_like(70000, 784), DescentConfig(k=20),
+               through the kernels; wall time, iterations, updates,
                dist_evals, the reorder's host time, peak memory, recall@20;
-  profile      the same build once more under torch.profiler: device time
-               by kernel name and the device's idle share;
-  kernels      each kernel on the inputs the main path gave it (recorded
-               during that run), against its plain version: max error,
-               kernel / plain / library times, the card's lower bound.
-Then the line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
-Any failure raises, and the script exits non-zero. With no CUDA card, or
-without the repository's src/ beside it, it exits 2 and prints no result.
+  truth        path 2: brute_force_knn(x, x, 20) on that corpus through
+               the pairwise kernel, held against the exact k-NN computed
+               here (recall >= 0.999); the build's recall against both;
+  search       path 3: 10000 queries (MNIST's test-split size) against the
+               70000-point graph, same SearchConfig, k_out=10, through the
+               kernels; wall time, queries per second, rounds, peak memory,
+               recall@10 against brute_force_knn;
+  profile      the build and the search once more under torch.profiler:
+               device time by kernel name and the device's idle share;
+  kernels      each kernel on the inputs a path gave it (recorded during
+               that run), against its plain version: max error, kernel /
+               plain / library times, the card's lower bound.
+Every path is driven with all launch counts set to 0 just before it and
+read just after; each kernel of the path must have launched. Then the line
+{"kernels": [...]} and, last, {"ok": true, "device": ...}. Any failure
+raises, and the script exits non-zero. With no CUDA card, or without the
+repository's src/ beside it, it exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -42,9 +59,16 @@ REPLACES = {
     "knn_join_dists": "src/repro/kernels/knn_join.py:82",
     "knn_join_select": "src/repro/kernels/knn_join.py:152",
     "knn_merge": "src/repro/kernels/knn_merge.py:156",
+    "pairwise_sq_l2": "src/repro/kernels/l2_blocked.py:63",
+    "knn_search_dists": "src/repro/kernels/knn_search.py:66",
 }
-SOURCE = "src/repro_torch/kernels/csrc/knn_kernels.cu"
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCES = {name: CSRC + ("search_kernels.cu" if name in (
+    "pairwise_sq_l2", "knn_search_dists") else "knn_kernels.cu")
+    for name in REPLACES}
 N, CHECK_N, SEED = 70_000, 16_000, 0   # the main path's and the check's n
+N_QUERIES, CHECK_QUERIES = 10_000, 2048
+TRUTH_CHUNK = 4096      # brute force: a 4096 x 70000 f32 tile is 1.15 GB
 
 
 def emit(phase: str, **fields) -> None:
@@ -124,17 +148,20 @@ def check_graph(x, dist, idx, rows: int = 2048) -> float:
 
 
 class Recorder:
-    """For one build: keeps a copy of the inputs of the second call of
-    each kernel entry point in ``kernels/ops.py`` (per select width) — for
-    the join distances that is the first iteration after the reorder,
-    where both candidate pools are full — and the host time of the greedy
-    reorder. It wraps the module attributes the build calls and restores
-    them on exit; the wrapped functions are the ones the build would
-    call, so each kernel launches as it would."""
+    """For one path: keeps a copy of the inputs of the second call of each
+    kernel entry point in ``kernels/ops.py`` (per select width and search
+    width) — for the join distances that is the first iteration after the
+    reorder, where both candidate pools are full; for the search tile the
+    second round of the first block — and the host time of the greedy
+    reorder. It wraps the module attributes the path calls and restores
+    them on exit; the wrapped functions are the ones the path would call,
+    so each kernel launches as it would. Keys carry the path's tag."""
 
-    NAMES = ("knn_join_dists", "knn_join_select", "knn_merge")
+    NAMES = ("knn_join_dists", "knn_join_select", "knn_merge",
+             "pairwise_sq_l2", "knn_search_dists")
 
-    def __init__(self):
+    def __init__(self, tag: str):
+        self.tag = tag
         self.calls: dict[str, tuple] = {}
         self.seen: dict[str, int] = {}
         self.reorder_s: list[float] = []
@@ -159,9 +186,11 @@ class Recorder:
         import torch
 
         def call(*args, **kw):
-            key = name
+            key = f"{self.tag}:{name}"
             if name == "knn_join_select":
-                key = f"{name}:W={args[0].shape[1]}:c={args[3]}"
+                key += f":W={args[0].shape[1]}:c={args[3]}"
+            elif name == "knn_search_dists":
+                key += f":W={args[4].shape[1]}"
             self.seen[key] = self.seen.get(key, 0) + 1
             if self.seen[key] == 2:
                 self.calls[key] = tuple(
@@ -180,22 +209,21 @@ class Recorder:
         return out
 
 
-def profile_build(x, cfg, seed: int, top: int = 12) -> dict:
-    """One more build of the main path under ``torch.profiler``: device
-    time by kernel name, and the device's busy share of the (profiled)
-    wall time. The profiler's own cost lengthens the wall time, so the
-    idle share is an upper bound."""
+def profile_run(run, top: int = 12) -> dict:
+    """One more run of a path under ``torch.profiler``: device time by
+    kernel name, and the device's busy share of the (profiled) wall time.
+    The profiler's own cost lengthens the wall time, so the idle share is
+    an upper bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch import build_knn_graph
-    g = torch.Generator(device=x.device).manual_seed(seed)
+    from repro_torch.kernels import _lib
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        build_knn_graph(x, k=cfg.k, cfg=cfg, generator=g)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only: a CPU op's device time is its kernels'
@@ -205,7 +233,7 @@ def profile_build(x, cfg, seed: int, top: int = 12) -> dict:
                    and e.self_device_time_total > 0), reverse=True)
     busy_s = sum(r[0] for r in rows) * 1e-6
     ours = {name: sum(r[0] for r in rows if f"{name}_kernel" in r[2]) * 1e-6
-            for name in ("join_dists", "join_select", "merge")}
+            for name in _lib.KERNELS}
     # a profiler that saw no device activity measured nothing
     idle = 1.0 - busy_s / wall if busy_s > 0 else "not measured"
     return {
@@ -214,6 +242,26 @@ def profile_build(x, cfg, seed: int, top: int = 12) -> dict:
         "top": [{"name": k[:90], "calls": c, "device_s": t * 1e-6}
                 for t, c, k in rows[:top]],
     }
+
+
+def close_to_plain(name, got, want, scale) -> dict:
+    """Hold a kernel's distances against its plain version's: +inf at the
+    same places, and the finite ones within 1e-4 + 1e-5 * scale. The
+    scale is the operands' squared norms, not the cancelled result:
+    |a|^2 + |b|^2 - 2ab loses the leading digits the norms share, and two
+    fp32 sums of dp products in another order differ by about
+    eps * sqrt(dp) * |a||b|."""
+    import torch
+    if not torch.equal(torch.isinf(got), torch.isinf(want)):
+        raise AssertionError(f"{name}: +inf positions differ")
+    fin = torch.isfinite(want)
+    err = (got - want).abs()[fin]
+    tol = 1e-4 + 1e-5 * scale[fin]
+    worst = float((err / tol).max()) if err.numel() else 0.0
+    if worst > 1.0:
+        raise AssertionError(f"{name}: error {worst:.3g} x tol")
+    return {"max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "max_err_over_tol": worst}
 
 
 def check_kernel(name, args, reps):
@@ -229,24 +277,11 @@ def check_kernel(name, args, reps):
     if name == "knn_join_dists":
         (gd, gev), (wd, wev) = got, want
         x, x2, ids, cn = args
-        if not torch.equal(torch.isinf(gd), torch.isinf(wd)):
-            raise AssertionError("knn_join_dists: +inf positions differ")
         if not torch.equal(gev, wev):
             raise AssertionError("knn_join_dists: evals differ")
-        fin = torch.isfinite(wd)
-        err = (gd - wd).abs()[fin]
-        # rtol 1e-5 against the operands' squared norms, not the
-        # cancelled result: x2[a] + x2[b] - 2ab loses the leading digits
-        # the norms share, and two fp32 sums of 896 products in another
-        # order differ by about eps * sqrt(dp) * |a||b|
         safe = ids.clamp_min(0).long()
-        scale = x2[safe][:, :, None] + x2[safe][:, None, :]
-        tol = 1e-4 + 1e-5 * scale[fin]
-        worst = float((err / tol).max()) if err.numel() else 0.0
-        if worst > 1.0:
-            raise AssertionError(f"knn_join_dists: error {worst:.3g} x tol")
-        entry["max_abs_err"] = float(err.max()) if err.numel() else 0.0
-        entry["max_err_over_tol"] = worst
+        entry.update(close_to_plain(
+            name, gd, wd, x2[safe][:, :, None] + x2[safe][:, None, :]))
         entry["tolerance"] = "1e-4 + 1e-5 * (x2[a] + x2[b]); inf, evals exact"
         pairs = int(gev.sum())
         flops = 2 * x.shape[1] * pairs
@@ -265,6 +300,47 @@ def check_kernel(name, args, reps):
         entry["library_ms"] = time_ms(library, reps)
         entry["library_call"] = "torch.baddbmm on gathered rows + mask"
         del xg, xgt, base
+    elif name == "pairwise_sq_l2":
+        a, b = args
+        a2, b2 = (a * a).sum(1), (b * b).sum(1)
+        entry.update(close_to_plain(name, got, want,
+                                    a2[:, None] + b2[None, :]))
+        entry["tolerance"] = "1e-4 + 1e-5 * (|a|^2 + |b|^2)"
+        (m, d), n = a.shape, b.shape[0]
+        flops = 2 * m * n * d + 2 * (m + n) * d
+        nbytes = 4 * (m * d + n * d + m * n)
+
+        def library():
+            return torch.addmm(b2[None, :], a, b.T, alpha=-2.0).add_(
+                a2[:, None]).clamp_min_(0.0)
+        entry["library_ms"] = time_ms(library, reps)
+        entry["library_call"] = "torch.addmm of the norms and -2 a@b.T, " \
+            "clamped, TF32 off"
+    elif name == "knn_search_dists":
+        q, q2, x, x2, ids = args
+        valid = (ids >= 0) & (ids < x.shape[0])
+        safe = torch.where(valid, ids, 0).long()
+        entry.update(close_to_plain(name, got, want,
+                                    q2[:, None] + x2[safe]))
+        entry["tolerance"] = "1e-4 + 1e-5 * (q2 + c2); inf exact"
+        nq, dp = q.shape
+        n_valid = int(valid.sum())
+        rows = int(torch.unique(ids[valid]).numel())
+        entry.update(valid_candidates=n_valid, distinct_rows=rows)
+        # each distinct candidate row (and its norm) read once; the
+        # queries, ids and output once
+        nbytes = 4 * (rows * (dp + 1) + nq * (dp + 1) + 2 * ids.numel())
+        flops = 2 * dp * n_valid
+        xg = x[safe]
+        base = (q2[:, None] + x2[safe])[:, :, None]
+        qc = q[:, :, None]
+
+        def library():
+            dd = torch.baddbmm(base, xg, qc, alpha=-2.0)[:, :, 0]
+            return torch.where(valid, dd.clamp_min(0.0), torch.inf)
+        entry["library_ms"] = time_ms(library, reps)
+        entry["library_call"] = "torch.baddbmm on gathered rows + mask"
+        del xg, base
     else:
         for g, w in zip(got, want):
             if not torch.equal(g, w):
@@ -302,6 +378,84 @@ def check_kernel(name, args, reps):
     return entry
 
 
+def drive(tag: str, run):
+    """Drive one path: every launch count set to 0 just before it and
+    read just after, its kernels' inputs recorded, its wall time and peak
+    memory taken. Returns (output, wall_s, launches, peak_bytes,
+    recorder)."""
+    import torch
+    from repro_torch.kernels import _lib
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    with Recorder(tag) as rec:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    return out, wall, launches, torch.cuda.max_memory_allocated(), rec
+
+
+def require_launched(tag: str, launches: dict, names) -> None:
+    missing = [k for k in names if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag} path never launched {missing}")
+
+
+def noisy_queries(x, nq: int, seed: int):
+    """The JAX search bench's queries: the corpus's first rows plus
+    0.01 * N(0, 1) noise (benchmarks/bench_search.py:113)."""
+    import torch
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    return x[:nq] + 0.01 * torch.randn(nq, x.shape[1], generator=g,
+                                       device=x.device)
+
+
+def check_search(dist, idx, n: int, k_out: int) -> None:
+    """A search result over n rows: full rows of distinct ids in [0, n),
+    finite ascending distances."""
+    import torch
+    if dist.shape != idx.shape or idx.shape[1] != k_out:
+        raise AssertionError(f"search: shapes {dist.shape}, {idx.shape}")
+    if not (torch.isfinite(dist).all() and (idx >= 0).all()
+            and (idx < n).all()):
+        raise AssertionError("search: rows are not full and finite")
+    if (dist[:, 1:] < dist[:, :-1]).any():
+        raise AssertionError("search: a row is not ascending")
+    srt = idx.sort(dim=1).values
+    if (srt[:, 1:] == srt[:, :-1]).any():
+        raise AssertionError("search: a repeated id in a row")
+
+
+def search_check(xc, gidx, scfg) -> dict:
+    """The search through the kernels, through their plain versions and
+    through the greedy oracle, on one graph with the same entries; recall
+    against brute_force_knn."""
+    import torch
+    from repro_torch import brute_force_knn, graph_search, recall_at_k
+    q = noisy_queries(xc, CHECK_QUERIES, SEED + 2)
+    _, ti = brute_force_knn(xc, q, 10, exclude_self=False, chunk=TRUTH_CHUNK)
+    g = torch.Generator(device=xc.device).manual_seed(SEED + 3)
+    entry = torch.randperm(xc.shape[0], generator=g, device=xc.device)[
+        :scfg.beam].to(torch.int32)
+    out = {}
+    for backend in ("plain", "auto", "ref"):
+        cfg = dataclasses.replace(scfg, backend=backend)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, i = graph_search(xc, gidx, q, k_out=10, entry=entry, cfg=cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check_search(d, i, xc.shape[0], 10)
+        out[backend] = {"seconds": seconds, "recall_at_10":
+                        recall_at_k(i, ti)}
+    r = {b: v["recall_at_10"] for b, v in out.items()}
+    if abs(r["auto"] - r["plain"]) > 0.01 or r["auto"] < r["ref"] - 0.02:
+        raise AssertionError(f"search_check failed: {r}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run it from a checkout of the repository "
@@ -316,9 +470,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import DescentConfig, build_knn_graph, recall_at_k
+    from repro_torch import (
+        DescentConfig,
+        SearchConfig,
+        brute_force_knn,
+        build_knn_graph,
+        graph_search,
+        recall_at_k,
+    )
     from repro_torch.core import datasets
-    from repro_torch.core.nn_descent import pin_fp32
+    from repro_torch.core.device import pin_fp32
     from repro_torch.kernels import _lib
 
     pin_fp32()
@@ -360,53 +521,101 @@ def main() -> int:
         check[backend]["seconds"].append(time.perf_counter() - t0)
         check[backend].update(recall=recall_at_k(idx, truth_c),
                               iters=st.iters, dist_evals=st.dist_evals)
+        if backend == "auto":
+            idx_c = idx
     gap = abs(check["auto"]["recall"] - check["plain"]["recall"])
     emit("build_check", n=CHECK_N, d=784, k=20, rho=1.0,
          kernels=check["auto"], plain=check["plain"], recall_gap=gap)
     if gap > 0.01 or min(v["recall"] for v in check.values()) < 0.84:
         raise AssertionError(f"build_check failed: {check}")
-    del xc, truth_c
+    del truth_c
 
-    # -- build: the main path at the paper's headline shape
+    # -- search_check: kernels vs plain versions vs the greedy oracle
+    scfg = SearchConfig(beam=32, rounds=48, expand=6, q_block=512)
+    emit("search_check", n=CHECK_N, d=784, queries=CHECK_QUERIES, k_out=10,
+         cfg=dataclasses.asdict(scfg), **search_check(xc, idx_c, scfg))
+    del xc, idx_c
+
+    # -- build: path 1, the build at the paper's headline shape
     x = datasets.mnist_like(N, 784, seed=SEED, device=dev)
     cfg = DescentConfig(k=20)
     g = torch.Generator(device=dev).manual_seed(SEED)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _lib.reset_launches()
-    with Recorder() as rec:
-        t0 = time.perf_counter()
-        dist, idx, st = build_knn_graph(x, k=20, cfg=cfg, generator=g)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    launches = dict(_lib.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    (dist, idx, st), wall, launches_b, peak, rec_b = drive(
+        "build", lambda: build_knn_graph(x, k=20, cfg=cfg, generator=g))
     graph_err = check_graph(x, dist, idx)
-    recall = recall_at_k(idx, exact_knn(x, 20))
+    exact = exact_knn(x, 20)
+    recall = recall_at_k(idx, exact)
     emit("build", n=N, d=784, k=20, rho=cfg.rho, wall_s=wall,
          iters=st.iters, updates=list(st.updates),
          polish_updates=list(st.polish_updates), dist_evals=st.dist_evals,
-         reorder_host_s=rec.reorder_s, max_memory_allocated=peak,
-         launches=launches, recall_at_20=recall,
+         reorder_host_s=rec_b.reorder_s, max_memory_allocated=peak,
+         launches=launches_b, recall_at_20=recall,
          dist_err_over_tol=graph_err)
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
-    del dist, idx
+    require_launched("build", launches_b,
+                     ("knn_join_dists", "knn_join_select", "knn_merge"))
+    del dist
 
-    # -- profile: the same build again under torch.profiler
-    emit("profile", **profile_build(x, cfg, SEED))
+    # -- truth: path 2, the exact k-NN through the pairwise kernel
+    (td, ti), wall, launches_t, peak, rec_t = drive(
+        "truth", lambda: brute_force_knn(x, x, 20, chunk=TRUTH_CHUNK))
+    if not (torch.isfinite(td).all() and (td[:, 1:] >= td[:, :-1]).all()):
+        raise AssertionError("truth: distances not finite and ascending")
+    agree = recall_at_k(ti, exact)
+    emit("truth", n=N, d=784, k=20, chunk=TRUTH_CHUNK, wall_s=wall,
+         max_memory_allocated=peak, launches=launches_t,
+         recall_vs_exact_knn=agree,
+         build_recall_at_20={"brute_force_knn": recall_at_k(idx, ti),
+                             "exact_knn": recall})
+    require_launched("truth", launches_t, ("pairwise_sq_l2",))
+    if agree < 0.999:
+        raise AssertionError(f"truth: recall {agree} against exact_knn")
+    del td, ti, exact
+
+    # -- search: path 3, the query path on the 70000-point graph
+    q = noisy_queries(x, N_QUERIES, SEED + 4)
+    (sd, si), wall, launches_s, peak, rec_s = drive(
+        "search", lambda: graph_search(x, idx, q, k_out=10, cfg=scfg))
+    require_launched("search", launches_s,
+                     ("knn_search_dists", "knn_join_select", "knn_merge"))
+    check_search(sd, si, N, 10)
+    _, qt = brute_force_knn(x, q, 10, exclude_self=False, chunk=TRUTH_CHUNK)
+    blocks = -(-N_QUERIES // scfg.q_block)
+    emit("search", n=N, d=784, queries=N_QUERIES, k_out=10,
+         cfg=dataclasses.asdict(scfg), wall_s=wall,
+         queries_per_s=N_QUERIES / wall, blocks=blocks,
+         # shared entries seed by one matrix product, so each launch of
+         # the search tile is one round of one block
+         rounds=launches_s["knn_search_dists"],
+         rounds_per_block=launches_s["knn_search_dists"] / blocks,
+         max_memory_allocated=peak, launches=launches_s,
+         recall_at_10=recall_at_k(si, qt))
+    del sd, si, qt
+
+    # -- profile: the build and the search again under torch.profiler
+    emit("profile", path="build", **profile_run(lambda: build_knn_graph(
+        x, k=20, cfg=cfg,
+        generator=torch.Generator(device=dev).manual_seed(SEED))))
+    emit("profile", path="search", **profile_run(
+        lambda: graph_search(x, idx, q, k_out=10, cfg=scfg)))
 
     # -- kernels: each against its plain version on the recorded inputs
+    launches = {"build": launches_b, "truth": launches_t,
+                "search": launches_s}
+    owner = {"pairwise_sq_l2": "truth", "knn_search_dists": "search"}
     entries = {}
-    for key, call in sorted(rec.calls.items()):
-        name = key.split(":")[0]
+    for key, call in sorted({**rec_b.calls, **rec_t.calls,
+                             **rec_s.calls}.items()):
+        tag, name = key.split(":")[:2]
         e = check_kernel(name, call, reps=20)
-        e.update(route="cuda", source=SOURCE, replaces=REPLACES[name],
-                 launches=launches[name], call=key)
+        e.update(route="cuda", source=SOURCES[name],
+                 replaces=REPLACES[name], launches=launches[tag][name],
+                 path=tag, call=key)
         emit("kernels", **e)
-        # the line keeps one entry per kernel: the widest select the main
-        # path runs (the receiver select) stands for knn_join_select
+        # the line keeps one entry per kernel, from the path that owns
+        # it; the build's widest select (the receiver select) stands for
+        # knn_join_select
+        if tag != owner.get(name, "build"):
+            continue
         width = e["shape"][0][1]
         if name not in entries or width > entries[name]["shape"][0][1]:
             entries[name] = e

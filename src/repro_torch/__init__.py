@@ -1,21 +1,29 @@
 """repro_torch — the port of ``repro`` to PyTorch and hand-written CUDA
 kernels for Hopper (H100, sm_90a). ``repro`` (JAX) stays the reference.
 
-Public API so far (the build slice):
+Public API so far (the build and query slices):
   * ``repro_torch.build_knn_graph`` / ``repro_torch.core`` — NN-Descent
     with turbosampling, the fused local join, the greedy reorder and the
-    terminal polish; runs on a CUDA device unless asked for the CPU.
-  * ``repro_torch.kernels`` — the three kernels (join distances, join
-    select, merge), their plain versions and the dispatch by device.
+    terminal polish;
+  * ``repro_torch.brute_force_knn`` — the exact k-NN, the recall truth;
+  * ``repro_torch.graph_search`` / ``SearchConfig`` — the fused batched
+    beam search over the graph, and its greedy oracle;
+  all run on a CUDA device unless asked for the CPU.
+  * ``repro_torch.kernels`` — the five kernels (join distances, join
+    select, merge, pairwise l2, search distances), their plain versions
+    and the dispatch by device.
 """
 from repro_torch.core import (
     BuildDraws,
     DescentConfig,
     DescentStats,
     NeighborLists,
+    SearchConfig,
     apply_permutation,
+    brute_force_knn,
     build_knn_graph,
     distance_recall,
+    graph_search,
     greedy_reorder,
     neighbor_lists_from_numpy,
     nn_descent_iteration,
@@ -29,9 +37,12 @@ __all__ = [
     "DescentConfig",
     "DescentStats",
     "NeighborLists",
+    "SearchConfig",
     "apply_permutation",
+    "brute_force_knn",
     "build_knn_graph",
     "distance_recall",
+    "graph_search",
     "greedy_reorder",
     "neighbor_lists_from_numpy",
     "nn_descent_iteration",

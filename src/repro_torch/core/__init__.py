@@ -1,6 +1,7 @@
 """The paper's contribution, ported slice by slice: fast K-NN-graph
 construction (NN-Descent with turbosampling selection, greedy memory
 reordering and blocked distance evaluation) on PyTorch and CUDA."""
+from repro_torch.core.graph_search import SearchConfig, graph_search
 from repro_torch.core.heap import NeighborLists, neighbor_lists_from_numpy
 from repro_torch.core.nn_descent import (
     BuildDraws,
@@ -9,7 +10,11 @@ from repro_torch.core.nn_descent import (
     build_knn_graph,
     nn_descent_iteration,
 )
-from repro_torch.core.recall import distance_recall, recall_at_k
+from repro_torch.core.recall import (
+    brute_force_knn,
+    distance_recall,
+    recall_at_k,
+)
 from repro_torch.core.reorder import apply_permutation, greedy_reorder
 
 __all__ = [
@@ -17,9 +22,12 @@ __all__ = [
     "DescentConfig",
     "DescentStats",
     "NeighborLists",
+    "SearchConfig",
     "apply_permutation",
+    "brute_force_knn",
     "build_knn_graph",
     "distance_recall",
+    "graph_search",
     "greedy_reorder",
     "neighbor_lists_from_numpy",
     "nn_descent_iteration",

@@ -108,6 +108,21 @@ def merge(
             accepted.sum(dim=1).to(torch.int32))
 
 
+def merge_kernel(
+    nl: NeighborLists, cand_dist: torch.Tensor, cand_idx: torch.Tensor, *,
+    backend: str = "auto",
+) -> tuple[NeighborLists, torch.Tensor]:
+    """Merge (n, c) candidates into the lists through the merge kernel.
+    Flags are recomputed: a slot that was already in the old list keeps its
+    flag, an accepted candidate comes in new, an empty slot is not new.
+    Returns (lists, (n,) accepted counts)."""
+    md, mi, upd = ops.knn_merge(nl.dist, nl.idx, cand_dist, cand_idx,
+                                backend=backend)
+    was_old = (mi[:, :, None] == nl.idx[:, None, :]).any(-1)
+    flag = torch.where(was_old, _lookup_flags(nl, mi), True) & (mi >= 0)
+    return NeighborLists(md, mi, flag), upd
+
+
 def _lookup_flags(nl: NeighborLists, ids: torch.Tensor) -> torch.Tensor:
     hit = ids[:, :, None] == nl.idx[:, None, :]
     return (hit & nl.new[:, None, :]).any(-1)
@@ -122,17 +137,13 @@ def merge_block(
     returns new arrays, this writes the block IN PLACE into ``nl``'s
     tensors (and returns ``nl``): the fused join owns padded copies of
     the lists. Returns (lists, (R,) accepted counts)."""
-    r = cand_dist.shape[0]
-    end = start + r
+    end = start + cand_dist.shape[0]
     old = NeighborLists(nl.dist[start:end], nl.idx[start:end],
                         nl.new[start:end])
-    md, mi, upd = ops.knn_merge(old.dist, old.idx, cand_dist, cand_idx,
-                                backend=backend)
-    was_old = (mi[:, :, None] == old.idx[:, None, :]).any(-1)
-    flag = torch.where(was_old, _lookup_flags(old, mi), True) & (mi >= 0)
-    nl.dist[start:end] = md
-    nl.idx[start:end] = mi
-    nl.new[start:end] = flag
+    out, upd = merge_kernel(old, cand_dist, cand_idx, backend=backend)
+    nl.dist[start:end] = out.dist
+    nl.idx[start:end] = out.idx
+    nl.new[start:end] = out.new
     return nl, upd
 
 

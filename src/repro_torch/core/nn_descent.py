@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.core import heap, selection
 from repro_torch.core import metric as metric_mod
+from repro_torch.core.device import resolve_device
 from repro_torch.core.heap import NeighborLists
 from repro_torch.core.layout import pad_features
 from repro_torch.core.reorder import apply_permutation, greedy_reorder
@@ -257,12 +258,6 @@ def polish_iteration(
     return nl, int(upd.sum()), evals
 
 
-def pin_fp32() -> None:
-    """fp32 means fp32: no TF32 in any matrix product or convolution."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
 def build_knn_graph(
     x,
     k: int = 20,
@@ -284,13 +279,7 @@ def build_knn_graph(
     if cfg.k != k:
         cfg = dataclasses.replace(cfg, k=k)
     backend = _ops_backend(cfg)
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("build_knn_graph runs on a CUDA device by "
-                               "default and none is available; pass "
-                               "device='cpu' to run on the CPU")
-        pin_fp32()
+    device = resolve_device(device, "build_knn_graph")
     if generator is None and draws is None:
         generator = torch.Generator(device=device).manual_seed(0)
     x = torch.as_tensor(x, dtype=torch.float32, device=device)

@@ -1,8 +1,10 @@
-# The build's hot spots as hand-written CUDA kernels for Hopper (sm_90a),
-# all in csrc/knn_kernels.cu, built by _lib.py with nvcc and bound by ctypes:
-#   knn_join   — §3.3+§2 fused local join (pair tensor + per-receiver
-#                prefilter/top-C select, no global pair sort)
-#   knn_merge  — §2 bounded neighbor-list update
+# The port's hot spots as hand-written CUDA kernels for Hopper (sm_90a),
+# in csrc/*.cu, built by _lib.py with nvcc and bound by ctypes:
+#   knn_join    — §3.3+§2 fused local join (pair tensor + per-receiver
+#                 prefilter/top-C select, no global pair sort)
+#   knn_merge   — §2 bounded neighbor-list update
+#   l2_blocked  — §3.3 blocked pairwise squared l2 (exact k-NN truth)
+#   knn_search  — query-time candidate distances (graph search rounds)
 # ops.py = dispatch by device, ref.py = plain PyTorch versions.
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.knn_join import (
@@ -10,6 +12,8 @@ from repro_torch.kernels.knn_join import (
     knn_join_select_cuda,
 )
 from repro_torch.kernels.knn_merge import knn_merge_cuda
+from repro_torch.kernels.knn_search import knn_search_dists_cuda
+from repro_torch.kernels.l2_blocked import pairwise_sq_l2_cuda
 
 __all__ = [
     "ops",
@@ -17,4 +21,6 @@ __all__ = [
     "knn_join_dists_cuda",
     "knn_join_select_cuda",
     "knn_merge_cuda",
+    "knn_search_dists_cuda",
+    "pairwise_sq_l2_cuda",
 ]

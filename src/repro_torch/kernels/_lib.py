@@ -1,14 +1,16 @@
-"""Build and load the kernel library (``csrc/knn_kernels.cu``).
+"""Build and load the kernel library (every ``csrc/*.cu``).
 
-The source is compiled at first use by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, under
-``<repo>/build/repro_torch/libknn_kernels_<hash of the source>.so``, and
+Each source is compiled at first use by its own ``nvcc`` for ``sm_90a``,
+all started together, and the objects are linked into one shared library
+with a plain C interface, under
+``<repo>/build/repro_torch/libknn_kernels_<hash of the sources>.so``, and
 loaded with ``ctypes``. Nothing here runs at import: the CPU tests import
 every module on a machine with no ``nvcc``.
 
 Launch counters live here too: each wrapper adds one to its kernel's count
 where it launches it, and nowhere else, so a run can show that the main
-path went through the kernels.
+path went through the kernels. The device function of kernel ``name`` is
+``<name>_kernel``.
 """
 from __future__ import annotations
 
@@ -18,15 +20,18 @@ import os
 import re
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "knn_kernels.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = tuple(sorted(CSRC.glob("*.cu")))
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("knn_join_dists", "knn_join_select", "knn_merge")
+KERNELS = ("knn_join_dists", "knn_join_select", "knn_merge",
+           "pairwise_sq_l2", "knn_search_dists")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P = ctypes.c_void_p
@@ -38,6 +43,10 @@ _SIGNATURES = {
     "knn_join_select_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # cd, ci, qd, qi, od, oi, upd, n, k, c, stream
     "knn_merge_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # a, b, out, M, N, D, stream
+    "pairwise_sq_l2_launch": [_P, _P, _P, _I, _I, _I, _P],
+    # q, q2, x, x2, ids, od, N, nq, W, dp, stream
+    "knn_search_dists_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -57,12 +66,15 @@ def _nvcc() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found: the CUDA kernels are built from "
-                       f"{SOURCE} at first use and need the CUDA toolkit")
+                       f"{CSRC} at first use and need the CUDA toolkit")
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libknn_kernels_{digest}.so"
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libknn_kernels_{h.hexdigest()[:16]}.so"
 
 
 def _parse_ptxas(log: str) -> dict:
@@ -72,8 +84,8 @@ def _parse_ptxas(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            current = next((k for k in ("join_dists", "join_select", "merge")
-                            if f"{k}_kernel" in m.group(1)), m.group(1))
+            current = next((k for k in KERNELS if f"{k}_kernel" in m.group(1)),
+                           m.group(1))
             out[current] = {}
             continue
         if current is None:
@@ -89,24 +101,42 @@ def _parse_ptxas(log: str) -> dict:
     return out
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; their joined output, or raise."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build(force: bool = False) -> Path:
-    """Compile the source unless its library exists (or ``force``).
+    """Compile the sources unless their library exists (or ``force``).
     Records the compile time and the ptxas report in ``build_info``."""
     path = library_path()
     if path.exists() and not force:
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in SOURCES]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                    for src, obj in zip(SOURCES, objs)]
+        log = _run_all(compiles)
+        so = str(Path(tmp) / path.name)
+        link = [nvcc, "-shared", "-o", so, *objs]
+        _run_all([link])
+        os.replace(so, path)           # atomic: concurrent builds agree
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)              # atomic: concurrent builds agree
     build_info.update(
-        seconds=seconds, command=" ".join(cmd), path=str(path),
-        kernels=_parse_ptxas(proc.stdout + proc.stderr),
+        seconds=seconds, path=str(path),
+        commands=[" ".join(c) for c in (*compiles, link)],
+        kernels=_parse_ptxas(log),
     )
     return path
 

@@ -1,9 +1,9 @@
 // The NN-Descent build's three kernels for Hopper (sm_90a), fp32 CUDA C++.
 //
-// Built by kernels/_lib.py into a shared library with a plain C interface
-// and loaded with ctypes:
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libknn_kernels_<hash>.so knn_kernels.cu
+// Built by kernels/_lib.py, together with search_kernels.cu, into one
+// shared library with a plain C interface, loaded with ctypes:
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+//        -fPIC -c <each source>; nvcc -shared -o libknn_kernels_<hash>.so
 // Each launcher takes raw device pointers, sizes and a stream, launches on
 // that stream without synchronising, allocates nothing, and returns
 // cudaGetLastError(). The Python wrappers (kernels/knn_join.py,
@@ -44,7 +44,7 @@ constexpr int kJoinMaxC = 64;
 constexpr int kJoinPairsPerThread =
     (kJoinMaxC * (kJoinMaxC - 1) / 2 + kJoinThreads - 1) / kJoinThreads;
 
-__global__ void __launch_bounds__(kJoinThreads) join_dists_kernel(
+__global__ void __launch_bounds__(kJoinThreads) knn_join_dists_kernel(
     const float* __restrict__ x, const float* __restrict__ x2,
     const int* __restrict__ ids, float* __restrict__ od,
     int* __restrict__ ev, int N, int C, int dp, int cn) {
@@ -163,7 +163,7 @@ __device__ __forceinline__ uint32_t order_bits(float v) {
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
-__global__ void __launch_bounds__(kSelectThreads) join_select_kernel(
+__global__ void __launch_bounds__(kSelectThreads) knn_join_select_kernel(
     const float* __restrict__ gd, const int* __restrict__ gi,
     const float* __restrict__ kth, float* __restrict__ od,
     int* __restrict__ oi, int W, int padded, int c) {
@@ -237,7 +237,7 @@ __global__ void __launch_bounds__(kSelectThreads) join_select_kernel(
 constexpr int kMergeWarps = 4;
 constexpr int kMergeMaxPool = 1536;      // k + c: 4 warps x 1536 x 8 B = 48 KB
 
-__global__ void __launch_bounds__(kMergeWarps * 32) merge_kernel(
+__global__ void __launch_bounds__(kMergeWarps * 32) knn_merge_kernel(
     const float* __restrict__ cd, const int* __restrict__ ci,
     const float* __restrict__ qd, const int* __restrict__ qi,
     float* __restrict__ od, int* __restrict__ oi, int* __restrict__ upd,
@@ -323,8 +323,8 @@ int knn_join_dists_launch(const float* x, const float* x2, const int* ids,
   if (n <= 0 || C < 1 || C > kJoinMaxC) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)C * kJoinStride * sizeof(float) +
                       (size_t)C * (sizeof(int) + sizeof(float));
-  join_dists_kernel<<<n, kJoinThreads, smem, stream>>>(x, x2, ids, od, ev, N,
-                                                        C, dp, cn);
+  knn_join_dists_kernel<<<n, kJoinThreads, smem, stream>>>(x, x2, ids, od, ev,
+                                                            N, C, dp, cn);
   return (int)cudaGetLastError();
 }
 
@@ -337,11 +337,11 @@ int knn_join_select_launch(const float* gd, const int* gi, const float* kth,
   if (padded > kSelectMaxPadded) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)padded * sizeof(unsigned long long);
   cudaError_t err = cudaFuncSetAttribute(
-      join_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      knn_join_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  join_select_kernel<<<n, kSelectThreads, smem, stream>>>(gd, gi, kth, od, oi,
-                                                          W, padded, c);
+  knn_join_select_kernel<<<n, kSelectThreads, smem, stream>>>(
+      gd, gi, kth, od, oi, W, padded, c);
   return (int)cudaGetLastError();
 }
 
@@ -352,8 +352,8 @@ int knn_merge_launch(const float* cd, const int* ci, const float* qd,
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)kMergeWarps * (k + c) * 2 * sizeof(float);
   const int blocks = (n + kMergeWarps - 1) / kMergeWarps;
-  merge_kernel<<<blocks, kMergeWarps * 32, smem, stream>>>(cd, ci, qd, qi, od,
-                                                           oi, upd, n, k, c);
+  knn_merge_kernel<<<blocks, kMergeWarps * 32, smem, stream>>>(
+      cd, ci, qd, qi, od, oi, upd, n, k, c);
   return (int)cudaGetLastError();
 }
 

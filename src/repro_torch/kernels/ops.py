@@ -1,4 +1,4 @@
-"""Dispatch of the build's kernels, by the device of the tensors.
+"""Dispatch of the port's kernels, by the device of the tensors.
 
 * A tensor on the CPU goes to the plain version in ``ref.py``.
 * A tensor on a CUDA device goes to the hand-written kernel, or the call
@@ -16,6 +16,8 @@ from repro_torch.kernels.knn_join import (
     knn_join_select_cuda,
 )
 from repro_torch.kernels.knn_merge import knn_merge_cuda
+from repro_torch.kernels.knn_search import knn_search_dists_cuda
+from repro_torch.kernels.l2_blocked import pairwise_sq_l2_cuda
 
 BACKENDS = ("auto", "ref")
 
@@ -48,3 +50,18 @@ def knn_merge(cur_dist, cur_idx, cand_dist, cand_idx, *,
     if _plain(cur_dist, backend):
         return ref.knn_merge(cur_dist, cur_idx, cand_dist, cand_idx)
     return knn_merge_cuda(cur_dist, cur_idx, cand_dist, cand_idx)
+
+
+def pairwise_sq_l2(a, b, *, backend: str = "auto"):
+    """(M, D) x (N, D) -> (M, N) squared l2, clamped at 0."""
+    if _plain(a, backend):
+        return ref.pairwise_sq_l2(a, b)
+    return pairwise_sq_l2_cuda(a, b)
+
+
+def knn_search_dists(q, q2, x, x2, ids, *, backend: str = "auto"):
+    """(nq, dp) queries and norms against the (N, dp) rows named by (nq, W)
+    ids -> (nq, W) squared l2, +inf where the id is invalid."""
+    if _plain(q, backend):
+        return ref.knn_search_dists(q, q2, x, x2, ids)
+    return knn_search_dists_cuda(q, q2, x, x2, ids)

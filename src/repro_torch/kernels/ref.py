@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the build's three kernels.
+"""Plain PyTorch versions of the port's five kernels.
 
-Each function computes exactly what its CUDA kernel in ``csrc/knn_kernels.cu``
+Each function computes exactly what its CUDA kernel in ``csrc/*.cu``
 computes. The CPU tests hold them against the JAX package's oracles, and
 ``chip_smoke.py`` holds the kernels against them on the card. The wrappers in
 ``ops.py`` reach them only for tensors that lie on the CPU (or when a caller
@@ -105,3 +105,33 @@ def knn_merge(
     keep = d < BIG
     accepted = ((pos >= k) & keep).sum(dim=1).to(torch.int32)
     return torch.where(keep, d, torch.inf), torch.where(keep, i, -1), accepted
+
+
+def pairwise_sq_l2(
+    a: torch.Tensor,     # (M, D) f32
+    b: torch.Tensor,     # (N, D) f32
+) -> torch.Tensor:
+    """Pairwise squared l2 by the norm expansion, |a|^2 + |b|^2 - 2 a.b^T,
+    clamped at 0 (the cancellation guard). (M, N) f32."""
+    a2 = (a * a).sum(dim=-1)
+    b2 = (b * b).sum(dim=-1)
+    out = a2[:, None] + b2[None, :] - 2.0 * (a @ b.T)
+    return out.clamp_min(0.0)
+
+
+def knn_search_dists(
+    q: torch.Tensor,     # (nq, dp) f32 query rows
+    q2: torch.Tensor,    # (nq,) f32 query squared norms
+    x: torch.Tensor,     # (N, dp) f32 base rows
+    x2: torch.Tensor,    # (N,) f32 base squared norms
+    ids: torch.Tensor,   # (nq, W) i32 candidate ids, -1 = invalid
+) -> torch.Tensor:
+    """Query-time candidate distances: per query, squared l2 to each of its
+    W candidates, q2 + c2 - 2 q.c clamped at 0. Gathers the candidate rows
+    itself; an id outside [0, N) (-1: empty slot, dead or filtered row)
+    comes out +inf. (nq, W) f32."""
+    valid = (ids >= 0) & (ids < x.shape[0])
+    safe = torch.where(valid, ids, 0).long()
+    ab = torch.bmm(x[safe], q[:, :, None])[:, :, 0]
+    dd = q2[:, None] + x2[safe] - 2.0 * ab
+    return torch.where(valid, dd.clamp_min(0.0), torch.inf)

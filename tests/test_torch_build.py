@@ -109,6 +109,7 @@ def test_neighbor_lists_roundtrip():
 def test_package_imports_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels;"
             "import repro_torch.kernels.ops, repro_torch.core.datasets;"
+            "import repro_torch.core.graph_search, repro_torch.core.recall;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')];"

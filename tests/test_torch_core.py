@@ -131,6 +131,45 @@ def test_merge_block_matches_jax_kernel_contract():
     np.testing.assert_array_equal(gu.numpy(), np.asarray(wu))
 
 
+def test_merge_kernel_matches_jax():
+    """heap.merge_kernel (lists, flags, accepted counts) against the JAX
+    version running the Pallas merge kernel in interpret mode: exact."""
+    n, k, c = 40, 8, 20
+    dist, idx, new = _random_lists(n, k, 11)
+    rng = np.random.RandomState(12)
+    cd = (np.round(rng.rand(n, c) * 8) / 8).astype(np.float32)   # ties
+    ci = rng.randint(-1, n, size=(n, c)).astype(np.int32)
+    ci[2, 1:] = ci[2, 0]
+    ci[3, :k] = idx[3]
+    ci[4] = -1
+    jnl = jheap.NeighborLists(jnp.asarray(dist), jnp.asarray(idx),
+                              jnp.asarray(new))
+    want, wu = jheap.merge_kernel(jnl, jnp.asarray(cd), jnp.asarray(ci),
+                                  backend="interpret")
+    got, gu = heap.merge_kernel(_tnl(jnl), _t(cd), _t(ci))
+    _assert_nl(got, want, rtol=0)
+    np.testing.assert_array_equal(gu.numpy(), np.asarray(wu))
+
+
+def test_repeated_list_id_survives_merges_in_both_packages():
+    """ROADMAP Queue 3: the random init draws ids with replacement, and a
+    merge dedups its candidates, never the list itself, so a repeated id
+    that is a true near neighbor survives every merge in both packages.
+    Here a row lists id 7 twice and the merge keeps both copies."""
+    dist = np.array([[0.1, 0.1, 0.5, 0.9]], np.float32)
+    idx = np.array([[7, 7, 3, 5]], np.int32)
+    new = np.ones((1, 4), bool)
+    cd = np.array([[0.2, 0.05, 0.3]], np.float32)
+    ci = np.array([[7, 2, 9]], np.int32)
+    jnl = jheap.NeighborLists(jnp.asarray(dist), jnp.asarray(idx),
+                              jnp.asarray(new))
+    want, _ = jheap.merge_kernel(jnl, jnp.asarray(cd), jnp.asarray(ci),
+                                 backend="interpret")
+    got, _ = heap.merge_kernel(_tnl(jnl), _t(cd), _t(ci))
+    _assert_nl(got, want, rtol=0)
+    assert got.idx[0].tolist() == [2, 7, 7, 9]
+
+
 def test_mark_sampled_old():
     dist, idx, new = _random_lists(10, 4, 2)
     mask = np.random.RandomState(0).rand(10, 4) < 0.5
@@ -322,3 +361,33 @@ def test_recall_metrics_match_jax():
     ad[0, 0] = np.inf
     assert recall.distance_recall(_t(ad), _t(td)) == pytest.approx(
         jrecall.distance_recall(jnp.asarray(ad), jnp.asarray(td)), rel=1e-6)
+
+
+@pytest.mark.parametrize("case", ["exclude_self", "keep_self", "queries"])
+def test_brute_force_knn_matches_jax(case):
+    """Exact k-NN against the JAX package's on the small-norm 2048 x 16
+    corpus: ids exact, distances rtol 1e-5 (atol 1e-4 near 0)."""
+    x = np.array(_corpus(2048, 16, 3)[0])
+    q = x
+    if case == "queries":
+        q = (x[:300] + 0.05 * np.random.RandomState(0).randn(300, 16)
+             ).astype(np.float32)
+    excl = case == "exclude_self"
+    wd, wi = jrecall.brute_force_knn(jnp.asarray(x), jnp.asarray(q), 10,
+                                     exclude_self=excl)
+    gd, gi = recall.brute_force_knn(x, q, 10, exclude_self=excl, chunk=500,
+                                    device="cpu")
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-5,
+                               atol=1e-4)
+    assert gi.dtype == torch.int32
+    if excl:
+        assert not (gi.numpy() == np.arange(2048)[:, None]).any()
+
+
+def test_brute_force_knn_exclude_self_needs_the_corpus():
+    x = np.zeros((10, 3), np.float32)
+    with pytest.raises(ValueError, match="exclude_self=False"):
+        jrecall.brute_force_knn(jnp.asarray(x), jnp.asarray(x[:4]), 2)
+    with pytest.raises(ValueError, match="exclude_self=False"):
+        recall.brute_force_knn(x, x[:4], 2, device="cpu")

@@ -1,4 +1,4 @@
-"""The build's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``gpu``; each test skips without a CUDA card. This file imports no
 JAX, so it also runs where JAX is not installed (the repository's
@@ -8,13 +8,22 @@ conftest.py imports JAX, hence ``--noconftest``):
 
 Tolerances: ids, counts, evals and +inf positions exact; join distances
 rtol 1e-5 / atol 1e-4 (the kernel sums in another order than cuBLAS);
-select and merge bitwise.
+select and merge bitwise; pairwise and search distances 1e-4 + 1e-5 *
+(|a|^2 + |b|^2) (the norm expansion cancels the digits the two norms
+share, so the error scales with the norms, not the distance).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import DescentConfig, build_knn_graph, recall_at_k
+from repro_torch import (
+    DescentConfig,
+    SearchConfig,
+    brute_force_knn,
+    build_knn_graph,
+    graph_search,
+    recall_at_k,
+)
 from repro_torch.core import datasets
 from repro_torch.kernels import _lib, ops
 
@@ -123,7 +132,92 @@ def test_build_through_kernels_matches_plain_build(dev):
         g = torch.Generator(device=dev).manual_seed(1)
         _, idx, _ = build_knn_graph(x, k=20, cfg=cfg, generator=g)
         recalls[backend] = recall_at_k(idx, ti)
-        used = all(v > 0 for v in _lib.LAUNCHES.values())
-        assert used == (backend == "auto"), _lib.LAUNCHES
+        used = [_lib.LAUNCHES[k] > 0 for k in
+                ("knn_join_dists", "knn_join_select", "knn_merge")]
+        assert all(used) if backend == "auto" else not any(used), \
+            _lib.LAUNCHES
     assert recalls["auto"] > 0.95
     assert abs(recalls["auto"] - recalls["plain"]) <= 0.005, recalls
+
+
+@pytest.mark.parametrize("m,n,d", [
+    (17, 784, 896),              # odd M, tile-multiple-free N
+    (130, 257, 131),             # D % 4 != 0: the 4-byte load path
+    (1, 1, 1), (300, 5, 0),
+    (1024, 70000, 784),          # the brute-force tile at MNIST's shape
+])
+def test_pairwise_sq_l2_kernel(dev, m, n, d):
+    g = torch.Generator(device=dev).manual_seed(m + n + d)
+    a = torch.randn(m, d, generator=g, device=dev)
+    b = torch.randn(n, d, generator=g, device=dev)
+    if m > 1 and n > 3:
+        b[3] = a[1]
+    got, want, launched = _both(ops.pairwise_sq_l2, a, b)
+    assert launched["pairwise_sq_l2"] == 1
+    tol = 1e-4 + 1e-5 * ((a * a).sum(1)[:, None] + (b * b).sum(1)[None, :])
+    assert got.shape == (m, n)
+    assert bool(((got - want).abs() <= tol).all())
+    assert bool((got >= 0).all())
+    # a sliced, 4-byte-offset operand takes the 4-byte load path too
+    if m > 1 and d:
+        got2 = ops.pairwise_sq_l2(a.reshape(-1)[1:1 + (m - 1) * d]
+                                  .reshape(m - 1, d), b)
+        want2 = ops.pairwise_sq_l2(a.reshape(-1)[1:1 + (m - 1) * d]
+                                   .reshape(m - 1, d), b, backend="ref")
+        assert bool(((got2 - want2).abs() <= tol[1:]).all())
+
+
+@pytest.mark.parametrize("nq,w,dp,big_n", [
+    (37, 23, 16, 99), (5, 7, 8, 12), (9, 33, 131, 300),
+    (512, 120, 784, 70000),      # one search round at MNIST's shape
+    (64, 32, 896, 5000),         # a per-query seed tile
+])
+def test_search_dists_kernel(dev, nq, w, dp, big_n):
+    g = torch.Generator(device=dev).manual_seed(nq + w)
+    q = torch.randn(nq, dp, generator=g, device=dev)
+    x = torch.randn(big_n, dp, generator=g, device=dev)
+    ids = torch.randint(-1, big_n, (nq, w), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids[2] = -1
+    ids[0, 0] = big_n - 1
+    ids[1, 0] = big_n                            # out of range: invalid
+    q2, x2 = (q * q).sum(1), (x * x).sum(1)
+    got, want, launched = _both(ops.knn_search_dists, q, q2, x, x2, ids)
+    assert launched["knn_search_dists"] == 1
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.equal(torch.isinf(got), (ids < 0) | (ids >= big_n))
+    fin = torch.isfinite(want)
+    safe = ids.clamp(0, big_n - 1).long()
+    tol = 1e-4 + 1e-5 * (q2[:, None] + x2[safe])
+    assert bool(((got - want).abs()[fin] <= tol[fin]).all())
+
+
+def test_search_through_kernels_matches_plain(dev):
+    """A 2048-point graph searched through the kernels and through the
+    plain versions, same entries: recall within 0.01, and the kernels
+    (and only they) launched."""
+    x = datasets.gaussian(2048, 16, seed=0, device=dev)
+    _, gidx, _ = build_knn_graph(
+        x, k=20, cfg=DescentConfig(k=20, rho=1.5, max_iters=15,
+                                   merge_size=120),
+        generator=torch.Generator(device=dev).manual_seed(1))
+    q = x[:256] + 0.01 * torch.randn(256, 16, device=dev,
+                                     generator=torch.Generator(
+                                         device=dev).manual_seed(2))
+    _, ti = brute_force_knn(x, q, 10, exclude_self=False)
+    entry = torch.randperm(2048, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(3))[:32].to(torch.int32)
+    recalls = {}
+    for backend in ("auto", "plain"):
+        _lib.reset_launches()
+        cfg = SearchConfig(beam=32, rounds=48, expand=6, q_block=64,
+                           backend=backend)
+        _, gi = graph_search(x, gidx, q, k_out=10, entry=entry, cfg=cfg)
+        torch.cuda.synchronize()
+        recalls[backend] = recall_at_k(gi, ti)
+        used = [_lib.LAUNCHES[k] > 0 for k in
+                ("knn_search_dists", "knn_join_select", "knn_merge")]
+        assert all(used) if backend == "auto" else not any(used), \
+            _lib.LAUNCHES
+    assert recalls["auto"] > 0.9, recalls
+    assert abs(recalls["auto"] - recalls["plain"]) <= 0.01, recalls

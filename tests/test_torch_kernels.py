@@ -4,7 +4,10 @@ same numpy inputs, plus the dispatch rules of repro_torch/kernels/ops.py.
 
 Tolerances: ids, counts and evals exact; +inf positions exact; join
 distances rtol 1e-5 / atol 1e-4 (the dot products are summed in another
-order); select and merge bitwise (they only compare and copy)."""
+order); select and merge bitwise (they only compare and copy); pairwise
+l2 rtol 1e-5 / atol 1e-5 * (|a|^2 + |b|^2) (the norm expansion cancels
+the digits the norms share); search distances rtol 1e-4 / atol 1e-4, as
+tests/test_search.py:66."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +19,8 @@ from repro.kernels.knn_join import (
     knn_join_select_blocked,
 )
 from repro.kernels.knn_merge import knn_merge_blocked
+from repro.kernels.knn_search import knn_search_dists_blocked
+from repro.kernels.l2_blocked import pairwise_sq_l2_blocked
 from repro_torch.kernels import _lib, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.knn_join import (
@@ -23,6 +28,8 @@ from repro_torch.kernels.knn_join import (
     knn_join_select_cuda,
 )
 from repro_torch.kernels.knn_merge import knn_merge_cuda
+from repro_torch.kernels.knn_search import knn_search_dists_cuda
+from repro_torch.kernels.l2_blocked import pairwise_sq_l2_cuda
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -188,6 +195,71 @@ def test_merge_dedup():
 
 
 # ---------------------------------------------------------------------------
+# pairwise squared l2
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,n,d,tm,tn,tk", [
+    (37, 53, 19, 8, 128, 128),     # odd M, N and D: no tile multiple
+    (5, 130, 200, 8, 128, 128),    # D across two feature tiles
+    (17, 64, 784, 16, 128, 256),   # MNIST's width
+])
+def test_pairwise_sq_l2_plain_matches_jax(m, n, d, tm, tn, tk):
+    rng = np.random.RandomState(m + n + d)
+    a = (rng.randn(m, d) * 2).astype(np.float32)
+    b = (rng.randn(n, d) * 2).astype(np.float32)
+    b[3] = a[1]                                  # an exact duplicate
+    got = tref.pairwise_sq_l2(_t(a), _t(b)).numpy()
+    tol = 1e-5 * ((a * a).sum(1)[:, None] + (b * b).sum(1)[None, :])
+    for want in (jref.pairwise_sq_l2(jnp.asarray(a), jnp.asarray(b)),
+                 pairwise_sq_l2_blocked(jnp.asarray(a), jnp.asarray(b),
+                                        tm=tm, tn=tn, tk=tk,
+                                        interpret=True)):
+        want = np.asarray(want)
+        assert want.shape == got.shape == (m, n)
+        assert (np.abs(got - want) <= tol + 1e-5 * np.abs(want)).all()
+    assert (got >= 0).all()
+    assert got[1, 3] <= tol[1, 3]
+
+
+# ---------------------------------------------------------------------------
+# search distances
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nq,w,dp,big_n,tq", [
+    (37, 23, 16, 99, 16),    # nq not a multiple of the query block, odd W
+    (16, 64, 32, 40, 16),    # exact blocks
+    (5, 7, 8, 12, 8),        # single padded block
+    (9, 120, 131, 300, 8),   # W = expand * k at the main path, odd dp
+])
+def test_search_dists_plain_matches_jax(nq, w, dp, big_n, tq):
+    """The plain version takes ids plus the base rows; the JAX oracle and
+    the Pallas kernel take the rows gathered beforehand."""
+    rng = np.random.RandomState(nq + w)
+    q = rng.randn(nq, dp).astype(np.float32)
+    x = rng.randn(big_n, dp).astype(np.float32)
+    ids = rng.randint(-1, big_n, size=(nq, w)).astype(np.int32)
+    ids[2] = -1                                  # an all-dead row
+    ids[0, 0] = big_n - 1                        # the last row
+    q2 = (q * q).sum(1).astype(np.float32)
+    x2 = (x * x).sum(1).astype(np.float32)
+    safe = np.where(ids >= 0, ids, 0)
+    cg = jnp.asarray(x[safe])
+    c2 = jnp.asarray(np.where(ids >= 0, x2[safe], 0.0).astype(np.float32))
+    got = tref.knn_search_dists(_t(q), _t(q2), _t(x), _t(x2),
+                                _t(ids)).numpy()
+    args = (jnp.asarray(q), jnp.asarray(q2), cg, c2, jnp.asarray(ids))
+    for want in (jref.knn_search_dists(*args),
+                 knn_search_dists_blocked(*args, tq=tq, interpret=True)):
+        want = np.asarray(want)
+        np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+        np.testing.assert_allclose(np.where(np.isinf(got), 0.0, got),
+                                   np.where(np.isinf(want), 0.0, want),
+                                   rtol=1e-4, atol=1e-4)
+    assert np.array_equal(np.isinf(got), ids < 0)
+    assert np.isinf(got[2]).all()
+
+
+# ---------------------------------------------------------------------------
 # dispatch and wrappers
 # ---------------------------------------------------------------------------
 
@@ -198,6 +270,15 @@ def test_ops_cpu_tensors_take_plain_versions():
     c = tref.knn_join_select(_t(gd), _t(gi), _t(kth), 5)
     for got in (a, b):
         torch.testing.assert_close(got, c, rtol=0, atol=0)
+    a2, b2 = torch.randn(6, 5), torch.randn(9, 5)
+    torch.testing.assert_close(ops.pairwise_sq_l2(a2, b2),
+                               tref.pairwise_sq_l2(a2, b2), rtol=0, atol=0)
+    ids = torch.tensor([[0, -1, 8], [3, 3, 2]], dtype=torch.int32)
+    sd = ops.knn_search_dists(a2[:2], (a2[:2] ** 2).sum(1), b2,
+                              (b2 ** 2).sum(1), ids, backend="ref")
+    torch.testing.assert_close(
+        sd, tref.knn_search_dists(a2[:2], (a2[:2] ** 2).sum(1), b2,
+                                  (b2 ** 2).sum(1), ids), rtol=0, atol=0)
     with pytest.raises(ValueError, match="unknown backend"):
         ops.knn_merge(*(_t(v) for v in _merge_inputs(9, 4, 3, 0)),
                       backend="pallas")
@@ -213,6 +294,10 @@ def test_ops_cpu_tensors_take_plain_versions():
                               torch.zeros(2, 4, dtype=torch.int32),
                               torch.zeros(2, 3),
                               torch.zeros(2, 3, dtype=torch.int32))),
+    (pairwise_sq_l2_cuda, lambda: (torch.zeros(3, 8), torch.zeros(5, 8))),
+    (knn_search_dists_cuda, lambda: (torch.zeros(2, 8), torch.zeros(2),
+                                     torch.zeros(5, 8), torch.zeros(5),
+                                     torch.zeros(2, 3, dtype=torch.int32))),
 ])
 def test_cuda_wrappers_refuse_cpu_tensors(wrapper, args):
     """A wrapper launches its kernel or raises; it never computes the
@@ -224,19 +309,39 @@ def test_cuda_wrappers_refuse_cpu_tensors(wrapper, args):
 
 
 def test_ptxas_report_parsing():
-    log = (
-        "ptxas info    : Compiling entry function "
-        "'_ZN12_GLOBAL__N_117join_dists_kernelEPKfS1_PKiPfPiiiii' for "
-        "'sm_90a'\n"
-        "ptxas info    : Function properties for _ZN...\n"
-        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-        "ptxas info    : Used 40 registers, 4 bytes smem, 400 bytes cmem[0]\n"
-        "ptxas info    : Compiling entry function "
-        "'_ZN12_GLOBAL__N_112merge_kernelEPKfPKiS1_S3_PfPiS5_iii' for "
-        "'sm_90a'\n"
-        "ptxas info    : Used 30 registers, 412 bytes cmem[0]\n")
+    """Every kernel of ``_lib.KERNELS`` is found by its device function,
+    ``<name>_kernel``, in the mangled names ptxas prints."""
+    mangled = {
+        "knn_join_dists": "_ZN12_GLOBAL__N_121knn_join_dists_kernelEPKfS1_"
+                          "PKiPfPiiiii",
+        "knn_join_select": "_ZN12_GLOBAL__N_122knn_join_select_kernelEPKfPKi"
+                           "S1_PfPiiii",
+        "knn_merge": "_ZN12_GLOBAL__N_116knn_merge_kernelEPKfPKiS1_S3_PfPiS5_"
+                     "iii",
+        "pairwise_sq_l2": "_ZN12_GLOBAL__N_121pairwise_sq_l2_kernelEPKfS1_"
+                          "Pfiiib",
+        "knn_search_dists": "_ZN12_GLOBAL__N_123knn_search_dists_kernelEPKf"
+                            "S1_S1_S1_PKiPfiiib",
+    }
+    assert set(mangled) == set(_lib.KERNELS)
+    log = ""
+    for i, name in enumerate(_lib.KERNELS):
+        log += (f"ptxas info    : Compiling entry function '{mangled[name]}' "
+                "for 'sm_90a'\n"
+                "ptxas info    : Function properties for _ZN...\n"
+                f"    0 bytes stack frame, {i} bytes spill stores, 0 bytes "
+                "spill loads\n"
+                f"ptxas info    : Used {40 + i} registers, {4 * i} bytes smem, "
+                "400 bytes cmem[0]\n")
+    log += ("ptxas info    : Compiling entry function "
+            "'_ZN12_GLOBAL__N_16helperEv' for 'sm_90a'\n"
+            "ptxas info    : Used 30 registers, 412 bytes cmem[0]\n")
     got = _lib._parse_ptxas(log)
-    assert got["join_dists"] == {"spill_store_bytes": 0, "registers": 40,
-                                 "static_smem_bytes": 4}
-    assert got["merge"] == {"registers": 30, "static_smem_bytes": 0}
+    for i, name in enumerate(_lib.KERNELS):
+        assert got[name] == {"spill_store_bytes": i, "registers": 40 + i,
+                             "static_smem_bytes": 4 * i}
+    assert got["_ZN12_GLOBAL__N_16helperEv"] == {"registers": 30,
+                                                 "static_smem_bytes": 0}
     assert _lib.library_path().name.startswith("libknn_kernels_")
+    assert {p.name for p in _lib.SOURCES} == {"knn_kernels.cu",
+                                              "search_kernels.cu"}
