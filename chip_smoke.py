@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port (repro_torch) on one CUDA card and check it: the build
-(build_knn_graph), its exact truth (brute_force_knn) and the query path
-(graph_search). Run from the root of a checkout, on a machine with an
-H100:
+(build_knn_graph), its exact truth (brute_force_knn), the query path
+(graph_search), and the two-stage int8 / bf16 build and search. Run from
+the root of a checkout, on a machine with an H100:
 
     python3 chip_smoke.py
 
@@ -14,16 +14,24 @@ Phases, each printed as one JSON line:
                shared memory per kernel;
   build_check  mnist_like(16000, 784), DescentConfig(k=20, rho=1.0), built
                through the kernels and through their plain versions with
-               the same generator seed: both recalls against an exact fp32
-               k-NN computed here, which nothing in the port uses;
+               the same generator seed, at precision f32, int8 and bf16:
+               the recalls against an exact fp32 k-NN computed here, which
+               nothing in the port uses; the quantized graphs' distances
+               must be exact fp32 (check_graph);
   search_check 2048 queries (the corpus's first rows plus 0.01 N(0, 1))
                against that kernel-built graph, SearchConfig(beam=32,
                rounds=48, expand=6, q_block=512), k_out=10, through the
                kernels, the plain versions and the greedy oracle with the
-               same entries; recall against brute_force_knn;
+               same entries, and at int8 and bf16 through the kernels and
+               the plain versions; recall against brute_force_knn; the
+               quantized searches must return fp32 distances;
   build        path 1: mnist_like(70000, 784), DescentConfig(k=20),
                through the kernels; wall time, iterations, updates,
                dist_evals, the reorder's host time, peak memory, recall@20;
+  build_int8, build_bf16
+               paths 4-5: the same build at precision int8 and bf16 (the
+               sampled joins through knn_join_dists_q8 / _bf16, the fp32
+               re-rank through knn_search_dists once, no fp32 join);
   truth        path 2: brute_force_knn(x, x, 20) on that corpus through
                the pairwise kernel, held against the exact k-NN computed
                here (recall >= 0.999); the build's recall against both;
@@ -31,7 +39,12 @@ Phases, each printed as one JSON line:
                70000-point graph, same SearchConfig, k_out=10, through the
                kernels; wall time, queries per second, rounds, peak memory,
                recall@10 against brute_force_knn;
-  profile      the build and the search once more under torch.profiler:
+  search_int8, search_bf16
+               paths 6-7: the same search at precision int8 and bf16 on
+               the f32 graph (every round through knn_search_dists_q8 /
+               _bf16, the fp32 re-rank through knn_search_dists once per
+               block);
+  profile      every path but truth once more under torch.profiler:
                device time by kernel name and the device's idle share;
   kernels      each kernel on the inputs a path gave it (recorded during
                that run), against its plain version: max error, kernel /
@@ -55,17 +68,40 @@ ROOT = Path(__file__).resolve().parent
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+PEAK_BF16_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+PEAK_INT8_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
 REPLACES = {
     "knn_join_dists": "src/repro/kernels/knn_join.py:82",
     "knn_join_select": "src/repro/kernels/knn_join.py:152",
     "knn_merge": "src/repro/kernels/knn_merge.py:156",
     "pairwise_sq_l2": "src/repro/kernels/l2_blocked.py:63",
     "knn_search_dists": "src/repro/kernels/knn_search.py:66",
+    "knn_search_dists_q8": "src/repro/kernels/l2_quant.py:92",
+    "knn_search_dists_bf16": "src/repro/kernels/l2_quant.py:137",
+    "knn_join_dists_q8": "src/repro/kernels/l2_quant.py:241",
+    "knn_join_dists_bf16": "src/repro/kernels/l2_quant.py:279",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
-SOURCES = {name: CSRC + ("search_kernels.cu" if name in (
-    "pairwise_sq_l2", "knn_search_dists") else "knn_kernels.cu")
-    for name in REPLACES}
+SOURCES = {
+    "knn_join_dists": CSRC + "knn_kernels.cu",
+    "knn_join_select": CSRC + "knn_kernels.cu",
+    "knn_merge": CSRC + "knn_kernels.cu",
+    "pairwise_sq_l2": CSRC + "search_kernels.cu",
+    "knn_search_dists": CSRC + "search_kernels.cu",
+    "knn_search_dists_q8": CSRC + "quant_kernels.cu",
+    "knn_search_dists_bf16": CSRC + "quant_kernels.cu",
+    "knn_join_dists_q8": CSRC + "quant_kernels.cu",
+    "knn_join_dists_bf16": CSRC + "quant_kernels.cu",
+}
+# the path that owns each kernel of the quantized paths; those paths check
+# only their own kernel (the others were checked on the f32 paths)
+QUANT_OWNER = {
+    "knn_join_dists_q8": "build_int8", "knn_join_dists_bf16": "build_bf16",
+    "knn_search_dists_q8": "search_int8",
+    "knn_search_dists_bf16": "search_bf16",
+}
+OWNED = {path: name for name, path in QUANT_OWNER.items()}
+PRECISIONS = ("int8", "bf16")
 N, CHECK_N, SEED = 70_000, 16_000, 0   # the main path's and the check's n
 N_QUERIES, CHECK_QUERIES = 10_000, 2048
 TRUTH_CHUNK = 4096      # brute force: a 4096 x 70000 f32 tile is 1.15 GB
@@ -118,11 +154,16 @@ def exact_knn(x, k: int, chunk: int = 4096):
     return out
 
 
-def check_graph(x, dist, idx, rows: int = 2048) -> float:
+def check_graph(x, dist, idx, rows: int = 2048,
+                repeats_ok: bool = False) -> float:
     """The built graph is a graph of x: full rows of distinct ids, no
     self-loops, ascending finite distances that match fp64 distances
     recomputed for a sample of rows (to 1e-4 + 1e-5 * (|a|^2 + |b|^2): the
-    norm expansion's cancellation). Returns the worst error over tol."""
+    norm expansion's cancellation). Returns the worst error over tol.
+    ``repeats_ok`` lets a row keep a repeated id: both packages' random
+    init draws with replacement and a merge never dedups the list, so on
+    a small corpus a repeated true neighbor can survive the build (about
+    3800 / n rows are expected to; ROADMAP.md, Queue 3)."""
     import torch
     n, k = idx.shape
     if not (torch.isfinite(dist).all() and (idx >= 0).all()
@@ -134,7 +175,7 @@ def check_graph(x, dist, idx, rows: int = 2048) -> float:
     if (idx == rows_all).any():
         raise AssertionError("build: a self-loop")
     srt = idx.sort(dim=1).values
-    if (srt[:, 1:] == srt[:, :-1]).any():
+    if (srt[:, 1:] == srt[:, :-1]).any() and not repeats_ok:
         raise AssertionError("build: a repeated id in a row")
     r = torch.randperm(n, device=x.device)[:rows]
     xa = x[r].double()
@@ -158,7 +199,9 @@ class Recorder:
     so each kernel launches as it would. Keys carry the path's tag."""
 
     NAMES = ("knn_join_dists", "knn_join_select", "knn_merge",
-             "pairwise_sq_l2", "knn_search_dists")
+             "pairwise_sq_l2", "knn_search_dists", "knn_search_dists_q8",
+             "knn_search_dists_bf16", "knn_join_dists_q8",
+             "knn_join_dists_bf16")
 
     def __init__(self, tag: str):
         self.tag = tag
@@ -189,8 +232,10 @@ class Recorder:
             key = f"{self.tag}:{name}"
             if name == "knn_join_select":
                 key += f":W={args[0].shape[1]}:c={args[3]}"
-            elif name == "knn_search_dists":
+            elif name in ("knn_search_dists", "knn_search_dists_bf16"):
                 key += f":W={args[4].shape[1]}"
+            elif name == "knn_search_dists_q8":
+                key += f":W={args[6].shape[1]}"
             self.seen[key] = self.seen.get(key, 0) + 1
             if self.seen[key] == 2:
                 self.calls[key] = tuple(
@@ -274,7 +319,11 @@ def check_kernel(name, args, reps):
     torch.cuda.synchronize()
     entry = {"name": name, "shape": [list(a.shape) if hasattr(a, "shape")
                                      else a for a in args]}
-    if name == "knn_join_dists":
+    peak = PEAK_FP32_PER_S
+    if name in QUANT_OWNER:
+        flops, nbytes, peak = check_quant_kernel(name, args, got, want,
+                                                 entry, reps)
+    elif name == "knn_join_dists":
         (gd, gev), (wd, wev) = got, want
         x, x2, ids, cn = args
         if not torch.equal(gev, wev):
@@ -370,12 +419,93 @@ def check_kernel(name, args, reps):
     entry["plain_ms"] = time_ms(lambda: fn(*args, backend="ref"),
                                 max(2, reps // 5))
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     entry["bound_ms"] = max(t_bytes, t_ops)
     entry["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     entry["bytes"] = nbytes
     entry["operations"] = flops
     return entry
+
+
+def check_quant_kernel(name, args, got, want, entry, reps):
+    """The int8 / bf16 tiles against their plain versions (int8 bitwise,
+    bf16 within the fp32 tiles' tolerance); a library yardstick; the bytes
+    and operations of this call. Returns (operations, bytes, peak rate)."""
+    import torch
+    int8 = name.endswith("_q8")
+    peak = PEAK_INT8_PER_S if int8 else PEAK_BF16_PER_S
+    if name.startswith("knn_join"):
+        data, x2, ids, cn = (args[0], args[2], args[3], args[4]) if int8 \
+            else args
+        (gd, gev), (wd, wev) = got, want
+        if not torch.equal(gev, wev):
+            raise AssertionError(f"{name}: evals differ")
+        big_n = data.shape[0]
+        valid = (ids >= 0) & (ids < big_n)
+        safe = torch.where(valid, ids, 0).long()
+        x2g = torch.where(valid, x2[safe], 0.0)
+        scale = x2g[:, :, None] + x2g[:, None, :]
+        pairs = int(gev.sum())
+        out_bytes = 4 * (gd.numel() + gev.numel())
+        # the whole mirror (rows, scales, norms) read once, ids, outputs
+        nbytes = data.numel() * data.element_size() \
+            + 4 * big_n * (2 if int8 else 1) + 4 * ids.numel() + out_bytes
+        flops = 2 * data.shape[1] * pairs
+        if not int8:
+            xg = torch.where(valid[:, :, None], data[safe], 0)
+            base = scale.to(torch.bfloat16)
+            xgt = xg.transpose(1, 2)
+            ok = torch.isfinite(wd)
+    else:
+        if int8:
+            q, x, x2, ids = args[0], args[3], args[5], args[6]
+            q2 = args[2]
+        else:
+            q, q2, x, x2, ids = args
+        gd, wd = got, want
+        big_n = x.shape[0]
+        valid = (ids >= 0) & (ids < big_n)
+        safe = torch.where(valid, ids, 0).long()
+        scale = q2[:, None] + x2[safe]
+        n_valid = int(valid.sum())
+        rows = int(torch.unique(ids[valid]).numel())
+        entry.update(valid_candidates=n_valid, distinct_rows=rows)
+        row_bytes = x.shape[1] * x.element_size() + (8 if int8 else 4)
+        # each distinct candidate row (and its scale, norm) read once; the
+        # queries, ids and output once
+        nbytes = (rows + q.shape[0]) * row_bytes + 8 * ids.numel()
+        flops = 2 * x.shape[1] * n_valid
+        if not int8:
+            xg = x[safe]
+            base = scale[:, :, None].to(torch.bfloat16)
+            xgt = q[:, :, None]
+            ok = valid
+    if not torch.equal(torch.isinf(gd), torch.isinf(wd)):
+        raise AssertionError(f"{name}: +inf positions differ")
+    fin = torch.isfinite(wd)
+    err = (gd - wd).abs()[fin]
+    entry["max_abs_err"] = float(err.max()) if err.numel() else 0.0
+    if int8:
+        if not torch.equal(gd, wd):
+            raise AssertionError(f"{name}: kernel and plain differ")
+        entry["tolerance"] = "bitwise; inf and evals exact"
+        entry["library_ms"] = None
+        entry["library_call"] = (
+            "none: PyTorch has no batched int8 x int8 -> int32 product "
+            "(torch._int_mm is 2-D only)")
+    else:
+        entry.update(close_to_plain(name, gd, wd, scale))
+        entry["tolerance"] = "1e-4 + 1e-5 * (|a|^2 + |b|^2); inf exact"
+
+        def library():
+            dd = torch.baddbmm(base, xg, xgt, alpha=-2.0).float()
+            if dd.dim() == 3 and dd.shape[2] == 1:
+                dd = dd[:, :, 0]
+            return torch.where(ok, dd.clamp_min(0.0), torch.inf)
+        entry["library_ms"] = time_ms(library, reps)
+        entry["library_call"] = "torch.baddbmm on bf16 rows gathered " \
+            "beforehand + mask"
+    return flops, nbytes, peak
 
 
 def drive(tag: str, run):
@@ -439,20 +569,33 @@ def search_check(xc, gidx, scfg) -> dict:
     g = torch.Generator(device=xc.device).manual_seed(SEED + 3)
     entry = torch.randperm(xc.shape[0], generator=g, device=xc.device)[
         :scfg.beam].to(torch.int32)
+    from repro_torch.kernels import ref
     out = {}
-    for backend in ("plain", "auto", "ref"):
-        cfg = dataclasses.replace(scfg, backend=backend)
+    runs = [("plain", "f32"), ("auto", "f32"), ("ref", "f32")] + [
+        (b, p) for p in PRECISIONS for b in ("plain", "auto")]
+    for backend, prec in runs:
+        cfg = dataclasses.replace(scfg, backend=backend, precision=prec)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         d, i = graph_search(xc, gidx, q, k_out=10, entry=entry, cfg=cfg)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         check_search(d, i, xc.shape[0], 10)
-        out[backend] = {"seconds": seconds, "recall_at_10":
-                        recall_at_k(i, ti)}
+        key = backend if prec == "f32" else f"{prec}_{backend}"
+        out[key] = {"seconds": seconds, "recall_at_10": recall_at_k(i, ti)}
+        if prec != "f32":
+            # returned distances are the fp32 tile's, not quantized ones
+            q2, x2 = (q * q).sum(1), (xc * xc).sum(1)
+            want = ref.knn_search_dists(q, q2, xc, x2, i)
+            out[key].update(close_to_plain(
+                f"search_check {key}", d, want, q2[:, None] + x2[i.long()]))
     r = {b: v["recall_at_10"] for b, v in out.items()}
     if abs(r["auto"] - r["plain"]) > 0.01 or r["auto"] < r["ref"] - 0.02:
         raise AssertionError(f"search_check failed: {r}")
+    for prec in PRECISIONS:
+        if abs(r[f"{prec}_auto"] - r[f"{prec}_plain"]) > 0.01 \
+                or r[f"{prec}_auto"] < r["auto"] - 0.03:
+            raise AssertionError(f"search_check {prec} failed: {r}")
     return out
 
 
@@ -480,7 +623,7 @@ def main() -> int:
     )
     from repro_torch.core import datasets
     from repro_torch.core.device import pin_fp32
-    from repro_torch.kernels import _lib
+    from repro_torch.kernels import _lib, ref
 
     pin_fp32()
     dev = torch.device("cuda")
@@ -528,6 +671,32 @@ def main() -> int:
          kernels=check["auto"], plain=check["plain"], recall_gap=gap)
     if gap > 0.01 or min(v["recall"] for v in check.values()) < 0.84:
         raise AssertionError(f"build_check failed: {check}")
+    # the quantized builds, kernels and plain versions, same seed
+    for prec in PRECISIONS:
+        qcheck = {}
+        for backend in ("plain", "auto"):
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            cfg = DescentConfig(k=20, rho=1.0, backend=backend,
+                                precision=prec)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist, idx, st = build_knn_graph(xc, k=20, cfg=cfg, generator=g)
+            torch.cuda.synchronize()
+            qcheck[backend] = {
+                "seconds": time.perf_counter() - t0,
+                "recall": recall_at_k(idx, truth_c), "iters": st.iters,
+                "dist_evals": st.dist_evals,
+                "dist_err_over_tol": check_graph(xc, dist, idx,
+                                                 repeats_ok=True),
+                "rows_with_a_repeated_id": int(
+                    (idx.sort(dim=1).values.diff(dim=1) == 0).any(1).sum())}
+        qgap = abs(qcheck["auto"]["recall"] - qcheck["plain"]["recall"])
+        emit("build_check", n=CHECK_N, d=784, k=20, rho=1.0, precision=prec,
+             kernels=qcheck["auto"], plain=qcheck["plain"], recall_gap=qgap,
+             f32_kernels_recall=check["auto"]["recall"])
+        if qgap > 0.01 or qcheck["auto"]["recall"] < \
+                check["auto"]["recall"] - 0.02:
+            raise AssertionError(f"build_check {prec} failed: {qcheck}")
     del truth_c
 
     # -- search_check: kernels vs plain versions vs the greedy oracle
@@ -542,6 +711,7 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(SEED)
     (dist, idx, st), wall, launches_b, peak, rec_b = drive(
         "build", lambda: build_knn_graph(x, k=20, cfg=cfg, generator=g))
+    st_wall = wall
     graph_err = check_graph(x, dist, idx)
     exact = exact_knn(x, 20)
     recall = recall_at_k(idx, exact)
@@ -554,6 +724,31 @@ def main() -> int:
     require_launched("build", launches_b,
                      ("knn_join_dists", "knn_join_select", "knn_merge"))
     del dist
+
+    # -- build_int8, build_bf16: paths 4-5, the two-stage quantized builds
+    launches, recs = {"build": launches_b}, {"build": rec_b}
+    for prec in PRECISIONS:
+        tag = f"build_{prec}"
+        qcfg = dataclasses.replace(cfg, precision=prec)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        (qd, qi, qst), wall, launches[tag], peak, recs[tag] = drive(
+            tag, lambda: build_knn_graph(x, k=20, cfg=qcfg, generator=g))
+        emit(tag, n=N, d=784, k=20, rho=qcfg.rho, precision=prec,
+             wall_s=wall, f32_wall_s=st_wall, iters=qst.iters,
+             updates=list(qst.updates),
+             polish_updates=list(qst.polish_updates),
+             dist_evals=qst.dist_evals, max_memory_allocated=peak,
+             launches=launches[tag], recall_at_20=recall_at_k(qi, exact),
+             f32_recall_at_20=recall,
+             dist_err_over_tol=check_graph(x, qd, qi))
+        lq = launches[tag]
+        require_launched(tag, lq, (OWNED[tag], "knn_join_select",
+                                   "knn_merge", "knn_search_dists"))
+        # the fp32 join never runs (the polish scores with a plain batched
+        # product); the fp32 tile runs once, the re-rank
+        if lq["knn_join_dists"] != 0 or lq["knn_search_dists"] != 1:
+            raise AssertionError(f"{tag}: fp32 launches {lq}")
+        del qd, qi
 
     # -- truth: path 2, the exact k-NN through the pairwise kernel
     (td, ti), wall, launches_t, peak, rec_t = drive(
@@ -589,23 +784,61 @@ def main() -> int:
          rounds_per_block=launches_s["knn_search_dists"] / blocks,
          max_memory_allocated=peak, launches=launches_s,
          recall_at_10=recall_at_k(si, qt))
+    f32_search = {"wall_s": wall, "recall_at_10": recall_at_k(si, qt)}
+
+    # -- search_int8, search_bf16: paths 6-7, the two-stage quantized
+    # searches on the f32 graph
+    launches.update(truth=launches_t, search=launches_s)
+    recs.update(truth=rec_t, search=rec_s)
+    x2_full = (x * x).sum(1)
+    q2_full = (q * q).sum(1)
+    for prec in PRECISIONS:
+        tag = f"search_{prec}"
+        qscfg = dataclasses.replace(scfg, precision=prec)
+        (qd, qi), wall, launches[tag], peak, recs[tag] = drive(
+            tag, lambda: graph_search(x, idx, q, k_out=10, cfg=qscfg))
+        check_search(qd, qi, N, 10)
+        lq = launches[tag]
+        tile = OWNED[tag]
+        require_launched(tag, lq, (tile, "knn_join_select", "knn_merge"))
+        if lq["knn_search_dists"] != blocks:
+            raise AssertionError(f"{tag}: {lq['knn_search_dists']} fp32 "
+                                 f"re-ranks for {blocks} blocks")
+        exact_d = close_to_plain(
+            f"{tag} returned distances", qd,
+            ref.knn_search_dists(q, q2_full, x, x2_full, qi),
+            q2_full[:, None] + x2_full[qi.long()])
+        emit(tag, n=N, d=784, queries=N_QUERIES, k_out=10, precision=prec,
+             cfg=dataclasses.asdict(qscfg), wall_s=wall,
+             queries_per_s=N_QUERIES / wall, blocks=blocks,
+             rounds=lq[tile], rounds_per_block=lq[tile] / blocks,
+             max_memory_allocated=peak, launches=lq,
+             recall_at_10=recall_at_k(qi, qt), f32=f32_search,
+             fp32_distances=exact_d)
+        del qd, qi
     del sd, si, qt
 
-    # -- profile: the build and the search again under torch.profiler
-    emit("profile", path="build", **profile_run(lambda: build_knn_graph(
-        x, k=20, cfg=cfg,
-        generator=torch.Generator(device=dev).manual_seed(SEED))))
-    emit("profile", path="search", **profile_run(
-        lambda: graph_search(x, idx, q, k_out=10, cfg=scfg)))
+    # -- profile: the builds and the searches again under torch.profiler
+    for prec in ("f32",) + PRECISIONS:
+        suffix = "" if prec == "f32" else f"_{prec}"
+        bcfg = dataclasses.replace(cfg, precision=prec)
+        qscfg = dataclasses.replace(scfg, precision=prec)
+        emit("profile", path="build" + suffix, **profile_run(
+            lambda: build_knn_graph(
+                x, k=20, cfg=bcfg,
+                generator=torch.Generator(device=dev).manual_seed(SEED))))
+        emit("profile", path="search" + suffix, **profile_run(
+            lambda: graph_search(x, idx, q, k_out=10, cfg=qscfg)))
 
     # -- kernels: each against its plain version on the recorded inputs
-    launches = {"build": launches_b, "truth": launches_t,
-                "search": launches_s}
-    owner = {"pairwise_sq_l2": "truth", "knn_search_dists": "search"}
+    owner = {"pairwise_sq_l2": "truth", "knn_search_dists": "search",
+             **QUANT_OWNER}
     entries = {}
-    for key, call in sorted({**rec_b.calls, **rec_t.calls,
-                             **rec_s.calls}.items()):
+    calls = {k: c for rec in recs.values() for k, c in rec.calls.items()}
+    for key, call in sorted(calls.items()):
         tag, name = key.split(":")[:2]
+        if tag in OWNED and OWNED[tag] != name:
+            continue
         e = check_kernel(name, call, reps=20)
         e.update(route="cuda", source=SOURCES[name],
                  replaces=REPLACES[name], launches=launches[tag][name],

@@ -1,16 +1,22 @@
 """repro_torch — the port of ``repro`` to PyTorch and hand-written CUDA
 kernels for Hopper (H100, sm_90a). ``repro`` (JAX) stays the reference.
 
-Public API so far (the build and query slices):
+Public API so far (the build, query and quantized slices):
   * ``repro_torch.build_knn_graph`` / ``repro_torch.core`` — NN-Descent
     with turbosampling, the fused local join, the greedy reorder and the
-    terminal polish;
+    terminal polish; ``DescentConfig.precision`` "int8" / "bf16" scores
+    the sampled joins on a quantized mirror and re-ranks in fp32
+    (``rerank_lists``);
   * ``repro_torch.brute_force_knn`` — the exact k-NN, the recall truth;
   * ``repro_torch.graph_search`` / ``SearchConfig`` — the fused batched
     beam search over the graph, and its greedy oracle;
+    ``SearchConfig.precision`` "int8" / "bf16" scores candidates on a
+    quantized mirror (``qstore=``, a ``QuantizedStore`` from
+    ``quantize_corpus``) and re-ranks the pool in fp32;
   all run on a CUDA device unless asked for the CPU.
-  * ``repro_torch.kernels`` — the five kernels (join distances, join
-    select, merge, pairwise l2, search distances), their plain versions
+  * ``repro_torch.kernels`` — the nine kernels (join distances, join
+    select, merge, pairwise l2, search distances, and the int8 and bf16
+    twins of the join and search distance tiles), their plain versions
     and the dispatch by device.
 """
 from repro_torch.core import (
@@ -18,6 +24,7 @@ from repro_torch.core import (
     DescentConfig,
     DescentStats,
     NeighborLists,
+    QuantizedStore,
     SearchConfig,
     apply_permutation,
     brute_force_knn,
@@ -27,7 +34,9 @@ from repro_torch.core import (
     greedy_reorder,
     neighbor_lists_from_numpy,
     nn_descent_iteration,
+    quantize_corpus,
     recall_at_k,
+    rerank_lists,
 )
 
 __version__ = "0.1.0"
@@ -37,6 +46,7 @@ __all__ = [
     "DescentConfig",
     "DescentStats",
     "NeighborLists",
+    "QuantizedStore",
     "SearchConfig",
     "apply_permutation",
     "brute_force_knn",
@@ -46,5 +56,7 @@ __all__ = [
     "greedy_reorder",
     "neighbor_lists_from_numpy",
     "nn_descent_iteration",
+    "quantize_corpus",
     "recall_at_k",
+    "rerank_lists",
 ]

@@ -9,7 +9,9 @@ from repro_torch.core.nn_descent import (
     DescentStats,
     build_knn_graph,
     nn_descent_iteration,
+    rerank_lists,
 )
+from repro_torch.core.quantize import QuantizedStore, quantize_corpus
 from repro_torch.core.recall import (
     brute_force_knn,
     distance_recall,
@@ -22,6 +24,7 @@ __all__ = [
     "DescentConfig",
     "DescentStats",
     "NeighborLists",
+    "QuantizedStore",
     "SearchConfig",
     "apply_permutation",
     "brute_force_knn",
@@ -31,5 +34,7 @@ __all__ = [
     "greedy_reorder",
     "neighbor_lists_from_numpy",
     "nn_descent_iteration",
+    "quantize_corpus",
     "recall_at_k",
+    "rerank_lists",
 ]

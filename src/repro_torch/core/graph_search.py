@@ -30,10 +30,18 @@ reductions: the corpus handed in must already be transformed; queries are
 transformed here. ``filter_ids`` (n,) is folded into ``alive``; (q, n)
 masks candidates per query, so a filtered-out id can never surface.
 
-Not ported yet (ROADMAP.md, Queue 1): ``precision`` bf16/int8 (the
-quantized search, item 9) and routed seeds from a ``router`` (item 10);
-both raise ``NotImplementedError``. ``expand_frontier`` belongs to the
-online store (item 11).
+``precision`` "int8" or "bf16" makes the fused search two-stage: the
+query block is quantized once at the corpus mirror's width (a cached
+``qstore`` of the same mode, or one quantized here), seeds and every round
+score on the mirror (``ops.knn_search_dists_q8`` / ``_bf16``; shared seeds
+by one plain matrix product of the codes), and the final pool is re-ranked
+with the fp32 ``knn_search_dists`` before ``knn_join_select`` picks k_out,
+so a returned distance is always fp32. ``backend="ref"`` ignores
+precision.
+
+Not ported yet (ROADMAP.md, Queue 1): routed seeds from a ``router``
+(item 10), which raise ``NotImplementedError``. ``expand_frontier``
+belongs to the online store (item 11).
 """
 from __future__ import annotations
 
@@ -43,10 +51,11 @@ import warnings
 
 import torch
 
-from repro_torch.core import heap
+from repro_torch.core import heap, quantize
 from repro_torch.core import metric as metric_mod
 from repro_torch.core.device import resolve_device
 from repro_torch.core.heap import NeighborLists
+from repro_torch.core.quantize import QuantizedStore
 from repro_torch.kernels import ops
 
 _BIG = 3.0e38    # the greedy oracle's empty-slot distance (the fused path
@@ -65,7 +74,7 @@ class SearchConfig:
                             # ref: the greedy one-node-per-round oracle
     select_c: int = 0       # candidate width handed to the pool merge
                             # (0 = beam)
-    precision: str = "f32"  # f32 (bf16 | int8: not ported yet)
+    precision: str = "f32"  # f32 | bf16 | int8: candidate-scoring dtype
     metric: str = "l2"      # l2 | cosine | mips (core/metric.py); the
                             # corpus must be pre-transformed
     router: str = "auto"    # kept for parity (routed seeds: not ported)
@@ -102,10 +111,6 @@ def _check_cfg(cfg: SearchConfig, router) -> None:
     if cfg.backend not in BACKENDS:
         raise ValueError(f"unknown backend {cfg.backend!r}; expected "
                          f"{BACKENDS}")
-    if cfg.precision != "f32":
-        raise NotImplementedError(
-            f"precision={cfg.precision!r} is not ported yet (ROADMAP.md, "
-            "Queue 1 item 9: the quantized search)")
     if router is not None:
         raise NotImplementedError(
             "routed entry points are not ported yet (ROADMAP.md, Queue 1 "
@@ -199,6 +204,7 @@ def graph_search(
     alive=None,            # (n,) bool — tombstone mask
     x2=None,               # (n,) cached squared norms
     cfg: SearchConfig | None = None,
+    qstore: QuantizedStore | None = None,   # cached quantized corpus
     router=None,           # routed seeds: not ported yet
     filter_ids=None,       # (n,) shared or (q, n) per-query bool mask
     device=None,
@@ -209,8 +215,10 @@ def graph_search(
     ``cfg`` wins over the legacy ``beam``/``rounds`` arguments. Dead rows
     (``alive`` False) and filtered rows are never seeded, expanded or
     returned. Without ``entry``, entries are drawn from ``generator`` (on
-    ``device``), or from one seeded by the batch's content. Runs on
-    ``device``, "cuda" unless the caller asks otherwise; with no card
+    ``device``), or from one seeded by the batch's content. With a
+    quantized ``cfg.precision``, ``qstore`` is the corpus mirror to score
+    on; one of another mode, or none, is quantized here from ``x``. Runs
+    on ``device``, "cuda" unless the caller asks otherwise; with no card
     present that raises."""
     if cfg is None:
         cfg = SearchConfig(beam=beam, rounds=rounds)
@@ -283,6 +291,15 @@ def graph_search(
                 fent, (0, entry.shape[1] - fent.shape[1]), value=-1)
         entry = torch.where(entry >= 0, entry, fent)
 
+    if cfg.precision == "f32" or cfg.backend == "ref":
+        qstore = None
+    elif qstore is None or qstore.mode != cfg.precision:
+        # a mirror of the other mode would be scored as raw codes by the
+        # wrong kernel: quantize afresh
+        qstore = quantize.quantize_corpus(x, cfg.precision)
+    else:
+        qstore = QuantizedStore(*(t.to(device).contiguous() for t in qstore))
+
     if cfg.backend == "ref":
         rd, ri = _graph_search_ref(
             x, x2, graph_idx, queries, entry, alive, filt,
@@ -318,7 +335,7 @@ def graph_search(
         ent_b = entry if entry.dim() == 1 else entry[s:s + qb]
         od, oi = _search_block(
             x, x2, graph_idx, qp[s:s + qb], q2[s:s + qb], ent_b, alive,
-            None if filt is None else filt[s:s + qb],
+            None if filt is None else filt[s:s + qb], qstore,
             k_out=k_out, cfg=bcfg, backend=ops_backend)
         if deadline > 0.0 and od.is_cuda:
             torch.cuda.synchronize(od.device)
@@ -343,6 +360,7 @@ def _search_block(
     entry: torch.Tensor,      # (e,) shared or (qb, e) per-query entry ids
     alive: torch.Tensor | None,
     filt: torch.Tensor | None,   # (qb, n) per-query predicate mask
+    qstore: QuantizedStore | None,   # corpus mirror (quantized precision)
     *,
     k_out: int,
     cfg: SearchConfig,
@@ -356,6 +374,25 @@ def _search_block(
     c_sel = cfg.select_c or beam
     dev = q.device
 
+    # quantized scoring: the query block is quantized once, at the
+    # mirror's width, and the whole traversal (seeds, tiles, the pool's
+    # k-th prefilter) runs on quantized distances; the pool is re-ranked
+    # in fp32 after the rounds
+    quant = qstore is not None
+    if quant:
+        qq = quantize.quantize_corpus(q, qstore.mode,
+                                      width=qstore.data.shape[1])
+
+    def tile(ids):            # (qb, m) candidate ids -> (qb, m) distances
+        if not quant:
+            return ops.knn_search_dists(q, q2, x, x2, ids, backend=backend)
+        if qstore.mode == "int8":
+            return ops.knn_search_dists_q8(
+                qq.data, qq.scale, qq.x2, qstore.data, qstore.scale,
+                qstore.x2, ids, backend=backend)
+        return ops.knn_search_dists_bf16(qq.data, qq.x2, qstore.data,
+                                         qstore.x2, ids, backend=backend)
+
     # seed the pool: every entry's distance, then one bounded merge
     # (dedups repeated entries, drops dead ones)
     ent = entry.clamp(0, n - 1).long()
@@ -368,12 +405,20 @@ def _search_block(
         if filt is not None:
             eids = torch.where(torch.gather(filt, 1, ent), eids, -1)
         eids = eids.contiguous()
-        ed = ops.knn_search_dists(q, q2, x, x2, eids, backend=backend)
+        ed = tile(eids)
     else:
         # shared seeds: one plain matrix product (outside any kernel in
-        # the JAX package as well)
-        ed = (q2[:, None] + x2[ent][None, :]
-              - 2.0 * (q @ x[ent].T)).clamp_min(0.0)
+        # the JAX package as well); on the mirror, of the codes (exact:
+        # integers, or bf16 values, summed in f32)
+        if quant:
+            ab = qq.data.to(torch.float32) @ qstore.data[ent].to(
+                torch.float32).T
+            ab = (qq.scale[:, None] * qstore.scale[ent][None, :]) * ab
+            ed = (qq.x2[:, None] + qstore.x2[ent][None, :]
+                  - 2.0 * ab).clamp_min(0.0)
+        else:
+            ed = (q2[:, None] + x2[ent][None, :]
+                  - 2.0 * (q @ x[ent].T)).clamp_min(0.0)
         eids = entry if alive is None else torch.where(alive[ent], entry, -1)
         eids = eids[None, :].expand(qb, -1)
     pool = NeighborLists(
@@ -410,13 +455,20 @@ def _search_block(
             ok &= torch.gather(filt, 1, safe.reshape(qb, -1)).reshape(
                 ok.shape)
         cand = torch.where(ok, nbrs, -1).reshape(qb, -1)
-        dd = ops.knn_search_dists(q, q2, x, x2, cand, backend=backend)
+        dd = tile(cand)
         # pool-k-th prefilter + top-C, then the bounded merge (dedup by
         # id; accepted slots come in unexpanded)
         cd, ci = ops.knn_join_select(dd, cand, pool.dist[:, -1].contiguous(),
                                      c_sel, backend=backend)
         pool, _ = heap.merge_kernel(pool, cd, ci, backend=backend)
         r += 1
+    if quant:
+        # stage two: the pool re-ranked with the fp32 tile; quantization
+        # decided membership, never a returned distance or order
+        dex = ops.knn_search_dists(q, q2, x, x2, pool.idx.contiguous(),
+                                   backend=backend)
+        return ops.knn_join_select(dex, pool.idx.contiguous(), inf_q, k_out,
+                                   backend=backend)
     return pool.dist[:, :k_out], pool.idx[:, :k_out]
 
 

@@ -17,10 +17,17 @@ One iteration:
 permutes the points between iterations 1 and 2, and two exhaustive polish
 rounds finish the build.
 
-Not ported yet (ROADMAP.md, Queue 1): the lexsort ``backend="ref"`` path,
-``heap``/``naive`` selection, ``precision`` other than f32 and
-``rerank_lists``. ``backend="plain"`` runs the fused path through the
-kernels' plain versions on any device (a reference build on the card).
+``precision`` "int8" or "bf16" makes the build two-stage: the sampled
+joins score pairs on a quantized mirror of the corpus (core/quantize.py)
+through the ``knn_join_dists_q8`` / ``_bf16`` kernels; then
+``rerank_lists`` recomputes every list's distances in fp32
+(``knn_search_dists``) and the fp32 polish rounds finish, so the graph
+returned never carries a quantized distance.
+
+Not ported yet (ROADMAP.md, Queue 1): the lexsort ``backend="ref"`` path
+and ``heap``/``naive`` selection. ``backend="plain"`` runs the fused path
+through the kernels' plain versions on any device (a reference build on
+the card).
 """
 from __future__ import annotations
 
@@ -29,15 +36,17 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 
-from repro_torch.core import heap, selection
+from repro_torch.core import heap, quantize, selection
 from repro_torch.core import metric as metric_mod
 from repro_torch.core.device import resolve_device
 from repro_torch.core.heap import NeighborLists
 from repro_torch.core.layout import pad_features
+from repro_torch.core.quantize import QuantizedStore
 from repro_torch.core.reorder import apply_permutation, greedy_reorder
 from repro_torch.kernels import ops
 
 BACKENDS = ("auto", "plain", "ref")
+PRECISIONS = ("f32", "bf16", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +68,8 @@ class DescentConfig:
     join_chunk: int = 2048     # fused join: receiver rows per chunk
     join_src: int = 0          # per-receiver incidence buffer (0 = 2*C)
     metric: str = "l2"         # l2 | cosine | mips (core/metric.py)
-    precision: str = "f32"     # f32 (bf16 | int8: not ported yet)
+    precision: str = "f32"     # f32 | bf16 | int8: the sampled joins'
+                               # scoring dtype (two-stage build)
 
     @property
     def rho_k(self) -> int:
@@ -102,10 +112,9 @@ def _ops_backend(cfg: DescentConfig) -> str:
             "backend='ref' (the lexsort compact_pairs path) is not ported "
             "yet (ROADMAP.md, Queue 1); use 'plain' for the fused path "
             "through the plain versions")
-    if cfg.precision != "f32":
-        raise NotImplementedError(
-            f"precision={cfg.precision!r} is not ported yet (ROADMAP.md, "
-            "Queue 1: the quantized build)")
+    if cfg.precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {cfg.precision!r}; expected "
+                         f"{PRECISIONS}")
     if cfg.selection != "turbo":
         raise NotImplementedError(
             f"selection={cfg.selection!r} is not ported yet (ROADMAP.md, "
@@ -151,17 +160,27 @@ def local_join_fused(
     cn: torch.Tensor,      # (n, Cn) new candidates
     co: torch.Tensor,      # (n, Co) old candidates
     cfg: DescentConfig,
+    qs: QuantizedStore | None = None,   # quantized mirror of x
 ) -> tuple[NeighborLists, int, int]:
     """Fused local join + update routing: pair-distance kernel ->
     incidence inversion -> per-receiver gather + prefiltered top-merge_k
-    select kernel -> chunked block merge. Returns (nl, accepted, evals)."""
+    select kernel -> chunked block merge. Returns (nl, accepted, evals).
+    With ``qs`` and a quantized ``cfg.precision``, the pair tensor is
+    scored on the mirror by the int8 / bf16 kernel."""
     backend = _ops_backend(cfg)
     n, k = nl.idx.shape
     cands = torch.cat([cn, co], dim=1)                 # (n, C)
     c_all = cands.shape[1]
     ids = torch.where(cands >= 0, cands, -1).to(torch.int32).contiguous()
-    dists, ev = ops.knn_join_dists(x, x2, ids, cn.shape[1],
-                                   backend=backend)   # (n, C, C), (n,)
+    if cfg.precision == "int8" and qs is not None:
+        dists, ev = ops.knn_join_dists_q8(qs.data, qs.scale, qs.x2, ids,
+                                          cn.shape[1], backend=backend)
+    elif cfg.precision == "bf16" and qs is not None:
+        dists, ev = ops.knn_join_dists_bf16(qs.data, qs.x2, ids,
+                                            cn.shape[1], backend=backend)
+    else:
+        dists, ev = ops.knn_join_dists(x, x2, ids, cn.shape[1],
+                                       backend=backend)   # (n, C, C), (n,)
 
     kth = nl.dist[:, -1].contiguous()
     s_cap = cfg.join_src or 2 * c_all
@@ -209,6 +228,7 @@ def nn_descent_iteration(
     *,
     draws: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
     generator: torch.Generator | None = None,
+    qs: QuantizedStore | None = None,   # quantized mirror (precision)
 ) -> tuple[NeighborLists, int, int]:
     """One sampled iteration: selection, flag clearing, fused join.
     Returns (nl, accepted, evals)."""
@@ -216,7 +236,8 @@ def nn_descent_iteration(
     cands = selection.selection_turbo(nl, cfg.rho_k, draws=draws,
                                       generator=generator)
     nl = heap.mark_sampled_old(nl, cands.sampled_fwd)
-    return local_join_fused(x, x2, nl, cands.new_idx, cands.old_idx, cfg)
+    return local_join_fused(x, x2, nl, cands.new_idx, cands.old_idx, cfg,
+                            qs)
 
 
 def polish_iteration(
@@ -258,6 +279,23 @@ def polish_iteration(
     return nl, int(upd.sum()), evals
 
 
+def rerank_lists(
+    x: torch.Tensor,       # (n, dp) feature-padded
+    x2: torch.Tensor,      # (n,) squared norms
+    nl: NeighborLists,
+    backend: str = "auto",
+) -> NeighborLists:
+    """Exact fp32 re-rank of every list: d(row, idx) recomputed by one
+    (n, k) ``knn_search_dists`` tile, each row re-sorted by a stable sort
+    (+inf, the empty slots, last). The second stage of a quantized build.
+    ``backend`` is an ops backend (auto | ref). Cost: n*k evaluations."""
+    dd = ops.knn_search_dists(x, x2, x, x2, nl.idx.contiguous(),
+                              backend=backend)        # (n, k)
+    dd, order = torch.sort(dd, dim=1, stable=True)
+    return NeighborLists(dd, torch.gather(nl.idx, 1, order),
+                         torch.gather(nl.new, 1, order))
+
+
 def build_knn_graph(
     x,
     k: int = 20,
@@ -288,6 +326,15 @@ def build_knn_graph(
     xp = pad_features(x).contiguous()
     x2 = (xp * xp).sum(dim=1)
 
+    # two-stage quantized build: the sampled joins score on a mirror at
+    # its own width (the fp32 layout's zero padding dropped); rerank_lists
+    # and the fp32 polish rounds restore exact distances
+    quant = cfg.precision != "f32"
+    qs = (quantize.quantize_corpus(
+        xp, cfg.precision, width=quantize.mirror_width(x.shape[1],
+                                                       xp.shape[1]))
+        if quant else None)
+
     nl = heap.init_random_with_dists(
         xp, cfg.k, idx=None if draws is None else draws.init,
         generator=generator)
@@ -298,7 +345,7 @@ def build_knn_graph(
     for it in range(cfg.max_iters):
         it_draws = None if draws is None else draws.iters[it]
         nl, upd, ev = nn_descent_iteration(xp, x2, nl, cfg, draws=it_draws,
-                                           generator=generator)
+                                           generator=generator, qs=qs)
         stats.dist_evals += ev
         updates.append(upd)
         stats.iters = it + 1
@@ -309,10 +356,19 @@ def build_knn_graph(
             xp, nl = apply_permutation(xp, nl, sigma, sigma_inv)
             x2 = x2[sigma_inv.long()]
             perm = perm[sigma_inv.long()]
+            if quant:       # per-row quantization permutes exactly
+                si = sigma_inv.long()
+                qs = QuantizedStore(qs.data[si], qs.scale[si], qs.x2[si])
             stats.reordered = True
         if upd <= cfg.delta * n * cfg.k:
             break
     stats.updates = tuple(updates)
+
+    # stage two of a quantized build: the surviving lists re-ranked in
+    # fp32, so the polish merges against exact distances
+    if quant:
+        nl = rerank_lists(xp, x2, nl, backend)
+        stats.dist_evals += n * cfg.k
 
     polish_updates = []
     for _ in range(cfg.polish):

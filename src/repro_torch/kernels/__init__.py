@@ -5,6 +5,8 @@
 #   knn_merge   — §2 bounded neighbor-list update
 #   l2_blocked  — §3.3 blocked pairwise squared l2 (exact k-NN truth)
 #   knn_search  — query-time candidate distances (graph search rounds)
+#   l2_quant    — the int8 / bf16 twins of the join and search tiles (the
+#                 scoring stage of the two-stage quantized path)
 # ops.py = dispatch by device, ref.py = plain PyTorch versions.
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.knn_join import (
@@ -14,13 +16,23 @@ from repro_torch.kernels.knn_join import (
 from repro_torch.kernels.knn_merge import knn_merge_cuda
 from repro_torch.kernels.knn_search import knn_search_dists_cuda
 from repro_torch.kernels.l2_blocked import pairwise_sq_l2_cuda
+from repro_torch.kernels.l2_quant import (
+    knn_join_dists_bf16_cuda,
+    knn_join_dists_q8_cuda,
+    knn_search_dists_bf16_cuda,
+    knn_search_dists_q8_cuda,
+)
 
 __all__ = [
     "ops",
     "ref",
     "knn_join_dists_cuda",
+    "knn_join_dists_bf16_cuda",
+    "knn_join_dists_q8_cuda",
     "knn_join_select_cuda",
     "knn_merge_cuda",
     "knn_search_dists_cuda",
+    "knn_search_dists_bf16_cuda",
+    "knn_search_dists_q8_cuda",
     "pairwise_sq_l2_cuda",
 ]

@@ -31,7 +31,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("knn_join_dists", "knn_join_select", "knn_merge",
-           "pairwise_sq_l2", "knn_search_dists")
+           "pairwise_sq_l2", "knn_search_dists",
+           "knn_search_dists_q8", "knn_search_dists_bf16",
+           "knn_join_dists_q8", "knn_join_dists_bf16")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P = ctypes.c_void_p
@@ -47,6 +49,18 @@ _SIGNATURES = {
     "pairwise_sq_l2_launch": [_P, _P, _P, _I, _I, _I, _P],
     # q, q2, x, x2, ids, od, N, nq, W, dp, stream
     "knn_search_dists_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # qq, qscale, q2, data, scale, x2, ids, od, N, nq, W, w, stream
+    "knn_search_dists_q8_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _P],
+    # q, q2, data, x2, ids, od, N, nq, W, w, stream
+    "knn_search_dists_bf16_launch": [_P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _P],
+    # data, scale, x2, ids, od, ev, N, n, C, w, cn, stream
+    "knn_join_dists_q8_launch": [_P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _P],
+    # data, x2, ids, od, ev, N, n, C, w, cn, stream
+    "knn_join_dists_bf16_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -18,6 +18,12 @@ from repro_torch.kernels.knn_join import (
 from repro_torch.kernels.knn_merge import knn_merge_cuda
 from repro_torch.kernels.knn_search import knn_search_dists_cuda
 from repro_torch.kernels.l2_blocked import pairwise_sq_l2_cuda
+from repro_torch.kernels.l2_quant import (
+    knn_join_dists_bf16_cuda,
+    knn_join_dists_q8_cuda,
+    knn_search_dists_bf16_cuda,
+    knn_search_dists_q8_cuda,
+)
 
 BACKENDS = ("auto", "ref")
 
@@ -65,3 +71,36 @@ def knn_search_dists(q, q2, x, x2, ids, *, backend: str = "auto"):
     if _plain(q, backend):
         return ref.knn_search_dists(q, q2, x, x2, ids)
     return knn_search_dists_cuda(q, q2, x, x2, ids)
+
+
+def knn_search_dists_q8(qq, qscale, q2, data, scale, x2, ids, *,
+                        backend: str = "auto"):
+    """(nq, w) int8 queries with their scales and norms against the int8
+    mirror rows named by (nq, W) ids -> (nq, W) quantized squared l2,
+    +inf where the id is invalid."""
+    if _plain(qq, backend):
+        return ref.knn_search_dists_q8(qq, qscale, q2, data, scale, x2, ids)
+    return knn_search_dists_q8_cuda(qq, qscale, q2, data, scale, x2, ids)
+
+
+def knn_search_dists_bf16(q, q2, data, x2, ids, *, backend: str = "auto"):
+    """The bf16 twin of ``knn_search_dists_q8`` (no scales)."""
+    if _plain(q, backend):
+        return ref.knn_search_dists_bf16(q, q2, data, x2, ids)
+    return knn_search_dists_bf16_cuda(q, q2, data, x2, ids)
+
+
+def knn_join_dists_q8(data, scale, x2, ids, cn: int, *,
+                      backend: str = "auto"):
+    """int8 mirror (N, w) with scales and norms, (n, C) ids -> (n, C, C)
+    quantized pair distances, (n,) valid unordered pair counts."""
+    if _plain(data, backend):
+        return ref.knn_join_dists_q8(data, scale, x2, ids, cn)
+    return knn_join_dists_q8_cuda(data, scale, x2, ids, cn)
+
+
+def knn_join_dists_bf16(data, x2, ids, cn: int, *, backend: str = "auto"):
+    """The bf16 twin of ``knn_join_dists_q8`` (no scales)."""
+    if _plain(data, backend):
+        return ref.knn_join_dists_bf16(data, x2, ids, cn)
+    return knn_join_dists_bf16_cuda(data, x2, ids, cn)

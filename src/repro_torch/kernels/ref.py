@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's five kernels.
+"""Plain PyTorch versions of the port's nine kernels.
 
 Each function computes exactly what its CUDA kernel in ``csrc/*.cu``
 computes. The CPU tests hold them against the JAX package's oracles, and
@@ -135,3 +135,97 @@ def knn_search_dists(
     ab = torch.bmm(x[safe], q[:, :, None])[:, :, 0]
     dd = q2[:, None] + x2[safe] - 2.0 * ab
     return torch.where(valid, dd.clamp_min(0.0), torch.inf)
+
+
+# ---------------------------------------------------------------------------
+# quantized scoring tiles (the two-stage path's first stage). Each takes
+# the ids and the base mirror (data, scale, x2) of core/quantize.py and
+# gathers the rows itself; an id outside [0, N) is an invalid slot. The
+# int8 cross terms are integers: they are summed in float64, exact for any
+# width the kernels' int32 sums take, then rounded to f32 as the kernels'
+# (float) conversion does. The epilogue keeps the JAX oracles' order of
+# operations: (q2 + c2) - (2 * (s_q * s_c)) * ab, clamped at 0.
+# ---------------------------------------------------------------------------
+
+def _gather_ok(ids: torch.Tensor, big_n: int):
+    valid = (ids >= 0) & (ids < big_n)
+    return valid, torch.where(valid, ids, 0).long()
+
+
+def _int_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched int8 products a @ b^T, exact, as f32."""
+    return torch.bmm(a.to(torch.float64), b.to(torch.float64).transpose(
+        1, 2)).to(torch.float32)
+
+
+def knn_search_dists_q8(
+    qq: torch.Tensor,      # (nq, w) i8 quantized query rows
+    qscale: torch.Tensor,  # (nq,) f32 query scales
+    q2: torch.Tensor,      # (nq,) f32 quantized-query squared norms
+    data: torch.Tensor,    # (N, w) i8 base mirror rows
+    scale: torch.Tensor,   # (N,) f32 base scales
+    x2: torch.Tensor,      # (N,) f32 base squared norms (stored rows)
+    ids: torch.Tensor,     # (nq, W) i32 candidate ids, -1 = invalid
+) -> torch.Tensor:
+    """int8 candidate distances with the scales in the epilogue: (nq, W)
+    f32, +inf where the id is invalid."""
+    valid, safe = _gather_ok(ids, data.shape[0])
+    ab = _int_dots(data[safe], qq[:, None, :])[:, :, 0]
+    dd = (q2[:, None] + x2[safe]) - (2.0 * (qscale[:, None] * scale[safe])) \
+        * ab
+    return torch.where(valid, dd.clamp_min(0.0), torch.inf)
+
+
+def knn_search_dists_bf16(
+    q: torch.Tensor,       # (nq, w) bf16 query rows
+    q2: torch.Tensor,      # (nq,) f32 squared norms of the bf16 queries
+    data: torch.Tensor,    # (N, w) bf16 base mirror rows
+    x2: torch.Tensor,      # (N,) f32 squared norms of the bf16 rows
+    ids: torch.Tensor,     # (nq, W) i32 candidate ids, -1 = invalid
+) -> torch.Tensor:
+    """bf16 candidate distances, f32 sums (the fp32 version on the
+    bf16-rounded rows): (nq, W) f32, +inf where the id is invalid."""
+    valid, safe = _gather_ok(ids, data.shape[0])
+    ab = torch.bmm(data[safe].to(torch.float32),
+                   q.to(torch.float32)[:, :, None])[:, :, 0]
+    dd = (q2[:, None] + x2[safe]) - 2.0 * ab
+    return torch.where(valid, dd.clamp_min(0.0), torch.inf)
+
+
+def knn_join_dists_q8(
+    data: torch.Tensor,    # (N, w) i8 mirror rows
+    scale: torch.Tensor,   # (N,) f32 scales
+    x2: torch.Tensor,      # (N,) f32 squared norms of the stored rows
+    ids: torch.Tensor,     # (n, C) i32 candidate ids, -1 = invalid slot
+    cn: int,               # width of the "new" candidate prefix
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 local-join pair distances: (n, C, C) f32 with +inf on pairs
+    the join mask refuses, and evals (n,) i32, as ``knn_join_dists``."""
+    valid, safe = _gather_ok(ids, data.shape[0])
+    xg = data[safe]
+    sg = scale[safe]
+    x2g = torch.where(valid, x2[safe], 0.0)
+    ab = _int_dots(xg, xg)
+    dd = (x2g[:, :, None] + x2g[:, None, :]) \
+        - (2.0 * (sg[:, :, None] * sg[:, None, :])) * ab
+    ok = _join_ok(torch.where(valid, ids, -1), cn)
+    out = torch.where(ok, dd.clamp_min(0.0), torch.inf)
+    return out, (ok.sum(dim=(1, 2)) // 2).to(torch.int32)
+
+
+def knn_join_dists_bf16(
+    data: torch.Tensor,    # (N, w) bf16 mirror rows
+    x2: torch.Tensor,      # (N,) f32 squared norms of the bf16 rows
+    ids: torch.Tensor,     # (n, C) i32 candidate ids, -1 = invalid slot
+    cn: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """bf16 local-join pair distances, f32 sums: the fp32 version on the
+    bf16-rounded rows."""
+    valid, safe = _gather_ok(ids, data.shape[0])
+    xg = torch.where(valid[:, :, None], data[safe].to(torch.float32), 0.0)
+    x2g = torch.where(valid, x2[safe], 0.0)
+    ab = torch.bmm(xg, xg.transpose(1, 2))
+    dd = (x2g[:, :, None] + x2g[:, None, :]) - 2.0 * ab
+    ok = _join_ok(torch.where(valid, ids, -1), cn)
+    out = torch.where(ok, dd.clamp_min(0.0), torch.inf)
+    return out, (ok.sum(dim=(1, 2)) // 2).to(torch.int32)

@@ -296,7 +296,7 @@ def test_polish_iteration_matches_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("backend", "ref"), ("precision", "int8"), ("selection", "heap")])
+    ("backend", "ref"), ("selection", "naive"), ("selection", "heap")])
 def test_unported_options_raise(field, value):
     cfg = nn_descent.DescentConfig(k=4, **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):

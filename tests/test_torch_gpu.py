@@ -10,7 +10,11 @@ Tolerances: ids, counts, evals and +inf positions exact; join distances
 rtol 1e-5 / atol 1e-4 (the kernel sums in another order than cuBLAS);
 select and merge bitwise; pairwise and search distances 1e-4 + 1e-5 *
 (|a|^2 + |b|^2) (the norm expansion cancels the digits the two norms
-share, so the error scales with the norms, not the distance).
+share, so the error scales with the norms, not the distance). The int8
+tiles bitwise (their cross terms are exact integers and the epilogue keeps
+the plain version's order of operations); the bf16 tiles 1e-4 + 1e-5 *
+(|a|^2 + |b|^2), as the fp32 ones (bf16 products are exact in f32; only
+the order of the sums differs).
 """
 import numpy as np
 import pytest
@@ -25,6 +29,7 @@ from repro_torch import (
     recall_at_k,
 )
 from repro_torch.core import datasets
+from repro_torch.core.quantize import quantize_corpus
 from repro_torch.kernels import _lib, ops
 
 pytestmark = pytest.mark.gpu
@@ -221,3 +226,148 @@ def test_search_through_kernels_matches_plain(dev):
             _lib.LAUNCHES
     assert recalls["auto"] > 0.9, recalls
     assert abs(recalls["auto"] - recalls["plain"]) <= 0.01, recalls
+
+
+# ---------------------------------------------------------------------------
+# the quantized tiles
+# ---------------------------------------------------------------------------
+
+def _mirror(dev, n, w, mode, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return quantize_corpus(3.0 * torch.randn(n, w, generator=g, device=dev),
+                           mode)
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+@pytest.mark.parametrize("nq,w_cand,width,big_n", [
+    (37, 23, 32, 99), (5, 7, 64, 12), (9, 33, 160, 300),
+    (512, 120, 784, 70000),      # a search round at MNIST's width
+    (512, 32, 784, 70000),       # the final re-rank's pool width
+])
+def test_quant_search_dists_kernel(dev, mode, nq, w_cand, width, big_n):
+    qs = _mirror(dev, nq, width, mode, nq)
+    xs = _mirror(dev, big_n, width, mode, big_n)
+    g = torch.Generator(device=dev).manual_seed(w_cand)
+    ids = torch.randint(-1, big_n, (nq, w_cand), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids[2] = -1
+    ids[0, 0] = big_n - 1
+    ids[1, 0] = big_n                            # out of range: invalid
+    if mode == "int8":
+        fn, name = ops.knn_search_dists_q8, "knn_search_dists_q8"
+        args = (qs.data, qs.scale, qs.x2, xs.data, xs.scale, xs.x2, ids)
+    else:
+        fn, name = ops.knn_search_dists_bf16, "knn_search_dists_bf16"
+        args = (qs.data, qs.x2, xs.data, xs.x2, ids)
+    got, want, launched = _both(fn, *args)
+    assert launched[name] == 1
+    assert torch.equal(torch.isinf(got), (ids < 0) | (ids >= big_n))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    if mode == "int8":
+        assert torch.equal(got, want)
+    else:
+        safe = ids.clamp(0, big_n - 1).long()
+        tol = 1e-4 + 1e-5 * (qs.x2[:, None] + xs.x2[safe])
+        fin = torch.isfinite(want)
+        assert bool(((got - want).abs()[fin] <= tol[fin]).all())
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+@pytest.mark.parametrize("n,c,cn,width", [
+    (37, 12, 5, 32), (64, 8, 8, 64), (10, 6, 0, 96), (33, 1, 1, 32),
+    (4096, 20, 10, 800),         # the default build: C = 20, w = 800
+    (4096, 40, 20, 800),         # rho 1.0: C = 40
+    (257, 64, 30, 288),          # the widest C the kernel takes
+])
+def test_quant_join_dists_kernel(dev, mode, n, c, cn, width):
+    big_n = 4 * n
+    xs = _mirror(dev, big_n, width, mode, n + c)
+    g = torch.Generator(device=dev).manual_seed(n)
+    ids = torch.randint(-1, big_n + 2, (n, c), generator=g, device=dev,
+                        dtype=torch.int32)           # ids >= N: invalid
+    ids[3] = -1
+    if c > 1:
+        ids[4, 1] = ids[4, 0]                        # a repeated id
+    if mode == "int8":
+        fn, name = ops.knn_join_dists_q8, "knn_join_dists_q8"
+        args = (xs.data, xs.scale, xs.x2, ids, cn)
+    else:
+        fn, name = ops.knn_join_dists_bf16, "knn_join_dists_bf16"
+        args = (xs.data, xs.x2, ids, cn)
+    (gd, gev), (wd, wev), launched = _both(fn, *args)
+    assert launched[name] == 1
+    assert torch.equal(gev, wev) and int(gev[3]) == 0
+    assert torch.equal(torch.isinf(gd), torch.isinf(wd))
+    if mode == "int8":
+        assert torch.equal(gd, wd)
+    else:
+        valid = (ids >= 0) & (ids < big_n)
+        x2g = torch.where(valid, xs.x2[ids.clamp(0, big_n - 1).long()], 0.0)
+        tol = 1e-4 + 1e-5 * (x2g[:, :, None] + x2g[:, None, :])
+        fin = torch.isfinite(wd)
+        assert bool(((gd - wd).abs()[fin] <= tol[fin]).all())
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+def test_quant_wrappers_refuse_misaligned_rows(dev, mode):
+    """The kernels read 16-byte chunks: a row of another size, or one that
+    does not start on a 16-byte boundary, raises; nothing launches."""
+    dtype = torch.int8 if mode == "int8" else torch.bfloat16
+    bad_w = 24 if mode == "int8" else 12
+    before = dict(_lib.LAUNCHES)
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    for data in (torch.zeros((5, bad_w), dtype=dtype, device=dev),
+                 torch.zeros(5 * 32 + 1, dtype=dtype, device=dev)[1:]
+                 .view(5, 32)):
+        n2 = torch.zeros(5, device=dev)
+        with pytest.raises(ValueError, match="16-byte"):
+            if mode == "int8":
+                ops.knn_join_dists_q8(data, n2 + 1, n2, ids, 1)
+            else:
+                ops.knn_join_dists_bf16(data, n2, ids, 1)
+        with pytest.raises(ValueError, match="16-byte"):
+            q = data[:2]
+            if mode == "int8":
+                ops.knn_search_dists_q8(q, n2[:2], n2[:2], data, n2, n2, ids)
+            else:
+                ops.knn_search_dists_bf16(q, n2[:2], data, n2, ids)
+    assert _lib.LAUNCHES == before
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+def test_quantized_build_and_search_through_kernels(dev, mode):
+    """A 2048-point quantized build and search through the kernels and
+    through the plain versions: recalls within 0.01, the quantized tiles
+    (and only the kernels) launched, returned distances exact fp32."""
+    x = datasets.clustered(2048, 16, 8, seed=0, device=dev)
+    d = torch.cdist(x, x).square()
+    d.fill_diagonal_(torch.inf)
+    ti = d.topk(20, largest=False).indices
+    q = x[:256] + 0.01
+    _, qt = brute_force_knn(x, q, 10, exclude_self=False)
+    entry = torch.arange(0, 2048, 64, device=dev, dtype=torch.int32)
+    tiles = (("knn_join_dists_q8", "knn_search_dists_q8") if mode == "int8"
+             else ("knn_join_dists_bf16", "knn_search_dists_bf16"))
+    r = {}
+    for backend in ("auto", "plain"):
+        _lib.reset_launches()
+        cfg = DescentConfig(k=20, rho=1.0, max_iters=15, backend=backend,
+                            precision=mode)
+        g = torch.Generator(device=dev).manual_seed(1)
+        dist, idx, _ = build_knn_graph(x, k=20, cfg=cfg, generator=g)
+        scfg = SearchConfig(beam=32, rounds=48, expand=6, q_block=64,
+                            backend=backend, precision=mode)
+        sd, si = graph_search(x, idx, q, k_out=10, entry=entry, cfg=scfg)
+        torch.cuda.synchronize()
+        r[backend] = (recall_at_k(idx, ti), recall_at_k(si, qt))
+        if backend == "auto":
+            assert all(_lib.LAUNCHES[k] > 0 for k in tiles), _lib.LAUNCHES
+        else:
+            assert not any(_lib.LAUNCHES.values()), _lib.LAUNCHES
+        xa = x[si.long()]
+        true = ((q[:, None, :] - xa) ** 2).sum(-1)
+        tol = 1e-4 + 1e-5 * ((q * q).sum(-1)[:, None] + (xa * xa).sum(-1))
+        assert bool(((sd - true).abs() <= tol).all())
+    assert r["auto"][0] > 0.95, r
+    assert abs(r["auto"][0] - r["plain"][0]) <= 0.01, r
+    assert abs(r["auto"][1] - r["plain"][1]) <= 0.01, r

@@ -30,6 +30,12 @@ from repro_torch.kernels.knn_join import (
 from repro_torch.kernels.knn_merge import knn_merge_cuda
 from repro_torch.kernels.knn_search import knn_search_dists_cuda
 from repro_torch.kernels.l2_blocked import pairwise_sq_l2_cuda
+from repro_torch.kernels.l2_quant import (
+    knn_join_dists_bf16_cuda,
+    knn_join_dists_q8_cuda,
+    knn_search_dists_bf16_cuda,
+    knn_search_dists_q8_cuda,
+)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -298,6 +304,20 @@ def test_ops_cpu_tensors_take_plain_versions():
     (knn_search_dists_cuda, lambda: (torch.zeros(2, 8), torch.zeros(2),
                                      torch.zeros(5, 8), torch.zeros(5),
                                      torch.zeros(2, 3, dtype=torch.int32))),
+    (knn_search_dists_q8_cuda, lambda: (
+        torch.zeros(2, 32, dtype=torch.int8), torch.ones(2), torch.zeros(2),
+        torch.zeros(5, 32, dtype=torch.int8), torch.ones(5), torch.zeros(5),
+        torch.zeros(2, 3, dtype=torch.int32))),
+    (knn_search_dists_bf16_cuda, lambda: (
+        torch.zeros(2, 32, dtype=torch.bfloat16), torch.zeros(2),
+        torch.zeros(5, 32, dtype=torch.bfloat16), torch.zeros(5),
+        torch.zeros(2, 3, dtype=torch.int32))),
+    (knn_join_dists_q8_cuda, lambda: (
+        torch.zeros(5, 32, dtype=torch.int8), torch.ones(5), torch.zeros(5),
+        torch.zeros(2, 3, dtype=torch.int32), 1)),
+    (knn_join_dists_bf16_cuda, lambda: (
+        torch.zeros(5, 32, dtype=torch.bfloat16), torch.zeros(5),
+        torch.zeros(2, 3, dtype=torch.int32), 1)),
 ])
 def test_cuda_wrappers_refuse_cpu_tensors(wrapper, args):
     """A wrapper launches its kernel or raises; it never computes the
@@ -322,6 +342,14 @@ def test_ptxas_report_parsing():
                           "Pfiiib",
         "knn_search_dists": "_ZN12_GLOBAL__N_123knn_search_dists_kernelEPKf"
                             "S1_S1_S1_PKiPfiiib",
+        "knn_search_dists_q8": "_ZN12_GLOBAL__N_126knn_search_dists_q8_kernel"
+                               "EPK5uint4PKfS4_S2_S4_S4_PKiPfiii",
+        "knn_search_dists_bf16": "_ZN12_GLOBAL__N_128knn_search_dists_bf16_"
+                                 "kernelEPK5uint4PKfS2_S4_PKiPfiii",
+        "knn_join_dists_q8": "_ZN12_GLOBAL__N_124knn_join_dists_q8_kernelEPKj"
+                             "PKfS3_PKiPfPiiiii",
+        "knn_join_dists_bf16": "_ZN12_GLOBAL__N_126knn_join_dists_bf16_kernel"
+                               "EPKjPKfPKiPfPiiiii",
     }
     assert set(mangled) == set(_lib.KERNELS)
     log = ""
@@ -344,4 +372,5 @@ def test_ptxas_report_parsing():
                                                  "static_smem_bytes": 0}
     assert _lib.library_path().name.startswith("libknn_kernels_")
     assert {p.name for p in _lib.SOURCES} == {"knn_kernels.cu",
-                                              "search_kernels.cu"}
+                                              "search_kernels.cu",
+                                              "quant_kernels.cu"}

@@ -366,12 +366,12 @@ def test_search_and_truth_default_to_the_card(seeded512):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"cfg": SearchConfig(precision="int8")}, "Queue 1 item 9"),
+    ({"cfg": SearchConfig(precision="fp8")}, "unknown quantization mode"),
     ({"router": object()}, "Queue 1 item 10"),
     ({"cfg": SearchConfig(backend="pallas")}, "unknown backend"),
 ])
 def test_unported_search_options_raise(seeded512, kw, match):
     x, gidx = seeded512
-    err = ValueError if "backend" in match else NotImplementedError
+    err = ValueError if "unknown" in match else NotImplementedError
     with pytest.raises(err, match=match):
         _search(x, gidx, x[:4], k_out=3, **kw)
