@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port (repro_torch) on one CUDA card and check it: the build
 (build_knn_graph), its exact truth (brute_force_knn), the query path
-(graph_search), and the two-stage int8 / bf16 build and search. Run from
+(graph_search), the two-stage int8 / bf16 build and search, and the online
+store (insert, delete, the router). Run from
 the root of a checkout, on a machine with an H100:
 
     python3 chip_smoke.py
@@ -44,11 +45,30 @@ Phases, each printed as one JSON line:
                the f32 graph (every round through knn_search_dists_q8 /
                _bf16, the fp32 re-rank through knn_search_dists once per
                block);
+  online_check mnist_like(16000, 784): a store built on 14400 rows with
+               OnlineConfig(router=RouterConfig()), 1600 rows inserted and
+               1600 seeded rows deleted in batches of 400, through the
+               kernels and through the plain versions (backend "plain")
+               with the same draws: recall@20 of the live
+               lists against an exact k-NN of the live rows, within 0.01;
+               then the JAX router test's shape (64 clusters x 784 rows at
+               d 16, per-cluster exact graphs) through the kernels: routed
+               seeds reach recall@10 >= 0.85, random entries < 0.75;
+  online       path 8: MutableKNNStore.build on rows [0, 60000) (k 20,
+               rho 1.0, 15 iterations, routed), knn_insert of rows [60000,
+               70000) in 20 batches of 500 (capacity 65536 -> 131072),
+               knn_delete of 7000 seeded rows in 7 batches of 1000, and
+               store.search of 10000 noisy queries, routed and with
+               router "off": wall times, dist_evals, frontier and padded
+               rows, peak memory, recall@20 of the live lists against an
+               exact k-NN and against a from-scratch build of the 63000
+               live rows, search recall@10 against brute_force_knn;
   profile      every path but truth once more under torch.profiler:
                device time by kernel name and the device's idle share;
   kernels      each kernel on the inputs a path gave it (recorded during
                that run), against its plain version: max error, kernel /
-               plain / library times, the card's lower bound.
+               plain / library times, the card's lower bound (and, for the
+               online store's row forms, the time of their (n, k) copy).
 Every path is driven with all launch counts set to 0 just before it and
 read just after; each kernel of the path must have launched. Then the line
 {"kernels": [...]} and, last, {"ok": true, "device": ...}. Any failure
@@ -59,6 +79,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -80,6 +101,9 @@ REPLACES = {
     "knn_search_dists_bf16": "src/repro/kernels/l2_quant.py:137",
     "knn_join_dists_q8": "src/repro/kernels/l2_quant.py:241",
     "knn_join_dists_bf16": "src/repro/kernels/l2_quant.py:279",
+    "knn_compact": "src/repro/kernels/knn_merge.py:108",
+    "knn_merge_rows": "src/repro/kernels/knn_merge.py:210",
+    "knn_compact_rows": "src/repro/kernels/knn_merge.py:237",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
@@ -92,18 +116,27 @@ SOURCES = {
     "knn_search_dists_bf16": CSRC + "quant_kernels.cu",
     "knn_join_dists_q8": CSRC + "quant_kernels.cu",
     "knn_join_dists_bf16": CSRC + "quant_kernels.cu",
+    "knn_compact": CSRC + "knn_kernels.cu",
+    "knn_merge_rows": CSRC + "knn_kernels.cu",
+    "knn_compact_rows": CSRC + "knn_kernels.cu",
 }
-# the path that owns each kernel of the quantized paths; those paths check
-# only their own kernel (the others were checked on the f32 paths)
+# the path that owns each kernel of the quantized paths and of the online
+# path; those paths check only their own kernels (the others were checked
+# on the f32 paths)
 QUANT_OWNER = {
     "knn_join_dists_q8": "build_int8", "knn_join_dists_bf16": "build_bf16",
     "knn_search_dists_q8": "search_int8",
     "knn_search_dists_bf16": "search_bf16",
 }
+ONLINE_KERNELS = ("knn_compact", "knn_merge_rows", "knn_compact_rows")
 OWNED = {path: name for name, path in QUANT_OWNER.items()}
+CHECKED = {**{path: {name} for path, name in OWNED.items()},
+           "online": set(ONLINE_KERNELS)}
 PRECISIONS = ("int8", "bf16")
 N, CHECK_N, SEED = 70_000, 16_000, 0   # the main path's and the check's n
 N_QUERIES, CHECK_QUERIES = 10_000, 2048
+N_BASE, INSERT_BATCH, N_DELETE, DELETE_BATCH = 60_000, 500, 7000, 1000
+CHECK_BASE, CHECK_BATCH = 14_400, 400     # online_check: 1600 in, 1600 out
 TRUTH_CHUNK = 4096      # brute force: a 4096 x 70000 f32 tile is 1.15 GB
 
 
@@ -201,7 +234,8 @@ class Recorder:
     NAMES = ("knn_join_dists", "knn_join_select", "knn_merge",
              "pairwise_sq_l2", "knn_search_dists", "knn_search_dists_q8",
              "knn_search_dists_bf16", "knn_join_dists_q8",
-             "knn_join_dists_bf16")
+             "knn_join_dists_bf16", "knn_compact", "knn_merge_rows",
+             "knn_compact_rows")
 
     def __init__(self, tag: str):
         self.tag = tag
@@ -236,6 +270,8 @@ class Recorder:
                 key += f":W={args[4].shape[1]}"
             elif name == "knn_search_dists_q8":
                 key += f":W={args[6].shape[1]}"
+            elif name == "knn_merge_rows":
+                key += f":c={args[3].shape[1]}"
             self.seen[key] = self.seen.get(key, 0) + 1
             if self.seen[key] == 2:
                 self.calls[key] = tuple(
@@ -407,7 +443,7 @@ def check_kernel(name, args, reps):
             entry["library_ms"] = time_ms(
                 lambda: torch.sort(pool, dim=1, stable=True), reps)
             entry["library_call"] = "torch.sort(stable=True) of masked keys"
-        else:
+        elif name == "knn_merge":
             cd, ci, qd, qi = args
             n, k = cd.shape
             c = qd.shape[1]
@@ -415,6 +451,8 @@ def check_kernel(name, args, reps):
             flops = n * (k * c + c * (c - 1) // 2 + k * (k + c))
             entry["library_ms"] = None
             entry["library_call"] = "none"
+        else:
+            flops, nbytes = check_online_kernel(name, args, entry, reps)
     entry["ms"] = time_ms(lambda: fn(*args), reps)
     entry["plain_ms"] = time_ms(lambda: fn(*args, backend="ref"),
                                 max(2, reps // 5))
@@ -425,6 +463,74 @@ def check_kernel(name, args, reps):
     entry["bytes"] = nbytes
     entry["operations"] = flops
     return entry
+
+
+def check_online_kernel(name, args, entry, reps):
+    """Bytes, operations and library yardstick of the online store's three
+    kernels on one recorded call (their outputs were held bitwise against
+    the plain versions already). The row forms return full copies of the
+    (n, k) lists, so their bytes count the lists read and written once;
+    ``copy_ms`` is the time of that copy alone. The library call is a
+    stable ``torch.sort`` of the masked pool plus ``gather`` (and, for the
+    row forms, ``index_copy_`` into a copy of the lists); the masks are
+    made beforehand, as for the select's yardstick. Returns (operations,
+    bytes)."""
+    import torch
+    from repro_torch.kernels import ref
+    if name == "knn_compact":
+        cd, ci, drop = args
+        n, k = cd.shape
+        keep = ~drop & (ci >= 0) & torch.isfinite(cd)
+        # one extraction round (a scan of k) per survivor
+        flops = int(keep.sum()) * k
+        nbytes = 9 * n * k + 8 * n * k + 4 * n
+        masked = torch.where(keep, cd, torch.inf)
+
+        def library():
+            srt, order = torch.sort(masked, dim=1, stable=True)
+            return srt, torch.gather(ci, 1, order)
+        entry["library_ms"] = time_ms(library, reps)
+        entry["library_call"] = "torch.sort(stable=True) of masked keys " \
+            "+ gather"
+        return flops, nbytes
+    cd, ci, rows = args[:3]
+    n, k = cd.shape
+    ok = rows >= 0
+    safe = torch.where(ok, rows, 0).long()
+    sel = torch.nonzero(ok)[:, 0]
+    tgt = rows[sel].long()
+    f = int(sel.numel())
+    entry.update(frontier_rows=f, padded_rows=int(rows.numel()))
+    if name == "knn_merge_rows":
+        qd, qi = args[3:]
+        c = qd.shape[1]
+        sub_d, sub_i = cd[safe], ci[safe]
+        pool_d = torch.cat([
+            torch.where(torch.isinf(sub_d), ref.BIG, sub_d),
+            torch.where(ref.candidate_dups(sub_i, qi), ref.BIG, qd)], dim=1)
+        pool_i = torch.cat([sub_i, qi], dim=1)
+        flops = f * (k * c + c * (c - 1) // 2 + k * (k + c))
+        nbytes = 16 * n * k + f * (8 * c + 8)
+    else:
+        drop = args[3]
+        sub_d, sub_i = cd[safe], ci[safe]
+        keep = ~drop & (sub_i >= 0) & torch.isfinite(sub_d)
+        pool_d = torch.where(keep, sub_d, torch.inf)
+        pool_i = sub_i
+        flops = int(keep[sel].sum()) * k
+        nbytes = 16 * n * k + f * (k + 8)
+
+    def library():
+        srt, order = torch.sort(pool_d, dim=1, stable=True)
+        md = srt[:, :k].index_select(0, sel)
+        mi = torch.gather(pool_i, 1, order[:, :k]).index_select(0, sel)
+        return (cd.clone().index_copy_(0, tgt, md),
+                ci.clone().index_copy_(0, tgt, mi))
+    entry["library_ms"] = time_ms(library, reps)
+    entry["library_call"] = "torch.sort(stable=True) of the masked pool " \
+        "+ gather + index_copy_ into a copy of the lists"
+    entry["copy_ms"] = time_ms(lambda: (cd.clone(), ci.clone()), reps)
+    return flops, nbytes
 
 
 def check_quant_kernel(name, args, got, want, entry, reps):
@@ -506,6 +612,13 @@ def check_quant_kernel(name, args, got, want, entry, reps):
         entry["library_call"] = "torch.baddbmm on bf16 rows gathered " \
             "beforehand + mask"
     return flops, nbytes, peak
+
+
+def width_of(entry) -> int:
+    """The width that picks a kernel's representative call: the candidate
+    width of a row merge, else the second dim of the first input."""
+    shape = entry["shape"]
+    return shape[3][1] if entry["name"] == "knn_merge_rows" else shape[0][1]
 
 
 def drive(tag: str, run):
@@ -599,6 +712,170 @@ def search_check(xc, gidx, scfg) -> dict:
     return out
 
 
+def run_online(x, n_base, ins_batch, dels, del_batch, cfg, descent,
+               queries=None, search_off=None) -> dict:
+    """The online path: a store built on x[:n_base], the rest of x
+    inserted in batches, ``dels`` deleted in batches, then (with
+    ``queries``) one routed search and one with ``search_off``. Wall time
+    of each step, ended by a synchronize."""
+    import torch
+    from repro_torch import MutableKNNStore, knn_delete, knn_insert
+    g = torch.Generator(device=x.device).manual_seed(SEED)
+    out = {"insert_s": [], "delete_s": [], "insert": [], "delete": []}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    (store, out["build_stats"]), out["build_s"] = timed(
+        lambda: MutableKNNStore.build(x[:n_base], 20, cfg=cfg,
+                                      descent=descent, generator=g))
+    out["capacity"] = [store.capacity]
+    for s in range(n_base, x.shape[0], ins_batch):
+        (store, st), sec = timed(
+            lambda: knn_insert(store, x[s:s + ins_batch], generator=g))
+        out["insert_s"].append(sec)
+        out["insert"].append(st)
+        out["capacity"].append(store.capacity)
+    for s in range(0, dels.shape[0], del_batch):
+        (store, st), sec = timed(
+            lambda: knn_delete(store, dels[s:s + del_batch]))
+        out["delete_s"].append(sec)
+        out["delete"].append(st)
+    if queries is not None:
+        out["search"], out["search_s"] = timed(
+            lambda: store.search(queries, k_out=10))
+        out["search_off"], out["search_off_s"] = timed(
+            lambda: store.search(queries, k_out=10, cfg=search_off))
+    out["store"] = store
+    return out
+
+
+def live_truth(x, alive, k: int):
+    """Store ids of the live rows, and the exact k-NN among them (as store
+    ids)."""
+    import torch
+    live = torch.nonzero(alive[:x.shape[0]])[:, 0]
+    return live, live[exact_knn(x[live], k)]
+
+
+def check_live_lists(store, dead, rows: int = 2048) -> dict:
+    """The live rows' lists after the online updates: ids >= 0 in a prefix
+    with (+inf, -1) after it, every listed id live and never one of
+    ``dead``, no self-loop, ascending finite distances within 1e-4 +
+    1e-5 (|a|^2 + |b|^2) of fp64 distances on a sample of rows. Rows
+    shorter than k and rows with a repeated id (a reference behavior,
+    ROADMAP Queue 3) are counted, not refused."""
+    import torch
+    n = store.n
+    x, alive = store.x[:n], store.alive[:n]
+    live = torch.nonzero(alive)[:, 0]
+    dist, idx = store.nl.dist[live], store.nl.idx[live]
+    valid = idx >= 0
+    if (valid[:, 1:] & ~valid[:, :-1]).any():
+        raise AssertionError("online: a hole inside a list")
+    if not torch.equal(valid, torch.isfinite(dist)):
+        raise AssertionError("online: an id beside +inf or -1 beside a "
+                             "distance")
+    ids = idx[valid].long()
+    if not alive[ids].all() or torch.isin(ids, dead).any():
+        raise AssertionError("online: a tombstoned id in a live list")
+    if (idx == live[:, None]).any():
+        raise AssertionError("online: a self-loop")
+    if (dist[:, 1:] < dist[:, :-1])[valid[:, 1:]].any():
+        raise AssertionError("online: a list is not ascending")
+    srt = torch.where(valid, idx, -2 - torch.arange(
+        idx.shape[1], device=idx.device)).sort(dim=1).values
+    repeated = int((srt[:, 1:] == srt[:, :-1]).any(1).sum())
+    r = torch.randperm(live.numel(), device=x.device)[:rows]
+    xa = x[live[r]].double()
+    xb = x[idx[r].clamp_min(0).long()].double()
+    d64 = ((xa[:, None, :] - xb) ** 2).sum(-1)
+    tol = 1e-4 + 1e-5 * ((xa * xa).sum(-1)[:, None] + (xb * xb).sum(-1))
+    err = ((dist[r].double() - d64).abs() / tol)[valid[r]]
+    worst = float(err.max())
+    if worst > 1.0:
+        raise AssertionError(f"online: distances off by {worst:.3g} x tol")
+    return {"dist_err_over_tol": worst,
+            "rows_short_of_k": int((~valid[:, -1]).sum()),
+            "rows_with_a_repeated_id": repeated}
+
+
+def online_check(xc, dev) -> dict:
+    """The online path at 16000 rows through the kernels and through the
+    plain versions, same draws; recall@20 of the live lists."""
+    import torch
+    from repro_torch import (DescentConfig, OnlineConfig, RouterConfig,
+                             recall_at_k)
+    from repro_torch.kernels import _lib
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    dels = torch.randperm(CHECK_N, generator=g, device=dev)[:CHECK_N // 10]
+    out = {}
+    for backend in ("plain", "auto"):
+        cfg = OnlineConfig(router=RouterConfig(), backend=backend)
+        descent = DescentConfig(k=20, rho=1.0, max_iters=15, backend=backend)
+        _lib.reset_launches()
+        res = run_online(xc, CHECK_BASE, CHECK_BATCH, dels, CHECK_BATCH,
+                         cfg, descent)
+        store = res["store"]
+        live, truth = live_truth(xc, store.alive, 20)
+        out[backend] = {
+            "recall_at_20": recall_at_k(store.nl.idx[live], truth),
+            "insert_dist_evals": sum(st.dist_evals for st in res["insert"]),
+            "delete_dist_evals": sum(st.dist_evals for st in res["delete"]),
+            "seconds": res["build_s"] + sum(res["insert_s"])
+            + sum(res["delete_s"]),
+            "launches": {k: v for k, v in _lib.LAUNCHES.items() if v},
+            **check_live_lists(store, dels)}
+        if backend == "auto":
+            require_launched("online_check", _lib.LAUNCHES, ONLINE_KERNELS)
+        elif any(_lib.LAUNCHES.values()):
+            raise AssertionError(f"online_check plain run launched "
+                                 f"{_lib.LAUNCHES}")
+    gap = abs(out["auto"]["recall_at_20"] - out["plain"]["recall_at_20"])
+    out["recall_gap"] = gap
+    if gap > 0.01:
+        raise AssertionError(f"online_check failed: {out}")
+    return out
+
+
+def cluster_router_check(dev) -> dict:
+    """The JAX router test's shape (tests/test_router.py:111-156): 64
+    well-separated clusters x 784 rows at d 16, per-cluster exact graphs
+    (no edge between clusters), 256 queries; 32 random entries against
+    seeds routed by a 256-centroid router, through the kernels."""
+    import torch
+    from repro_torch import (RouterConfig, SearchConfig, brute_force_knn,
+                             build_router, graph_search, recall_at_k)
+    n_c, per, d, k = 64, 784, 16, 10
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cent = torch.randn(n_c, d, generator=g, device=dev) * 12.0
+    x = (cent[:, None, :] + torch.randn(n_c, per, d, generator=g,
+                                        device=dev)).reshape(-1, d)
+    gidx = torch.cat([exact_knn(x[c * per:(c + 1) * per], k) + c * per
+                      for c in range(n_c)]).to(torch.int32)
+    q = x[::196] + 0.01
+    _, ti = brute_force_knn(x, q, k, exclude_self=False)
+    cfg = SearchConfig(beam=32, rounds=24, expand=4)
+    _, ri = graph_search(x, gidx, q, k_out=10, cfg=cfg, generator=torch.
+                         Generator(device=dev).manual_seed(SEED + 11))
+    router = build_router(x, cfg=RouterConfig(n_centroids=256, iters=6),
+                          generator=torch.Generator(
+                              device=dev).manual_seed(SEED + 13))
+    _, si = graph_search(x, gidx, q, k_out=10, cfg=cfg, router=router,
+                         generator=torch.Generator(
+                             device=dev).manual_seed(SEED + 11))
+    out = {"random_recall_at_10": recall_at_k(ri, ti),
+           "routed_recall_at_10": recall_at_k(si, ti)}
+    if out["random_recall_at_10"] >= 0.75 \
+            or out["routed_recall_at_10"] < 0.85:
+        raise AssertionError(f"online_check router shape failed: {out}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run it from a checkout of the repository "
@@ -615,6 +892,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import (
         DescentConfig,
+        OnlineConfig,
+        RouterConfig,
         SearchConfig,
         brute_force_knn,
         build_knn_graph,
@@ -703,7 +982,15 @@ def main() -> int:
     scfg = SearchConfig(beam=32, rounds=48, expand=6, q_block=512)
     emit("search_check", n=CHECK_N, d=784, queries=CHECK_QUERIES, k_out=10,
          cfg=dataclasses.asdict(scfg), **search_check(xc, idx_c, scfg))
-    del xc, idx_c
+    del idx_c
+
+    # -- online_check: the online path, kernels vs plain versions, and the
+    # router's cluster shape
+    emit("online_check", n=CHECK_N, d=784, base=CHECK_BASE,
+         batch=CHECK_BATCH, **online_check(xc, dev))
+    emit("online_check", shape="64 clusters x 784 rows, d 16",
+         **cluster_router_check(dev))
+    del xc
 
     # -- build: path 1, the build at the paper's headline shape
     x = datasets.mnist_like(N, 784, seed=SEED, device=dev)
@@ -818,6 +1105,73 @@ def main() -> int:
         del qd, qi
     del sd, si, qt
 
+    # -- online: path 8, the online store at MNIST's split sizes
+    ocfg = OnlineConfig(router=RouterConfig())
+    odescent = DescentConfig(k=20, rho=1.0, max_iters=15)
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    dels = torch.randperm(N, generator=g, device=dev)[:N_DELETE]
+    search_off = SearchConfig(beam=32, rounds=24, expand=ocfg.seed_expand,
+                              q_block=ocfg.q_block, router="off")
+
+    def online_run():
+        return run_online(x, N_BASE, INSERT_BATCH, dels, DELETE_BATCH, ocfg,
+                          odescent, queries=q, search_off=search_off)
+    res, wall, launches["online"], peak, recs["online"] = drive(
+        "online", online_run)
+    require_launched("online", launches["online"], ONLINE_KERNELS + (
+        "pairwise_sq_l2", "knn_search_dists", "knn_join_select",
+        "knn_merge"))
+    store = res["store"]
+    dead_ids = dels.long()
+    checks = check_live_lists(store, dels)
+    live, truth = live_truth(x, store.alive, 20)
+    online_recall = recall_at_k(store.nl.idx[live], truth)
+    _, qtruth = brute_force_knn(x[live], q, 10, exclude_self=False,
+                                chunk=TRUTH_CHUNK)
+    qtruth = live[qtruth.long()]
+    search = {}
+    for key in ("search", "search_off"):
+        sd, si = res[key]
+        check_search(sd, si, N, 10)
+        if torch.isin(si.long(), dead_ids).any():
+            raise AssertionError(f"online {key}: a tombstoned id returned")
+        search[key] = {"wall_s": res[key + "_s"],
+                       "queries_per_s": N_QUERIES / res[key + "_s"],
+                       "recall_at_10": recall_at_k(si, qtruth)}
+    del sd, si
+    # the yardstick: a from-scratch build of the live rows
+    _, ridx, rst = build_knn_graph(
+        x[live], k=20, cfg=odescent,
+        generator=torch.Generator(device=dev).manual_seed(SEED))
+    rebuild_recall = recall_at_k(live[ridx.long()], truth)
+    ins, dl = res["insert"], res["delete"]
+    ins_evals = sum(st.dist_evals for st in ins)
+    emit("online", n_base=N_BASE, inserted=N - N_BASE,
+         insert_batch=INSERT_BATCH, deleted=N_DELETE,
+         delete_batch=DELETE_BATCH, live=int(live.numel()), d=784, k=20,
+         cfg=dataclasses.asdict(ocfg), wall_s=wall,
+         build_s=res["build_s"], build_dist_evals=res[
+             "build_stats"].dist_evals,
+         centroids=int(store.router.centroids.shape[0]),
+         capacity=sorted(set(res["capacity"])),
+         insert_s={"median": statistics.median(res["insert_s"]),
+                   "max": max(res["insert_s"]), "all": res["insert_s"]},
+         delete_s=res["delete_s"],
+         insert={"dist_evals": ins_evals,
+                 "frontier_rows": sum(st.frontier_rows for st in ins),
+                 "padded_rows": sum(st.padded_rows for st in ins)},
+         delete={"dist_evals": sum(st.dist_evals for st in dl),
+                 "frontier_rows": sum(st.frontier_rows for st in dl),
+                 "padded_rows": sum(st.padded_rows for st in dl)},
+         router_stale=store.router.stale, search=search,
+         max_memory_allocated=peak, launches=launches["online"],
+         recall_at_20=online_recall,
+         rebuild={"recall_at_20": rebuild_recall,
+                  "dist_evals": rst.dist_evals,
+                  "insert_evals_over_rebuild": ins_evals / rst.dist_evals},
+         **checks)
+    del res, store, ridx
+
     # -- profile: the builds and the searches again under torch.profiler
     for prec in ("f32",) + PRECISIONS:
         suffix = "" if prec == "f32" else f"_{prec}"
@@ -829,15 +1183,16 @@ def main() -> int:
                 generator=torch.Generator(device=dev).manual_seed(SEED))))
         emit("profile", path="search" + suffix, **profile_run(
             lambda: graph_search(x, idx, q, k_out=10, cfg=qscfg)))
+    emit("profile", path="online", **profile_run(online_run))
 
     # -- kernels: each against its plain version on the recorded inputs
     owner = {"pairwise_sq_l2": "truth", "knn_search_dists": "search",
-             **QUANT_OWNER}
+             **QUANT_OWNER, **dict.fromkeys(ONLINE_KERNELS, "online")}
     entries = {}
     calls = {k: c for rec in recs.values() for k, c in rec.calls.items()}
     for key, call in sorted(calls.items()):
         tag, name = key.split(":")[:2]
-        if tag in OWNED and OWNED[tag] != name:
+        if tag in CHECKED and name not in CHECKED[tag]:
             continue
         e = check_kernel(name, call, reps=20)
         e.update(route="cuda", source=SOURCES[name],
@@ -845,12 +1200,11 @@ def main() -> int:
                  path=tag, call=key)
         emit("kernels", **e)
         # the line keeps one entry per kernel, from the path that owns
-        # it; the build's widest select (the receiver select) stands for
-        # knn_join_select
+        # it; the build's widest select (the receiver select) and the
+        # online path's widest row merge stand for their kernels
         if tag != owner.get(name, "build"):
             continue
-        width = e["shape"][0][1]
-        if name not in entries or width > entries[name]["shape"][0][1]:
+        if name not in entries or width_of(e) > width_of(entries[name]):
             entries[name] = e
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

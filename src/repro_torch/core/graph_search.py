@@ -39,9 +39,13 @@ with the fp32 ``knn_search_dists`` before ``knn_join_select`` picks k_out,
 so a returned distance is always fp32. ``backend="ref"`` ignores
 precision.
 
-Not ported yet (ROADMAP.md, Queue 1): routed seeds from a ``router``
-(item 10), which raise ``NotImplementedError``. ``expand_frontier``
-belongs to the online store (item 11).
+With a ``router`` (core/router.py) and ``cfg.router`` not "off", the fused
+path seeds every query with the members of its top-``router_t`` centroids
+(t*m of them, IVF-style); dead or missing members are filled from a random
+draw. The seed merge runs over slices of at most ``MERGE_MAX_POOL - beam``
+seeds when the seeds are wider than the merge kernel's pool (successive
+merges keep exactly what one wide merge keeps). ``expand_frontier`` is the
+online store's update frontier (core/online.py).
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.heap import NeighborLists
 from repro_torch.core.quantize import QuantizedStore
 from repro_torch.kernels import ops
+from repro_torch.kernels.knn_merge import MERGE_MAX_POOL
 
 _BIG = 3.0e38    # the greedy oracle's empty-slot distance (the fused path
                  # uses +inf, as the JAX package does)
@@ -77,8 +82,10 @@ class SearchConfig:
     precision: str = "f32"  # f32 | bf16 | int8: candidate-scoring dtype
     metric: str = "l2"      # l2 | cosine | mips (core/metric.py); the
                             # corpus must be pre-transformed
-    router: str = "auto"    # kept for parity (routed seeds: not ported)
-    router_t: int = 4       # kept for parity (routed seeds: not ported)
+    router: str = "auto"    # "off" ignores a router handed in (random
+                            # entries); otherwise the fused path seeds
+                            # from it
+    router_t: int = 4       # centroids probed per query (routed seeds)
     strict: bool = False    # True rejects a batch with NaN/Inf rows;
                             # False zeroes them and returns (+inf, -1)
                             # for them with a RuntimeWarning
@@ -107,14 +114,58 @@ def q_block_bucket(nq: int, cfg: SearchConfig) -> int:
     return max(1, min(cfg.q_block, 1 << (nq - 1).bit_length()))
 
 
-def _check_cfg(cfg: SearchConfig, router) -> None:
+def _check_cfg(cfg: SearchConfig) -> None:
     if cfg.backend not in BACKENDS:
         raise ValueError(f"unknown backend {cfg.backend!r}; expected "
                          f"{BACKENDS}")
-    if router is not None:
-        raise NotImplementedError(
-            "routed entry points are not ported yet (ROADMAP.md, Queue 1 "
-            "item 10: core/router.py); pass entry= or no router")
+
+
+def expand_frontier(
+    graph_idx: torch.Tensor,   # (n, k) neighbor ids, -1 = empty
+    seeds: torch.Tensor,       # (s,) seed row ids, -1 = padding
+    *,
+    hops: int = 1,
+    capacity: int,
+    alive: torch.Tensor | None = None,   # (n,) bool: rows to keep
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The h-hop outbound closure of ``seeds`` over the graph, compacted
+    into a padded id buffer: the online store's update frontier.
+
+    Returns (ids (capacity,) i32 ascending with a -1 tail, mask (n,) bool).
+    When the closure exceeds ``capacity`` the rows nearest the seeds
+    (fewest hops, then lowest id) are kept; the mask is exact either way.
+    Pure topology: O(n*k) integer work and no distance. The hop counts are
+    a scatter-min into a buffer with one extra slot, n, where padding and
+    empty slots land (JAX's mode="drop")."""
+    n = graph_idx.shape[0]
+    dev = graph_idx.device
+    hop = torch.full((n + 1,), hops + 1, dtype=torch.int32, device=dev)
+
+    def reach(tgt: torch.Tensor, h: int) -> None:
+        tgt = torch.where((tgt >= 0) & (tgt < n), tgt, n).reshape(-1).long()
+        hop.scatter_reduce_(0, tgt, torch.full_like(tgt, h,
+                                                    dtype=torch.int32),
+                            "amin")
+
+    reach(seeds, 0)
+    for h in range(1, hops + 1):
+        reach(torch.where(hop[:n, None] < h, graph_idx, -1), h)
+    hop = hop[:n]
+    mask = hop <= hops
+    if alive is not None:
+        mask &= alive
+    big = torch.iinfo(torch.int32).max
+    kcap = min(capacity, n)
+    # (hop, id) packed into one int32 key: (hops + 2) * n stays far inside
+    # int32 for every store size the port supports
+    score = torch.where(
+        mask, hop * n + torch.arange(n, dtype=torch.int32, device=dev), big)
+    sel = torch.sort(score).values[:kcap]
+    ids = torch.sort(torch.where(sel < big, sel % n, n)).values
+    ids = torch.where(ids < n, ids, -1).to(torch.int32)
+    if kcap < capacity:
+        ids = torch.cat([ids, ids.new_full((capacity - kcap,), -1)])
+    return ids, mask
 
 
 # ---------------------------------------------------------------------------
@@ -205,9 +256,10 @@ def graph_search(
     x2=None,               # (n,) cached squared norms
     cfg: SearchConfig | None = None,
     qstore: QuantizedStore | None = None,   # cached quantized corpus
-    router=None,           # routed seeds: not ported yet
+    router=None,           # core.router.Router: routed seeds
     filter_ids=None,       # (n,) shared or (q, n) per-query bool mask
     device=None,
+    route_fill=None,       # (t*m,) ids filling routed holes (else drawn)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (dist (q, k_out) f32, idx (q, k_out) i32) ascending; empty
     slots are (+inf, -1).
@@ -217,12 +269,14 @@ def graph_search(
     returned. Without ``entry``, entries are drawn from ``generator`` (on
     ``device``), or from one seeded by the batch's content. With a
     quantized ``cfg.precision``, ``qstore`` is the corpus mirror to score
-    on; one of another mode, or none, is quantized here from ``x``. Runs
+    on; one of another mode, or none, is quantized here from ``x``. With a
+    ``router`` (and no ``entry``), the fused path seeds from it; its holes
+    take ``route_fill`` or a draw from ``generator``. Runs
     on ``device``, "cuda" unless the caller asks otherwise; with no card
     present that raises."""
     if cfg is None:
         cfg = SearchConfig(beam=beam, rounds=rounds)
-    _check_cfg(cfg, router)
+    _check_cfg(cfg)
     device = resolve_device(device, "graph_search")
 
     def on_dev(t, dtype):
@@ -267,7 +321,12 @@ def graph_search(
     if x2 is None:
         x2 = (x * x).sum(dim=1)
     x2 = x2.contiguous()
-    if entry is None:
+    ops_backend = "ref" if cfg.backend == "plain" else "auto"
+    if entry is None and router is not None and cfg.router != "off" \
+            and cfg.backend != "ref" and nq > 0:
+        entry = _routed_entries(router, queries, n, alive, cfg, ops_backend,
+                                route_fill, generator)
+    elif entry is None:
         generator = _generator(generator, queries)
         entry = _draw_entries(generator, n, cfg.beam, alive)
     if filt is not None:
@@ -312,7 +371,6 @@ def graph_search(
         return (torch.zeros((0, k_out), device=device),
                 torch.full((0, k_out), -1, dtype=torch.int32,
                            device=device))
-    ops_backend = "ref" if cfg.backend == "plain" else "auto"
     qb = q_block_bucket(nq, cfg)
     pad = (-nq) % qb
     qp = torch.nn.functional.pad(queries, (0, 0, 0, pad))
@@ -344,6 +402,43 @@ def graph_search(
     out_d = torch.cat(outs_d)[:nq]
     out_i = torch.cat(outs_i)[:nq]
     return _mask_bad_rows(out_d, out_i, bad_rows)
+
+
+def _routed_entries(router, queries, n, alive, cfg, backend, fill,
+                    generator) -> torch.Tensor:
+    """(q, width) routed seeds: the full member lists of each query's top-t
+    centroids (width = t*m, at least beam, at most n; wider probing costs
+    one wider seed tile, never a wider traversal), dead members dropped,
+    holes filled from ``fill`` or a draw of ``width`` live rows."""
+    from repro_torch.core.router import route_entries
+    t = min(cfg.router_t, router.centroids.shape[0])
+    width = min(max(cfg.beam, t * router.members.idx.shape[1]), n)
+    ent = route_entries(router, queries, width, t=cfg.router_t,
+                        backend=backend)
+    if alive is not None:
+        ent = torch.where(
+            (ent >= 0) & alive[ent.clamp(0, n - 1).long()], ent, -1)
+    if fill is None:
+        fill = _draw_entries(_generator(generator, queries), n, width, alive)
+    fill = torch.as_tensor(fill, dtype=torch.int32, device=ent.device)
+    return torch.where(ent >= 0, ent, fill[None, :])
+
+
+def _seed_merge(pool: NeighborLists, ed: torch.Tensor, eids: torch.Tensor,
+                backend: str) -> NeighborLists:
+    """Merge the (qb, e) seeds into the empty pool: one merge, or, where
+    beam + e exceeds the merge kernel's pool, successive merges of slices
+    at most ``MERGE_MAX_POOL - beam`` wide. Both keep the same entries in
+    the same order: a seed pushed out of the pool by a slice is beaten by
+    ``beam`` entries that stay, and a later copy of it sorts after them."""
+    beam = pool.idx.shape[1]
+    step = max(1, MERGE_MAX_POOL - beam)
+    ed = torch.where(eids >= 0, ed, torch.inf)
+    for s in range(0, max(eids.shape[1], 1), step):
+        pool, _ = heap.merge_kernel(
+            pool, ed[:, s:s + step].contiguous(),
+            eids[:, s:s + step].contiguous(), backend=backend)
+    return pool
 
 
 # ---------------------------------------------------------------------------
@@ -426,9 +521,7 @@ def _search_block(
         torch.full((qb, beam), -1, dtype=torch.int32, device=dev),
         torch.zeros((qb, beam), dtype=torch.bool, device=dev),  # unexpanded
     )
-    pool, _ = heap.merge_kernel(
-        pool, torch.where(eids >= 0, ed, torch.inf), eids.contiguous(),
-        backend=backend)
+    pool = _seed_merge(pool, ed, eids, backend)
 
     inf_q = torch.full((qb,), torch.inf, device=dev)
     slot_iota = torch.arange(beam, dtype=torch.int32, device=dev)[None, :]

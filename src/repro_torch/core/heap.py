@@ -147,6 +147,70 @@ def merge_block(
     return nl, upd
 
 
+def merge_rows(
+    nl: NeighborLists, rows: torch.Tensor, cand_dist: torch.Tensor,
+    cand_idx: torch.Tensor, *, backend: str = "auto",
+) -> tuple[NeighborLists, torch.Tensor]:
+    """Frontier merge: (f, c) candidates into list rows ``rows`` (f,) only
+    (-1 = padding; ids unique), through ``ops.knn_merge_rows``. The flag
+    bookkeeping runs on the gathered (f, k) sub-lists, so it costs O(f).
+    Returns (lists, (f,) accepted counts)."""
+    ok = rows >= 0
+    safe = torch.where(ok, rows, 0).long()
+    old = NeighborLists(nl.dist[safe], nl.idx[safe], nl.new[safe])
+    new_dist, new_idx, upd = ops.knn_merge_rows(
+        nl.dist, nl.idx, rows.to(torch.int32).contiguous(),
+        cand_dist.contiguous(), cand_idx.to(torch.int32).contiguous(),
+        backend=backend)
+    sub_i = new_idx[safe]
+    was_old = (sub_i[:, :, None] == old.idx[:, None, :]).any(-1)
+    flag = torch.where(was_old, _lookup_flags(old, sub_i), True) \
+        & (sub_i >= 0)
+    return NeighborLists(new_dist, new_idx,
+                         ref.set_rows(nl.new, rows, flag)), upd
+
+
+def purge_rows(
+    nl: NeighborLists, rows: torch.Tensor, alive: torch.Tensor, *,
+    backend: str = "auto",
+) -> tuple[NeighborLists, torch.Tensor]:
+    """Frontier purge: drop dead-target edges from list rows ``rows`` only,
+    and empty the lists of rows that are dead themselves, through
+    ``ops.knn_compact_rows``. Survivors stay sorted and packed; freed
+    slots become (inf, -1, False). Returns (lists, (f,) removed counts)."""
+    n = alive.shape[0]
+    ok = rows >= 0
+    safe = torch.where(ok, rows, 0).long()
+    sub_i = nl.idx[safe]
+    valid = sub_i >= 0
+    drop = valid & ~alive[sub_i.clamp(0, n - 1).long()]
+    drop |= valid & ~alive[safe][:, None]            # dead row: clear it
+    new_dist, new_idx, removed = ops.knn_compact_rows(
+        nl.dist, nl.idx, rows.to(torch.int32).contiguous(),
+        drop.contiguous(), backend=backend)
+    sub_new = new_idx[safe]
+    flag = _lookup_flags(NeighborLists(nl.dist[safe], sub_i, nl.new[safe]),
+                         sub_new) & (sub_new >= 0)
+    return NeighborLists(new_dist, new_idx,
+                         ref.set_rows(nl.new, rows, flag)), removed
+
+
+def purge(
+    nl: NeighborLists, alive: torch.Tensor, *, backend: str = "auto"
+) -> tuple[NeighborLists, torch.Tensor]:
+    """Remove every edge that points at a dead row (``alive[idx]`` False),
+    through ``ops.knn_compact``. Survivors stay sorted and packed; freed
+    slots become (inf, -1, False). Returns (lists, (n,) removed counts)."""
+    n = alive.shape[0]
+    valid = nl.idx >= 0
+    drop = valid & ~alive[nl.idx.clamp(0, n - 1).long()]
+    new_dist, new_idx, removed = ops.knn_compact(
+        nl.dist.contiguous(), nl.idx.contiguous(), drop.contiguous(),
+        backend=backend)
+    flag = _lookup_flags(nl, new_idx) & (new_idx >= 0)
+    return NeighborLists(new_dist, new_idx, flag), removed
+
+
 def mark_sampled_old(nl: NeighborLists,
                      sampled_mask: torch.Tensor) -> NeighborLists:
     """Clear the 'new' flag of forward slots sampled this round."""

@@ -24,8 +24,9 @@ through the ``knn_join_dists_q8`` / ``_bf16`` kernels; then
 (``knn_search_dists``) and the fp32 polish rounds finish, so the graph
 returned never carries a quantized distance.
 
-Not ported yet (ROADMAP.md, Queue 1): the lexsort ``backend="ref"`` path
-and ``heap``/``naive`` selection. ``backend="plain"`` runs the fused path
+Not ported yet (ROADMAP.md, Queue 1): the lexsort ``backend="ref"`` build
+path (its grouping step, ``compact_pairs``, is ported: the router and the
+online store use it) and ``heap``/``naive`` selection. ``backend="plain"`` runs the fused path
 through the kernels' plain versions on any device (a reference build on
 the card).
 """
@@ -120,6 +121,33 @@ def _ops_backend(cfg: DescentConfig) -> str:
             f"selection={cfg.selection!r} is not ported yet (ROADMAP.md, "
             "Queue 1)")
     return "ref" if cfg.backend == "plain" else "auto"
+
+
+def compact_pairs(
+    recv: torch.Tensor, cand: torch.Tensor, dist: torch.Tensor, n: int,
+    c: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Group flat (receiver, candidate, dist) updates into (n, c) buffers
+    holding each receiver's c smallest distances, ascending, ties by input
+    position; receivers < 0 are dropped, empty slots are (+inf, -1).
+    Returns (dist (n, c) f32, idx (n, c) i32). The router's member lists
+    and the orphan reconnection use it (their per-receiver in-degree is
+    unbounded, so a bounded incidence buffer could drop the closest)."""
+    dev = recv.device
+    key_recv = torch.where(recv >= 0, recv, n)
+    order = selection.lexsort_order(dist, key_recv)
+    recv_s = key_recv[order]
+    first = torch.searchsorted(
+        recv_s, torch.arange(n + 1, dtype=recv_s.dtype, device=dev))
+    pos = torch.arange(recv_s.shape[0], device=dev) \
+        - first[recv_s.clamp(0, n).long()]
+    keep = (recv_s < n) & (pos < c)          # JAX's mode="drop" writes
+    out_i = torch.full((n, c), -1, dtype=torch.int32, device=dev)
+    out_d = torch.full((n, c), torch.inf, dtype=torch.float32, device=dev)
+    tgt = (recv_s[keep].long(), pos[keep])
+    out_i[tgt] = cand[order][keep].to(torch.int32)
+    out_d[tgt] = dist[order][keep].to(torch.float32)
+    return out_d, out_i
 
 
 def invert_candidates(

@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("knn_join_dists", "knn_join_select", "knn_merge",
            "pairwise_sq_l2", "knn_search_dists",
            "knn_search_dists_q8", "knn_search_dists_bf16",
-           "knn_join_dists_q8", "knn_join_dists_bf16")
+           "knn_join_dists_q8", "knn_join_dists_bf16",
+           "knn_compact", "knn_merge_rows", "knn_compact_rows")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P = ctypes.c_void_p
@@ -61,6 +62,13 @@ _SIGNATURES = {
     # data, x2, ids, od, ev, N, n, C, w, cn, stream
     "knn_join_dists_bf16_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _P],
+    # cd, ci, drop, od, oi, removed, n, k, stream
+    "knn_compact_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # cd, ci, rows, qd, qi, od, oi, upd, n, f, k, c, stream
+    "knn_merge_rows_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _P],
+    # cd, ci, rows, drop, od, oi, removed, n, f, k, stream
+    "knn_compact_rows_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,4 +1,5 @@
-// The NN-Descent build's three kernels for Hopper (sm_90a), fp32 CUDA C++.
+// The NN-Descent build's three kernels, and the online store's compaction
+// and row forms, for Hopper (sm_90a), fp32 CUDA C++.
 //
 // Built by kernels/_lib.py, together with search_kernels.cu, into one
 // shared library with a plain C interface, loaded with ctypes:
@@ -218,62 +219,55 @@ __global__ void __launch_bounds__(kSelectThreads) knn_join_select_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// knn_merge: replaces knn_merge_blocked / _merge_kernel
-// (src/repro/kernels/knn_merge.py:30,156).
+// The list kernels: knn_merge and knn_compact, each dense and in a row form.
 //
-// Per row: drop candidates with id < 0, already in the list, or repeating
-// an earlier candidate; then k rounds of argmin over [current k |
-// candidates c], ties to the lowest pool position; count the candidate
-// picks below the FLT_MAX sentinel. Sentinel slots come out (+inf, -1).
-// Bound: bytes. It reads and writes 8 bytes per list and candidate entry;
-// the dedup's k*c + c*c/2 compares are a few dozen per byte at k = 20,
-// c = 60, all on shared memory.
-// Design: one warp per row, its pool staged in shared memory. Each round is
+// knn_merge replaces knn_merge_blocked / _merge_kernel
+// (src/repro/kernels/knn_merge.py:30,156). Per row: drop candidates with
+// id < 0, already in the list, or repeating an earlier candidate; then k
+// rounds of argmin over [current k | candidates c], ties to the lowest pool
+// position; count the candidate picks below the FLT_MAX sentinel. Sentinel
+// slots come out (+inf, -1).
+//
+// knn_compact replaces knn_compact_blocked / _compact_kernel (:72,108), the
+// tombstone purge. Per row: the survivors (not dropped, id >= 0, finite
+// distance, so valid entries at the 3e38 placeholder survive) come out
+// ascending, ties in input order, whatever the order of the input row;
+// freed slots are (+inf, -1); `removed` counts dropped entries with id >= 0.
+//
+// knn_merge_rows / knn_compact_rows replace knn_merge_rows_blocked /
+// knn_compact_rows_blocked (:210,237), the online store's frontier forms:
+// slot s of the (f, .) candidates or drop mask applies to list row
+// rows[s] (-1: padding, count 0, nothing written). The row indirection is
+// in the kernel: it reads row rows[s] of the input lists and writes the
+// same row of the output lists, which the wrapper made as a copy of the
+// input, so no gather or scatter runs around it. Rows must be unique.
+//
+// Bound: bytes. They read and write 8 bytes per list and candidate entry
+// (plus 1 per drop flag); the merge's dedup (k*c + c*c/2 compares) and
+// the extraction rounds run on shared memory.
+// Design: one warp per row stages its pool in shared memory. Each round is
 // a strided scan plus a butterfly shuffle reduction over (dist, position),
 // so every lane ends the round with the same winner and no block barrier
-// is needed; the round loop stops at the first sentinel.
+// is needed; the round loop stops at the first sentinel. The merge and the
+// compaction share this extraction (`extract_rounds`): the merge stages
+// [list | deduped candidates] with FLT_MAX as its sentinel, the compaction
+// stages the row with +inf on every entry that does not survive. The dense
+// and row kernels share `merge_row` / `compact_row`, which take the list
+// row and the slot apart.
 // ---------------------------------------------------------------------------
 
 constexpr int kMergeWarps = 4;
 constexpr int kMergeMaxPool = 1536;      // k + c: 4 warps x 1536 x 8 B = 48 KB
 
-__global__ void __launch_bounds__(kMergeWarps * 32) knn_merge_kernel(
-    const float* __restrict__ cd, const int* __restrict__ ci,
-    const float* __restrict__ qd, const int* __restrict__ qi,
-    float* __restrict__ od, int* __restrict__ oi, int* __restrict__ upd,
-    int n, int k, int c) {
-  extern __shared__ float msm[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kMergeWarps + warp;
-  const int m = k + c;
-  float* pd = msm + (int64_t)warp * 2 * m;
-  int* pi = reinterpret_cast<int*>(pd + m);
-  if (row >= n) return;                  // no block barrier below
-
-  const float* rcd = cd + (int64_t)row * k;
-  const int* rci = ci + (int64_t)row * k;
-  const float* rqd = qd + (int64_t)row * c;
-  const int* rqi = qi + (int64_t)row * c;
-  for (int j = lane; j < k; j += 32) {
-    const float d = rcd[j];
-    pd[j] = fabsf(d) == INFINITY ? FLT_MAX : d;
-    pi[j] = rci[j];
-  }
-  for (int j = lane; j < c; j += 32) pi[k + j] = rqi[j];
-  __syncwarp();
-  for (int j = lane; j < c; j += 32) {
-    const int id = pi[k + j];
-    bool dup = id < 0;
-    for (int q = 0; q < k && !dup; ++q) dup = pi[q] == id;
-    for (int q = 0; q < j && !dup; ++q) dup = pi[k + q] == id;
-    pd[k + j] = dup ? FLT_MAX : rqd[j];
-  }
-  __syncwarp();
-
-  float* rod = od + (int64_t)row * k;
-  int* roi = oi + (int64_t)row * k;
-  int accepted = 0;
+// Rounds of argmin over pd[0, m), ties to the lowest position, until k
+// entries are out or the best is >= stop. Writes them to rod / roi, fills
+// the rest with (+inf, -1), and returns (on every lane) how many of the
+// picks came from positions >= first_cand.
+__device__ __forceinline__ int extract_rounds(float* pd, const int* pi, int m,
+                                              int k, float stop,
+                                              int first_cand, float* rod,
+                                              int* roi, int lane) {
+  int picked = 0;
   int r = 0;
   for (; r < k; ++r) {
     float best = INFINITY;
@@ -293,20 +287,147 @@ __global__ void __launch_bounds__(kMergeWarps * 32) knn_merge_kernel(
         bpos = op;
       }
     }
-    if (best >= FLT_MAX) break;          // only sentinels are left
+    if (best >= stop) break;             // only sentinels are left
     if (lane == 0) {
       rod[r] = best;
       roi[r] = pi[bpos];
       pd[bpos] = INFINITY;               // taken: above every live entry
     }
-    accepted += bpos >= k ? 1 : 0;
+    picked += bpos >= first_cand ? 1 : 0;
     __syncwarp();
   }
   for (int j = r + lane; j < k; j += 32) {
     rod[j] = INFINITY;
     roi[j] = -1;
   }
-  if (lane == 0) upd[row] = accepted;
+  return picked;
+}
+
+// One warp merges candidate slot `slot` into list row `row`.
+__device__ __forceinline__ void merge_row(
+    const float* __restrict__ cd, const int* __restrict__ ci,
+    const float* __restrict__ qd, const int* __restrict__ qi,
+    float* __restrict__ od, int* __restrict__ oi, int* __restrict__ upd,
+    int slot, int row, int k, int c, float* pd, int* pi, int lane) {
+  const int m = k + c;
+  const float* rcd = cd + (int64_t)row * k;
+  const int* rci = ci + (int64_t)row * k;
+  const float* rqd = qd + (int64_t)slot * c;
+  const int* rqi = qi + (int64_t)slot * c;
+  for (int j = lane; j < k; j += 32) {
+    const float d = rcd[j];
+    pd[j] = fabsf(d) == INFINITY ? FLT_MAX : d;
+    pi[j] = rci[j];
+  }
+  for (int j = lane; j < c; j += 32) pi[k + j] = rqi[j];
+  __syncwarp();
+  for (int j = lane; j < c; j += 32) {
+    const int id = pi[k + j];
+    bool dup = id < 0;
+    for (int q = 0; q < k && !dup; ++q) dup = pi[q] == id;
+    for (int q = 0; q < j && !dup; ++q) dup = pi[k + q] == id;
+    pd[k + j] = dup ? FLT_MAX : rqd[j];
+  }
+  __syncwarp();
+  const int accepted =
+      extract_rounds(pd, pi, m, k, FLT_MAX, k, od + (int64_t)row * k,
+                     oi + (int64_t)row * k, lane);
+  if (lane == 0) upd[slot] = accepted;
+}
+
+// One warp compacts list row `row` under drop mask slot `slot`.
+__device__ __forceinline__ void compact_row(
+    const float* __restrict__ cd, const int* __restrict__ ci,
+    const unsigned char* __restrict__ drop, float* __restrict__ od,
+    int* __restrict__ oi, int* __restrict__ removed, int slot, int row, int k,
+    float* pd, int* pi, int lane) {
+  const float* rcd = cd + (int64_t)row * k;
+  const int* rci = ci + (int64_t)row * k;
+  const unsigned char* rdr = drop + (int64_t)slot * k;
+  int rm = 0;
+  for (int j = lane; j < k; j += 32) {
+    const float d = rcd[j];
+    const int id = rci[j];
+    const bool dr = rdr[j] != 0;
+    rm += (dr && id >= 0) ? 1 : 0;
+    pd[j] = (!dr && id >= 0 && isfinite(d)) ? d : INFINITY;
+    pi[j] = id;
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    rm += __shfl_xor_sync(0xffffffffu, rm, off);
+  __syncwarp();
+  extract_rounds(pd, pi, k, k, INFINITY, k, od + (int64_t)row * k,
+                 oi + (int64_t)row * k, lane);
+  if (lane == 0) removed[slot] = rm;
+}
+
+__global__ void __launch_bounds__(kMergeWarps * 32) knn_merge_kernel(
+    const float* __restrict__ cd, const int* __restrict__ ci,
+    const float* __restrict__ qd, const int* __restrict__ qi,
+    float* __restrict__ od, int* __restrict__ oi, int* __restrict__ upd,
+    int n, int k, int c) {
+  extern __shared__ float msm[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kMergeWarps + warp;
+  float* pd = msm + (int64_t)warp * 2 * (k + c);
+  int* pi = reinterpret_cast<int*>(pd + k + c);
+  if (row >= n) return;                  // no block barrier below
+  merge_row(cd, ci, qd, qi, od, oi, upd, row, row, k, c, pd, pi, lane);
+}
+
+__global__ void __launch_bounds__(kMergeWarps * 32) knn_merge_rows_kernel(
+    const float* __restrict__ cd, const int* __restrict__ ci,
+    const int* __restrict__ rows, const float* __restrict__ qd,
+    const int* __restrict__ qi, float* __restrict__ od, int* __restrict__ oi,
+    int* __restrict__ upd, int n, int f, int k, int c) {
+  extern __shared__ float msm[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int slot = blockIdx.x * kMergeWarps + warp;
+  float* pd = msm + (int64_t)warp * 2 * (k + c);
+  int* pi = reinterpret_cast<int*>(pd + k + c);
+  if (slot >= f) return;
+  const int row = rows[slot];
+  if (row < 0 || row >= n) {             // padding: count 0, write nothing
+    if (lane == 0) upd[slot] = 0;
+    return;
+  }
+  merge_row(cd, ci, qd, qi, od, oi, upd, slot, row, k, c, pd, pi, lane);
+}
+
+__global__ void __launch_bounds__(kMergeWarps * 32) knn_compact_kernel(
+    const float* __restrict__ cd, const int* __restrict__ ci,
+    const unsigned char* __restrict__ drop, float* __restrict__ od,
+    int* __restrict__ oi, int* __restrict__ removed, int n, int k) {
+  extern __shared__ float msm[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kMergeWarps + warp;
+  float* pd = msm + (int64_t)warp * 2 * k;
+  int* pi = reinterpret_cast<int*>(pd + k);
+  if (row >= n) return;
+  compact_row(cd, ci, drop, od, oi, removed, row, row, k, pd, pi, lane);
+}
+
+__global__ void __launch_bounds__(kMergeWarps * 32) knn_compact_rows_kernel(
+    const float* __restrict__ cd, const int* __restrict__ ci,
+    const int* __restrict__ rows, const unsigned char* __restrict__ drop,
+    float* __restrict__ od, int* __restrict__ oi, int* __restrict__ removed,
+    int n, int f, int k) {
+  extern __shared__ float msm[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int slot = blockIdx.x * kMergeWarps + warp;
+  float* pd = msm + (int64_t)warp * 2 * k;
+  int* pi = reinterpret_cast<int*>(pd + k);
+  if (slot >= f) return;
+  const int row = rows[slot];
+  if (row < 0 || row >= n) {
+    if (lane == 0) removed[slot] = 0;
+    return;
+  }
+  compact_row(cd, ci, drop, od, oi, removed, slot, row, k, pd, pi, lane);
 }
 
 }  // namespace
@@ -354,6 +475,42 @@ int knn_merge_launch(const float* cd, const int* ci, const float* qd,
   const int blocks = (n + kMergeWarps - 1) / kMergeWarps;
   knn_merge_kernel<<<blocks, kMergeWarps * 32, smem, stream>>>(
       cd, ci, qd, qi, od, oi, upd, n, k, c);
+  return (int)cudaGetLastError();
+}
+
+int knn_merge_rows_launch(const float* cd, const int* ci, const int* rows,
+                          const float* qd, const int* qi, float* od, int* oi,
+                          int* upd, int n, int f, int k, int c,
+                          cudaStream_t stream) {
+  if (f <= 0 || k < 1 || c < 0 || k + c > kMergeMaxPool)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kMergeWarps * (k + c) * 2 * sizeof(float);
+  const int blocks = (f + kMergeWarps - 1) / kMergeWarps;
+  knn_merge_rows_kernel<<<blocks, kMergeWarps * 32, smem, stream>>>(
+      cd, ci, rows, qd, qi, od, oi, upd, n, f, k, c);
+  return (int)cudaGetLastError();
+}
+
+int knn_compact_launch(const float* cd, const int* ci,
+                       const unsigned char* drop, float* od, int* oi,
+                       int* removed, int n, int k, cudaStream_t stream) {
+  if (n <= 0 || k < 1 || k > kMergeMaxPool) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kMergeWarps * k * 2 * sizeof(float);
+  const int blocks = (n + kMergeWarps - 1) / kMergeWarps;
+  knn_compact_kernel<<<blocks, kMergeWarps * 32, smem, stream>>>(
+      cd, ci, drop, od, oi, removed, n, k);
+  return (int)cudaGetLastError();
+}
+
+int knn_compact_rows_launch(const float* cd, const int* ci, const int* rows,
+                            const unsigned char* drop, float* od, int* oi,
+                            int* removed, int n, int f, int k,
+                            cudaStream_t stream) {
+  if (f <= 0 || k < 1 || k > kMergeMaxPool) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kMergeWarps * k * 2 * sizeof(float);
+  const int blocks = (f + kMergeWarps - 1) / kMergeWarps;
+  knn_compact_rows_kernel<<<blocks, kMergeWarps * 32, smem, stream>>>(
+      cd, ci, rows, drop, od, oi, removed, n, f, k);
   return (int)cudaGetLastError();
 }
 

@@ -1,12 +1,23 @@
-"""Wrapper of the bounded neighbor-list merge's CUDA kernel.
+"""Wrappers of the bounded neighbor-list kernels (csrc/knn_kernels.cu).
 
-``knn_merge_cuda`` replaces ``knn_merge_blocked`` (src/repro/kernels/
-knn_merge.py:156, body ``_merge_kernel`` :30). Bound on this card: bytes
-(8 per list and candidate entry in, 8 per list entry out); the dedup's
-compares stay in shared memory. One warp per row stages its pool in shared
-memory and runs k rounds of a strided scan plus a shuffle argmin, stopping
-at the first sentinel. Same checks, allocation, stream and launch count as
-the join wrappers (kernels/knn_join.py).
+* ``knn_merge_cuda`` replaces ``knn_merge_blocked`` (src/repro/kernels/
+  knn_merge.py:156, body ``_merge_kernel`` :30);
+* ``knn_compact_cuda`` replaces ``knn_compact_blocked`` (:108, body
+  ``_compact_kernel`` :72), the tombstone purge;
+* ``knn_merge_rows_cuda`` / ``knn_compact_rows_cuda`` replace
+  ``knn_merge_rows_blocked`` / ``knn_compact_rows_blocked`` (:210, :237),
+  the online store's frontier forms. The kernel reads the listed rows of
+  the full (n, k) lists itself and writes them into a copy of the lists
+  made here (one device copy of (n, k): the store keeps the JAX package's
+  value semantics), so no gather or scatter runs around it. ``rows`` must
+  be unique, as in JAX; that is not checked.
+
+Bound on this card: bytes (8 per list and candidate entry in, 8 per list
+entry out, 1 per drop flag); the dedup's compares stay in shared memory.
+One warp per row stages its pool in shared memory and runs rounds of a
+strided scan plus a shuffle argmin, stopping at the first sentinel. Same
+checks, allocation, stream and launch count as the join wrappers
+(kernels/knn_join.py).
 """
 from __future__ import annotations
 
@@ -49,3 +60,101 @@ def knn_merge_cuda(
     _lib.check(code, "knn_merge")
     _lib.LAUNCHES["knn_merge"] += 1
     return od, oi, upd
+
+
+def _check_lists(cur_dist, cur_idx):
+    dev = cur_dist.device
+    _check(cur_dist, "cur_dist", torch.float32, 2, dev)
+    _check(cur_idx, "cur_idx", torch.int32, 2, dev)
+    if cur_idx.shape != cur_dist.shape:
+        raise ValueError("list shapes disagree")
+    n, k = cur_dist.shape
+    return dev, n, k
+
+
+def _check_rows(rows, dev, f: int) -> None:
+    _check(rows, "rows", torch.int32, 1, dev)
+    if rows.shape[0] != f:
+        raise ValueError("rows and the per-row inputs disagree")
+
+
+def knn_merge_rows_cuda(
+    cur_dist: torch.Tensor, cur_idx: torch.Tensor, rows: torch.Tensor,
+    cand_dist: torch.Tensor, cand_idx: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(n, k) lists, (f,) i32 rows (-1 pad), (f, c) candidates -> (n, k)
+    f32 / i32 copies with the listed rows merged, (f,) i32 accepted."""
+    dev, n, k = _check_lists(cur_dist, cur_idx)
+    _check(cand_dist, "cand_dist", torch.float32, 2, dev)
+    _check(cand_idx, "cand_idx", torch.int32, 2, dev)
+    f, c = cand_dist.shape
+    _check_rows(rows, dev, f)
+    if cand_idx.shape != (f, c):
+        raise ValueError("candidate shapes disagree")
+    if k < 1 or k + c > MERGE_MAX_POOL:
+        raise ValueError(f"need 1 <= k and k + c <= {MERGE_MAX_POOL}; "
+                         f"got k={k}, c={c}")
+    od, oi = cur_dist.clone(), cur_idx.clone()
+    upd = torch.zeros((f,), dtype=torch.int32, device=dev)
+    if f == 0:
+        return od, oi, upd
+    code = _lib.lib().knn_merge_rows_launch(
+        cur_dist.data_ptr(), cur_idx.data_ptr(), rows.data_ptr(),
+        cand_dist.data_ptr(), cand_idx.data_ptr(), od.data_ptr(),
+        oi.data_ptr(), upd.data_ptr(), n, f, k, c,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _lib.check(code, "knn_merge_rows")
+    _lib.LAUNCHES["knn_merge_rows"] += 1
+    return od, oi, upd
+
+
+def knn_compact_cuda(
+    cur_dist: torch.Tensor, cur_idx: torch.Tensor, drop: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(n, k) f32 / i32 lists, (n, k) bool drop mask -> (n, k) f32, (n, k)
+    i32, (n,) i32 removed counts."""
+    dev, n, k = _check_lists(cur_dist, cur_idx)
+    _check(drop, "drop", torch.bool, 2, dev)
+    if drop.shape != (n, k):
+        raise ValueError("drop and list shapes disagree")
+    if k > MERGE_MAX_POOL:
+        raise ValueError(f"need k <= {MERGE_MAX_POOL}; got k={k}")
+    od = torch.empty((n, k), dtype=torch.float32, device=dev)
+    oi = torch.empty((n, k), dtype=torch.int32, device=dev)
+    removed = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0 or k == 0:
+        return od, oi, removed.zero_()
+    code = _lib.lib().knn_compact_launch(
+        cur_dist.data_ptr(), cur_idx.data_ptr(), drop.data_ptr(),
+        od.data_ptr(), oi.data_ptr(), removed.data_ptr(), n, k,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _lib.check(code, "knn_compact")
+    _lib.LAUNCHES["knn_compact"] += 1
+    return od, oi, removed
+
+
+def knn_compact_rows_cuda(
+    cur_dist: torch.Tensor, cur_idx: torch.Tensor, rows: torch.Tensor,
+    drop: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(n, k) lists, (f,) i32 rows (-1 pad), (f, k) bool drop mask -> (n,
+    k) f32 / i32 copies with the listed rows compacted, (f,) i32 removed."""
+    dev, n, k = _check_lists(cur_dist, cur_idx)
+    _check(drop, "drop", torch.bool, 2, dev)
+    f = drop.shape[0]
+    _check_rows(rows, dev, f)
+    if drop.shape[1] != k:
+        raise ValueError("drop and list shapes disagree")
+    if k > MERGE_MAX_POOL:
+        raise ValueError(f"need k <= {MERGE_MAX_POOL}; got k={k}")
+    od, oi = cur_dist.clone(), cur_idx.clone()
+    removed = torch.zeros((f,), dtype=torch.int32, device=dev)
+    if f == 0 or k == 0:
+        return od, oi, removed
+    code = _lib.lib().knn_compact_rows_launch(
+        cur_dist.data_ptr(), cur_idx.data_ptr(), rows.data_ptr(),
+        drop.data_ptr(), od.data_ptr(), oi.data_ptr(), removed.data_ptr(),
+        n, f, k, torch.cuda.current_stream(dev).cuda_stream)
+    _lib.check(code, "knn_compact_rows")
+    _lib.LAUNCHES["knn_compact_rows"] += 1
+    return od, oi, removed

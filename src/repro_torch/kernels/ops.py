@@ -15,7 +15,12 @@ from repro_torch.kernels.knn_join import (
     knn_join_dists_cuda,
     knn_join_select_cuda,
 )
-from repro_torch.kernels.knn_merge import knn_merge_cuda
+from repro_torch.kernels.knn_merge import (
+    knn_compact_cuda,
+    knn_compact_rows_cuda,
+    knn_merge_cuda,
+    knn_merge_rows_cuda,
+)
 from repro_torch.kernels.knn_search import knn_search_dists_cuda
 from repro_torch.kernels.l2_blocked import pairwise_sq_l2_cuda
 from repro_torch.kernels.l2_quant import (
@@ -58,11 +63,48 @@ def knn_merge(cur_dist, cur_idx, cand_dist, cand_idx, *,
     return knn_merge_cuda(cur_dist, cur_idx, cand_dist, cand_idx)
 
 
+def knn_merge_rows(cur_dist, cur_idx, rows, cand_dist, cand_idx, *,
+                   backend: str = "auto"):
+    """Merge (f, c) candidates into list rows ``rows`` (f,) (-1 = padding)
+    -> full (n, k) copies of the lists, (f,) accepted (0 on padding)."""
+    if _plain(cur_dist, backend):
+        return ref.knn_merge_rows(cur_dist, cur_idx, rows, cand_dist,
+                                  cand_idx)
+    return knn_merge_rows_cuda(cur_dist, cur_idx, rows, cand_dist, cand_idx)
+
+
+def knn_compact(cur_dist, cur_idx, drop, *, backend: str = "auto"):
+    """Drop the (n, k) masked entries; survivors packed ascending, freed
+    slots (+inf, -1) -> (dist, idx, removed (n,))."""
+    if _plain(cur_dist, backend):
+        return ref.knn_compact(cur_dist, cur_idx, drop)
+    return knn_compact_cuda(cur_dist, cur_idx, drop)
+
+
+def knn_compact_rows(cur_dist, cur_idx, rows, drop, *, backend: str = "auto"):
+    """``knn_compact`` of list rows ``rows`` (f,) under the (f, k) mask ->
+    full (n, k) copies of the lists, (f,) removed (0 on padding)."""
+    if _plain(cur_dist, backend):
+        return ref.knn_compact_rows(cur_dist, cur_idx, rows, drop)
+    return knn_compact_rows_cuda(cur_dist, cur_idx, rows, drop)
+
+
 def pairwise_sq_l2(a, b, *, backend: str = "auto"):
     """(M, D) x (N, D) -> (M, N) squared l2, clamped at 0."""
     if _plain(a, backend):
         return ref.pairwise_sq_l2(a, b)
     return pairwise_sq_l2_cuda(a, b)
+
+
+def centroid_assign(q, q2, cent, c2, *, t: int = 1, backend: str = "auto"):
+    """Top-``t`` nearest centroids per row: (m, dp) x (c, dp) -> (dist (m,
+    t) ascending, idx (m, t) i32), ties to the lowest centroid id. The
+    tile is the ``pairwise_sq_l2`` kernel (its plain version for CPU
+    tensors, which takes the cached norms); the top-t is a stable sort."""
+    if _plain(q, backend):
+        return ref.centroid_assign(q, q2, cent, c2, t)
+    return ref.top_t(pairwise_sq_l2_cuda(q.contiguous(), cent.contiguous()),
+                     t)
 
 
 def knn_search_dists(q, q2, x, x2, ids, *, backend: str = "auto"):

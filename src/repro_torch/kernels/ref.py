@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's nine kernels.
+"""Plain PyTorch versions of the port's twelve kernels.
 
 Each function computes exactly what its CUDA kernel in ``csrc/*.cu``
 computes. The CPU tests hold them against the JAX package's oracles, and
@@ -105,6 +105,93 @@ def knn_merge(
     keep = d < BIG
     accepted = ((pos >= k) & keep).sum(dim=1).to(torch.int32)
     return torch.where(keep, d, torch.inf), torch.where(keep, i, -1), accepted
+
+
+def knn_compact(
+    cur_dist: torch.Tensor,   # (n, k) f32, +inf = empty (any order)
+    cur_idx: torch.Tensor,    # (n, k) i32, -1 = empty
+    drop: torch.Tensor,       # (n, k) bool: entries to remove
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Drop masked entries: the survivors (not dropped, id >= 0, finite
+    distance; valid entries at the 3e38 placeholder survive) packed to the
+    front ascending, ties in input order, freed slots (+inf, -1). Returns
+    (dist, idx, removed (n,) i32 — dropped entries with id >= 0)."""
+    valid = cur_idx >= 0
+    removed = (drop & valid).sum(dim=1).to(torch.int32)
+    keep = ~drop & valid & torch.isfinite(cur_dist)
+    d, order = torch.sort(torch.where(keep, cur_dist, torch.inf), dim=1,
+                          stable=True)
+    i = torch.gather(cur_idx, 1, order)
+    fin = torch.isfinite(d)
+    return d, torch.where(fin, i, -1), removed
+
+
+def set_rows(t: torch.Tensor, rows: torch.Tensor,
+             sub: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` with row ``rows[j]`` set to ``sub[j]``; slots with
+    rows[j] < 0 write nothing (they land in a spare row that is cut off:
+    JAX's mode="drop" scatter, with no host sync)."""
+    n = t.shape[0]
+    out = torch.cat([t, t[:1]])
+    out[torch.where(rows >= 0, rows, n).long()] = sub
+    return out[:n]
+
+
+def _row_form(cur_dist, cur_idx, rows, fn, *args):
+    """Apply ``fn`` to the listed rows (-1 = padding; unique ids) of a copy
+    of the (n, k) lists; (dist, idx, per-slot count, 0 on padding)."""
+    ok = rows >= 0
+    safe = torch.where(ok, rows, 0).long()
+    sd, si, cnt = fn(cur_dist[safe], cur_idx[safe], *args)
+    return (set_rows(cur_dist, rows, sd), set_rows(cur_idx, rows, si),
+            torch.where(ok, cnt, 0))
+
+
+def knn_merge_rows(
+    cur_dist: torch.Tensor,   # (n, k) f32 ascending
+    cur_idx: torch.Tensor,    # (n, k) i32
+    rows: torch.Tensor,       # (f,) i32 unique row ids, -1 = padding
+    cand_dist: torch.Tensor,  # (f, c) f32
+    cand_idx: torch.Tensor,   # (f, c) i32, -1 = invalid
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``knn_merge`` of each frontier slot's candidates into list row
+    ``rows[slot]``. Returns full (n, k) copies (rows not listed unchanged)
+    and the (f,) accepted counts, 0 on padding slots."""
+    return _row_form(cur_dist, cur_idx, rows, knn_merge, cand_dist, cand_idx)
+
+
+def knn_compact_rows(
+    cur_dist: torch.Tensor,   # (n, k) f32, +inf = empty
+    cur_idx: torch.Tensor,    # (n, k) i32, -1 = empty
+    rows: torch.Tensor,       # (f,) i32 unique row ids, -1 = padding
+    drop: torch.Tensor,       # (f, k) bool, frontier-local
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``knn_compact`` of list row ``rows[slot]`` under ``drop[slot]``.
+    Returns full (n, k) copies and the (f,) removed counts, 0 on padding
+    slots."""
+    return _row_form(cur_dist, cur_idx, rows, knn_compact, drop)
+
+
+def centroid_assign(
+    q: torch.Tensor,      # (m, dp) f32 rows
+    q2: torch.Tensor,     # (m,) f32 their squared norms
+    cent: torch.Tensor,   # (c, dp) f32 centroids
+    c2: torch.Tensor,     # (c,) f32 centroid squared norms
+    t: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-``t`` nearest centroids per row from one norm-expansion tile:
+    (dist (m, t) ascending, idx (m, t) i32). A stable sort, so ties go to
+    the lowest centroid id (``torch.topk`` leaves their order open, and a
+    tiny corpus's router repeats centroids)."""
+    d = (q2[:, None] + c2[None, :] - 2.0 * (q @ cent.T)).clamp_min(0.0)
+    return top_t(d, t)
+
+
+def top_t(d: torch.Tensor, t: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``t`` smallest entries of each row of ``d``, ascending, ties to
+    the lowest column: (dist, idx i32)."""
+    dd, ii = torch.sort(d, dim=1, stable=True)
+    return dd[:, :t], ii[:, :t].to(torch.int32)
 
 
 def pairwise_sq_l2(

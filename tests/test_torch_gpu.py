@@ -14,7 +14,8 @@ share, so the error scales with the norms, not the distance). The int8
 tiles bitwise (their cross terms are exact integers and the epilogue keeps
 the plain version's order of operations); the bf16 tiles 1e-4 + 1e-5 *
 (|a|^2 + |b|^2), as the fp32 ones (bf16 products are exact in f32; only
-the order of the sums differs).
+the order of the sums differs). The online store's compaction and row
+kernels bitwise (they only move values).
 """
 import numpy as np
 import pytest
@@ -22,10 +23,15 @@ import torch
 
 from repro_torch import (
     DescentConfig,
+    MutableKNNStore,
+    OnlineConfig,
+    RouterConfig,
     SearchConfig,
     brute_force_knn,
     build_knn_graph,
     graph_search,
+    knn_delete,
+    knn_insert,
     recall_at_k,
 )
 from repro_torch.core import datasets
@@ -371,3 +377,114 @@ def test_quantized_build_and_search_through_kernels(dev, mode):
     assert r["auto"][0] > 0.95, r
     assert abs(r["auto"][0] - r["plain"][0]) <= 0.01, r
     assert abs(r["auto"][1] - r["plain"][1]) <= 0.01, r
+
+
+# ---------------------------------------------------------------------------
+# the online store's kernels: compaction and the frontier row forms
+# ---------------------------------------------------------------------------
+
+def _lists(rng, n, k, hi, sort=True):
+    d = rng.rand(n, k).astype(np.float32)
+    if sort:
+        d = np.sort(d, axis=1)
+    i = rng.randint(-1, hi, size=(n, k)).astype(np.int32)
+    d[1, k // 2:] = np.inf
+    i[1, k // 2:] = -1
+    d[2, -1], i[2, -1] = np.float32(3.0e38), 7   # a valid placeholder
+    return d, i
+
+
+@pytest.mark.parametrize("n,k,sort", [
+    (100, 20, True), (37, 8, False), (245, 32, True), (16, 512, False),
+    (3, 1536, True), (2048, 20, True)])
+def test_compact_kernel(dev, n, k, sort):
+    rng = np.random.RandomState(n + k)
+    d, i = _lists(rng, n, k, 5 * n, sort)
+    d[0] = d[0, ::-1].copy()                      # an unsorted row
+    drop = rng.rand(n, k) < 0.3
+    drop[2, -1] = False
+    args = [torch.from_numpy(a).to(dev) for a in (d, i, drop)]
+    got, want, launched = _both(ops.knn_compact, *args)
+    assert launched["knn_compact"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n,k,f,c,pad", [
+    (64, 8, 16, 12, 3), (1000, 20, 256, 40, 17), (50, 20, 8, 1516, 2),
+    (4096, 20, 1024, 400, 100), (30, 4, 5, 0, 1)])
+def test_merge_rows_kernel(dev, n, k, f, c, pad):
+    """Padding slots (count 0, nothing written), rows off the frontier
+    passed through, k + c at the kernel's widest pool."""
+    rng = np.random.RandomState(n + f)
+    d, i = _lists(rng, n, k, 5 * n)
+    rows = np.full((f,), -1, np.int32)
+    rows[pad:] = rng.choice(n, size=f - pad, replace=False)
+    rng.shuffle(rows)
+    cd = (np.round(rng.rand(f, c) * 4) / 4).astype(np.float32)
+    ci = rng.randint(-1, 5 * n, size=(f, c)).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (d, i, rows, cd, ci)]
+    got, want, launched = _both(ops.knn_merge_rows, *args)
+    assert launched["knn_merge_rows"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool((got[2][torch.from_numpy(rows).to(dev) < 0] == 0).all())
+
+
+@pytest.mark.parametrize("n,k,f,pad,sort", [
+    (64, 8, 16, 3, True), (5000, 20, 1024, 40, True), (40, 33, 9, 0, False)])
+def test_compact_rows_kernel(dev, n, k, f, pad, sort):
+    rng = np.random.RandomState(n * k)
+    d, i = _lists(rng, n, k, 5 * n, sort)
+    rows = np.full((f,), -1, np.int32)
+    rows[pad:] = rng.choice(n, size=f - pad, replace=False)
+    drop = rng.rand(f, k) < 0.4
+    args = [torch.from_numpy(a).to(dev) for a in (d, i, rows, drop)]
+    got, want, launched = _both(ops.knn_compact_rows, *args)
+    assert launched["knn_compact_rows"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_online_store_through_kernels(dev):
+    """A small routed store, inserted into and deleted from through the
+    kernels on the card and through the plain versions on the CPU, from
+    the same graph, router sample and entries: the three online kernels
+    launched, no tombstone anywhere, recall within 0.01."""
+    x = datasets.clustered(2304, 16, 8, seed=0, device=dev)
+    _, g, _ = build_knn_graph(x[:2048], k=10, cfg=DescentConfig(
+        k=10, rho=1.0, max_iters=15), device=dev)
+    cfg = OnlineConfig(router=RouterConfig())
+    gen = torch.Generator(device=dev).manual_seed(5)
+    weights = torch.rand(2048, generator=gen, device=dev)
+    fills = [torch.randperm(2048 + s, generator=gen, device=dev)[:128]
+             for s in range(0, 256, 128)]
+    dead = torch.arange(0, 2304, 11, device=dev)
+    live = torch.ones(2304, dtype=torch.bool, device=dev)
+    live[dead] = False
+    r = {}
+    for device in (dev, torch.device("cpu")):
+        _lib.reset_launches()
+        xd = x.to(device)
+        store = MutableKNNStore.from_graph(
+            xd[:2048], *(t.to(device) for t in (
+                ((xd[:2048, None] - xd[g.long().to(device)]) ** 2).sum(-1),
+                g)), cfg=cfg, device=device, router_weights=weights)
+        for j, s in enumerate(range(2048, 2304, 128)):
+            store, _ = knn_insert(store, xd[s:s + 128],
+                                  route_fill=fills[j].to(device))
+        store, _ = knn_delete(store, dead.to(device))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            for name in ("knn_merge_rows", "knn_compact_rows",
+                         "knn_compact"):
+                assert _lib.LAUNCHES[name] > 0, _lib.LAUNCHES
+        idx = store.nl.idx[:2304].to(dev)
+        assert not torch.isin(idx[idx >= 0], dead).any()
+        xl = x[live]
+        d = torch.cdist(xl, xl).square()
+        d.fill_diagonal_(torch.inf)
+        truth = torch.nonzero(live)[:, 0][d.topk(10, largest=False).indices]
+        r[device.type] = recall_at_k(idx[live], truth)
+    assert r["cuda"] > 0.9, r
+    assert abs(r["cuda"] - r["cpu"]) <= 0.01, r

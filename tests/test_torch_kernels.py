@@ -27,7 +27,12 @@ from repro_torch.kernels.knn_join import (
     knn_join_dists_cuda,
     knn_join_select_cuda,
 )
-from repro_torch.kernels.knn_merge import knn_merge_cuda
+from repro_torch.kernels.knn_merge import (
+    knn_compact_cuda,
+    knn_compact_rows_cuda,
+    knn_merge_cuda,
+    knn_merge_rows_cuda,
+)
 from repro_torch.kernels.knn_search import knn_search_dists_cuda
 from repro_torch.kernels.l2_blocked import pairwise_sq_l2_cuda
 from repro_torch.kernels.l2_quant import (
@@ -318,6 +323,18 @@ def test_ops_cpu_tensors_take_plain_versions():
     (knn_join_dists_bf16_cuda, lambda: (
         torch.zeros(5, 32, dtype=torch.bfloat16), torch.zeros(5),
         torch.zeros(2, 3, dtype=torch.int32), 1)),
+    (knn_compact_cuda, lambda: (torch.zeros(2, 4),
+                                torch.zeros(2, 4, dtype=torch.int32),
+                                torch.zeros(2, 4, dtype=torch.bool))),
+    (knn_merge_rows_cuda, lambda: (torch.zeros(6, 4),
+                                   torch.zeros(6, 4, dtype=torch.int32),
+                                   torch.tensor([3, -1], dtype=torch.int32),
+                                   torch.zeros(2, 3),
+                                   torch.zeros(2, 3, dtype=torch.int32))),
+    (knn_compact_rows_cuda, lambda: (torch.zeros(6, 4),
+                                     torch.zeros(6, 4, dtype=torch.int32),
+                                     torch.tensor([3, -1], dtype=torch.int32),
+                                     torch.zeros(2, 4, dtype=torch.bool))),
 ])
 def test_cuda_wrappers_refuse_cpu_tensors(wrapper, args):
     """A wrapper launches its kernel or raises; it never computes the
@@ -350,6 +367,12 @@ def test_ptxas_report_parsing():
                              "PKfS3_PKiPfPiiiii",
         "knn_join_dists_bf16": "_ZN12_GLOBAL__N_126knn_join_dists_bf16_kernel"
                                "EPKjPKfPKiPfPiiiii",
+        "knn_compact": "_ZN12_GLOBAL__N_118knn_compact_kernelEPKfPKiPKhPfPiS7_"
+                       "ii",
+        "knn_merge_rows": "_ZN12_GLOBAL__N_121knn_merge_rows_kernelEPKfPKiS3_"
+                          "S1_S3_PfPiS5_iiii",
+        "knn_compact_rows": "_ZN12_GLOBAL__N_123knn_compact_rows_kernelEPKfPKi"
+                            "S3_PKhPfPiS7_iii",
     }
     assert set(mangled) == set(_lib.KERNELS)
     log = ""

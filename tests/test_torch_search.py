@@ -367,7 +367,7 @@ def test_search_and_truth_default_to_the_card(seeded512):
 
 @pytest.mark.parametrize("kw,match", [
     ({"cfg": SearchConfig(precision="fp8")}, "unknown quantization mode"),
-    ({"router": object()}, "Queue 1 item 10"),
+    ({"cfg": SearchConfig(backend="interpret")}, "unknown backend"),
     ({"cfg": SearchConfig(backend="pallas")}, "unknown backend"),
 ])
 def test_unported_search_options_raise(seeded512, kw, match):
