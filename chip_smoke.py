@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the port (repro_torch) on one CUDA card and check it: the build
 (build_knn_graph), its exact truth (brute_force_knn), the query path
-(graph_search), the two-stage int8 / bf16 build and search, and the online
-store (insert, delete, the router). Run from
+(graph_search), the two-stage int8 / bf16 build and search, the online
+store (insert, delete, the router), and the LM serving path (yi-6b
+prefill, decode, continuous batching and kNN-LM retrieval). Run from
 the root of a checkout, on a machine with an H100:
 
     python3 chip_smoke.py
 
-Phases, each printed as one JSON line:
+Phases, each printed as one JSON line with ``t_s``, the seconds since the
+script started:
   device       the card (nvidia-smi name and power limit), torch and CUDA
                versions; the capability must be (9, 0);
   build_lib    nvcc builds src/repro_torch/kernels/csrc/*.cu (one nvcc per
@@ -54,6 +56,14 @@ Phases, each printed as one JSON line:
                then the JAX router test's shape (64 clusters x 784 rows at
                d 16, per-cluster exact graphs) through the kernels: routed
                seeds reach recall@10 >= 0.85, random entries < 0.75;
+  attention_check
+               ops.attention through the kernel against its plain version
+               (backend "ref") on the card, f32 and bf16, in every mode
+               (causal, window 64, softcap 20, non-causal, encoder with a
+               window, GQA 8/2 and 32/4, q_offset, one decode row, ragged
+               Lq / Lk, Dv != Dq, rows that see no key): max error within
+               2e-3 at f32 and rtol 1e-2 / atol 2e-3 at bf16 on rows that
+               see a key, exactly 0 on rows that see none;
   online       path 8: MutableKNNStore.build on rows [0, 60000) (k 20,
                rho 1.0, 15 iterations, routed), knn_insert of rows [60000,
                70000) in 20 batches of 500 (capacity 65536 -> 131072),
@@ -63,14 +73,43 @@ Phases, each printed as one JSON line:
                rows, peak memory, recall@20 of the live lists against an
                exact k-NN and against a from-scratch build of the 63000
                live rows, search recall@10 against brute_force_knn;
-  profile      every path but truth once more under torch.profiler:
-               device time by kernel name and the device's idle share;
+  lm_check     yi-6b at full width (32 layers, d 4096, 32/4 heads, d_ff
+               11008, vocab 64000), weights drawn from the seed, matrices
+               in bf16: a ragged 1537-token prompt's prefill logits and 4
+               teacher-forced decode steps through the kernel and through
+               the plain chunked attention, within 2e-2 of the logit scale
+               of each other (tests/test_serve.py:53's bf16 limit), and the
+               decode steps within 3e-2 of a forward over the longer
+               prompt; flash_attention launched once per layer;
+  lm_serve     path 9: repro_torch.launch.serve.serve_requests on that
+               model: 4 slots, max_len 4096, 8 requests with prompt lengths
+               drawn from the seed in [1000, 2048], 32 new tokens each:
+               wall time, prefill seconds and time to first token per
+               request, decode tokens per second, peak memory;
+               flash_attention launched exactly 32 x 8 times (decode never
+               launches it);
+  knn_lm       path 10: examples/knn_serve.py steps 2-4 at full width: the
+               hidden states (run_stack) of 16 seeded 2048-token sequences
+               as keys (32752 x 4096), KNNDatastore.build(k=16),
+               knn_logits of the 2048 hidden-state queries of a 17th
+               sequence with seeded shared entries, interpolate: build and
+               search seconds, recall@8 against brute_force_knn through
+               the kernels and through the plain versions on the same
+               graph and entries (within 0.01), mean log-likelihood at
+               lambda 0 and 0.25;
+  profile      every path but truth once more under torch.profiler (and
+               a window of lm_serve: its first 4 requests, 8 new tokens
+               each): device time by kernel name and the device's idle
+               share;
   kernels      each kernel on the inputs a path gave it (recorded during
                that run), against its plain version: max error, kernel /
                plain / library times, the card's lower bound (and, for the
-               online store's row forms, the time of their (n, k) copy).
+               online store's row forms, the time of their (n, k) copy);
+               flash_attention on the inputs the lm_serve prefill gave it,
+               with scaled_dot_product_attention as its library row.
 Every path is driven with all launch counts set to 0 just before it and
-read just after; each kernel of the path must have launched. Then the line
+read just after; each kernel of the path must have launched. The 24 GB
+model is freed before the kernels phase. Then the line
 {"kernels": [...]} and, last, {"ok": true, "device": ...}. Any failure
 raises, and the script exits non-zero. With no CUDA card, or without the
 repository's src/ beside it, it exits 2 and prints no result.
@@ -86,6 +125,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T0 = time.perf_counter()
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -104,6 +144,7 @@ REPLACES = {
     "knn_compact": "src/repro/kernels/knn_merge.py:108",
     "knn_merge_rows": "src/repro/kernels/knn_merge.py:210",
     "knn_compact_rows": "src/repro/kernels/knn_merge.py:237",
+    "flash_attention": "src/repro/kernels/flash_attention.py:86",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
@@ -119,6 +160,7 @@ SOURCES = {
     "knn_compact": CSRC + "knn_kernels.cu",
     "knn_merge_rows": CSRC + "knn_kernels.cu",
     "knn_compact_rows": CSRC + "knn_kernels.cu",
+    "flash_attention": CSRC + "attention_kernels.cu",
 }
 # the path that owns each kernel of the quantized paths and of the online
 # path; those paths check only their own kernels (the others were checked
@@ -131,17 +173,48 @@ QUANT_OWNER = {
 ONLINE_KERNELS = ("knn_compact", "knn_merge_rows", "knn_compact_rows")
 OWNED = {path: name for name, path in QUANT_OWNER.items()}
 CHECKED = {**{path: {name} for path, name in OWNED.items()},
-           "online": set(ONLINE_KERNELS)}
+           "online": set(ONLINE_KERNELS), "lm_serve": {"flash_attention"}}
 PRECISIONS = ("int8", "bf16")
 N, CHECK_N, SEED = 70_000, 16_000, 0   # the main path's and the check's n
 N_QUERIES, CHECK_QUERIES = 10_000, 2048
 N_BASE, INSERT_BATCH, N_DELETE, DELETE_BATCH = 60_000, 500, 7000, 1000
 CHECK_BASE, CHECK_BATCH = 14_400, 400     # online_check: 1600 in, 1600 out
 TRUTH_CHUNK = 4096      # brute force: a 4096 x 70000 f32 tile is 1.15 GB
+LM_ARCH = "yi-6b"
+LM_CHECK_LEN, LM_CHECK_STEPS = 1537, 4     # lm_check: ragged prompt
+LM_LIMIT, LM_DECODE_LIMIT = 2e-2, 3e-2      # tests/test_serve.py:53, :84
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_MAX_NEW = 4, 4096, 8, 32
+LM_PROMPT_LENS = (1000, 2048)               # drawn from the seed, inclusive
+LM_PROFILE_NEW = 8                          # the profiled window: one wave
+KNN_SEQS, KNN_SEQ_LEN, KNN_K, KNN_BATCH = 16, 2048, 16, 4
+ATTN_F32_TOL = (2e-3, 2e-3)     # (rtol, atol): tests/test_kernels.py:122-137
+ATTN_BF16_TOL = (1e-2, 2e-3)    # + one bf16 rounding of the output (2^-7)
+# (Lq, Lk, H, Hkv, Dq, Dv, keyword arguments of ops.attention)
+ATTN_MODES = {
+    "causal_gqa_32_4": (1000, 1000, 32, 4, 128, 128, dict(causal=True)),
+    "window_64": (1000, 1000, 8, 2, 128, 128, dict(causal=True, window=64)),
+    "softcap_20": (512, 512, 8, 2, 128, 128,
+                   dict(causal=True, softcap=20.0)),
+    "noncausal": (333, 515, 8, 2, 64, 64, dict(causal=False)),
+    "encoder_window": (600, 600, 8, 2, 64, 64,
+                       dict(causal=False, window=64)),
+    "gqa_8_2": (256, 256, 8, 2, 16, 16, dict(causal=True)),
+    "q_offset": (100, 1124, 32, 4, 128, 128,
+                 dict(causal=True, q_offset=1024)),
+    "decode_row": (1, 2049, 32, 4, 128, 128,
+                   dict(causal=True, q_offset=2048)),
+    "ragged": (77, 301, 8, 2, 128, 128,
+               dict(causal=True, q_offset=200, scale=0.05)),
+    "dv_ne_dq": (300, 300, 16, 16, 192, 128, dict(causal=True)),
+    "no_key_rows": (70, 40, 4, 2, 32, 32,
+                    dict(causal=True, window=16, q_offset=20)),
+}
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t_s`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - T0,
+                      **fields}), flush=True)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -226,8 +299,9 @@ class Recorder:
     kernel entry point in ``kernels/ops.py`` (per select width and search
     width) — for the join distances that is the first iteration after the
     reorder, where both candidate pools are full; for the search tile the
-    second round of the first block — and the host time of the greedy
-    reorder. It wraps the module attributes the path calls and restores
+    second round of the first block, for attention (kept as
+    ``flash_attention``, keyword arguments too) the second layer of the
+    first prefill — and the host time of the greedy reorder. It wraps the module attributes the path calls and restores
     them on exit; the wrapped functions are the ones the path would call,
     so each kernel launches as it would. Keys carry the path's tag."""
 
@@ -235,11 +309,12 @@ class Recorder:
              "pairwise_sq_l2", "knn_search_dists", "knn_search_dists_q8",
              "knn_search_dists_bf16", "knn_join_dists_q8",
              "knn_join_dists_bf16", "knn_compact", "knn_merge_rows",
-             "knn_compact_rows")
+             "knn_compact_rows", "attention")
 
     def __init__(self, tag: str):
         self.tag = tag
         self.calls: dict[str, tuple] = {}
+        self.kwargs: dict[str, dict] = {}
         self.seen: dict[str, int] = {}
         self.reorder_s: list[float] = []
 
@@ -262,8 +337,10 @@ class Recorder:
     def _wrap(self, name, fn):
         import torch
 
+        kernel = "flash_attention" if name == "attention" else name
+
         def call(*args, **kw):
-            key = f"{self.tag}:{name}"
+            key = f"{self.tag}:{kernel}"
             if name == "knn_join_select":
                 key += f":W={args[0].shape[1]}:c={args[3]}"
             elif name in ("knn_search_dists", "knn_search_dists_bf16"):
@@ -277,6 +354,7 @@ class Recorder:
                 self.calls[key] = tuple(
                     a.clone() if isinstance(a, torch.Tensor) else a
                     for a in args)
+                self.kwargs[key] = dict(kw)
             return fn(*args, **kw)
         return call
 
@@ -875,6 +953,283 @@ def cluster_router_check(dev) -> dict:
         raise AssertionError(f"online_check router shape failed: {out}")
     return out
 
+def seen_rows(lq: int, lk: int, causal=True, window=None, q_offset=0, **_):
+    """(lq,) bool: the query rows that see at least one key, and the number
+    of visible (q, k) pairs, from positions alone (the kernel's masks)."""
+    import torch
+    qpos = torch.arange(lq)[:, None] + q_offset
+    kpos = torch.arange(lk)[None, :]
+    ok = torch.ones((lq, lk), dtype=torch.bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    return ok.any(dim=1), int(ok.sum())
+
+
+def hold_attention(name, got, want, q, k, kw) -> dict:
+    """The kernel's output against the plain version's on the rows that see
+    a key (rtol / atol by dtype, ATTN_*_TOL), exactly 0 on the rows that see
+    none. Returns the errors and the visible pairs."""
+    import torch
+    seen, pairs = seen_rows(q.shape[1], k.shape[1], **kw)
+    seen = seen.to(got.device)
+    if not torch.equal(got[:, ~seen], torch.zeros_like(got[:, ~seen])):
+        raise AssertionError(f"{name}: a row that sees no key is not 0")
+    rtol, atol = ATTN_F32_TOL if q.dtype == torch.float32 else ATTN_BF16_TOL
+    g, w = got[:, seen].float(), want[:, seen].float()
+    err = (g - w).abs()
+    worst = float((err / (atol + rtol * w.abs())).max()) if err.numel() \
+        else 0.0
+    if not torch.isfinite(g).all() or worst > 1.0:
+        raise AssertionError(f"{name}: error {worst:.3g} x tol")
+    return {"max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "max_err_over_tol": worst, "rtol": rtol, "atol": atol,
+            "rows_without_key": int((~seen).sum()), "pairs": pairs}
+
+
+def attention_check(dev) -> dict:
+    """ops.attention through the kernel against its plain version on the
+    card, in every ATTN_MODES mode at f32 and bf16 (batch 2)."""
+    import torch
+    from repro_torch.kernels import _lib, ops
+    out = {}
+    for mode, (lq, lk, h, hkv, dq, dv, kw) in ATTN_MODES.items():
+        for dt in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            q = torch.randn(2, lq, h, dq, generator=g, device=dev).to(dt)
+            k = torch.randn(2, lk, hkv, dq, generator=g, device=dev).to(dt)
+            v = torch.randn(2, lk, hkv, dv, generator=g, device=dev).to(dt)
+            before = _lib.LAUNCHES["flash_attention"]
+            got = ops.attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if _lib.LAUNCHES["flash_attention"] - before != 1:
+                raise AssertionError(f"attention_check {mode}: no launch")
+            want = ops.attention(q, k, v, backend="ref", **kw)
+            key = f"{mode}:{str(dt).split('.')[-1]}"
+            res = hold_attention(key, got, want, q, k, kw)
+            out[key] = {k_: res[k_] for k_ in (
+                "max_abs_err", "max_err_over_tol", "rows_without_key")}
+    return out
+
+
+def check_attention_kernel(args, kw, reps) -> dict:
+    """The kernel against its plain version on one recorded call; times;
+    the bound (bytes: q, k, v read once, o written once, over 3.35 TB/s;
+    operations: 2 (Dq + Dv) per visible (q, k) pair and head, over the
+    peak of the inputs' type); scaled_dot_product_attention on the same
+    tensors as the library row, where it computes the same function (a
+    causal or full mask from position 0)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    q, k, v = args
+    got = ops.attention(q, k, v, **kw)
+    want = ops.attention(q, k, v, backend="ref", **kw)
+    torch.cuda.synchronize()
+    entry = {"name": "flash_attention",
+             "shape": [list(t.shape) for t in args], "dtype": str(q.dtype),
+             "kwargs": kw}
+    res = hold_attention("flash_attention", got, want, q, k, kw)
+    entry.update(res)
+    entry["tolerance"] = f"rtol {res['rtol']}, atol {res['atol']} on rows " \
+        "that see a key; 0 on rows that see none"
+    b, lq, h, dq = q.shape
+    lk, dv = k.shape[1], v.shape[3]
+    flops = 2 * (dq + dv) * res["pairs"] * b * h
+    nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) \
+        * q.element_size()
+    peak = PEAK_BF16_PER_S if q.dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    entry["ms"] = time_ms(lambda: ops.attention(q, k, v, **kw), reps)
+    entry["plain_ms"] = time_ms(
+        lambda: ops.attention(q, k, v, backend="ref", **kw),
+        max(2, reps // 5))
+    plain_mask = kw.get("window") is None and kw.get("softcap") is None \
+        and kw.get("q_offset", 0) == 0 and (lq == lk or not
+                                            kw.get("causal", True))
+    if plain_mask:
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in args)
+        entry["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=kw.get("causal", True),
+                scale=kw.get("scale"), enable_gqa=True), reps)
+        entry["library_call"] = "F.scaled_dot_product_attention(is_causal, " \
+            "enable_gqa=True) on (B, H, L, D) copies of the same tensors"
+    else:
+        entry["library_ms"] = None
+        entry["library_call"] = "none for this mask"
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    entry["bound_ms"] = max(t_bytes, t_ops)
+    entry["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    entry["bytes"] = nbytes
+    entry["operations"] = flops
+    return entry
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the scale max |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def lm_check(params, cfg, dev) -> dict:
+    """The full-width model's prefill logits of a ragged prompt and 4
+    teacher-forced decode steps, through the kernel and through the plain
+    chunked attention, held against each other; the kernel run's decode
+    steps against a forward over the longer prompt."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.serve import prefill, serve_step
+    n, t = LM_CHECK_LEN, LM_CHECK_STEPS
+    toks = torch.from_numpy(np.random.RandomState(SEED + 9).randint(
+        0, cfg.vocab, size=(1, n + t))).to(dev)
+    runs = {}
+    for backend in ("auto", "ref"):
+        before = _lib.LAUNCHES["flash_attention"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, lengths = prefill(params, {"tokens": toks[:, :n]}, cfg,
+                                         n + t, backend=backend)
+        steps = []
+        for i in range(t):
+            lg, cache = serve_step(params, cache, toks[:, n + i:n + i + 1],
+                                   lengths, cfg)
+            lengths = lengths + 1
+            steps.append(lg)
+        torch.cuda.synchronize()
+        runs[backend] = {
+            "prefill": logits, "decode": torch.stack(steps, dim=1),
+            "seconds": time.perf_counter() - t0,
+            "launches": _lib.LAUNCHES["flash_attention"] - before}
+        del cache
+    full, _, _ = prefill(params, {"tokens": toks}, cfg, n + t)
+    kern, plain = runs["auto"], runs["ref"]
+    out = {
+        "prefill_rel_err": rel_err(kern["prefill"], plain["prefill"]),
+        "decode_rel_err": rel_err(kern["decode"], plain["decode"]),
+        "decode_vs_forward_rel_err": rel_err(kern["decode"],
+                                             full[:, n:n + t]),
+        "logit_scale": float(plain["prefill"].abs().max()),
+        "argmax_agree": float((kern["prefill"].argmax(-1)
+                               == plain["prefill"].argmax(-1))
+                              .float().mean()),
+        "seconds": {"kernel": kern["seconds"], "plain": plain["seconds"]},
+        "launches": {"kernel": kern["launches"], "plain": plain["launches"]},
+        "limits": {"kernel_vs_plain": LM_LIMIT,
+                   "decode_vs_forward": LM_DECODE_LIMIT},
+    }
+    finite = all(torch.isfinite(r[x]).all() for r in runs.values()
+                 for x in ("prefill", "decode"))
+    if (not finite or out["prefill_rel_err"] > LM_LIMIT
+            or out["decode_rel_err"] > LM_LIMIT
+            or out["decode_vs_forward_rel_err"] > LM_DECODE_LIMIT
+            or kern["launches"] != cfg.n_layers or plain["launches"] != 0
+            or tuple(kern["prefill"].shape) != (1, n, cfg.vocab)):
+        raise AssertionError(f"lm_check failed: {out}")
+    return out
+
+
+def lm_prompts(cfg) -> list:
+    import numpy as np
+    rng = np.random.RandomState(SEED + 11)
+    lens = rng.randint(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1,
+                       size=LM_REQUESTS)
+    return [rng.randint(0, cfg.vocab, size=int(n)).astype(np.int32)
+            for n in lens]
+
+
+def check_served(reqs, stats, launches, cfg) -> None:
+    if not all(r.done and len(r.out) == LM_MAX_NEW for r in reqs):
+        raise AssertionError("lm_serve: a request was not served in full")
+    if not all(0 <= t < cfg.vocab for r in reqs for t in r.out):
+        raise AssertionError("lm_serve: a token outside the vocabulary")
+    want = cfg.n_layers * LM_REQUESTS
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"lm_serve: flash_attention launched "
+                             f"{launches['flash_attention']} times, not "
+                             f"{want} (one per layer per prefill)")
+
+
+def knn_lm_run(params, cfg, dev, entry_seed: int):
+    """examples/knn_serve.py steps 2-4 at full width (no training): keys
+    are the hidden states of KNN_SEQS seeded sequences, the datastore's
+    graph is built over them, the 17th sequence's hidden states query it
+    through knn_logits, and the result is interpolated with the LM."""
+    import numpy as np
+    import torch
+    from repro_torch.models import embed_inputs, output_logits, run_stack
+    from repro_torch.serve import KNNDatastore, interpolate, knn_logits
+    toks = torch.from_numpy(np.random.RandomState(SEED + 10).randint(
+        0, cfg.vocab, size=(KNN_SEQS + 1, KNN_SEQ_LEN + 1))).to(dev)
+
+    def hidden(batch):
+        return run_stack(params["stack"],
+                         embed_inputs(params, {"tokens": batch}, cfg), cfg)
+
+    timing = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    keys, vals = [], []
+    for s in range(0, KNN_SEQS, KNN_BATCH):
+        b = toks[s:s + KNN_BATCH, :KNN_SEQ_LEN]
+        h = hidden(b)
+        keys.append(h[:, :-1].reshape(-1, cfg.d_model).float())
+        vals.append(b[:, 1:].reshape(-1))
+    keys, vals = torch.cat(keys), torch.cat(vals)
+    torch.cuda.synchronize()
+    timing["collect_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = KNNDatastore.build(
+        keys, vals, k=KNN_K, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    timing["build_s"] = time.perf_counter() - t0
+    qseq = toks[KNN_SEQS:]
+    h = hidden(qseq)
+    q = h[0, :-1].float()
+    lm_logits = output_logits(params, h[:, :-1], cfg)[0]
+    tgt = qseq[0, 1:].long()
+    entry = torch.randperm(keys.shape[0], device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(entry_seed))[:32].int()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    knl = knn_logits(ds, q, cfg.vocab, k=8, entry=entry)
+    torch.cuda.synchronize()
+    timing["search_s"] = time.perf_counter() - t0
+    rows = torch.arange(tgt.shape[0], device=dev)
+    ll = {}
+    for lam in (0.0, 0.25):
+        mixed = interpolate(lm_logits, knl, lam=lam) if lam \
+            else torch.log_softmax(lm_logits, dim=-1)
+        ll[str(lam)] = float(mixed[rows, tgt].mean())
+    return {"ds": ds, "q": q, "entry": entry, "timing": timing, "ll": ll,
+            "keys": int(keys.shape[0])}
+
+
+def knn_lm_recall(res) -> dict:
+    """Recall@8 of the datastore search (the one knn_logits ran) against
+    brute_force_knn, through the kernels and through the plain versions
+    with the same graph and entries."""
+    from repro_torch import SearchConfig, brute_force_knn, graph_search
+    from repro_torch import recall_at_k
+    ds, q, entry = res["ds"], res["q"], res["entry"]
+    _, truth = brute_force_knn(ds.keys, q, 8, exclude_self=False,
+                               chunk=TRUTH_CHUNK)
+    out = {}
+    for backend in ("auto", "plain"):
+        scfg = SearchConfig(beam=32, rounds=24, backend=backend)
+        _, idx = graph_search(ds.keys, ds.graph_idx, q, k_out=8, cfg=scfg,
+                              entry=entry)
+        out[backend] = recall_at_k(idx, truth)
+    gap = abs(out["auto"] - out["plain"])
+    if gap > 0.01:
+        raise AssertionError(f"knn_lm: recall through the kernels and the "
+                             f"plain versions differ: {out}")
+    return {"recall_at_8": out["auto"], "plain_recall_at_8": out["plain"],
+            "recall_gap": gap}
+
 
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -991,6 +1346,12 @@ def main() -> int:
     emit("online_check", shape="64 clusters x 784 rows, d 16",
          **cluster_router_check(dev))
     del xc
+
+    # -- attention_check: the attention kernel against its plain version
+    emit("attention_check", batch=2,
+         tolerance={"f32": ATTN_F32_TOL, "bf16": ATTN_BF16_TOL,
+                    "rows_without_key": "exactly 0"},
+         modes=attention_check(dev))
 
     # -- build: path 1, the build at the paper's headline shape
     x = datasets.mnist_like(N, 784, seed=SEED, device=dev)
@@ -1184,17 +1545,89 @@ def main() -> int:
         emit("profile", path="search" + suffix, **profile_run(
             lambda: graph_search(x, idx, q, k_out=10, cfg=qscfg)))
     emit("profile", path="online", **profile_run(online_run))
+    del x, idx, q, x2_full, q2_full, dels
+    torch.cuda.empty_cache()
+
+    # -- the LM paths: yi-6b at full width, weights drawn from the seed
+    # (no published weights in the repository), matrices cast to bf16
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import load_params, serve_requests
+    from repro_torch.models import param_count
+    lm_cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = load_params(lm_cfg, dev)
+    torch.cuda.synchronize()
+    emit("lm_model", arch=LM_ARCH, params=param_count(lm_cfg),
+         init_s=time.perf_counter() - t0,
+         memory_allocated=torch.cuda.memory_allocated(),
+         cfg={k: str(v) for k, v in dataclasses.asdict(lm_cfg).items()})
+
+    # -- lm_check: prefill and decode through the kernel vs the plain scan
+    emit("lm_check", arch=LM_ARCH, prompt=LM_CHECK_LEN,
+         steps=LM_CHECK_STEPS, **lm_check(params, lm_cfg, dev))
+
+    # -- lm_serve: path 9, the server at full width
+    prompts = lm_prompts(lm_cfg)
+
+    def lm_serve_run():
+        return serve_requests(params, lm_cfg, prompts, slots=LM_SLOTS,
+                              max_len=LM_MAX_LEN, max_new=LM_MAX_NEW)
+    (reqs, stats), wall, launches["lm_serve"], peak, recs["lm_serve"] = \
+        drive("lm_serve", lm_serve_run)
+    check_served(reqs, stats, launches["lm_serve"], lm_cfg)
+    emit("lm_serve", arch=LM_ARCH, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+         requests=LM_REQUESTS, max_new=LM_MAX_NEW,
+         prompt_lens=[len(p) for p in prompts], wall_s=wall,
+         prefill_s=stats["prefill_s"],
+         prefill_s_mean=statistics.mean(stats["prefill_s"]),
+         ttft_s=stats["ttft_s"],
+         ttft_s_median=statistics.median(stats["ttft_s"]),
+         decode_steps=stats["decode_steps"], decode_s=stats["decode_s"],
+         decode_tokens=stats["decode_tokens"],
+         decode_tokens_per_s=stats["decode_tokens_per_s"],
+         step_ms_mean=1e3 * stats["decode_s"] / stats["decode_steps"],
+         tokens=stats["tokens"], max_memory_allocated=peak,
+         launches=launches["lm_serve"])
+    # a short window of the same server: processing the whole run's
+    # profile (about 100k events) took 150 s of host time
+    emit("profile", path="lm_serve",
+         window=f"{LM_SLOTS} requests, {LM_PROFILE_NEW} new tokens",
+         **profile_run(lambda: serve_requests(
+             params, lm_cfg, prompts[:LM_SLOTS], slots=LM_SLOTS,
+             max_len=LM_MAX_LEN, max_new=LM_PROFILE_NEW)))
+    del reqs, stats
+
+    # -- knn_lm: path 10, kNN-LM retrieval over the port's graph
+    res, wall, launches["knn_lm"], peak, _ = drive(
+        "knn_lm", lambda: knn_lm_run(params, lm_cfg, dev, SEED + 12))
+    require_launched("knn_lm", launches["knn_lm"], (
+        "flash_attention", "knn_join_dists", "knn_join_select", "knn_merge",
+        "knn_search_dists"))
+    emit("knn_lm", arch=LM_ARCH, sequences=KNN_SEQS, seq_len=KNN_SEQ_LEN,
+         keys=res["keys"], d=lm_cfg.d_model, k=KNN_K,
+         queries=int(res["q"].shape[0]), k_out=8, beam=32, rounds=24,
+         wall_s=wall, **res["timing"], build_stats=res["ds"].build_stats,
+         log_likelihood=res["ll"], max_memory_allocated=peak,
+         launches=launches["knn_lm"], **knn_lm_recall(res))
+    del res, params
+    torch.cuda.empty_cache()
 
     # -- kernels: each against its plain version on the recorded inputs
     owner = {"pairwise_sq_l2": "truth", "knn_search_dists": "search",
-             **QUANT_OWNER, **dict.fromkeys(ONLINE_KERNELS, "online")}
+             **QUANT_OWNER, **dict.fromkeys(ONLINE_KERNELS, "online"),
+             "flash_attention": "lm_serve"}
     entries = {}
     calls = {k: c for rec in recs.values() for k, c in rec.calls.items()}
+    kwargs = {k: c for rec in recs.values() for k, c in rec.kwargs.items()}
     for key, call in sorted(calls.items()):
         tag, name = key.split(":")[:2]
         if tag in CHECKED and name not in CHECKED[tag]:
             continue
-        e = check_kernel(name, call, reps=20)
+        if name == "flash_attention":
+            e = check_attention_kernel(call, kwargs[key], reps=20)
+        else:
+            e = check_kernel(name, call, reps=20)
         e.update(route="cuda", source=SOURCES[name],
                  replaces=REPLACES[name], launches=launches[tag][name],
                  path=tag, call=key)

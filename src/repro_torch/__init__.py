@@ -1,7 +1,8 @@
 """repro_torch — the port of ``repro`` to PyTorch and hand-written CUDA
 kernels for Hopper (H100, sm_90a). ``repro`` (JAX) stays the reference.
 
-Public API so far (the build, query, quantized and online slices):
+Public API so far (the build, query, quantized, online and LM serving
+slices):
   * ``repro_torch.build_knn_graph`` / ``repro_torch.core`` — NN-Descent
     with turbosampling, the fused local join, the greedy reorder and the
     terminal polish; ``DescentConfig.precision`` "int8" / "bf16" scores
@@ -19,12 +20,20 @@ Public API so far (the build, query, quantized and online slices):
     refill, both on compacted frontiers; ``RouterConfig`` /
     ``build_router`` / ``route_entries`` / ``ensure_router`` — the
     centroid router that seeds searches;
+  * ``repro_torch.configs`` / ``repro_torch.models`` — the dense GQA LM
+    stack (yi-6b: ``get_config``, ``model_schema``, ``init_tree``,
+    ``params_from_numpy``, ``forward``, ``run_stack``), whose attention
+    runs the hand-written kernel on a card; ``repro_torch.serve`` —
+    ``prefill`` / ``serve_step`` over batched KV caches, the
+    ``ContinuousBatcher`` with lane admission, and kNN-LM retrieval
+    (``KNNDatastore``, ``knn_logits``, ``interpolate``) over the port's
+    graph; ``python -m repro_torch.launch.serve`` — the serving CLI;
   all run on a CUDA device unless asked for the CPU.
-  * ``repro_torch.kernels`` — the twelve kernels (join distances, join
+  * ``repro_torch.kernels`` — the thirteen kernels (join distances, join
     select, merge, pairwise l2, search distances, the int8 and bf16 twins
-    of the join and search distance tiles, and the online store's
-    compaction and frontier row merge / compaction), their plain versions
-    and the dispatch by device.
+    of the join and search distance tiles, the online store's compaction
+    and frontier row merge / compaction, and flash attention), their
+    plain versions and the dispatch by device.
 """
 from repro_torch.core import (
     BuildDraws,
@@ -56,11 +65,26 @@ from repro_torch.core import (
     route_entries,
     store_from_numpy,
 )
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.models import forward, init_tree, model_schema, run_stack
+from repro_torch.serve import (
+    ContinuousBatcher,
+    KNNDatastore,
+    Request,
+    init_cache,
+    interpolate,
+    knn_logits,
+    prefill,
+    serve_step,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "BuildDraws",
+    "ContinuousBatcher",
+    "KNNDatastore",
+    "Request",
     "DescentConfig",
     "DescentStats",
     "MutableKNNStore",
@@ -88,4 +112,15 @@ __all__ = [
     "rerank_lists",
     "route_entries",
     "store_from_numpy",
+    "forward",
+    "get_config",
+    "get_smoke_config",
+    "init_cache",
+    "init_tree",
+    "interpolate",
+    "knn_logits",
+    "model_schema",
+    "prefill",
+    "run_stack",
+    "serve_step",
 ]

@@ -8,8 +8,10 @@
 #   knn_search  — query-time candidate distances (graph search rounds)
 #   l2_quant    — the int8 / bf16 twins of the join and search tiles (the
 #                 scoring stage of the two-stage quantized path)
+#   flash_attention — the LM stack's online-softmax attention (prefill)
 # ops.py = dispatch by device, ref.py = plain PyTorch versions.
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.knn_join import (
     knn_join_dists_cuda,
     knn_join_select_cuda,
@@ -32,6 +34,7 @@ from repro_torch.kernels.l2_quant import (
 __all__ = [
     "ops",
     "ref",
+    "flash_attention_cuda",
     "knn_compact_cuda",
     "knn_compact_rows_cuda",
     "knn_join_dists_cuda",

@@ -34,11 +34,13 @@ KERNELS = ("knn_join_dists", "knn_join_select", "knn_merge",
            "pairwise_sq_l2", "knn_search_dists",
            "knn_search_dists_q8", "knn_search_dists_bf16",
            "knn_join_dists_q8", "knn_join_dists_bf16",
-           "knn_compact", "knn_merge_rows", "knn_compact_rows")
+           "knn_compact", "knn_merge_rows", "knn_compact_rows",
+           "flash_attention")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # x, x2, ids, od, ev, N, n, C, dp, cn, stream
     "knn_join_dists_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -69,6 +71,10 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _P],
     # cd, ci, rows, drop, od, oi, removed, n, f, k, stream
     "knn_compact_rows_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # q, k, v, o, B, Lq, Lk, H, Hkv, Dq, Dv, scale, softcap, causal, window,
+    # q_offset, bf16, stream
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _F, _F, _I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.knn_join import (
     knn_join_dists_cuda,
     knn_join_select_cuda,
@@ -146,3 +147,19 @@ def knn_join_dists_bf16(data, x2, ids, cn: int, *, backend: str = "auto"):
     if _plain(data, backend):
         return ref.knn_join_dists_bf16(data, x2, ids, cn)
     return knn_join_dists_bf16_cuda(data, x2, ids, cn)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int | None = None,
+              softcap: float | None = None, scale: float | None = None,
+              q_offset: int = 0, backend: str = "auto"):
+    """q (B, Lq, H, Dq), k (B, Lk, Hkv, Dq), v (B, Lk, Hkv, Dv) -> (B, Lq,
+    H, Dv) in q's dtype: online-softmax attention, fp32 inside, causal /
+    window / softcap masks from positions (q[0] at ``q_offset``), GQA
+    folded. The kernel writes 0 on rows that see no key; the plain version
+    gives NaN there, as JAX's oracle does."""
+    if _plain(q, backend):
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             softcap=softcap, scale=scale, q_offset=q_offset)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                softcap=softcap, scale=scale,
+                                q_offset=q_offset)

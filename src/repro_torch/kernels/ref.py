@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's twelve kernels.
+"""Plain PyTorch versions of the port's thirteen kernels.
 
 Each function computes exactly what its CUDA kernel in ``csrc/*.cu``
 computes. The CPU tests hold them against the JAX package's oracles, and
@@ -7,6 +7,8 @@ computes. The CPU tests hold them against the JAX package's oracles, and
 asks for ``backend="ref"``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -316,3 +318,45 @@ def knn_join_dists_bf16(
     ok = _join_ok(torch.where(valid, ids, -1), cn)
     out = torch.where(ok, dd.clamp_min(0.0), torch.inf)
     return out, (ok.sum(dim=(1, 2)) // 2).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Attention (the LM stack's kernel)
+# ---------------------------------------------------------------------------
+
+def attention(
+    q: torch.Tensor,             # (B, Lq, H, Dq)
+    k: torch.Tensor,             # (B, Lk, Hkv, Dq)
+    v: torch.Tensor,             # (B, Lk, Hkv, Dv)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Multi-head attention with GQA, sliding window and softcap, in fp32,
+    out in q's dtype (src/repro/kernels/ref.py:350). ``q_offset`` is the
+    absolute position of q[0]; ``scale`` defaults to 1/sqrt(Dq). A row
+    that sees no key comes out NaN (softmax over all -inf), as in JAX;
+    the kernel writes 0 there."""
+    b, lq, h, dq = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    kr = k.repeat_interleave(rep, dim=2)
+    vr = v.repeat_interleave(rep, dim=2)
+    scale = 1.0 / math.sqrt(dq) if scale is None else scale
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    qpos = torch.arange(lq, device=q.device) + q_offset
+    kpos = torch.arange(lk, device=q.device)
+    mask = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    logits = logits.masked_fill(~mask[None, None], -torch.inf)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vr.float())
+    return out.to(q.dtype)

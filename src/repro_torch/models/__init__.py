@@ -1,0 +1,34 @@
+"""The LM stack of the port (src/repro/models): the dense GQA family that
+serving runs; the attention core reaches the hand-written kernel on a
+card."""
+from repro_torch.models.model import (
+    embed_inputs,
+    forward,
+    model_schema,
+    output_logits,
+    param_count,
+)
+from repro_torch.models.params import (
+    ParamDef,
+    bytes_params,
+    cast_matrices,
+    count_params,
+    init_tree,
+    params_from_numpy,
+)
+from repro_torch.models.transformer import run_stack
+
+__all__ = [
+    "ParamDef",
+    "bytes_params",
+    "cast_matrices",
+    "count_params",
+    "embed_inputs",
+    "forward",
+    "init_tree",
+    "model_schema",
+    "output_logits",
+    "param_count",
+    "params_from_numpy",
+    "run_stack",
+]

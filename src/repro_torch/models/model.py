@@ -1,0 +1,72 @@
+"""Top-level LM: embedding, layer stack, final norm, output head
+(src/repro/models/model.py), for the dense token-input family. The audio
+and vision front ends and ``loss_fn`` (training) wait for their slices:
+ROADMAP.md, Queue 1, item 8.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import transformer
+from repro_torch.models.layers import embed_schema, matmul_f32, softcap
+from repro_torch.models.params import ParamDef, count_params
+from repro_torch.models.transformer import apply_norm, norm_schema
+
+
+def model_schema(cfg) -> dict:
+    transformer.check_dense(cfg)
+    dt = cfg.param_dtype
+    s: dict = {
+        "embed": embed_schema(cfg.vocab, cfg.d_model, dt),
+        "stack": transformer.stack_schema_for(cfg),
+        "final_norm": norm_schema(cfg),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = {
+            "w": ParamDef((cfg.vocab, cfg.d_model), ("vocab", "d_model"),
+                          dtype=dt)
+        }
+    return s
+
+
+def embed_inputs(params: dict, batch: dict, cfg) -> torch.Tensor:
+    """Token embedding -> (B, L, d) activations in ``cfg.act_dtype``."""
+    dt = cfg.act_dtype
+    table = params["embed"]["table"]
+    tokens = torch.as_tensor(batch["tokens"], device=table.device).long()
+    x = table.to(dt)[tokens]
+    if cfg.embed_scale is not None:
+        x = x * torch.tensor(cfg.embed_scale, dtype=dt)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * torch.tensor(cfg.embedding_multiplier, dtype=dt)
+    return x
+
+
+def output_logits(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Final norm and the output head -> fp32 logits (products of
+    act-dtype operands, summed in fp32, as JAX's
+    preferred_element_type=float32; a plain bf16 matmul would round the
+    logits to bf16)."""
+    x = apply_norm(params["final_norm"], x, cfg)
+    w = params["embed"]["table"] if cfg.tie_embeddings \
+        else params["lm_head"]["w"]
+    logits = matmul_f32(x, w.to(x.dtype))
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return softcap(logits, cfg.final_softcap)
+
+
+def forward(params: dict, batch: dict, cfg) -> torch.Tensor:
+    """Full-sequence forward -> fp32 logits (B, L, vocab)."""
+    x = embed_inputs(params, batch, cfg)
+    x = transformer.run_stack(params["stack"], x, cfg)
+    return output_logits(params, x, cfg)
+
+
+def loss_fn(params: dict, batch: dict, cfg):
+    raise NotImplementedError("loss_fn (training) is not ported yet: "
+                              "ROADMAP.md, Queue 1, item 8")
+
+
+def param_count(cfg) -> int:
+    return count_params(model_schema(cfg))

@@ -1,0 +1,158 @@
+"""Serving: prefill and single-token decode with batched KV caches
+(src/repro/serve/decode.py), for the dense GQA family.
+
+The cache tree mirrors the parameter stack: {"layers": {"k", "v",
+"kpos"}} with the layer axis in front and batch at axis 1, as in JAX:
+
+  * GQA linear cache  (n_layers, B, max_len, Hkv, Dh) + kpos tags
+  * GQA ring cache    (n_layers, B, window,  Hkv, Dh) — all-local layers
+    store only ``window`` entries, placed at position % window.
+
+``serve_step`` updates the cache IN PLACE and returns it (JAX returns an
+updated copy); per-layer loops over the stacked layers take the place of
+``lax.scan``. The MLA latent and SSM caches wait for their families
+(ROADMAP.md, Queue 1, item 8).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.model import embed_inputs, output_logits
+from repro_torch.models.params import init_tree, tree_map
+from repro_torch.models.transformer import (
+    apply_ffn,
+    apply_norm,
+    check_dense,
+    layer,
+    stack_schema,
+)
+
+
+def _window(cfg) -> int | None:
+    return cfg.window if cfg.layer_pattern == "local" else None
+
+
+def cache_schema(cfg, batch: int, max_len: int) -> dict:
+    check_dense(cfg)
+    return {"layers": stack_schema(
+        attn.gqa_cache_schema(cfg, batch, max_len, window=_window(cfg)),
+        cfg.n_layers)}
+
+
+def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
+    """An empty cache on ``device`` ("cuda" unless the caller asks for
+    another): zeros, and kpos -1 (empty)."""
+    device = resolve_device(device, "init_cache")
+    return init_tree(torch.Generator(device=device).manual_seed(0),
+                     cache_schema(cfg, batch, max_len))
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def _attn_block_decode(p, x, c, lengths, cfg, *, window=None):
+    h = apply_norm(p["norm1"], x, cfg)
+    a, c2 = attn.gqa_decode(p["attn"], h, c, lengths, cfg, window=window)
+    if cfg.post_norms:
+        a = apply_norm(p["norm_post_attn"], a, cfg)
+    x = x + cfg.residual_multiplier * a
+    h = apply_norm(p["norm2"], x, cfg)
+    m = apply_ffn(p["ffn"], h, cfg)
+    if cfg.post_norms:
+        m = apply_norm(p["norm_post_ffn"], m, cfg)
+    return x + cfg.residual_multiplier * m, c2
+
+
+def serve_step(params, cache, tokens, lengths, cfg):
+    """(B, 1) tokens at positions ``lengths`` (B,) -> (logits (B, vocab)
+    fp32, cache), the cache updated in place."""
+    check_dense(cfg)
+    dev = params["embed"]["table"].device
+    lengths = torch.as_tensor(lengths, device=dev)
+    x = embed_inputs(params, {"tokens": tokens}, cfg)
+    stack, layers = params["stack"]["layers"], cache["layers"]
+    window = _window(cfg)
+    for i in range(cfg.n_layers):
+        x, _ = _attn_block_decode(layer(stack, i), x, layer(layers, i),
+                                  lengths, cfg, window=window)
+    return output_logits(params, x, cfg)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# prefill: full-sequence forward that seeds the cache
+# ---------------------------------------------------------------------------
+
+def _seed_gqa(cfg, k, v, max_len, window):
+    """A {k, v, kpos} cache from prefill (B, L, Hkv, Dh) tensors."""
+    b, seq = k.shape[0], k.shape[1]
+    s = min(window, max_len) if window is not None else max_len
+    dt = cfg.cache_dtype
+    dev = k.device
+    kc = torch.zeros((b, s, *k.shape[2:]), dtype=dt, device=dev)
+    vc = torch.zeros((b, s, *v.shape[2:]), dtype=dt, device=dev)
+    kp = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+    if s >= seq:
+        kc[:, :seq] = k.to(dt)
+        vc[:, :seq] = v.to(dt)
+        kp[:, :seq] = torch.arange(seq, dtype=torch.int32, device=dev)
+    else:
+        # ring: keep the last S positions, placed at their slot pos % S
+        pos = torch.arange(seq - s, seq, device=dev)
+        slot = pos % s
+        kc[:, slot] = k[:, seq - s:].to(dt)
+        vc[:, slot] = v[:, seq - s:].to(dt)
+        kp[:, slot] = pos.to(torch.int32)
+    return {"k": kc, "v": vc, "kpos": kp}
+
+
+def _attn_block_prefill(p, x, cfg, max_len, *, window=None,
+                        backend="auto"):
+    h = apply_norm(p["norm1"], x, cfg)
+    a, (k, v) = attn.gqa_attention(p["attn"], h, cfg, window=window,
+                                   triangle=cfg.triangle_schedule,
+                                   return_kv=True, backend=backend)
+    c = _seed_gqa(cfg, k, v, max_len, window)
+    if cfg.post_norms:
+        a = apply_norm(p["norm_post_attn"], a, cfg)
+    x = x + cfg.residual_multiplier * a
+    h = apply_norm(p["norm2"], x, cfg)
+    m = apply_ffn(p["ffn"], h, cfg)
+    if cfg.post_norms:
+        m = apply_norm(p["norm_post_ffn"], m, cfg)
+    return x + cfg.residual_multiplier * m, c
+
+
+def prefill(params, batch, cfg, max_len: int, *, last_only: bool = False,
+            backend: str = "auto"):
+    """Full-sequence prefill. Returns (logits, cache, lengths); logits are
+    (B, L, V), or (B, V) for the new-token sampling position when
+    ``last_only`` (serving never makes the (B, L, V) tensor). ``backend``
+    "ref" runs the plain attention on a card (the kernel's yardstick)."""
+    check_dense(cfg)
+    x = embed_inputs(params, batch, cfg)
+    b, seq = x.shape[0], x.shape[1]
+    stack = params["stack"]["layers"]
+    window = _window(cfg)
+    caches = []
+    for i in range(cfg.n_layers):
+        x, c = _attn_block_prefill(layer(stack, i), x, cfg, max_len,
+                                   window=window, backend=backend)
+        caches.append(c)
+    cache = {"layers": tree_map(lambda *ts: torch.stack(ts), *caches)}
+    if last_only:
+        logits = output_logits(params, x[:, -1:], cfg)[:, 0]
+    else:
+        logits = output_logits(params, x, cfg)
+    lengths = torch.full((b,), seq, dtype=torch.int32, device=x.device)
+    return logits, cache, lengths
+
+
+def write_slot(cache: dict, i: int, one_cache: dict, length: int) -> dict:
+    """Copy a one-request cache (batch 1, from ``prefill``) into slot ``i``
+    of the batched cache, in place; every leaf has the layer axis in front
+    and batch at axis 1. Returns the cache."""
+    tree_map(lambda big, one: big[:, i].copy_(one[:, 0]), cache, one_cache)
+    return cache

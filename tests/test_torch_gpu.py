@@ -15,8 +15,14 @@ tiles bitwise (their cross terms are exact integers and the epilogue keeps
 the plain version's order of operations); the bf16 tiles 1e-4 + 1e-5 *
 (|a|^2 + |b|^2), as the fp32 ones (bf16 products are exact in f32; only
 the order of the sums differs). The online store's compaction and row
-kernels bitwise (they only move values).
+kernels bitwise (they only move values). Attention at f32 rtol/atol 2e-3
+(tests/test_kernels.py's limit for the Pallas kernel), at bf16 rtol 1e-2 /
+atol 2e-3 (one bf16 rounding of the output, 2^-7 relative, on top), on
+the rows that see a key; rows that see none exactly 0. A smoke-config
+prefill through the kernel against the plain chunked scan within 2e-2 of
+the logit scale (tests/test_serve.py:53's bf16 limit).
 """
+
 import numpy as np
 import pytest
 import torch
@@ -34,9 +40,12 @@ from repro_torch import (
     knn_insert,
     recall_at_k,
 )
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import datasets
 from repro_torch.core.quantize import quantize_corpus
 from repro_torch.kernels import _lib, ops
+from repro_torch.models import cast_matrices, init_tree, model_schema
+from repro_torch.serve import prefill
 
 pytestmark = pytest.mark.gpu
 
@@ -488,3 +497,74 @@ def test_online_store_through_kernels(dev):
         r[device.type] = recall_at_k(idx[live], truth)
     assert r["cuda"] > 0.9, r
     assert abs(r["cuda"] - r["cpu"]) <= 0.01, r
+
+
+# (Lq, Lk, H, Hkv, Dq, Dv, keyword arguments of ops.attention)
+ATTN_MODES = {
+    "causal": (300, 300, 8, 2, 64, 64, dict(causal=True)),
+    "window_64": (300, 300, 8, 2, 64, 64, dict(causal=True, window=64)),
+    "softcap_20": (300, 300, 8, 2, 64, 64, dict(causal=True, softcap=20.0)),
+    "noncausal": (200, 333, 4, 4, 32, 32, dict(causal=False)),
+    "encoder_window": (257, 257, 4, 2, 32, 32,
+                       dict(causal=False, window=64)),
+    "gqa_32_4": (130, 130, 32, 4, 128, 128, dict(causal=True)),
+    "q_offset": (100, 612, 8, 2, 128, 128, dict(causal=True, q_offset=512)),
+    "decode_row": (1, 700, 8, 2, 128, 128, dict(causal=True, q_offset=699)),
+    "ragged": (77, 301, 4, 2, 16, 16, dict(causal=True, q_offset=200,
+                                           scale=0.3)),
+    "dv_ne_dq": (150, 150, 4, 2, 192, 128, dict(causal=True)),
+    "no_key_rows": (70, 40, 4, 2, 32, 32, dict(causal=True, window=16,
+                                               q_offset=20)),
+}
+
+
+def _seen_rows(lq, lk, causal=True, window=None, q_offset=0, **_):
+    qpos = torch.arange(lq)[:, None] + q_offset
+    kpos = torch.arange(lk)[None, :]
+    ok = torch.ones((lq, lk), dtype=torch.bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    return ok.any(dim=1)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("mode", sorted(ATTN_MODES))
+def test_attention_kernel(dev, mode, dtype):
+    lq, lk, h, hkv, dq, dv, kw = ATTN_MODES[mode]
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(len(mode))
+    q = torch.randn(2, lq, h, dq, generator=g, device=dev).to(dt)
+    k = torch.randn(2, lk, hkv, dq, generator=g, device=dev).to(dt)
+    v = torch.randn(2, lk, hkv, dv, generator=g, device=dev).to(dt)
+    got, want, launched = _both(ops.attention, q, k, v, **kw)
+    assert launched["flash_attention"] == 1
+    assert got.dtype == dt and tuple(got.shape) == (2, lq, h, dv)
+    seen = _seen_rows(lq, lk, **kw).to(dev)
+    assert torch.equal(got[:, ~seen], torch.zeros_like(got[:, ~seen]))
+    rtol = 2e-3 if dtype == "f32" else 1e-2
+    torch.testing.assert_close(got[:, seen].float(), want[:, seen].float(),
+                               rtol=rtol, atol=2e-3)
+
+
+def test_smoke_prefill_through_kernel_matches_plain(dev):
+    """The yi-6b smoke config at its bf16 activations, a ragged 150-token
+    batch: prefill through the kernel (one launch per layer) against the
+    plain chunked scan on the same card."""
+    cfg = get_smoke_config("yi-6b")
+    schema = model_schema(cfg)
+    params = cast_matrices(
+        init_tree(torch.Generator(device=dev).manual_seed(0), schema),
+        schema, cfg.act_dtype)
+    toks = torch.randint(0, cfg.vocab, (2, 150), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    before = _lib.LAUNCHES["flash_attention"]
+    got, gc, _ = prefill(params, {"tokens": toks}, cfg, 256)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["flash_attention"] - before == cfg.n_layers
+    want, wc, _ = prefill(params, {"tokens": toks}, cfg, 256, backend="ref")
+    assert _lib.LAUNCHES["flash_attention"] - before == cfg.n_layers
+    scale = want.abs().max()
+    assert float((got - want).abs().max() / scale) < 2e-2
+    assert torch.equal(gc["layers"]["kpos"], wc["layers"]["kpos"])

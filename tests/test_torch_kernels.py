@@ -373,6 +373,8 @@ def test_ptxas_report_parsing():
                           "S1_S3_PfPiS5_iiii",
         "knn_compact_rows": "_ZN12_GLOBAL__N_123knn_compact_rows_kernelEPKfPKi"
                             "S3_PKhPfPiS7_iii",
+        "flash_attention": "_ZN12_GLOBAL__N_122flash_attention_kernelI13__nv_"
+                           "bfloat16Li2EEEvPKT_S4_S4_PS2_iiiiiiffiii",
     }
     assert set(mangled) == set(_lib.KERNELS)
     log = ""
@@ -396,4 +398,5 @@ def test_ptxas_report_parsing():
     assert _lib.library_path().name.startswith("libknn_kernels_")
     assert {p.name for p in _lib.SOURCES} == {"knn_kernels.cu",
                                               "search_kernels.cu",
-                                              "quant_kernels.cu"}
+                                              "quant_kernels.cu",
+                                              "attention_kernels.cu"}
