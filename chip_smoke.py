@@ -13,8 +13,11 @@ script started:
   device       the card (nvidia-smi name and power limit), torch and CUDA
                versions; the capability must be (9, 0);
   build_lib    nvcc builds src/repro_torch/kernels/csrc/*.cu (one nvcc per
-               source, all started together): seconds, and registers /
-               shared memory per kernel;
+               source, all started together): seconds, registers / shared
+               memory / spills per kernel (and per template instance),
+               ptxas's notes of wgmma it serialised, and whether the SASS
+               of each flash_attention device function holds HGMMA
+               (cuobjdump -sass): the bf16 kernel must;
   build_check  mnist_like(16000, 784), DescentConfig(k=20, rho=1.0), built
                through the kernels and through their plain versions with
                the same generator seed, at precision f32, int8 and bf16:
@@ -58,12 +61,14 @@ script started:
                seeds reach recall@10 >= 0.85, random entries < 0.75;
   attention_check
                ops.attention through the kernel against its plain version
-               (backend "ref") on the card, f32 and bf16, in every mode
-               (causal, window 64, softcap 20, non-causal, encoder with a
-               window, GQA 8/2 and 32/4, q_offset, one decode row, ragged
-               Lq / Lk, Dv != Dq, rows that see no key): max error within
-               2e-3 at f32 and rtol 1e-2 / atol 2e-3 at bf16 on rows that
-               see a key, exactly 0 on rows that see none;
+               (backend "ref") on the card, f32 (the SIMT kernel) and bf16
+               (the wgmma kernel), in every mode (causal, window 64,
+               softcap 20, non-causal, encoder with a window, GQA 8/2 and
+               32/4, q_offset, one decode row, ragged Lq / Lk, Dv != Dq,
+               rows that see no key, Dh 256 and 80, Dq 48 / Dv 32, a kv
+               ring of 4096 keys): max error within 2e-3 at f32 and rtol
+               1e-2 / atol 2e-3 at bf16 on rows that see a key, exactly 0
+               on rows that see none;
   online       path 8: MutableKNNStore.build on rows [0, 60000) (k 20,
                rho 1.0, 15 iterations, routed), knn_insert of rows [60000,
                70000) in 20 batches of 500 (capacity 65536 -> 131072),
@@ -105,12 +110,22 @@ script started:
                that run), against its plain version: max error, kernel /
                plain / library times, the card's lower bound (and, for the
                online store's row forms, the time of their (n, k) copy);
-               flash_attention on the inputs the lm_serve prefill gave it,
-               with scaled_dot_product_attention as its library row.
+               knn_join_select at every (W, c) the build, search and online
+               paths recorded, each with torch.sort(stable=True) of the
+               same masked keys as its library row; flash_attention at
+               bf16 on the inputs the lm_serve prefill gave it and at f32
+               on attention_check's causal_gqa_32_4 inputs, with
+               scaled_dot_product_attention as its library row.
 Every path is driven with all launch counts set to 0 just before it and
 read just after; each kernel of the path must have launched. The 24 GB
 model is freed before the kernels phase. Then the line
-{"kernels": [...]} and, last, {"ok": true, "device": ...}. Any failure
+{"kernels": [...]}: one entry per kernel, plus knn_join_select once per
+further (W, c) that build, search or online recorded (``launches``: what
+that width's calls added to the kernel's count in its path; these add up
+to the path's count, or the script fails) and
+flash_attention once more at f32 (``launches``: its calls in
+attention_check; no main path runs attention at f32); ``call`` tells the
+entries apart. Last, {"ok": true, "device": ...}. Any failure
 raises, and the script exits non-zero. With no CUDA card, or without the
 repository's src/ beside it, it exits 2 and prints no result.
 """
@@ -160,8 +175,9 @@ SOURCES = {
     "knn_compact": CSRC + "knn_kernels.cu",
     "knn_merge_rows": CSRC + "knn_kernels.cu",
     "knn_compact_rows": CSRC + "knn_kernels.cu",
-    "flash_attention": CSRC + "attention_kernels.cu",
+    "flash_attention": CSRC + "attention_sm90.cu",       # bf16
 }
+F32_ATTENTION_SOURCE = CSRC + "attention_kernels.cu"
 # the path that owns each kernel of the quantized paths and of the online
 # path; those paths check only their own kernels (the others were checked
 # on the f32 paths)
@@ -171,9 +187,12 @@ QUANT_OWNER = {
     "knn_search_dists_bf16": "search_bf16",
 }
 ONLINE_KERNELS = ("knn_compact", "knn_merge_rows", "knn_compact_rows")
+SELECT_PATHS = ("build", "search", "online")   # their selects join the line
 OWNED = {path: name for name, path in QUANT_OWNER.items()}
-CHECKED = {**{path: {name} for path, name in OWNED.items()},
-           "online": set(ONLINE_KERNELS), "lm_serve": {"flash_attention"}}
+# the select runs on every graph path, at its own widths: each is checked
+CHECKED = {**{path: {name, "knn_join_select"} for path, name in OWNED.items()},
+           "online": {*ONLINE_KERNELS, "knn_join_select"},
+           "lm_serve": {"flash_attention"}}
 PRECISIONS = ("int8", "bf16")
 N, CHECK_N, SEED = 70_000, 16_000, 0   # the main path's and the check's n
 N_QUERIES, CHECK_QUERIES = 10_000, 2048
@@ -208,7 +227,14 @@ ATTN_MODES = {
     "dv_ne_dq": (300, 300, 16, 16, 192, 128, dict(causal=True)),
     "no_key_rows": (70, 40, 4, 2, 32, 32,
                     dict(causal=True, window=16, q_offset=20)),
+    # the bf16 kernel's widths (TMA zero-fills panels past D) and its ring
+    "dh_256": (300, 300, 4, 2, 256, 256, dict(causal=True)),
+    "dh_80": (257, 257, 8, 2, 80, 80, dict(causal=True)),
+    "dq48_dv32": (200, 200, 4, 2, 48, 32, dict(causal=True)),
+    "long_kv_4096": (256, 4096, 8, 2, 128, 128,
+                     dict(causal=True, q_offset=3840)),
 }
+ATTN_F32_KERNEL_MODE = "causal_gqa_32_4"   # its f32 call: the kernels line
 
 
 def emit(phase: str, **fields) -> None:
@@ -301,9 +327,12 @@ class Recorder:
     reorder, where both candidate pools are full; for the search tile the
     second round of the first block, for attention (kept as
     ``flash_attention``, keyword arguments too) the second layer of the
-    first prefill — and the host time of the greedy reorder. It wraps the module attributes the path calls and restores
-    them on exit; the wrapped functions are the ones the path would call,
-    so each kernel launches as it would. Keys carry the path's tag."""
+    first prefill — and the host time of the greedy reorder. It wraps the
+    module attributes the path calls and restores them on exit; the
+    wrapped functions are the ones the path would call, so each kernel
+    launches as it would. Keys carry the path's tag.
+    ``launched`` holds, per key, what the calls added to the kernel's
+    count in ``_lib.LAUNCHES`` (the wrappers' own counts)."""
 
     NAMES = ("knn_join_dists", "knn_join_select", "knn_merge",
              "pairwise_sq_l2", "knn_search_dists", "knn_search_dists_q8",
@@ -316,6 +345,7 @@ class Recorder:
         self.calls: dict[str, tuple] = {}
         self.kwargs: dict[str, dict] = {}
         self.seen: dict[str, int] = {}
+        self.launched: dict[str, int] = {}
         self.reorder_s: list[float] = []
 
     def __enter__(self):
@@ -336,6 +366,7 @@ class Recorder:
 
     def _wrap(self, name, fn):
         import torch
+        from repro_torch.kernels import _lib
 
         kernel = "flash_attention" if name == "attention" else name
 
@@ -355,7 +386,11 @@ class Recorder:
                     a.clone() if isinstance(a, torch.Tensor) else a
                     for a in args)
                 self.kwargs[key] = dict(kw)
-            return fn(*args, **kw)
+            before = _lib.LAUNCHES[kernel]
+            out = fn(*args, **kw)
+            self.launched[key] = self.launched.get(key, 0) \
+                + _lib.LAUNCHES[kernel] - before
+            return out
         return call
 
     def _timed_reorder(self, nl):
@@ -988,12 +1023,15 @@ def hold_attention(name, got, want, q, k, kw) -> dict:
             "rows_without_key": int((~seen).sum()), "pairs": pairs}
 
 
-def attention_check(dev) -> dict:
-    """ops.attention through the kernel against its plain version on the
-    card, in every ATTN_MODES mode at f32 and bf16 (batch 2)."""
+def attention_check(dev, record: dict) -> dict:
+    """ops.attention through the kernels against their plain version on
+    the card, in every ATTN_MODES mode at f32 and bf16 (batch 2). The f32
+    inputs of ATTN_F32_KERNEL_MODE go to ``record`` (args, kwargs) for
+    the kernels line, with the f32 launches."""
     import torch
     from repro_torch.kernels import _lib, ops
     out = {}
+    record["f32_launches"] = 0
     for mode, (lq, lk, h, hkv, dq, dv, kw) in ATTN_MODES.items():
         for dt in (torch.float32, torch.bfloat16):
             g = torch.Generator(device=dev).manual_seed(SEED)
@@ -1008,6 +1046,10 @@ def attention_check(dev) -> dict:
             want = ops.attention(q, k, v, backend="ref", **kw)
             key = f"{mode}:{str(dt).split('.')[-1]}"
             res = hold_attention(key, got, want, q, k, kw)
+            if dt == torch.float32:
+                record["f32_launches"] += 1
+                if mode == ATTN_F32_KERNEL_MODE:
+                    record["args"], record["kwargs"] = (q, k, v), kw
             out[key] = {k_: res[k_] for k_ in (
                 "max_abs_err", "max_err_over_tol", "rows_without_key")}
     return out
@@ -1279,9 +1321,18 @@ def main() -> int:
     # -- build_lib
     _lib.build(force=True)
     _lib.lib()
+    hgmma = {k: v for k, v in _lib.sass_functions(
+        Path(_lib.build_info["path"]), "HGMMA").items()
+        if k.startswith("flash_attention")}
     emit("build_lib", seconds=_lib.build_info["seconds"],
          path=str(Path(_lib.build_info["path"]).relative_to(ROOT)),
-         kernels=_lib.build_info["kernels"])
+         kernels=_lib.build_info["kernels"], hgmma_in_sass=hgmma,
+         ptxas_performance_notes=_lib.build_info["performance_notes"])
+    sm90 = [v for k, v in hgmma.items()
+            if k.startswith("flash_attention_sm90")]
+    if not sm90 or not all(sm90):
+        raise AssertionError(f"the bf16 attention kernel has no HGMMA: "
+                             f"{hgmma}")
 
     # -- build_check: kernels vs plain versions, same generator seed
     xc = datasets.mnist_like(CHECK_N, 784, seed=SEED + 1,
@@ -1348,10 +1399,11 @@ def main() -> int:
     del xc
 
     # -- attention_check: the attention kernel against its plain version
+    f32_attention = {}
     emit("attention_check", batch=2,
          tolerance={"f32": ATTN_F32_TOL, "bf16": ATTN_BF16_TOL,
                     "rows_without_key": "exactly 0"},
-         modes=attention_check(dev))
+         modes=attention_check(dev, f32_attention))
 
     # -- build: path 1, the build at the paper's headline shape
     x = datasets.mnist_like(N, 784, seed=SEED, device=dev)
@@ -1618,8 +1670,20 @@ def main() -> int:
              **QUANT_OWNER, **dict.fromkeys(ONLINE_KERNELS, "online"),
              "flash_attention": "lm_serve"}
     entries = {}
+    selects = {}       # (W, c) -> entry, from the first of SELECT_PATHS
     calls = {k: c for rec in recs.values() for k, c in rec.calls.items()}
     kwargs = {k: c for rec in recs.values() for k, c in rec.kwargs.items()}
+    seen = {k: c for rec in recs.values() for k, c in rec.seen.items()}
+    launched = {k: c for rec in recs.values()
+                for k, c in rec.launched.items()}
+    # the per-(W, c) select launches add up to each path's count
+    for tag in SELECT_PATHS:
+        per_width = sum(c for k, c in launched.items()
+                        if k.startswith(f"{tag}:knn_join_select:"))
+        if per_width != launches[tag]["knn_join_select"]:
+            raise AssertionError(
+                f"{tag}: select launches by (W, c) sum to {per_width}, "
+                f"the path launched {launches[tag]['knn_join_select']}")
     for key, call in sorted(calls.items()):
         tag, name = key.split(":")[:2]
         if tag in CHECKED and name not in CHECKED[tag]:
@@ -1630,8 +1694,15 @@ def main() -> int:
             e = check_kernel(name, call, reps=20)
         e.update(route="cuda", source=SOURCES[name],
                  replaces=REPLACES[name], launches=launches[tag][name],
-                 path=tag, call=key)
+                 path=tag, call=key, calls_at_this_key=seen[key],
+                 launches_at_this_key=launched[key])
         emit("kernels", **e)
+        if name == "knn_join_select" and tag in SELECT_PATHS:
+            wc = tuple(key.split(":")[2:])
+            prev = selects.get(wc)
+            if prev is None or SELECT_PATHS.index(tag) < SELECT_PATHS.index(
+                    prev["path"]):
+                selects[wc] = e
         # the line keeps one entry per kernel, from the path that owns
         # it; the build's widest select (the receiver select) and the
         # online path's widest row merge stand for their kernels
@@ -1639,11 +1710,34 @@ def main() -> int:
             continue
         if name not in entries or width_of(e) > width_of(entries[name]):
             entries[name] = e
+    # flash_attention at f32: the SIMT kernel on attention_check's inputs
+    f32 = check_attention_kernel(f32_attention["args"],
+                                 f32_attention["kwargs"], reps=20)
+    f32.update(route="cuda", source=F32_ATTENTION_SOURCE,
+               replaces=REPLACES["flash_attention"],
+               launches=f32_attention["f32_launches"],
+               path="attention_check",
+               call=f"attention_check:flash_attention:{ATTN_F32_KERNEL_MODE}"
+                    ":float32")
+    emit("kernels", **f32)
+    entries["flash_attention"]["call"] += ":bfloat16"
+    line = []
+    for n in _lib.KERNELS:
+        line.append(entries[n])
+        if n == "flash_attention":
+            line.append(f32)
+        if n == "knn_join_select":
+            # every other recorded (W, c), with that width's launches
+            for wc, e in sorted(selects.items(),
+                                key=lambda kv: int(kv[0][0][2:])):
+                if e is not entries[n]:
+                    line.append(
+                        {**e, "launches": e["launches_at_this_key"]})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-    print(json.dumps({"kernels": [{k: entries[n][k] for k in keys}
-                                  for n in _lib.KERNELS]}), flush=True)
+            "library_ms", "call")
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in line]}),
+          flush=True)
 
     if any(m == "jax" or m.startswith(("jax.", "repro."))
            for m in sys.modules):

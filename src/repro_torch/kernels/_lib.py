@@ -10,7 +10,9 @@ every module on a machine with no ``nvcc``.
 Launch counters live here too: each wrapper adds one to its kernel's count
 where it launches it, and nowhere else, so a run can show that the main
 path went through the kernels. The device function of kernel ``name`` is
-``<name>_kernel``.
+``<name>_kernel``, or a name that contains it: ``flash_attention`` has two,
+``flash_attention_kernel`` (f32) and ``flash_attention_kernel_sm90``
+(bf16), reported apart as ``flash_attention`` and ``flash_attention_sm90``.
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ KERNELS = ("knn_join_dists", "knn_join_select", "knn_merge",
            "knn_compact", "knn_merge_rows", "knn_compact_rows",
            "flash_attention")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+# device functions reported under their own name (substring -> name)
+VARIANTS = {"flash_attention_kernel_sm90": "flash_attention_sm90"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,9 +76,11 @@ _SIGNATURES = {
     # cd, ci, rows, drop, od, oi, removed, n, f, k, stream
     "knn_compact_rows_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # q, k, v, o, B, Lq, Lk, H, Hkv, Dq, Dv, scale, softcap, causal, window,
-    # q_offset, bf16, stream
+    # q_offset, stream (f32, then bf16)
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _F, _F, _I, _I, _I, _I, _P],
+                               _F, _F, _I, _I, _I, _P],
+    "flash_attention_sm90_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _I, _F, _F, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -105,27 +111,54 @@ def library_path() -> Path:
     return BUILD_DIR / f"libknn_kernels_{h.hexdigest()[:16]}.so"
 
 
+def report_name(mangled: str) -> str:
+    """The kernel (or variant) name of a device function."""
+    for sub, name in VARIANTS.items():
+        if sub in mangled:
+            return name
+    return next((k for k in KERNELS if f"{k}_kernel" in mangled), mangled)
+
+
 def _parse_ptxas(log: str) -> dict:
-    """Registers and shared memory per kernel from ``-Xptxas -v``."""
+    """Registers and shared memory per kernel from ``-Xptxas -v``: under
+    the kernel's name (its last template instance) and, for a template,
+    also under ``name<its integer arguments>``."""
     out: dict[str, dict] = {}
-    current = None
+    current: list[str] = []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            current = next((k for k in KERNELS if f"{k}_kernel" in m.group(1)),
-                           m.group(1))
-            out[current] = {}
-            continue
-        if current is None:
+            name = report_name(m.group(1))
+            args = re.findall(r"Li(\d+)E", m.group(1))
+            current = [name] + ([f"{name}<{','.join(args)}>"] if args else [])
+            for key in current:
+                out[key] = {}
             continue
         m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[current]["registers"] = int(m.group(1))
-            s = re.search(r"(\d+) bytes smem", line)
-            out[current]["static_smem_bytes"] = int(s.group(1)) if s else 0
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m:
-            out[current]["spill_store_bytes"] = int(m.group(1))
+        s = re.search(r"(\d+) bytes smem", line)
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        for key in current:
+            if m:
+                out[key]["registers"] = int(m.group(1))
+                out[key]["static_smem_bytes"] = int(s.group(1)) if s else 0
+            if spill:
+                out[key]["spill_store_bytes"] = int(spill.group(1))
+    return out
+
+
+def sass_functions(path: Path, opcode: str) -> dict[str, bool]:
+    """For each device function in the library's SASS (``cuobjdump
+    -sass``): whether its code holds ``opcode`` (e.g. ``HGMMA``). Keyed by
+    ``report_name`` and template arguments, as ``_parse_ptxas``."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(path)], check=True,
+                          capture_output=True, text=True).stdout
+    out: dict[str, bool] = {}
+    for part in sass.split("Function : ")[1:]:
+        mangled = part.split(None, 1)[0]
+        args = re.findall(r"Li(\d+)E", mangled)
+        key = report_name(mangled) + (f"<{','.join(args)}>" if args else "")
+        out[key] = out.get(key, False) or opcode in part
     return out
 
 
@@ -165,6 +198,9 @@ def build(force: bool = False) -> Path:
         seconds=seconds, path=str(path),
         commands=[" ".join(c) for c in (*compiles, link)],
         kernels=_parse_ptxas(log),
+        # ptxas's info notes that it serialised wgmma (C7510-C7520)
+        performance_notes=[ln.strip() for ln in log.splitlines()
+                           if "Performance Loss" in ln],
     )
     return path
 

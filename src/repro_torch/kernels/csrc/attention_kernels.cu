@@ -1,4 +1,5 @@
-// The LM stack's attention kernel for Hopper (sm_90a), CUDA C++.
+// The LM stack's f32 attention kernel for Hopper (sm_90a), CUDA C++: the
+// exact path. bf16 inputs go to attention_sm90.cu (wgmma + TMA).
 //
 // Built by kernels/_lib.py together with the other sources into one shared
 // library with a plain C interface (each source compiled by its own nvcc,
@@ -15,24 +16,23 @@
 // chunked_attention (models/attention.py) runs on a card, so its contract
 // is the union of _flash_kernel's and _flash_block's:
 //
-//   q (B, Lq, H, Dq), k (B, Lk, Hkv, Dq), v (B, Lk, Hkv, Dv), all f32 or all
-//   bf16, in the model's (batch, position, head, feature) layout; output
-//   o (B, Lq, H, Dv) in the same dtype. Logits q.k * scale, optionally
+//   q (B, Lq, H, Dq), k (B, Lk, Hkv, Dq), v (B, Lk, Hkv, Dv), all f32, in
+//   the model's (batch, position, head, feature) layout; output
+//   o (B, Lq, H, Dv) in f32. Logits q.k * scale, optionally
 //   softcap * tanh(logits / softcap); masks from positions only:
 //   qpos = q_offset + row, causal kpos <= qpos, window kpos > qpos - window,
 //   kpos < Lk (ragged tails are masked, not refused). q head h reads kv
 //   head h / (H / Hkv) (the GQA fold in the indexing: no repeated copy of
 //   k and v). A row that sees no key comes out as 0. All arithmetic is
-//   fp32: logits, running max m, denominator l and accumulator; bf16
-//   inputs are widened on the way into shared memory, as JAX upcasts them
-//   before both products.
+//   fp32: logits, running max m, denominator l and accumulator, as JAX's
+//   kernel computes them.
 //
 // Bound: operations. A causal prefill of L 2048 at H 32, Dh 128 does about
-// 34 GFLOP (4 * Dh per visible (q, k) pair) on 50 MB of bf16 tensors.
+// 34 GFLOP (4 * Dh per visible (q, k) pair), at the fp32 rate (no tensor
+// cores: fp32 is exact).
 //
-// Design (the simple first kernel; wgmma, TMA and bf16 P on the tensor
-// cores wait for the redesign): one block of 256 threads per (b*h, tile of
-// 64 query rows). The query tile is widened into shared memory once; the
+// Design (the simple first kernel): one block of 256 threads per (b*h,
+// tile of 64 query rows). The query tile is staged in shared memory once; the
 // block then walks the kv tiles of 64 keys that some row of the tile can
 // see (tiles wholly above the causal diagonal, wholly outside the window
 // band or wholly past Lk are skipped, which is what JAX's triangle schedule
@@ -48,7 +48,6 @@
 // guard), so a tile that masks a whole row adds nothing and leaves m alone.
 // ---------------------------------------------------------------------------
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -64,13 +63,7 @@ constexpr int kAttnMaxD = 256;     // largest Dq and Dv
 constexpr float kAttnNeg = -1e30f;
 
 __device__ __forceinline__ float widen(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float widen(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void narrow(float* p, float v) { *p = v; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // rows [r0, r0 + kAttnBQ) of head hx of batch b of a (B, L, Hx, D) tensor,
 // widened to fp32 into dst (row stride D + kAttnPad), zero past L
@@ -307,21 +300,17 @@ int dispatch_attention(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// q, k, v, o: device pointers of f32 (bf16 == 0) or bf16 (bf16 == 1)
-// tensors; window < 0 means none, softcap <= 0 means none
+// q, k, v, o: device pointers of f32 tensors; window < 0 means none,
+// softcap <= 0 means none
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int Lq, int Lk, int H, int Hkv,
                            int Dq, int Dv, float scale, float softcap,
-                           int causal, int window, int q_offset, int bf16,
+                           int causal, int window, int q_offset,
                            cudaStream_t stream) {
   if (B < 1 || Lq < 1 || Lk < 0 || H < 1 || Hkv < 1 || H % Hkv != 0 ||
       Dq < 4 || Dq > kAttnMaxD || Dq % 4 != 0 || Dv < 4 ||
       Dv > kAttnMaxD || Dv % 4 != 0 || (int64_t)B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  if (bf16)
-    return dispatch_attention<__nv_bfloat16>(q, k, v, o, B, Lq, Lk, H, Hkv,
-                                             Dq, Dv, scale, softcap, causal,
-                                             window, q_offset, stream);
   return dispatch_attention<float>(q, k, v, o, B, Lq, Lk, H, Hkv, Dq, Dv,
                                    scale, softcap, causal, window, q_offset,
                                    stream);

@@ -147,16 +147,36 @@ __global__ void __launch_bounds__(kJoinThreads) knn_join_dists_kernel(
 // best ascending with ties to the lowest input position, (+inf, -1) fill.
 // Bound: bytes. It reads 8 bytes per entry and writes 8 per output, with a
 // handful of compares per entry.
-// Design: one block per row. Each entry becomes one 64-bit key, (order-
-// preserving bits of the distance, input position), so the lexicographic
-// order that makes ties stable is a plain integer order; entries that fail
-// the prefilter carry the FLT_MAX sentinel. A bitonic sort of the keys,
-// padded to a power of two, runs in shared memory; the first c keys name
-// the winners, whose values are read back from the input.
+// Design: a radix select, not a sort of the row. An entry's key is the
+// order-preserving bits of its distance (-0 as +0; entries that fail the
+// prefilter, and survivors at FLT_MAX, carry the FLT_MAX sentinel), its
+// input position the tie-break. A row belongs to one warp where W pads to
+// at most 1024 (eight rows per block, so the search's 32-wide rows fill a
+// warp, not a block), else to a block of 256 threads. The row is read once,
+// coalesced, into registers: thread t of the T in its group holds
+// positions t, t + T, ..., so position order is item-major, then thread
+// order, and a prefix in position order is one ballot per item plus a scan
+// of the (item, warp) counts. Then:
+//  1. count the survivors s; if s <= c every survivor wins;
+//  2. else four passes over 8 bits of the key, each a 256-bin shared
+//     histogram of the keys that match the digits found so far (atomics
+//     aggregated per warp by __match_any_sync) and a scan, find the c-th
+//     smallest key T and how many keys equal to T win (need);
+//  3. the winners (keys below T, then the first `need` keys equal to T in
+//     position order) are compacted in position order as 64-bit (key,
+//     position) words; up to 4 T of them each takes the slot its rank
+//     among the winners names (one barrier, not one per sorting stage),
+//     more are bitonic-sorted over the next power of two of their count
+//     (at most c), not of W;
+//  4. their distances and ids are read back from the input (so -0.0 keeps
+//     its sign), the rest of the c slots filled with (+inf, -1).
+// Where a warp owns the row, its only barriers are warp barriers.
 // ---------------------------------------------------------------------------
 
 constexpr int kSelectThreads = 256;
-constexpr int kSelectMaxPadded = 8192;   // 64 KB of keys
+constexpr int kSelectMaxPadded = 8192;
+constexpr int kSelectWarpMaxPadded = 1024;   // one warp per row up to here
+constexpr int kSelectBins = 256;
 
 __device__ __forceinline__ uint32_t order_bits(float v) {
   if (v == 0.0f) v = 0.0f;               // -0 ties with +0, as in a sort
@@ -164,58 +184,294 @@ __device__ __forceinline__ uint32_t order_bits(float v) {
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
+// ints of one (item, warp) scan: IPL * G counts and the total, kept even
+template <int G, int IPL>
+__host__ __device__ constexpr int select_scan_ints() {
+  return (IPL * G + 2) & ~1;
+}
+
+// shared bytes of one row group: the winners' words (at least two, so the
+// histograms after them are 16-byte aligned), two histograms, two scans
+// and the warps' counts
+template <int G, int IPL>
+__host__ __device__ constexpr size_t select_group_bytes(int cap) {
+  return (size_t)(cap < 2 ? 2 : cap) * sizeof(unsigned long long) +
+         (2 * kSelectBins + 2 * select_scan_ints<G, IPL>() + 8) * sizeof(int);
+}
+
+template <int G>
+__device__ __forceinline__ void group_sync() {
+  if (G == 1) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
+// The row's count of the items where pred(i) holds, in every thread.
+template <int G, int IPL, class Pred>
+__device__ __forceinline__ int group_count(Pred pred, int* cnt, int warp,
+                                           int lane) {
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < IPL; ++i)
+    s += __popc(__ballot_sync(0xffffffffu, pred(i)));
+  if constexpr (G == 1) {
+    return s;
+  } else {
+    if (lane == 0) cnt[warp] = s;
+    __syncthreads();
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < G; ++w) total += cnt[w];
+    return total;                      // cnt is written once per row
+  }
+}
+
+// Exclusive offsets, in position order, of the items where pred(i) holds:
+// afterwards item i's offset is scan[i * G + warp] + the count of lanes
+// below this one whose pred(i) holds. Returns the row's count. Every thread
+// of the row group calls it.
+template <int G, int IPL, class Pred>
+__device__ __forceinline__ int position_scan(Pred pred, int* scan, int warp,
+                                             int lane) {
+  constexpr int E = IPL * G;
+  constexpr int PER = (E + 31) / 32;
+#pragma unroll
+  for (int i = 0; i < IPL; ++i) {
+    const unsigned b = __ballot_sync(0xffffffffu, pred(i));
+    if (lane == 0) scan[i * G + warp] = __popc(b);
+  }
+  group_sync<G>();
+  if (warp == 0) {
+    int v[PER];
+    int sum = 0;
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      const int idx = lane * PER + e;
+      v[e] = idx < E ? scan[idx] : 0;
+      sum += v[e];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += y;
+    }
+    int run = incl - sum;
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      const int idx = lane * PER + e;
+      if (idx < E) scan[idx] = run;
+      run += v[e];
+    }
+    if (lane == 31) scan[E] = incl;
+  }
+  group_sync<G>();
+  return scan[E];
+}
+
+// the bin of the histogram that holds rank r (0-based), and r within it;
+// every warp of the row group computes the same answer
+__device__ __forceinline__ void find_bin(const int* hist, int r, int lane,
+                                         int& bin, int& rin) {
+  const int4 lo = *reinterpret_cast<const int4*>(hist + lane * 8);
+  const int4 hi = *reinterpret_cast<const int4*>(hist + lane * 8 + 4);
+  const int v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  int sum = 0;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) sum += v[e];
+  int incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  const int excl = incl - sum;
+  const bool mine = excl <= r && r < incl;
+  int b = 0;
+  int rr = r - excl;
+  bool found = false;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    if (!found) {
+      if (rr < v[e]) {
+        b = lane * 8 + e;
+        found = true;
+      } else {
+        rr -= v[e];
+      }
+    }
+  }
+  const int src = __ffs(__ballot_sync(0xffffffffu, mine)) - 1;
+  bin = __shfl_sync(0xffffffffu, b, src);
+  rin = __shfl_sync(0xffffffffu, rr, src);
+}
+
+// G warps per row (1: eight rows per block; 8: one), IPL keys per thread
+template <int G, int IPL>
 __global__ void __launch_bounds__(kSelectThreads) knn_join_select_kernel(
     const float* __restrict__ gd, const int* __restrict__ gi,
     const float* __restrict__ kth, float* __restrict__ od,
-    int* __restrict__ oi, int W, int padded, int c) {
-  extern __shared__ unsigned long long keys[];
-  const int row = blockIdx.x;
+    int* __restrict__ oi, int n, int W, int c, int cap) {
+  constexpr int T = 32 * G;
+  constexpr int kRows = kSelectThreads / T;
+  constexpr int kScan = select_scan_ints<G, IPL>();
+  constexpr int kRankMax = 4 * T;      // winners placed by rank up to here
+  extern __shared__ __align__(16) unsigned long long select_smem[];
+  const int grp = threadIdx.x / T;
+  const int t = threadIdx.x - grp * T;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int row = blockIdx.x * kRows + grp;
+  if (row >= n) return;          // a whole warp (kRows > 1 only for G 1)
+  unsigned long long* words = reinterpret_cast<unsigned long long*>(
+      reinterpret_cast<char*>(select_smem) +
+      grp * select_group_bytes<G, IPL>(cap));
+  int* hist = reinterpret_cast<int*>(words + (cap < 2 ? 2 : cap));  // [2]
+  int* scan_e = hist + 2 * kSelectBins;  // keys equal to T
+  int* scan_w = scan_e + kScan;          // winners
+  int* cnt = scan_w + kScan;             // survivors per warp
+
   const float th = kth[row];
   const float* rd = gd + (int64_t)row * W;
   const int* ri = gi + (int64_t)row * W;
   const uint32_t big = order_bits(FLT_MAX);
-
-  for (int p = threadIdx.x; p < padded; p += kSelectThreads) {
+  uint32_t key[IPL];
+#pragma unroll
+  for (int i = 0; i < IPL; ++i) {
+    const int p = i * T + t;
     uint32_t kb = big;
     if (p < W) {
       const float d = rd[p];
       if (ri[p] >= 0 && d < th) kb = order_bits(d);
     }
-    keys[p] = ((unsigned long long)kb << 32) | (unsigned)p;
+    key[i] = kb;
   }
-  __syncthreads();
+  const int s = group_count<G, IPL>([&](int i) { return key[i] < big; },
+                                    cnt, warp, lane);
 
-  for (int size = 2; size <= padded; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < padded; i += kSelectThreads) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const unsigned long long a = keys[i], b = keys[j];
-          const bool ascending = (i & size) == 0;
-          if ((a > b) == ascending) {
-            keys[i] = b;
-            keys[j] = a;
-          }
+  // the winners: every key below thr, then the first `need` equal to it
+  uint32_t thr = big;
+  int need = 0;
+  if (s > c) {
+    for (int b = t; b < kSelectBins; b += T) hist[b] = 0;
+    group_sync<G>();
+    uint32_t prefix = 0;
+    uint32_t pmask = 0;
+    int r = c - 1;                     // rank of the c-th smallest key
+#pragma unroll 1
+    for (int pass = 0; pass < 4; ++pass) {
+      const int shift = 24 - 8 * pass;
+      int* h = hist + (pass & 1) * kSelectBins;
+      int* h_next = hist + ((pass + 1) & 1) * kSelectBins;
+#pragma unroll
+      for (int i = 0; i < IPL; ++i) {
+        const bool cand = key[i] < big && (key[i] & pmask) == prefix;
+        if (__any_sync(0xffffffffu, cand)) {
+          const int dig = (key[i] >> shift) & 0xff;
+          const unsigned peers =
+              __match_any_sync(0xffffffffu, cand ? dig : 0x100 + lane);
+          if (cand && lane == __ffs(peers) - 1)
+            atomicAdd(&h[dig], __popc(peers));
         }
       }
-      __syncthreads();
+      group_sync<G>();
+      // h_next was last read before the barrier above
+      for (int b = t; b < kSelectBins; b += T) h_next[b] = 0;
+      int bin, rin;
+      find_bin(h, r, lane, bin, rin);
+      prefix |= (uint32_t)bin << shift;
+      pmask |= 0xffu << shift;
+      r = rin;
+      group_sync<G>();                 // h read, h_next clear
     }
+    thr = prefix;
+    need = r + 1;
+    position_scan<G, IPL>([&](int i) { return key[i] == thr; }, scan_e, warp,
+                          lane);
   }
-
-  for (int j = threadIdx.x; j < c; j += kSelectThreads) {
-    float d = INFINITY;
-    int id = -1;
-    if (j < padded) {
-      const unsigned long long key = keys[j];
-      if ((uint32_t)(key >> 32) < big) {
-        const int p = (int)(key & 0xffffffffu);
-        d = rd[p];
-        id = ri[p];
+  auto winner = [&](int i) {
+    bool w = key[i] < thr;
+    if (need > 0) {
+      const bool eq = key[i] == thr;
+      const unsigned eb = __ballot_sync(0xffffffffu, eq);
+      w = w || (eq && scan_e[i * G + warp] + __popc(eb & below) < need);
+    }
+    return w;
+  };
+  const int nwin = position_scan<G, IPL>(winner, scan_w, warp, lane);
+#pragma unroll
+  for (int i = 0; i < IPL; ++i) {
+    const bool w = winner(i);
+    const unsigned wb = __ballot_sync(0xffffffffu, w);
+    if (w)
+      words[scan_w[i * G + warp] + __popc(wb & below)] =
+          ((unsigned long long)key[i] << 32) | (unsigned)(i * T + t);
+  }
+  float* rod = od + (int64_t)row * c;
+  int* roi = oi + (int64_t)row * c;
+  if (nwin <= kRankMax) {
+    // a winner's slot is the count of winners below it
+    group_sync<G>();
+    for (int j = t; j < nwin; j += T) {
+      const unsigned long long w = words[j];
+      int rank = 0;
+#pragma unroll 4
+      for (int x = 0; x < nwin; ++x) rank += words[x] < w;
+      const int p = (int)(w & 0xffffffffu);
+      rod[rank] = rd[p];
+      roi[rank] = ri[p];
+    }
+  } else {
+    // a bitonic sort over the next power of two of the winners' count
+    int size = 1;
+    while (size < nwin) size <<= 1;
+    for (int j = nwin + t; j < size; j += T) words[j] = ~0ull;
+    group_sync<G>();
+    for (int k = 2; k <= size; k <<= 1) {
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        for (int i = t; i < (size >> 1); i += T) {
+          const int lo = 2 * i - (i & (j - 1));
+          const int hi = lo + j;
+          const unsigned long long a = words[lo], b = words[hi];
+          if ((a > b) == ((lo & k) == 0)) {
+            words[lo] = b;
+            words[hi] = a;
+          }
+        }
+        group_sync<G>();
       }
     }
-    od[(int64_t)row * c + j] = d;
-    oi[(int64_t)row * c + j] = id;
+    for (int j = t; j < nwin; j += T) {
+      const int p = (int)(words[j] & 0xffffffffu);
+      rod[j] = rd[p];
+      roi[j] = ri[p];
+    }
   }
+  for (int j = nwin + t; j < c; j += T) {
+    rod[j] = INFINITY;
+    roi[j] = -1;
+  }
+}
+
+template <int G, int IPL>
+int launch_select(const float* gd, const int* gi, const float* kth,
+                  float* od, int* oi, int n, int W, int c, int cap,
+                  cudaStream_t stream) {
+  constexpr int kRows = kSelectThreads / (32 * G);
+  const size_t smem = kRows * select_group_bytes<G, IPL>(cap);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        knn_join_select_kernel<G, IPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  knn_join_select_kernel<G, IPL>
+      <<<(n + kRows - 1) / kRows, kSelectThreads, smem, stream>>>(
+          gd, gi, kth, od, oi, n, W, c, cap);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -456,14 +712,34 @@ int knn_join_select_launch(const float* gd, const int* gi, const float* kth,
   int padded = 1;
   while (padded < W) padded <<= 1;
   if (padded > kSelectMaxPadded) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)padded * sizeof(unsigned long long);
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_join_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  knn_join_select_kernel<<<n, kSelectThreads, smem, stream>>>(
-      gd, gi, kth, od, oi, W, padded, c);
-  return (int)cudaGetLastError();
+  int cap = 1;                      // the winners' sort: at most min(c, W)
+  while (cap < c && cap < W) cap <<= 1;
+  if (padded <= kSelectWarpMaxPadded) {
+    switch (padded <= 32 ? 1 : padded / 32) {
+      case 1:
+        return launch_select<1, 1>(gd, gi, kth, od, oi, n, W, c, cap, stream);
+      case 2:
+        return launch_select<1, 2>(gd, gi, kth, od, oi, n, W, c, cap, stream);
+      case 4:
+        return launch_select<1, 4>(gd, gi, kth, od, oi, n, W, c, cap, stream);
+      case 8:
+        return launch_select<1, 8>(gd, gi, kth, od, oi, n, W, c, cap, stream);
+      case 16:
+        return launch_select<1, 16>(gd, gi, kth, od, oi, n, W, c, cap,
+                                    stream);
+      default:
+        return launch_select<1, 32>(gd, gi, kth, od, oi, n, W, c, cap,
+                                    stream);
+    }
+  }
+  switch (padded / kSelectThreads) {
+    case 8:
+      return launch_select<8, 8>(gd, gi, kth, od, oi, n, W, c, cap, stream);
+    case 16:
+      return launch_select<8, 16>(gd, gi, kth, od, oi, n, W, c, cap, stream);
+    default:
+      return launch_select<8, 32>(gd, gi, kth, od, oi, n, W, c, cap, stream);
+  }
 }
 
 int knn_merge_launch(const float* cd, const int* ci, const float* qd,

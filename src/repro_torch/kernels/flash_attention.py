@@ -1,4 +1,4 @@
-"""Wrapper of the LM stack's attention CUDA kernel.
+"""Wrapper of the LM stack's attention CUDA kernels.
 
 ``flash_attention_cuda`` replaces ``flash_attention``
 (src/repro/kernels/flash_attention.py:86, body ``_flash_kernel`` :30). It
@@ -7,13 +7,22 @@ on a card, so it takes the union of the Pallas kernel's and
 ``_flash_block``'s options: a caller's ``scale``, a v head width that
 differs from q's, and ragged Lq / Lk (the Pallas kernel refuses lengths
 that are not tile multiples; this one masks the tails by position).
-Bound on this card: operations (4 * Dh per visible (q, k) pair). One block
-per (b*h, 64 query rows) stages fp32 k / v tiles in shared memory and
-skips the kv tiles that no row of its tile can see (csrc/
-attention_kernels.cu). It checks device, dtype, shape and contiguity,
-allocates the output with ``torch.empty``, launches on the current stream,
-raises on a non-zero launch code, and counts its launches in
-``_lib.LAUNCHES``.
+Bound on this card: operations (4 * Dh per visible (q, k) pair). It
+dispatches by dtype, one kernel each (no fallback from one to the other):
+
+* f32 (the exact path, "fp32 means fp32"): csrc/attention_kernels.cu, one
+  block per (b*h, 64 query rows) with fp32 k / v tiles in shared memory and
+  fp32 FMAs; Dq and Dv multiples of 4 up to 256.
+* bf16: csrc/attention_sm90.cu, wgmma on the tensor cores fed by TMA: one
+  block per (b*h, 128 query rows), a producer warp keeping (k, v) tiles in
+  flight, P rounded to bf16 for the second product; Dq and Dv multiples of
+  16 up to 256, tensors 16-byte aligned (TMA).
+
+Both skip the kv tiles no row of a query tile can see. The wrapper checks
+device, dtype, shape, contiguity and alignment, allocates the output with
+``torch.empty``, launches on the current stream, raises on a non-zero
+launch code, and counts the launches of both in
+``_lib.LAUNCHES["flash_attention"]``.
 """
 from __future__ import annotations
 
@@ -24,8 +33,11 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.knn_join import _check
 
-ATTN_MAX_D = 256         # kAttnMaxD in csrc/attention_kernels.cu
+ATTN_MAX_D = 256         # kAttnMaxD / kMaxD in csrc/attention_*.cu
 DTYPES = (torch.float32, torch.bfloat16)
+# the head widths each kernel takes come in multiples of this: the f32
+# kernel reads float4s, the bf16 kernel's wgmma steps over 16 of Dq
+D_QUANTUM = {torch.float32: 4, torch.bfloat16: 16}
 
 
 def flash_attention_cuda(
@@ -50,10 +62,11 @@ def flash_attention_cuda(
             or hkv < 1 or h % hkv:
         raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    quantum = D_QUANTUM[q.dtype]
     for name, d in (("Dq", dq), ("Dv", dv)):
-        if not (4 <= d <= ATTN_MAX_D and d % 4 == 0):
-            raise ValueError(f"{name}={d} must be a multiple of 4 in "
-                             f"[4, {ATTN_MAX_D}]")
+        if not (quantum <= d <= ATTN_MAX_D and d % quantum == 0):
+            raise ValueError(f"{name}={d} must be a multiple of {quantum} in "
+                             f"[{quantum}, {ATTN_MAX_D}] at {q.dtype}")
     if b * h > 65535:
         raise ValueError(f"B*H={b * h} exceeds the grid's 65535")
     if softcap is not None and softcap <= 0:
@@ -62,13 +75,18 @@ def flash_attention_cuda(
     if lq == 0:
         return o
     scale = 1.0 / math.sqrt(dq) if scale is None else float(scale)
-    code = _lib.lib().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        b, lq, lk, h, hkv, dq, dv, scale,
-        0.0 if softcap is None else float(softcap), int(causal),
-        -1 if window is None else int(window), int(q_offset),
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            b, lq, lk, h, hkv, dq, dv, scale,
+            0.0 if softcap is None else float(softcap), int(causal),
+            -1 if window is None else int(window), int(q_offset))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 and t.numel():
+                raise ValueError(f"{name} must be 16-byte aligned (TMA)")
+        code = _lib.lib().flash_attention_sm90_launch(*args, stream)
+    else:
+        code = _lib.lib().flash_attention_launch(*args, stream)
     _lib.check(code, "flash_attention")
     _lib.LAUNCHES["flash_attention"] += 1
     return o

@@ -10,9 +10,12 @@
   a time and each thread's pair sums in registers.
 * ``knn_join_select_cuda`` replaces ``knn_join_select_blocked``
   (knn_join.py:152, body ``_join_select_kernel`` :125). Bound: bytes (8 in
-  per entry, 8 out per winner). One block per row sorts (distance bits,
-  position) keys bitonically in shared memory, so ties keep the lowest
-  position without a second key.
+  per entry, 8 out per winner). A radix select, not a sort of the row: one
+  warp per row up to a padded W of 1024 (one block of 256 threads above),
+  the row read once into registers; unless every survivor of the
+  prefilter wins, four 8-bit histogram passes find the c-th smallest key,
+  and only the c winners are sorted by (distance bits, position), so ties
+  keep the lowest position.
 
 Both check device, dtype, shape and contiguity, allocate their outputs
 with ``torch.empty``, launch on the current stream, raise on a non-zero

@@ -8,9 +8,10 @@ conftest.py imports JAX, hence ``--noconftest``):
 
 Tolerances: ids, counts, evals and +inf positions exact; join distances
 rtol 1e-5 / atol 1e-4 (the kernel sums in another order than cuBLAS);
-select and merge bitwise; pairwise and search distances 1e-4 + 1e-5 *
-(|a|^2 + |b|^2) (the norm expansion cancels the digits the two norms
-share, so the error scales with the norms, not the distance). The int8
+select (every branch of the radix select) and merge bitwise; pairwise and
+search distances 1e-4 + 1e-5 * (|a|^2 + |b|^2) (the norm expansion
+cancels the digits the two norms share, so the error scales with the
+norms, not the distance). The int8
 tiles bitwise (their cross terms are exact integers and the epilogue keeps
 the plain version's order of operations); the bf16 tiles 1e-4 + 1e-5 *
 (|a|^2 + |b|^2), as the fp32 ones (bf16 products are exact in f32; only
@@ -110,6 +111,62 @@ def test_join_select_kernel(dev, n, w, c, ties):
     assert launched["knn_join_select"] == 1
     assert torch.equal(gi_, wi)
     assert torch.equal(gd_, wd)
+
+
+def _select_case(kind, n, w, c, seed):
+    """Rows that force each branch of the radix select: "few" (the
+    prefilter leaves about c / 2: every survivor wins), "many"
+    (no prefilter: four histogram passes), "ties" (one value on the whole
+    row), "straddle" (two values, the c-th key inside a run of equal keys
+    spread over every lane), "zeros" (-0.0 and +0.0 mixed), "specials"
+    (-inf, +inf, NaN, FLT_MAX, ids -1)."""
+    rng = np.random.RandomState(seed)
+    gd = rng.rand(n, w).astype(np.float32)
+    gi = rng.randint(0, 99, size=(n, w)).astype(np.int32)
+    kth = np.full(n, np.inf, np.float32)
+    if kind == "few":
+        kth[:] = 0.5 * c / max(w, 1)
+    elif kind == "ties":
+        gd[:] = 0.5
+    elif kind == "straddle":
+        gd = np.where(rng.rand(n, w) < 0.04, 0.25, 0.5).astype(np.float32)
+    elif kind == "zeros":
+        gd = np.where(rng.rand(n, w) < 0.5, -0.0, 0.0).astype(np.float32)
+        gd[rng.rand(n, w) < 0.3] = 0.125
+        kth[::2] = 0.0        # -0.0 < 0.0 is false: only -inf would pass
+    elif kind == "specials":
+        r = rng.rand(n, w)
+        gd[r < 0.1] = -np.inf
+        gd[(r >= 0.1) & (r < 0.2)] = np.inf
+        gd[(r >= 0.2) & (r < 0.3)] = np.nan
+        gd[(r >= 0.3) & (r < 0.4)] = np.finfo(np.float32).max
+        gi[rng.rand(n, w) < 0.2] = -1
+        kth[1::3] = np.float32(0.5)
+    return gd, gi, kth
+
+
+@pytest.mark.parametrize("kind", ["few", "many", "ties", "straddle", "zeros",
+                                  "specials"])
+@pytest.mark.parametrize("n,w,c", [
+    (64, 32, 6),                 # search top-E: one warp per row
+    (64, 120, 60),               # top-C
+    (64, 400, 120),              # polish
+    (256, 800, 60),              # receiver select
+    (16, 1024, 100),             # the widest row a warp takes
+    (16, 40, 100),               # c > W
+    (3, 0, 4),                   # W = 0
+    (8, 2048, 60),               # one block per row
+    (4, 8192, 30), (4, 8192, 500),   # the widest row the kernel takes
+])
+def test_join_select_radix_cases(dev, kind, n, w, c):
+    """The radix select bitwise against its plain version (a stable sort),
+    in each of its branches, at the warp and the block widths."""
+    args = [torch.from_numpy(a).to(dev)
+            for a in _select_case(kind, n, w, c, n + w + c)]
+    (gd_, gi_), (wd, wi), launched = _both(ops.knn_join_select, *args, c)
+    assert launched["knn_join_select"] == 1
+    assert torch.equal(gi_, wi)
+    assert torch.equal(gd_.view(torch.int32), wd.view(torch.int32))
 
 
 @pytest.mark.parametrize("n,k,c", [
@@ -546,6 +603,52 @@ def test_attention_kernel(dev, mode, dtype):
     rtol = 2e-3 if dtype == "f32" else 1e-2
     torch.testing.assert_close(got[:, seen].float(), want[:, seen].float(),
                                rtol=rtol, atol=2e-3)
+
+
+# the bf16 kernel's widths and ring: (B, Lq, Lk, H, Hkv, Dq, Dv, kwargs)
+ATTN_BF16_SHAPES = {
+    "prefill_1332": (1, 1332, 1332, 32, 4, 128, 128, dict(causal=True)),
+    "dh_256": (2, 300, 300, 4, 2, 256, 256, dict(causal=True)),
+    "dh_80": (2, 257, 257, 8, 2, 80, 80, dict(causal=True)),
+    "dq48_dv32": (2, 200, 200, 4, 2, 48, 32, dict(causal=True)),
+    "long_kv_4096": (1, 256, 4096, 8, 2, 128, 128,
+                     dict(causal=True, q_offset=3840)),
+    "long_kv_noncausal": (1, 130, 4096, 4, 2, 64, 64, dict(causal=False)),
+    "b2_q_offset": (2, 200, 712, 8, 2, 64, 64,
+                    dict(causal=True, q_offset=512)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_BF16_SHAPES))
+def test_attention_kernel_bf16_shapes(dev, case):
+    """The bf16 (wgmma) kernel at the recorded prefill, at Dh 256 and 80
+    and at Dq 48 / Dv 32 (TMA zero-fills the panels past D), with a kv ring
+    much longer than its stages, and at B 2 with q_offset: against the
+    plain version, at the bf16 limit."""
+    b, lq, lk, h, hkv, dq, dv, kw = ATTN_BF16_SHAPES[case]
+    g = torch.Generator(device=dev).manual_seed(lq + lk)
+    q = torch.randn(b, lq, h, dq, generator=g, device=dev).bfloat16()
+    k = torch.randn(b, lk, hkv, dq, generator=g, device=dev).bfloat16()
+    v = torch.randn(b, lk, hkv, dv, generator=g, device=dev).bfloat16()
+    got, want, launched = _both(ops.attention, q, k, v, **kw)
+    assert launched["flash_attention"] == 1
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, lq, h, dv)
+    seen = _seen_rows(lq, lk, **kw).to(dev)
+    assert torch.equal(got[:, ~seen], torch.zeros_like(got[:, ~seen]))
+    torch.testing.assert_close(got[:, seen].float(), want[:, seen].float(),
+                               rtol=1e-2, atol=2e-3)
+
+
+def test_attention_bf16_refuses_other_widths(dev):
+    """The bf16 kernel steps over 16 of Dq: a Dq of 40 is refused (f32
+    takes it), and nothing is launched."""
+    q = torch.zeros(1, 8, 2, 40, device=dev)
+    before = _lib.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops.attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    assert _lib.LAUNCHES["flash_attention"] == before
+    assert ops.attention(q, q, q).shape == (1, 8, 2, 40)
+    assert _lib.LAUNCHES["flash_attention"] == before + 1
 
 
 def test_smoke_prefill_through_kernel_matches_plain(dev):

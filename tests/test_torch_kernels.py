@@ -4,7 +4,8 @@ same numpy inputs, plus the dispatch rules of repro_torch/kernels/ops.py.
 
 Tolerances: ids, counts and evals exact; +inf positions exact; join
 distances rtol 1e-5 / atol 1e-4 (the dot products are summed in another
-order); select and merge bitwise (they only compare and copy); pairwise
+order); select and merge bitwise (they only compare and copy), and so is
+a numpy emulation of the CUDA select's radix passes; pairwise
 l2 rtol 1e-5 / atol 1e-5 * (|a|^2 + |b|^2) (the norm expansion cancels
 the digits the norms share); search distances rtol 1e-4 / atol 1e-4, as
 tests/test_search.py:66."""
@@ -144,6 +145,145 @@ def test_join_select_prefilter_strict():
     assert si.tolist() == [[2, -1, -1]]
     assert sd[0, 0].item() == pytest.approx(0.3)
     assert torch.isinf(sd[0, 1:]).all()
+
+
+def _order_bits(d):
+    """The kernel's 32-bit key: order-preserving bits, -0.0 as +0.0."""
+    d = np.where(d == 0, np.float32(0), d).astype(np.float32)
+    b = d.view(np.uint32)
+    return np.where(b & 0x80000000, ~b, b | 0x80000000).astype(np.uint32)
+
+
+def _radix_select_emulation(gd, gi, kth, c, threads):
+    """csrc/knn_kernels.cu's knn_join_select, step by step, in numpy: a row
+    group of ``threads`` threads holds position p as item p // threads of
+    thread p % threads (so position order is item-major, then thread
+    order); survivors count s; if s > c four passes of 8 bits, each a
+    256-bin histogram of the keys that match the digits found so far,
+    give the c-th smallest key T and ``need``; the winners are the keys
+    below T and the first ``need`` equal to T in position order, each put
+    in the slot its (key, position) rank names. Returns (dist, idx) and
+    the per-row (s, T, need) for the test to inspect."""
+    n, w = gd.shape
+    big = _order_bits(np.array([np.finfo(np.float32).max], np.float32))[0]
+    od = np.full((n, c), np.inf, np.float32)
+    oi = np.full((n, c), -1, np.int32)
+    trace = []
+    ipl = max(1, -(-w // threads))
+    for row in range(n):
+        key = np.full(ipl * threads, big, np.uint32)
+        ok = (gi[row] >= 0) & (gd[row] < kth[row])
+        key[:w] = np.where(ok, _order_bits(gd[row]), big)
+        # blocked by thread: items[t] = the keys of thread t, in item order
+        items = key.reshape(ipl, threads).T
+        surv = items < big
+        s = int(surv.sum())
+        thr, need = big, 0
+        if s > c:
+            prefix, pmask, r = 0, 0, c - 1
+            for shift in (24, 16, 8, 0):
+                cand = surv & ((items & pmask) == prefix)
+                hist = np.bincount(((items[cand] >> shift) & 0xFF)
+                                   .astype(np.int64), minlength=256)
+                cum = np.cumsum(hist)
+                b = int(np.searchsorted(cum, r, side="right"))
+                r -= int(cum[b - 1]) if b else 0
+                prefix |= b << shift
+                pmask |= 0xFF << shift
+            thr, need = prefix, r + 1
+        flat = items.T.reshape(-1)               # back to position order
+        eq_rank = np.cumsum(flat == thr) - 1
+        win = (flat < thr) | ((flat == thr) & (eq_rank < need))
+        pos = np.nonzero(win)[0]
+        words = (flat[pos].astype(np.uint64) << np.uint64(32)) \
+            | pos.astype(np.uint64)
+        rank = (words[None, :] < words[:, None]).sum(1)
+        od[row, rank] = gd[row, pos]
+        oi[row, rank] = gi[row, pos]
+        trace.append((s, int(thr), need))
+    return od, oi, trace
+
+
+def _radix_rows(kind, n, w, c, seed):
+    """Tie-heavy rows for the radix select: one value ("ties"), two values
+    with the c-th key inside a run that spans every thread ("straddle"),
+    -0.0 / +0.0 ("zeros"), and -inf / +inf / NaN / FLT_MAX / id -1
+    ("specials"); "many" and "few" are below and above c survivors."""
+    gd, gi, kth = _select_inputs(n, w, seed, False)
+    kth[:] = np.inf
+    gi[:] = np.abs(gi)
+    rng = np.random.RandomState(seed + 1)
+    if kind == "few":
+        kth[:] = 0.5 * c / max(w, 1)     # about c / 2 survivors
+    elif kind == "ties":
+        gd[:] = 0.5
+    elif kind == "straddle":
+        gd = np.where(rng.rand(n, w) < 0.04, 0.25, 0.5).astype(np.float32)
+    elif kind == "zeros":
+        gd = np.where(rng.rand(n, w) < 0.5, -0.0, 0.0).astype(np.float32)
+        gd[rng.rand(n, w) < 0.3] = 0.125
+    elif kind == "specials":
+        r = rng.rand(n, w)
+        gd[r < 0.1] = -np.inf
+        gd[(r >= 0.1) & (r < 0.2)] = np.inf
+        gd[(r >= 0.2) & (r < 0.3)] = np.nan
+        gd[(r >= 0.3) & (r < 0.4)] = np.finfo(np.float32).max
+        gi[rng.rand(n, w) < 0.2] = -1
+        kth[1::2] = 0.5
+    return gd, gi, kth
+
+
+@pytest.mark.parametrize("kind", ["few", "many", "ties", "straddle", "zeros",
+                                  "specials"])
+@pytest.mark.parametrize("w,c,threads", [
+    (32, 6, 32),        # search top-E: one warp
+    (120, 60, 32),      # top-C
+    (800, 60, 32),      # receiver select
+    (2048, 60, 256),    # one block per row
+    (40, 100, 32),      # c > W
+])
+def test_radix_select_emulation_matches_jax(kind, w, c, threads):
+    """The radix select's passes (layout, threshold, need at T) against
+    the port's plain version bitwise and JAX's oracle by id and value, and
+    the branches taken are the ones named. On -0.0 / +0.0 JAX's oracle
+    (top_k of the negated pool, a total order) puts -0.0 first, where its
+    Pallas kernel and the port tie them by position (next test), so there
+    it is held to the Pallas kernel."""
+    gd, gi, kth = _radix_rows(kind, 6, w, c, w + c)
+    ed, ei, trace = _radix_select_emulation(gd, gi, kth, c, threads)
+    td, ti = tref.knn_join_select(_t(gd), _t(gi), _t(kth), c)
+    np.testing.assert_array_equal(ei, ti.numpy())
+    np.testing.assert_array_equal(ed.view(np.int32), td.numpy().view(np.int32))
+    if kind == "zeros":
+        jd, ji = knn_join_select_blocked(jnp.asarray(gd), jnp.asarray(gi),
+                                         jnp.asarray(kth), c=c, tr=2,
+                                         interpret=True)
+    else:
+        jd, ji = jref.knn_join_select(jnp.asarray(gd), jnp.asarray(gi),
+                                      jnp.asarray(kth), c)
+    np.testing.assert_array_equal(ei, np.asarray(ji))
+    np.testing.assert_array_equal(ed, np.asarray(jd))
+    radix = [need > 0 for _, _, need in trace]
+    assert radix == [s > c for s, _, _ in trace]
+    if kind in ("ties", "straddle") and w > c:
+        assert all(radix) and all(need > 1 for _, _, need in trace)
+    if kind == "few":
+        assert not any(radix)
+
+
+@pytest.mark.parametrize("kind", ["ties", "straddle", "zeros"])
+def test_radix_select_emulation_matches_pallas_kernel(kind):
+    """The same emulation against the Pallas kernel in interpret mode at
+    the receiver select's width, on rows of ties."""
+    gd, gi, kth = _radix_rows(kind, 8, 800, 60, 7)
+    ed, ei, _ = _radix_select_emulation(gd, gi, kth, 60, 32)
+    kd, ki = knn_join_select_blocked(jnp.asarray(gd), jnp.asarray(gi),
+                                     jnp.asarray(kth), c=60, tr=8,
+                                     interpret=True)
+    np.testing.assert_array_equal(ei, np.asarray(ki))
+    # equal as values: the Pallas kernel returns min()'s zero, the port
+    # the sign stored at the winning position
+    np.testing.assert_array_equal(ed, np.asarray(kd))
 
 
 # ---------------------------------------------------------------------------
@@ -395,8 +535,21 @@ def test_ptxas_report_parsing():
                              "static_smem_bytes": 4 * i}
     assert got["_ZN12_GLOBAL__N_16helperEv"] == {"registers": 30,
                                                  "static_smem_bytes": 0}
+    # a template instance is also kept under its integer arguments, and
+    # the bf16 attention kernel under its own name
+    assert got["flash_attention<2>"] == got["flash_attention"]
+    sm90 = ("_ZN12_GLOBAL__N_127flash_attention_kernel_sm90ILi2EEEv14CUtens"
+            "orMap_stS1_S1_P13__nv_bfloat16iiiiiiffiii")
+    got = _lib._parse_ptxas(
+        f"ptxas info    : Compiling entry function '{sm90}' for 'sm_90a'\n"
+        "ptxas info    : Used 168 registers, 64 bytes smem, 400 bytes "
+        "cmem[0]\n" + log)
+    assert got["flash_attention_sm90"] == got["flash_attention_sm90<2>"] \
+        == {"registers": 168, "static_smem_bytes": 64}
+    assert got["flash_attention"]["registers"] == 40 + 12
     assert _lib.library_path().name.startswith("libknn_kernels_")
     assert {p.name for p in _lib.SOURCES} == {"knn_kernels.cu",
                                               "search_kernels.cu",
                                               "quant_kernels.cu",
-                                              "attention_kernels.cu"}
+                                              "attention_kernels.cu",
+                                              "attention_sm90.cu"}
