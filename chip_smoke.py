@@ -112,7 +112,10 @@ script started:
                online store's row forms, the time of their (n, k) copy);
                knn_join_select at every (W, c) the build, search and online
                paths recorded, each with torch.sort(stable=True) of the
-               same masked keys as its library row; flash_attention at
+               same masked keys as its library row (the merges: of the
+               masked pool, plus gather); knn_merge_rows at every c the
+               online path recorded; pairwise_sq_l2 also on the online
+               path's centroid_assign tile (the router's); flash_attention at
                bf16 on the inputs the lm_serve prefill gave it and at f32
                on attention_check's causal_gqa_32_4 inputs, with
                scaled_dot_product_attention as its library row.
@@ -122,7 +125,11 @@ model is freed before the kernels phase. Then the line
 {"kernels": [...]}: one entry per kernel, plus knn_join_select once per
 further (W, c) that build, search or online recorded (``launches``: what
 that width's calls added to the kernel's count in its path; these add up
-to the path's count, or the script fails) and
+to the path's count, or the script fails), knn_merge_rows once per
+further c of the online path (every row-merge entry's ``launches`` is its
+own c's; they add up to the path's count, or the script fails),
+pairwise_sq_l2 once more on the online path's centroid_assign tile
+(``launches``: those calls) and
 flash_attention once more at f32 (``launches``: its calls in
 attention_check; no main path runs attention at f32); ``call`` tells the
 entries apart. Last, {"ok": true, "device": ...}. Any failure
@@ -190,9 +197,12 @@ ONLINE_KERNELS = ("knn_compact", "knn_merge_rows", "knn_compact_rows")
 SELECT_PATHS = ("build", "search", "online")   # their selects join the line
 OWNED = {path: name for name, path in QUANT_OWNER.items()}
 # the select runs on every graph path, at its own widths: each is checked
+# the online path's centroid_assign tiles are checked too, at the router's
+# width
 CHECKED = {**{path: {name, "knn_join_select"} for path, name in OWNED.items()},
-           "online": {*ONLINE_KERNELS, "knn_join_select"},
+           "online": {*ONLINE_KERNELS, "knn_join_select", "pairwise_sq_l2"},
            "lm_serve": {"flash_attention"}}
+CENTROID_KEY = "online:pairwise_sq_l2:centroid_assign"
 PRECISIONS = ("int8", "bf16")
 N, CHECK_N, SEED = 70_000, 16_000, 0   # the main path's and the check's n
 N_QUERIES, CHECK_QUERIES = 10_000, 2048
@@ -338,7 +348,10 @@ class Recorder:
              "pairwise_sq_l2", "knn_search_dists", "knn_search_dists_q8",
              "knn_search_dists_bf16", "knn_join_dists_q8",
              "knn_join_dists_bf16", "knn_compact", "knn_merge_rows",
-             "knn_compact_rows", "attention")
+             "knn_compact_rows", "attention", "centroid_assign")
+    # entry points recorded under the kernel they launch
+    KERNEL_OF = {"attention": "flash_attention",
+                 "centroid_assign": "pairwise_sq_l2"}
 
     def __init__(self, tag: str):
         self.tag = tag
@@ -368,7 +381,7 @@ class Recorder:
         import torch
         from repro_torch.kernels import _lib
 
-        kernel = "flash_attention" if name == "attention" else name
+        kernel = self.KERNEL_OF.get(name, name)
 
         def call(*args, **kw):
             key = f"{self.tag}:{kernel}"
@@ -380,11 +393,16 @@ class Recorder:
                 key += f":W={args[6].shape[1]}"
             elif name == "knn_merge_rows":
                 key += f":c={args[3].shape[1]}"
+            elif name == "centroid_assign":
+                key += ":centroid_assign"
             self.seen[key] = self.seen.get(key, 0) + 1
             if self.seen[key] == 2:
+                # centroid_assign's tile: pairwise_sq_l2(q, centroids)
+                rec = (args[0].contiguous(), args[2].contiguous()) \
+                    if name == "centroid_assign" else args
                 self.calls[key] = tuple(
                     a.clone() if isinstance(a, torch.Tensor) else a
-                    for a in args)
+                    for a in rec)
                 self.kwargs[key] = dict(kw)
             before = _lib.LAUNCHES[kernel]
             out = fn(*args, **kw)
@@ -561,9 +579,20 @@ def check_kernel(name, args, reps):
             n, k = cd.shape
             c = qd.shape[1]
             nbytes = 8 * n * k + 8 * n * c + 8 * n * k + 4 * n
-            flops = n * (k * c + c * (c - 1) // 2 + k * (k + c))
-            entry["library_ms"] = None
-            entry["library_call"] = "none"
+            # one dedup probe and one selection compare per pool entry
+            flops = 2 * n * (k + c)
+            # the yardstick's pool is masked beforehand, as for row 6a
+            pool_d = torch.cat([
+                torch.where(torch.isinf(cd), ref.BIG, cd),
+                torch.where(ref.candidate_dups(ci, qi), ref.BIG, qd)], dim=1)
+            pool_i = torch.cat([ci, qi], dim=1)
+
+            def library():
+                srt, order = torch.sort(pool_d, dim=1, stable=True)
+                return srt[:, :k], torch.gather(pool_i, 1, order[:, :k])
+            entry["library_ms"] = time_ms(library, reps)
+            entry["library_call"] = "torch.sort(stable=True) of the masked " \
+                "pool + gather"
         else:
             flops, nbytes = check_online_kernel(name, args, entry, reps)
     entry["ms"] = time_ms(lambda: fn(*args), reps)
@@ -622,7 +651,7 @@ def check_online_kernel(name, args, entry, reps):
             torch.where(torch.isinf(sub_d), ref.BIG, sub_d),
             torch.where(ref.candidate_dups(sub_i, qi), ref.BIG, qd)], dim=1)
         pool_i = torch.cat([sub_i, qi], dim=1)
-        flops = f * (k * c + c * (c - 1) // 2 + k * (k + c))
+        flops = 2 * f * (k + c)    # as knn_merge's
         nbytes = 16 * n * k + f * (8 * c + 8)
     else:
         drop = args[3]
@@ -1676,14 +1705,21 @@ def main() -> int:
     seen = {k: c for rec in recs.values() for k, c in rec.seen.items()}
     launched = {k: c for rec in recs.values()
                 for k, c in rec.launched.items()}
-    # the per-(W, c) select launches add up to each path's count
-    for tag in SELECT_PATHS:
-        per_width = sum(c for k, c in launched.items()
-                        if k.startswith(f"{tag}:knn_join_select:"))
-        if per_width != launches[tag]["knn_join_select"]:
+    # the per-(W, c) select launches add up to each path's count, and so
+    # do the online path's row merges by c and its pairwise tiles (direct
+    # calls and centroid_assign's)
+    for tag, name in [*((t, "knn_join_select") for t in SELECT_PATHS),
+                      ("online", "knn_merge_rows"),
+                      ("online", "pairwise_sq_l2")]:
+        per_key = sum(c for k, c in launched.items()
+                      if k == f"{tag}:{name}" or k.startswith(
+                          f"{tag}:{name}:"))
+        if per_key != launches[tag][name]:
             raise AssertionError(
-                f"{tag}: select launches by (W, c) sum to {per_width}, "
-                f"the path launched {launches[tag]['knn_join_select']}")
+                f"{tag}: {name} launches by width sum to {per_key}, the "
+                f"path launched {launches[tag][name]}")
+    merges = {}        # c -> entry, the online path's row merges
+    centroid = None    # the online path's centroid_assign tile
     for key, call in sorted(calls.items()):
         tag, name = key.split(":")[:2]
         if tag in CHECKED and name not in CHECKED[tag]:
@@ -1703,13 +1739,23 @@ def main() -> int:
             if prev is None or SELECT_PATHS.index(tag) < SELECT_PATHS.index(
                     prev["path"]):
                 selects[wc] = e
+        if tag == "online" and name == "knn_merge_rows":
+            # each width's entry carries that width's launches
+            merges[int(key.split(":c=")[1])] = {
+                **e, "launches": e["launches_at_this_key"]}
+        if key == CENTROID_KEY:
+            centroid = {**e, "launches": e["launches_at_this_key"]}
         # the line keeps one entry per kernel, from the path that owns
         # it; the build's widest select (the receiver select) and the
         # online path's widest row merge stand for their kernels
         if tag != owner.get(name, "build"):
             continue
+        if name == "knn_merge_rows":
+            e = merges[int(key.split(":c=")[1])]
         if name not in entries or width_of(e) > width_of(entries[name]):
             entries[name] = e
+    if centroid is None:
+        raise AssertionError("online: no second centroid_assign call")
     # flash_attention at f32: the SIMT kernel on attention_check's inputs
     f32 = check_attention_kernel(f32_attention["args"],
                                  f32_attention["kwargs"], reps=20)
@@ -1733,6 +1779,12 @@ def main() -> int:
                 if e is not entries[n]:
                     line.append(
                         {**e, "launches": e["launches_at_this_key"]})
+        if n == "pairwise_sq_l2":
+            line.append(centroid)      # the router's tile, online path
+        if n == "knn_merge_rows":
+            # every other recorded c of the online path
+            line.extend(e for c, e in sorted(merges.items())
+                        if e is not entries[n])
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call")

@@ -12,7 +12,12 @@ where it launches it, and nowhere else, so a run can show that the main
 path went through the kernels. The device function of kernel ``name`` is
 ``<name>_kernel``, or a name that contains it: ``flash_attention`` has two,
 ``flash_attention_kernel`` (f32) and ``flash_attention_kernel_sm90``
-(bf16), reported apart as ``flash_attention`` and ``flash_attention_sm90``.
+(bf16), reported apart as ``flash_attention`` and ``flash_attention_sm90``;
+``pairwise_sq_l2`` launches ``pairwise_sq_l2_kernel_k_major`` (its
+operands' k-major copies) before ``pairwise_sq_l2_kernel``, and after it,
+on a grid split over the features, ``pairwise_sq_l2_kernel_split_sum``;
+they are reported as ``pairwise_sq_l2_k_major`` and
+``pairwise_sq_l2_split_sum``.
 """
 from __future__ import annotations
 
@@ -40,7 +45,9 @@ KERNELS = ("knn_join_dists", "knn_join_select", "knn_merge",
            "flash_attention")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 # device functions reported under their own name (substring -> name)
-VARIANTS = {"flash_attention_kernel_sm90": "flash_attention_sm90"}
+VARIANTS = {"flash_attention_kernel_sm90": "flash_attention_sm90",
+            "pairwise_sq_l2_kernel_k_major": "pairwise_sq_l2_k_major",
+            "pairwise_sq_l2_kernel_split_sum": "pairwise_sq_l2_split_sum"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,8 +59,11 @@ _SIGNATURES = {
     "knn_join_select_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # cd, ci, qd, qi, od, oi, upd, n, k, c, stream
     "knn_merge_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # a, b, out, M, N, D, stream
-    "pairwise_sq_l2_launch": [_P, _P, _P, _I, _I, _I, _P],
+    # a, b, at, bt (k-major scratch), out, ws (split scratch), M, N, D,
+    # lda, ldb, splits, stream; and the split count for (M, N, D)
+    "pairwise_sq_l2_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _P],
+    "pairwise_sq_l2_splits": [_I, _I, _I],
     # q, q2, x, x2, ids, od, N, nq, W, dp, stream
     "knn_search_dists_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # qq, qscale, q2, data, scale, x2, ids, od, N, nq, W, w, stream

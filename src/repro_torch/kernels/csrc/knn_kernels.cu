@@ -171,6 +171,7 @@ __global__ void __launch_bounds__(kJoinThreads) knn_join_dists_kernel(
 //  4. their distances and ids are read back from the input (so -0.0 keeps
 //     its sign), the rest of the c slots filled with (+inf, -1).
 // Where a warp owns the row, its only barriers are warp barriers.
+// The core (select_winners) is also the merges' selection, below.
 // ---------------------------------------------------------------------------
 
 constexpr int kSelectThreads = 256;
@@ -308,47 +309,28 @@ __device__ __forceinline__ void find_bin(const int* hist, int r, int lane,
   rin = __shfl_sync(0xffffffffu, rr, src);
 }
 
-// G warps per row (1: eight rows per block; 8: one), IPL keys per thread
-template <int G, int IPL>
-__global__ void __launch_bounds__(kSelectThreads) knn_join_select_kernel(
-    const float* __restrict__ gd, const int* __restrict__ gi,
-    const float* __restrict__ kth, float* __restrict__ od,
-    int* __restrict__ oi, int n, int W, int c, int cap) {
+// The select's core, shared by knn_join_select and the merges. The row
+// group's keys are in registers (item i of thread t is position i * T + t);
+// keys below `big` survive. Finds the c smallest (key, position) winners
+// and calls put(slot, position) once for each, from one thread of the
+// group; returns (on every thread) how many there are. Every thread of the
+// row group calls it. `sm` holds select_group_bytes<G, IPL>(cap) bytes.
+template <int G, int IPL, class Put>
+__device__ __forceinline__ int select_winners(const uint32_t (&key)[IPL],
+                                              uint32_t big, int c, int cap,
+                                              char* sm, int t, Put put) {
   constexpr int T = 32 * G;
-  constexpr int kRows = kSelectThreads / T;
   constexpr int kScan = select_scan_ints<G, IPL>();
   constexpr int kRankMax = 4 * T;      // winners placed by rank up to here
-  extern __shared__ __align__(16) unsigned long long select_smem[];
-  const int grp = threadIdx.x / T;
-  const int t = threadIdx.x - grp * T;
   const int warp = t >> 5;
   const int lane = t & 31;
   const unsigned below = (1u << lane) - 1u;
-  const int row = blockIdx.x * kRows + grp;
-  if (row >= n) return;          // a whole warp (kRows > 1 only for G 1)
-  unsigned long long* words = reinterpret_cast<unsigned long long*>(
-      reinterpret_cast<char*>(select_smem) +
-      grp * select_group_bytes<G, IPL>(cap));
+  unsigned long long* words = reinterpret_cast<unsigned long long*>(sm);
   int* hist = reinterpret_cast<int*>(words + (cap < 2 ? 2 : cap));  // [2]
   int* scan_e = hist + 2 * kSelectBins;  // keys equal to T
   int* scan_w = scan_e + kScan;          // winners
   int* cnt = scan_w + kScan;             // survivors per warp
 
-  const float th = kth[row];
-  const float* rd = gd + (int64_t)row * W;
-  const int* ri = gi + (int64_t)row * W;
-  const uint32_t big = order_bits(FLT_MAX);
-  uint32_t key[IPL];
-#pragma unroll
-  for (int i = 0; i < IPL; ++i) {
-    const int p = i * T + t;
-    uint32_t kb = big;
-    if (p < W) {
-      const float d = rd[p];
-      if (ri[p] >= 0 && d < th) kb = order_bits(d);
-    }
-    key[i] = kb;
-  }
   const int s = group_count<G, IPL>([&](int i) { return key[i] < big; },
                                     cnt, warp, lane);
 
@@ -410,8 +392,6 @@ __global__ void __launch_bounds__(kSelectThreads) knn_join_select_kernel(
       words[scan_w[i * G + warp] + __popc(wb & below)] =
           ((unsigned long long)key[i] << 32) | (unsigned)(i * T + t);
   }
-  float* rod = od + (int64_t)row * c;
-  int* roi = oi + (int64_t)row * c;
   if (nwin <= kRankMax) {
     // a winner's slot is the count of winners below it
     group_sync<G>();
@@ -420,9 +400,7 @@ __global__ void __launch_bounds__(kSelectThreads) knn_join_select_kernel(
       int rank = 0;
 #pragma unroll 4
       for (int x = 0; x < nwin; ++x) rank += words[x] < w;
-      const int p = (int)(w & 0xffffffffu);
-      rod[rank] = rd[p];
-      roi[rank] = ri[p];
+      put(rank, (int)(w & 0xffffffffu));
     }
   } else {
     // a bitonic sort over the next power of two of the winners' count
@@ -444,12 +422,50 @@ __global__ void __launch_bounds__(kSelectThreads) knn_join_select_kernel(
         group_sync<G>();
       }
     }
-    for (int j = t; j < nwin; j += T) {
-      const int p = (int)(words[j] & 0xffffffffu);
-      rod[j] = rd[p];
-      roi[j] = ri[p];
-    }
+    for (int j = t; j < nwin; j += T) put(j, (int)(words[j] & 0xffffffffu));
   }
+  return nwin;
+}
+
+// G warps per row (1: eight rows per block; 8: one), IPL keys per thread
+template <int G, int IPL>
+__global__ void __launch_bounds__(kSelectThreads) knn_join_select_kernel(
+    const float* __restrict__ gd, const int* __restrict__ gi,
+    const float* __restrict__ kth, float* __restrict__ od,
+    int* __restrict__ oi, int n, int W, int c, int cap) {
+  constexpr int T = 32 * G;
+  constexpr int kRows = kSelectThreads / T;
+  extern __shared__ __align__(16) unsigned long long select_smem[];
+  const int grp = threadIdx.x / T;
+  const int t = threadIdx.x - grp * T;
+  const int row = blockIdx.x * kRows + grp;
+  if (row >= n) return;          // a whole warp (kRows > 1 only for G 1)
+  char* sm = reinterpret_cast<char*>(select_smem) +
+             grp * select_group_bytes<G, IPL>(cap);
+
+  const float th = kth[row];
+  const float* rd = gd + (int64_t)row * W;
+  const int* ri = gi + (int64_t)row * W;
+  const uint32_t big = order_bits(FLT_MAX);
+  uint32_t key[IPL];
+#pragma unroll
+  for (int i = 0; i < IPL; ++i) {
+    const int p = i * T + t;
+    uint32_t kb = big;
+    if (p < W) {
+      const float d = rd[p];
+      if (ri[p] >= 0 && d < th) kb = order_bits(d);
+    }
+    key[i] = kb;
+  }
+  float* rod = od + (int64_t)row * c;
+  int* roi = oi + (int64_t)row * c;
+  // distances and ids are read back from the input, so -0.0 keeps its sign
+  const int nwin = select_winners<G, IPL>(key, big, c, cap, sm, t,
+                                          [&](int slot, int p) {
+                                            rod[slot] = rd[p];
+                                            roi[slot] = ri[p];
+                                          });
   for (int j = nwin + t; j < c; j += T) {
     rod[j] = INFINITY;
     roi[j] = -1;
@@ -475,55 +491,305 @@ int launch_select(const float* gd, const int* gi, const float* kth,
 }
 
 // ---------------------------------------------------------------------------
-// The list kernels: knn_merge and knn_compact, each dense and in a row form.
-//
 // knn_merge replaces knn_merge_blocked / _merge_kernel
-// (src/repro/kernels/knn_merge.py:30,156). Per row: drop candidates with
-// id < 0, already in the list, or repeating an earlier candidate; then k
-// rounds of argmin over [current k | candidates c], ties to the lowest pool
-// position; count the candidate picks below the FLT_MAX sentinel. Sentinel
-// slots come out (+inf, -1).
+// (src/repro/kernels/knn_merge.py:30,156); knn_merge_rows replaces
+// knn_merge_rows_blocked (:210), the online store's frontier form: slot s
+// of the (f, c) candidates merges into list row rows[s] (-1: padding,
+// count 0, nothing written). The row form reads row rows[s] of the input
+// lists and writes the same row of the output lists, which the wrapper made
+// as a copy of the input, so no gather or scatter runs around it. Rows
+// must be unique.
 //
-// knn_compact replaces knn_compact_blocked / _compact_kernel (:72,108), the
-// tombstone purge. Per row: the survivors (not dropped, id >= 0, finite
-// distance, so valid entries at the 3e38 placeholder survive) come out
-// ascending, ties in input order, whatever the order of the input row;
-// freed slots are (+inf, -1); `removed` counts dropped entries with id >= 0.
-//
-// knn_merge_rows / knn_compact_rows replace knn_merge_rows_blocked /
-// knn_compact_rows_blocked (:210,237), the online store's frontier forms:
-// slot s of the (f, .) candidates or drop mask applies to list row
-// rows[s] (-1: padding, count 0, nothing written). The row indirection is
-// in the kernel: it reads row rows[s] of the input lists and writes the
-// same row of the output lists, which the wrapper made as a copy of the
-// input, so no gather or scatter runs around it. Rows must be unique.
-//
-// Bound: bytes. They read and write 8 bytes per list and candidate entry
-// (plus 1 per drop flag); the merge's dedup (k*c + c*c/2 compares) and
-// the extraction rounds run on shared memory.
-// Design: one warp per row stages its pool in shared memory. Each round is
-// a strided scan plus a butterfly shuffle reduction over (dist, position),
-// so every lane ends the round with the same winner and no block barrier
-// is needed; the round loop stops at the first sentinel. The merge and the
-// compaction share this extraction (`extract_rounds`): the merge stages
-// [list | deduped candidates] with FLT_MAX as its sentinel, the compaction
-// stages the row with +inf on every entry that does not survive. The dense
-// and row kernels share `merge_row` / `compact_row`, which take the list
-// row and the slot apart.
+// Per row the pool is [list k | candidates c]. A candidate is dropped if
+// its id is < 0, sits in the list, or repeats an earlier candidate (the
+// list itself is never deduped). The k smallest of the rest come out
+// ascending, ties to the lowest pool position, stopping at the FLT_MAX
+// sentinel (list entries at +-inf count as it); empty slots are (+inf,
+// -1); the count is the picks that came from the candidates.
+// Bound: bytes. 8 bytes per list and candidate entry in, 8 per list entry
+// out; the dedup and the selection stay in shared memory and registers.
+// Design: the pool is one row of the radix select above (select_winners),
+// its keys in registers, with "below FLT_MAX and not a dropped candidate"
+// as the prefilter, so the order and the tie rule are the select's. A row
+// belongs to a warp where the pool pads to at most 128 (eight rows per
+// block: the build's, the search's and the online reverse merges), else to
+// a block of 256 threads, so the online store's wide merges (c = k^2 and
+// the batch width over a few hundred rows) fill the card. The dedup has no dependent chain: every id
+// >= 0 of the pool goes into a shared-memory hash table (open addressing,
+// twice the padded pool) as a 64-bit (id, position) word that keeps the
+// lowest position seen (atomicCAS claims a slot, atomicMin lowers a
+// claimed one; of the lanes of a warp that hold one id only the lowest,
+// the lowest position, sends it). A candidate at position p is a
+// duplicate iff its id is < 0 or its id's lowest position is below p.
+// The table shares its memory with the select's words and histograms,
+// which are written only after the last lookup.
 // ---------------------------------------------------------------------------
 
-constexpr int kMergeWarps = 4;
-constexpr int kMergeMaxPool = 1536;      // k + c: 4 warps x 1536 x 8 B = 48 KB
+constexpr int kMergeMaxPool = 8192;        // k + c: the select's widest row
+// one warp per row up to a pool of 128. Above it a block per row fills the
+// card where the rows are few (the online store's few hundred) and costs a
+// little where they are many
+constexpr int kMergeWarpMaxPadded = 128;
+
+__host__ __device__ constexpr int log2_pow2(int v) {
+  return v <= 1 ? 0 : 1 + log2_pow2(v >> 1);
+}
+
+template <int G, int IPL>
+__host__ __device__ constexpr int merge_hash_slots() {
+  return 2 * 32 * G * IPL;
+}
+
+// shared bytes of one row group: the hash table, then the select's share
+// of the same memory
+template <int G, int IPL>
+__host__ __device__ constexpr size_t merge_group_bytes(int cap) {
+  return merge_hash_slots<G, IPL>() * sizeof(unsigned long long) >
+                 select_group_bytes<G, IPL>(cap)
+             ? merge_hash_slots<G, IPL>() * sizeof(unsigned long long)
+             : select_group_bytes<G, IPL>(cap);
+}
+
+// One row group merges candidate slot `slot` into list row rows[slot];
+// rows == nullptr is the dense form (slot s is list row s). G warps per
+// row (1: eight rows per block; 8: one), IPL pool entries per thread.
+template <int G, int IPL>
+__device__ __forceinline__ void merge_row(
+    const float* __restrict__ cd, const int* __restrict__ ci,
+    const int* __restrict__ rows, const float* __restrict__ qd,
+    const int* __restrict__ qi, float* __restrict__ od, int* __restrict__ oi,
+    int* __restrict__ upd, int n, int f, int k, int c, int cap,
+    unsigned long long* merge_smem, int* s_picks) {
+  constexpr int T = 32 * G;
+  constexpr int kRows = kSelectThreads / T;
+  constexpr int kSlots = merge_hash_slots<G, IPL>();
+  constexpr int kShift = 32 - log2_pow2(kSlots);
+  constexpr unsigned long long kEmpty = ~0ull;
+  const int grp = threadIdx.x / T;
+  const int t = threadIdx.x - grp * T;
+  const int lane = t & 31;
+  const int slot = blockIdx.x * kRows + grp;
+  if (slot >= f) return;                 // a whole row group
+  const int row = rows == nullptr ? slot : rows[slot];
+  if (row < 0 || row >= n) {             // padding: count 0, write nothing
+    if (t == 0) upd[slot] = 0;
+    return;
+  }
+  char* sm = reinterpret_cast<char*>(merge_smem) +
+             grp * merge_group_bytes<G, IPL>(cap);
+  unsigned long long* table = reinterpret_cast<unsigned long long*>(sm);
+  const int m = k + c;
+  const float* rcd = cd + (int64_t)row * k;
+  const int* rci = ci + (int64_t)row * k;
+  const float* rqd = qd + (int64_t)slot * c;
+  const int* rqi = qi + (int64_t)slot * c;
+
+  for (int j = t; j < kSlots; j += T) table[j] = kEmpty;
+  if (G > 1 && t == 0) *s_picks = 0;
+  // every id is read before the first atomic: loads do not move past them
+  int id[IPL];
+#pragma unroll
+  for (int i = 0; i < IPL; ++i) {
+    const int p = i * T + t;
+    id[i] = p < k ? rci[p] : (p < m ? rqi[p - k] : -1);
+  }
+  group_sync<G>();
+#pragma unroll
+  for (int i = 0; i < IPL; ++i) {
+    const unsigned peers = __match_any_sync(0xffffffffu, id[i]);
+    if (id[i] >= 0 && lane == __ffs(peers) - 1) {
+      const unsigned long long w =
+          ((unsigned long long)(unsigned)id[i] << 32) | (unsigned)(i * T + t);
+      uint32_t h = ((uint32_t)id[i] * 0x9E3779B1u) >> kShift;
+      while (true) {
+        const unsigned long long prev = atomicCAS(&table[h], kEmpty, w);
+        if (prev == kEmpty) break;
+        if ((uint32_t)(prev >> 32) == (uint32_t)id[i]) {
+          atomicMin(&table[h], w);
+          break;
+        }
+        h = (h + 1) & (kSlots - 1);
+      }
+    }
+  }
+  group_sync<G>();
+
+  const uint32_t big = order_bits(FLT_MAX);
+  uint32_t key[IPL];
+#pragma unroll
+  for (int i = 0; i < IPL; ++i) {
+    const int p = i * T + t;
+    uint32_t kb = big;
+    if (p < k) {
+      const float d = rcd[p];
+      if (d != -INFINITY && d < FLT_MAX) kb = order_bits(d);
+    } else if (p < m && id[i] >= 0) {
+      uint32_t h = ((uint32_t)id[i] * 0x9E3779B1u) >> kShift;
+      unsigned long long v = table[h];
+      while ((uint32_t)(v >> 32) != (uint32_t)id[i]) {
+        h = (h + 1) & (kSlots - 1);
+        v = table[h];
+      }
+      const float d = rqd[p - k];
+      if ((int)(v & 0xffffffffu) == p && d < FLT_MAX) kb = order_bits(d);
+    }
+    key[i] = kb;
+  }
+  group_sync<G>();                       // the table is read: free for reuse
+
+  float* rod = od + (int64_t)row * k;
+  int* roi = oi + (int64_t)row * k;
+  int picked = 0;
+  const int nwin = select_winners<G, IPL>(key, big, k, cap, sm, t,
+                                          [&](int s, int p) {
+                                            if (p < k) {
+                                              rod[s] = rcd[p];
+                                              roi[s] = rci[p];
+                                            } else {
+                                              rod[s] = rqd[p - k];
+                                              roi[s] = rqi[p - k];
+                                              ++picked;
+                                            }
+                                          });
+  for (int j = nwin + t; j < k; j += T) {
+    rod[j] = INFINITY;
+    roi[j] = -1;
+  }
+  picked = __reduce_add_sync(0xffffffffu, picked);
+  if (G == 1) {
+    if (lane == 0) upd[slot] = picked;
+  } else {
+    if (lane == 0) atomicAdd(s_picks, picked);
+    __syncthreads();
+    if (t == 0) upd[slot] = *s_picks;
+  }
+}
+
+// (a minimum of one block per SM: without it ptxas held the row form's
+// <8, 8> instance to 48 registers and spilled)
+template <int G, int IPL>
+__global__ void __launch_bounds__(kSelectThreads, 1) knn_merge_kernel(
+    const float* __restrict__ cd, const int* __restrict__ ci,
+    const float* __restrict__ qd, const int* __restrict__ qi,
+    float* __restrict__ od, int* __restrict__ oi, int* __restrict__ upd,
+    int n, int k, int c, int cap) {
+  extern __shared__ __align__(16) unsigned long long merge_smem[];
+  __shared__ int s_picks;
+  merge_row<G, IPL>(cd, ci, nullptr, qd, qi, od, oi, upd, n, n, k, c, cap,
+                    merge_smem, &s_picks);
+}
+
+template <int G, int IPL>
+__global__ void __launch_bounds__(kSelectThreads, 1) knn_merge_rows_kernel(
+    const float* __restrict__ cd, const int* __restrict__ ci,
+    const int* __restrict__ rows, const float* __restrict__ qd,
+    const int* __restrict__ qi, float* __restrict__ od, int* __restrict__ oi,
+    int* __restrict__ upd, int n, int f, int k, int c, int cap) {
+  extern __shared__ __align__(16) unsigned long long merge_smem[];
+  __shared__ int s_picks;
+  merge_row<G, IPL>(cd, ci, rows, qd, qi, od, oi, upd, n, f, k, c, cap,
+                    merge_smem, &s_picks);
+}
+
+template <int G, int IPL>
+int launch_merge(const float* cd, const int* ci, const int* rows,
+                 const float* qd, const int* qi, float* od, int* oi, int* upd,
+                 int n, int f, int k, int c, int cap, cudaStream_t stream) {
+  constexpr int kRows = kSelectThreads / (32 * G);
+  const size_t smem = kRows * merge_group_bytes<G, IPL>(cap);
+  const int blocks = (f + kRows - 1) / kRows;
+  if (rows == nullptr) {
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          knn_merge_kernel<G, IPL>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    knn_merge_kernel<G, IPL><<<blocks, kSelectThreads, smem, stream>>>(
+        cd, ci, qd, qi, od, oi, upd, n, k, c, cap);
+  } else {
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          knn_merge_rows_kernel<G, IPL>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    knn_merge_rows_kernel<G, IPL><<<blocks, kSelectThreads, smem, stream>>>(
+        cd, ci, rows, qd, qi, od, oi, upd, n, f, k, c, cap);
+  }
+  return (int)cudaGetLastError();
+}
+
+// the instance for a pool of k + c (1 <= k, k + c <= kMergeMaxPool)
+int merge_dispatch(const float* cd, const int* ci, const int* rows,
+                   const float* qd, const int* qi, float* od, int* oi,
+                   int* upd, int n, int f, int k, int c,
+                   cudaStream_t stream) {
+  int padded = 32;
+  while (padded < k + c) padded <<= 1;
+  int cap = 1;                      // the winners' sort: at most k
+  while (cap < k) cap <<= 1;
+  if (padded <= kMergeWarpMaxPadded) {
+    switch (padded) {
+      case 32:
+        return launch_merge<1, 1>(cd, ci, rows, qd, qi, od, oi, upd, n, f,
+                                  k, c, cap, stream);
+      case 64:
+        return launch_merge<1, 2>(cd, ci, rows, qd, qi, od, oi, upd, n, f,
+                                  k, c, cap, stream);
+      default:
+        return launch_merge<1, 4>(cd, ci, rows, qd, qi, od, oi, upd, n, f,
+                                  k, c, cap, stream);
+    }
+  }
+  switch (padded / kSelectThreads) {
+    case 1:
+      return launch_merge<8, 1>(cd, ci, rows, qd, qi, od, oi, upd, n, f, k,
+                                c, cap, stream);
+    case 2:
+      return launch_merge<8, 2>(cd, ci, rows, qd, qi, od, oi, upd, n, f, k,
+                                c, cap, stream);
+    case 4:
+      return launch_merge<8, 4>(cd, ci, rows, qd, qi, od, oi, upd, n, f, k,
+                                c, cap, stream);
+    case 8:
+      return launch_merge<8, 8>(cd, ci, rows, qd, qi, od, oi, upd, n, f, k,
+                                c, cap, stream);
+    case 16:
+      return launch_merge<8, 16>(cd, ci, rows, qd, qi, od, oi, upd, n, f, k,
+                                 c, cap, stream);
+    default:
+      return launch_merge<8, 32>(cd, ci, rows, qd, qi, od, oi, upd, n, f, k,
+                                 c, cap, stream);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// knn_compact replaces knn_compact_blocked / _compact_kernel
+// (src/repro/kernels/knn_merge.py:72,108), the tombstone purge, and
+// knn_compact_rows replaces knn_compact_rows_blocked (:237), its frontier
+// form (the row indirection as in knn_merge_rows). Per row: the survivors
+// (not dropped, id >= 0, finite distance, so valid entries at the 3e38
+// placeholder survive) come out ascending, ties in input order, whatever
+// the order of the input row; freed slots are (+inf, -1); `removed` counts
+// dropped entries with id >= 0.
+// Bound: bytes (8 per list entry in and out, 1 per drop flag).
+// Design: one warp per row stages the row in shared memory, +inf on every
+// entry that does not survive. Each round is a strided scan plus a
+// butterfly shuffle reduction over (dist, position), so every lane ends the
+// round with the same winner and no block barrier is needed; the round
+// loop stops at the first +inf.
+// ---------------------------------------------------------------------------
+
+constexpr int kCompactWarps = 4;
+constexpr int kCompactMaxK = 1536;       // 4 warps x 1536 x 8 B = 48 KB
 
 // Rounds of argmin over pd[0, m), ties to the lowest position, until k
-// entries are out or the best is >= stop. Writes them to rod / roi, fills
-// the rest with (+inf, -1), and returns (on every lane) how many of the
-// picks came from positions >= first_cand.
-__device__ __forceinline__ int extract_rounds(float* pd, const int* pi, int m,
-                                              int k, float stop,
-                                              int first_cand, float* rod,
-                                              int* roi, int lane) {
-  int picked = 0;
+// entries are out or only +inf is left. Writes them to rod / roi and fills
+// the rest with (+inf, -1).
+__device__ __forceinline__ void extract_rounds(float* pd, const int* pi,
+                                               int m, int k, float* rod,
+                                               int* roi, int lane) {
   int r = 0;
   for (; r < k; ++r) {
     float best = INFINITY;
@@ -543,52 +809,18 @@ __device__ __forceinline__ int extract_rounds(float* pd, const int* pi, int m,
         bpos = op;
       }
     }
-    if (best >= stop) break;             // only sentinels are left
+    if (best == INFINITY) break;         // only dropped entries are left
     if (lane == 0) {
       rod[r] = best;
       roi[r] = pi[bpos];
       pd[bpos] = INFINITY;               // taken: above every live entry
     }
-    picked += bpos >= first_cand ? 1 : 0;
     __syncwarp();
   }
   for (int j = r + lane; j < k; j += 32) {
     rod[j] = INFINITY;
     roi[j] = -1;
   }
-  return picked;
-}
-
-// One warp merges candidate slot `slot` into list row `row`.
-__device__ __forceinline__ void merge_row(
-    const float* __restrict__ cd, const int* __restrict__ ci,
-    const float* __restrict__ qd, const int* __restrict__ qi,
-    float* __restrict__ od, int* __restrict__ oi, int* __restrict__ upd,
-    int slot, int row, int k, int c, float* pd, int* pi, int lane) {
-  const int m = k + c;
-  const float* rcd = cd + (int64_t)row * k;
-  const int* rci = ci + (int64_t)row * k;
-  const float* rqd = qd + (int64_t)slot * c;
-  const int* rqi = qi + (int64_t)slot * c;
-  for (int j = lane; j < k; j += 32) {
-    const float d = rcd[j];
-    pd[j] = fabsf(d) == INFINITY ? FLT_MAX : d;
-    pi[j] = rci[j];
-  }
-  for (int j = lane; j < c; j += 32) pi[k + j] = rqi[j];
-  __syncwarp();
-  for (int j = lane; j < c; j += 32) {
-    const int id = pi[k + j];
-    bool dup = id < 0;
-    for (int q = 0; q < k && !dup; ++q) dup = pi[q] == id;
-    for (int q = 0; q < j && !dup; ++q) dup = pi[k + q] == id;
-    pd[k + j] = dup ? FLT_MAX : rqd[j];
-  }
-  __syncwarp();
-  const int accepted =
-      extract_rounds(pd, pi, m, k, FLT_MAX, k, od + (int64_t)row * k,
-                     oi + (int64_t)row * k, lane);
-  if (lane == 0) upd[slot] = accepted;
 }
 
 // One warp compacts list row `row` under drop mask slot `slot`.
@@ -612,61 +844,26 @@ __device__ __forceinline__ void compact_row(
   for (int off = 16; off > 0; off >>= 1)
     rm += __shfl_xor_sync(0xffffffffu, rm, off);
   __syncwarp();
-  extract_rounds(pd, pi, k, k, INFINITY, k, od + (int64_t)row * k,
-                 oi + (int64_t)row * k, lane);
+  extract_rounds(pd, pi, k, k, od + (int64_t)row * k, oi + (int64_t)row * k,
+                 lane);
   if (lane == 0) removed[slot] = rm;
 }
 
-__global__ void __launch_bounds__(kMergeWarps * 32) knn_merge_kernel(
-    const float* __restrict__ cd, const int* __restrict__ ci,
-    const float* __restrict__ qd, const int* __restrict__ qi,
-    float* __restrict__ od, int* __restrict__ oi, int* __restrict__ upd,
-    int n, int k, int c) {
-  extern __shared__ float msm[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kMergeWarps + warp;
-  float* pd = msm + (int64_t)warp * 2 * (k + c);
-  int* pi = reinterpret_cast<int*>(pd + k + c);
-  if (row >= n) return;                  // no block barrier below
-  merge_row(cd, ci, qd, qi, od, oi, upd, row, row, k, c, pd, pi, lane);
-}
-
-__global__ void __launch_bounds__(kMergeWarps * 32) knn_merge_rows_kernel(
-    const float* __restrict__ cd, const int* __restrict__ ci,
-    const int* __restrict__ rows, const float* __restrict__ qd,
-    const int* __restrict__ qi, float* __restrict__ od, int* __restrict__ oi,
-    int* __restrict__ upd, int n, int f, int k, int c) {
-  extern __shared__ float msm[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int slot = blockIdx.x * kMergeWarps + warp;
-  float* pd = msm + (int64_t)warp * 2 * (k + c);
-  int* pi = reinterpret_cast<int*>(pd + k + c);
-  if (slot >= f) return;
-  const int row = rows[slot];
-  if (row < 0 || row >= n) {             // padding: count 0, write nothing
-    if (lane == 0) upd[slot] = 0;
-    return;
-  }
-  merge_row(cd, ci, qd, qi, od, oi, upd, slot, row, k, c, pd, pi, lane);
-}
-
-__global__ void __launch_bounds__(kMergeWarps * 32) knn_compact_kernel(
+__global__ void __launch_bounds__(kCompactWarps * 32) knn_compact_kernel(
     const float* __restrict__ cd, const int* __restrict__ ci,
     const unsigned char* __restrict__ drop, float* __restrict__ od,
     int* __restrict__ oi, int* __restrict__ removed, int n, int k) {
   extern __shared__ float msm[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kMergeWarps + warp;
+  const int row = blockIdx.x * kCompactWarps + warp;
   float* pd = msm + (int64_t)warp * 2 * k;
   int* pi = reinterpret_cast<int*>(pd + k);
   if (row >= n) return;
   compact_row(cd, ci, drop, od, oi, removed, row, row, k, pd, pi, lane);
 }
 
-__global__ void __launch_bounds__(kMergeWarps * 32) knn_compact_rows_kernel(
+__global__ void __launch_bounds__(kCompactWarps * 32) knn_compact_rows_kernel(
     const float* __restrict__ cd, const int* __restrict__ ci,
     const int* __restrict__ rows, const unsigned char* __restrict__ drop,
     float* __restrict__ od, int* __restrict__ oi, int* __restrict__ removed,
@@ -674,7 +871,7 @@ __global__ void __launch_bounds__(kMergeWarps * 32) knn_compact_rows_kernel(
   extern __shared__ float msm[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int slot = blockIdx.x * kMergeWarps + warp;
+  const int slot = blockIdx.x * kCompactWarps + warp;
   float* pd = msm + (int64_t)warp * 2 * k;
   int* pi = reinterpret_cast<int*>(pd + k);
   if (slot >= f) return;
@@ -747,11 +944,8 @@ int knn_merge_launch(const float* cd, const int* ci, const float* qd,
                      int c, cudaStream_t stream) {
   if (n <= 0 || k < 1 || c < 0 || k + c > kMergeMaxPool)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kMergeWarps * (k + c) * 2 * sizeof(float);
-  const int blocks = (n + kMergeWarps - 1) / kMergeWarps;
-  knn_merge_kernel<<<blocks, kMergeWarps * 32, smem, stream>>>(
-      cd, ci, qd, qi, od, oi, upd, n, k, c);
-  return (int)cudaGetLastError();
+  return merge_dispatch(cd, ci, nullptr, qd, qi, od, oi, upd, n, n, k, c,
+                        stream);
 }
 
 int knn_merge_rows_launch(const float* cd, const int* ci, const int* rows,
@@ -760,20 +954,17 @@ int knn_merge_rows_launch(const float* cd, const int* ci, const int* rows,
                           cudaStream_t stream) {
   if (f <= 0 || k < 1 || c < 0 || k + c > kMergeMaxPool)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kMergeWarps * (k + c) * 2 * sizeof(float);
-  const int blocks = (f + kMergeWarps - 1) / kMergeWarps;
-  knn_merge_rows_kernel<<<blocks, kMergeWarps * 32, smem, stream>>>(
-      cd, ci, rows, qd, qi, od, oi, upd, n, f, k, c);
-  return (int)cudaGetLastError();
+  return merge_dispatch(cd, ci, rows, qd, qi, od, oi, upd, n, f, k, c,
+                        stream);
 }
 
 int knn_compact_launch(const float* cd, const int* ci,
                        const unsigned char* drop, float* od, int* oi,
                        int* removed, int n, int k, cudaStream_t stream) {
-  if (n <= 0 || k < 1 || k > kMergeMaxPool) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kMergeWarps * k * 2 * sizeof(float);
-  const int blocks = (n + kMergeWarps - 1) / kMergeWarps;
-  knn_compact_kernel<<<blocks, kMergeWarps * 32, smem, stream>>>(
+  if (n <= 0 || k < 1 || k > kCompactMaxK) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kCompactWarps * k * 2 * sizeof(float);
+  const int blocks = (n + kCompactWarps - 1) / kCompactWarps;
+  knn_compact_kernel<<<blocks, kCompactWarps * 32, smem, stream>>>(
       cd, ci, drop, od, oi, removed, n, k);
   return (int)cudaGetLastError();
 }
@@ -782,10 +973,10 @@ int knn_compact_rows_launch(const float* cd, const int* ci, const int* rows,
                             const unsigned char* drop, float* od, int* oi,
                             int* removed, int n, int f, int k,
                             cudaStream_t stream) {
-  if (f <= 0 || k < 1 || k > kMergeMaxPool) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kMergeWarps * k * 2 * sizeof(float);
-  const int blocks = (f + kMergeWarps - 1) / kMergeWarps;
-  knn_compact_rows_kernel<<<blocks, kMergeWarps * 32, smem, stream>>>(
+  if (f <= 0 || k < 1 || k > kCompactMaxK) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kCompactWarps * k * 2 * sizeof(float);
+  const int blocks = (f + kCompactWarps - 1) / kCompactWarps;
+  knn_compact_rows_kernel<<<blocks, kCompactWarps * 32, smem, stream>>>(
       cd, ci, rows, drop, od, oi, removed, n, f, k);
   return (int)cudaGetLastError();
 }

@@ -13,11 +13,12 @@
   be unique, as in JAX; that is not checked.
 
 Bound on this card: bytes (8 per list and candidate entry in, 8 per list
-entry out, 1 per drop flag); the dedup's compares stay in shared memory.
-One warp per row stages its pool in shared memory and runs rounds of a
-strided scan plus a shuffle argmin, stopping at the first sentinel. Same
-checks, allocation, stream and launch count as the join wrappers
-(kernels/knn_join.py).
+entry out, 1 per drop flag). A merge is one row of the join select's radix
+select over the pool [list | candidates], a warp per row up to a pool of
+256 and a block above, after a dedup through a shared-memory hash table of
+the pool's ids; the compaction is one warp per row running rounds of a
+strided scan plus a shuffle argmin. Same checks, allocation, stream and
+launch count as the join wrappers (kernels/knn_join.py).
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.knn_join import _check
 
-MERGE_MAX_POOL = 1536    # kMergeMaxPool in csrc/knn_kernels.cu
+MERGE_MAX_POOL = 8192    # kMergeMaxPool in csrc/knn_kernels.cu
+COMPACT_MAX_K = 1536     # kCompactMaxK
 
 
 def knn_merge_cuda(
@@ -117,8 +119,8 @@ def knn_compact_cuda(
     _check(drop, "drop", torch.bool, 2, dev)
     if drop.shape != (n, k):
         raise ValueError("drop and list shapes disagree")
-    if k > MERGE_MAX_POOL:
-        raise ValueError(f"need k <= {MERGE_MAX_POOL}; got k={k}")
+    if k > COMPACT_MAX_K:
+        raise ValueError(f"need k <= {COMPACT_MAX_K}; got k={k}")
     od = torch.empty((n, k), dtype=torch.float32, device=dev)
     oi = torch.empty((n, k), dtype=torch.int32, device=dev)
     removed = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -145,8 +147,8 @@ def knn_compact_rows_cuda(
     _check_rows(rows, dev, f)
     if drop.shape[1] != k:
         raise ValueError("drop and list shapes disagree")
-    if k > MERGE_MAX_POOL:
-        raise ValueError(f"need k <= {MERGE_MAX_POOL}; got k={k}")
+    if k > COMPACT_MAX_K:
+        raise ValueError(f"need k <= {COMPACT_MAX_K}; got k={k}")
     od, oi = cur_dist.clone(), cur_idx.clone()
     removed = torch.zeros((f,), dtype=torch.int32, device=dev)
     if f == 0 or k == 0:

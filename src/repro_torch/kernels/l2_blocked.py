@@ -2,12 +2,20 @@
 
 ``pairwise_sq_l2_cuda`` replaces ``pairwise_sq_l2_blocked``
 (src/repro/kernels/l2_blocked.py:63, body ``_l2_kernel`` :38). Bound on
-this card: fp32 operations (2*M*N*D against M*N*4 bytes written). A block
-owns a 128 x 128 output tile, stages 16-feature chunks of both operands in
-shared memory and keeps an 8 x 8 micro-tile of sums per thread in
-registers; the norms are summed from the same tiles. Ragged edges are
-masked in the kernel, so nothing is padded here. Same checks, allocation,
-stream and launch count as the join wrappers (kernels/knn_join.py).
+this card: fp32 operations (2*M*N*D against M*N*4 bytes written). The
+tile streams both operands k-major: the launch first copies them, with a
+small transpose kernel, into (D, M) and (D, N) scratch allocated here,
+rows padded to a multiple of 4 floats (the pad is never read into a
+stored output), which takes any 4-byte offset or D. A block owns a 128 x
+128 output tile and walks the features in chunks of 32 through a ring of
+three shared-memory stages filled by asynchronous copies, keeping an 8 x 8
+micro-tile of sums per thread in registers; the norms are summed from the
+same stages. A grid of at most one tile per SM (the router's few
+centroids) splits the features among more blocks, whose partial sums a
+second small kernel adds, in split order, in scratch allocated here.
+Ragged edges are masked in the kernel. Same checks,
+allocation, stream and launch count as the join wrappers
+(kernels/knn_join.py); one count covers the copies and the tile.
 """
 from __future__ import annotations
 
@@ -15,8 +23,6 @@ import torch
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels.knn_join import _check
-
-L2_MAX_ROWS = 65535 * 128    # grid rows of 128-row tiles (csrc kL2BM)
 
 
 def pairwise_sq_l2_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -29,13 +35,18 @@ def pairwise_sq_l2_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if b.shape[1] != d:
         raise ValueError(f"feature dims differ: a {tuple(a.shape)}, "
                          f"b {tuple(b.shape)}")
-    if m > L2_MAX_ROWS:
-        raise ValueError(f"M={m} exceeds the kernel's {L2_MAX_ROWS} rows")
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0 or n == 0:
         return out
+    lda, ldb = -(-m // 4) * 4, -(-n // 4) * 4
+    at = torch.empty((d, lda), dtype=torch.float32, device=dev)
+    bt = torch.empty((d, ldb), dtype=torch.float32, device=dev)
+    splits = _lib.lib().pairwise_sq_l2_splits(m, n, d)
+    ws = torch.empty((splits * (m * n + m + n) if splits > 1 else 0,),
+                     dtype=torch.float32, device=dev)
     code = _lib.lib().pairwise_sq_l2_launch(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, d,
+        a.data_ptr(), b.data_ptr(), at.data_ptr(), bt.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), m, n, d, lda, ldb, splits,
         torch.cuda.current_stream(dev).cuda_stream)
     _lib.check(code, "pairwise_sq_l2")
     _lib.LAUNCHES["pairwise_sq_l2"] += 1

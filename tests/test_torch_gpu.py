@@ -195,6 +195,46 @@ def test_merge_kernel(dev, n, k, c):
         assert torch.equal(g, w)
 
 
+def _dup_heavy(rng, f, k, c, cur_i):
+    """Candidates full of duplicates: ids from a few values, a share of
+    them repeating the row's list ids, one row a single id throughout,
+    distances on a coarse grid (ties)."""
+    ci = rng.randint(-1, 8, size=(f, c)).astype(np.int32)
+    take = rng.rand(f, c) < 0.3
+    ci[take] = cur_i[np.nonzero(take)[0], rng.randint(0, k, take.sum())]
+    ci[0] = ci[0, 0] if ci[0, 0] >= 0 else 3
+    cd = (np.round(rng.rand(f, c) * 4) / 4).astype(np.float32)
+    return cd, ci
+
+
+@pytest.mark.parametrize("n,k,c", [
+    (500, 20, 500),              # the online path's recorded width
+    (300, 20, 400),              # the refinement's c = k^2
+    (64, 20, 108), (64, 20, 109),   # a warp per row up to a pool of 128
+    (4, 20, 8172), (3, 100, 8092),  # the widest pool the kernel takes
+])
+@pytest.mark.parametrize("dups", [False, True])
+def test_merge_kernel_wide_pools(dev, n, k, c, dups):
+    """The merge bitwise at the block-per-row widths, with and without
+    rows full of duplicates; a repeated list id survives."""
+    rng = np.random.RandomState(n + k + c)
+    cur_d = np.sort(rng.rand(n, k).astype(np.float32), axis=1)
+    cur_i = rng.randint(0, 10 * n, size=(n, k)).astype(np.int32)
+    cur_i[1, 1] = cur_i[1, 0]                      # a repeated list id
+    cur_d[2, -1] = np.float32(3.0e38)
+    if dups:
+        cand_d, cand_i = _dup_heavy(rng, n, k, c, cur_i)
+    else:
+        cand_d = (np.round(rng.rand(n, c) * 64) / 64).astype(np.float32)
+        cand_i = rng.randint(-1, 10 * n, size=(n, c)).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (cur_d, cur_i, cand_d,
+                                                   cand_i)]
+    got, want, launched = _both(ops.knn_merge, *args)
+    assert launched["knn_merge"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_build_through_kernels_matches_plain_build(dev):
     """A 2048-point build through the kernels and through the plain
     versions, same generator seed: recall within 0.005."""
@@ -222,6 +262,10 @@ def test_build_through_kernels_matches_plain_build(dev):
     (130, 257, 131),             # D % 4 != 0: the 4-byte load path
     (1, 1, 1), (300, 5, 0),
     (1024, 70000, 784),          # the brute-force tile at MNIST's shape
+    (129, 257, 100),             # M, N one past the 128 tile; D % 32 != 0
+    (255, 383, 33),              # D % 4 != 0 across two chunks
+    (4096, 245, 784),            # centroid_assign: 245 centroids
+    (500, 16, 784), (3, 1024, 64),   # the router's skinny and widest N
 ])
 def test_pairwise_sq_l2_kernel(dev, m, n, d):
     g = torch.Generator(device=dev).manual_seed(m + n + d)
@@ -489,6 +533,34 @@ def test_merge_rows_kernel(dev, n, k, f, c, pad):
     rng.shuffle(rows)
     cd = (np.round(rng.rand(f, c) * 4) / 4).astype(np.float32)
     ci = rng.randint(-1, 5 * n, size=(f, c)).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (d, i, rows, cd, ci)]
+    got, want, launched = _both(ops.knn_merge_rows, *args)
+    assert launched["knn_merge_rows"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool((got[2][torch.from_numpy(rows).to(dev) < 0] == 0).all())
+
+
+@pytest.mark.parametrize("n,k,f,c,pad", [
+    (65536, 20, 500, 500, 0),    # the online path's recorded call
+    (65536, 20, 500, 400, 7),    # the refinement and the delete refill
+    (131072, 20, 1024, 80, 30),  # a route-width merge (warp per row)
+    (50, 20, 8, 8172, 2),        # the widest pool the kernel takes
+])
+@pytest.mark.parametrize("dups", [False, True])
+def test_merge_rows_kernel_wide_pools(dev, n, k, f, c, pad, dups):
+    """The row merge bitwise at the online path's widths and the widest
+    pool, with and without rows full of duplicates."""
+    rng = np.random.RandomState(n + f + c)
+    d, i = _lists(rng, n, k, 5 * n)
+    rows = np.full((f,), -1, np.int32)
+    rows[pad:] = rng.choice(n, size=f - pad, replace=False)
+    rng.shuffle(rows)
+    if dups:
+        cd, ci = _dup_heavy(rng, f, k, c, i[np.maximum(rows, 0)])
+    else:
+        cd = (np.round(rng.rand(f, c) * 64) / 64).astype(np.float32)
+        ci = rng.randint(-1, 5 * n, size=(f, c)).astype(np.int32)
     args = [torch.from_numpy(a).to(dev) for a in (d, i, rows, cd, ci)]
     got, want, launched = _both(ops.knn_merge_rows, *args)
     assert launched["knn_merge_rows"] == 1

@@ -154,16 +154,54 @@ def _order_bits(d):
     return np.where(b & 0x80000000, ~b, b | 0x80000000).astype(np.uint32)
 
 
+def _radix_winners(key, c, threads):
+    """The select's core (``select_winners`` in csrc/knn_kernels.cu) on one
+    row's keys, in position order, padded to ``threads`` times the items
+    per thread with the sentinel. A row group of ``threads`` threads holds
+    position p as item p // threads of thread p % threads (so position
+    order is item-major, then thread order); survivors (keys below the
+    FLT_MAX sentinel) count s; if s > c four passes of 8 bits, each a
+    256-bin histogram of the keys that match the digits found so far, give
+    the c-th smallest key T and ``need``; the winners are the keys below T
+    and the first ``need`` equal to T in position order, each put in the
+    slot its (key, position) rank names. Returns the winners' positions in
+    slot order and (s, T, need)."""
+    big = _order_bits(np.array([np.finfo(np.float32).max], np.float32))[0]
+    ipl = key.shape[0] // threads
+    # blocked by thread: items[t] = the keys of thread t, in item order
+    items = key.reshape(ipl, threads).T
+    surv = items < big
+    s = int(surv.sum())
+    thr, need = big, 0
+    if s > c:
+        prefix, pmask, r = 0, 0, c - 1
+        for shift in (24, 16, 8, 0):
+            cand = surv & ((items & pmask) == prefix)
+            hist = np.bincount(((items[cand] >> shift) & 0xFF)
+                               .astype(np.int64), minlength=256)
+            cum = np.cumsum(hist)
+            b = int(np.searchsorted(cum, r, side="right"))
+            r -= int(cum[b - 1]) if b else 0
+            prefix |= b << shift
+            pmask |= 0xFF << shift
+        thr, need = prefix, r + 1
+    flat = items.T.reshape(-1)                   # back to position order
+    eq_rank = np.cumsum(flat == thr) - 1
+    win = (flat < thr) | ((flat == thr) & (eq_rank < need))
+    pos = np.nonzero(win)[0]
+    words = (flat[pos].astype(np.uint64) << np.uint64(32)) \
+        | pos.astype(np.uint64)
+    rank = (words[None, :] < words[:, None]).sum(1)
+    slots = np.empty_like(pos)
+    slots[rank] = pos
+    return slots, (s, int(thr), need)
+
+
 def _radix_select_emulation(gd, gi, kth, c, threads):
-    """csrc/knn_kernels.cu's knn_join_select, step by step, in numpy: a row
-    group of ``threads`` threads holds position p as item p // threads of
-    thread p % threads (so position order is item-major, then thread
-    order); survivors count s; if s > c four passes of 8 bits, each a
-    256-bin histogram of the keys that match the digits found so far,
-    give the c-th smallest key T and ``need``; the winners are the keys
-    below T and the first ``need`` equal to T in position order, each put
-    in the slot its (key, position) rank names. Returns (dist, idx) and
-    the per-row (s, T, need) for the test to inspect."""
+    """csrc/knn_kernels.cu's knn_join_select, step by step, in numpy: each
+    row's keys (the FLT_MAX sentinel where the prefilter fails) through
+    ``_radix_winners``. Returns (dist, idx) and the per-row (s, T, need)
+    for the test to inspect."""
     n, w = gd.shape
     big = _order_bits(np.array([np.finfo(np.float32).max], np.float32))[0]
     od = np.full((n, c), np.inf, np.float32)
@@ -174,33 +212,10 @@ def _radix_select_emulation(gd, gi, kth, c, threads):
         key = np.full(ipl * threads, big, np.uint32)
         ok = (gi[row] >= 0) & (gd[row] < kth[row])
         key[:w] = np.where(ok, _order_bits(gd[row]), big)
-        # blocked by thread: items[t] = the keys of thread t, in item order
-        items = key.reshape(ipl, threads).T
-        surv = items < big
-        s = int(surv.sum())
-        thr, need = big, 0
-        if s > c:
-            prefix, pmask, r = 0, 0, c - 1
-            for shift in (24, 16, 8, 0):
-                cand = surv & ((items & pmask) == prefix)
-                hist = np.bincount(((items[cand] >> shift) & 0xFF)
-                                   .astype(np.int64), minlength=256)
-                cum = np.cumsum(hist)
-                b = int(np.searchsorted(cum, r, side="right"))
-                r -= int(cum[b - 1]) if b else 0
-                prefix |= b << shift
-                pmask |= 0xFF << shift
-            thr, need = prefix, r + 1
-        flat = items.T.reshape(-1)               # back to position order
-        eq_rank = np.cumsum(flat == thr) - 1
-        win = (flat < thr) | ((flat == thr) & (eq_rank < need))
-        pos = np.nonzero(win)[0]
-        words = (flat[pos].astype(np.uint64) << np.uint64(32)) \
-            | pos.astype(np.uint64)
-        rank = (words[None, :] < words[:, None]).sum(1)
-        od[row, rank] = gd[row, pos]
-        oi[row, rank] = gi[row, pos]
-        trace.append((s, int(thr), need))
+        pos, tr = _radix_winners(key, c, threads)
+        od[row, :len(pos)] = gd[row, pos]
+        oi[row, :len(pos)] = gi[row, pos]
+        trace.append(tr)
     return od, oi, trace
 
 
@@ -332,6 +347,187 @@ def test_merge_plain_matches_jax(n, k, c):
     np.testing.assert_array_equal(ti[fin], ri[fin])
     np.testing.assert_array_equal(tup, np.asarray(rup))
     assert (ti[~fin] == -1).all()
+
+
+_HASH_MUL = 0x9E3779B1
+
+
+def _hash_dedup_emulation(ids, k, slots, order):
+    """The merge kernel's dedup (csrc/knn_kernels.cu, merge_row) on one
+    pool [list k | candidates]: every id >= 0 goes into an open-addressing
+    table of ``slots`` (id, lowest position) words, hashed by the top bits
+    of id * 0x9E3779B1, probing linearly; inserts arrive in ``order`` (the
+    atomics land in no fixed order; the lowest position wins whatever it
+    is). Returns the candidates' dup mask, (c,) bool: id < 0 or the id's
+    lowest position below the candidate's, and the longest probe."""
+    shift = 32 - (slots.bit_length() - 1)
+    tab_id = [-1] * slots
+    tab_pos = [0] * slots
+    longest = 0
+
+    def home(v):
+        return ((v * _HASH_MUL) & 0xFFFFFFFF) >> shift
+
+    ids_l = ids.tolist()
+    for p in order.tolist():
+        v = ids_l[p]
+        if v < 0:
+            continue
+        h, probes = home(v), 0
+        while tab_id[h] not in (-1, v):
+            h, probes = (h + 1) % slots, probes + 1
+        if tab_id[h] == -1:
+            tab_id[h], tab_pos[h] = v, p
+        else:
+            tab_pos[h] = min(tab_pos[h], p)
+        longest = max(longest, probes)
+    low = torch.full((len(ids_l),), -1, dtype=torch.int64)
+    for p in range(k, len(ids_l)):
+        v = ids_l[p]
+        if v >= 0:
+            h = home(v)
+            while tab_id[h] != v:
+                h = (h + 1) % slots
+            low[p] = tab_pos[h]
+    cand = torch.arange(k, len(ids_l))
+    dup = (ids[k:] < 0) | (low[k:] < cand)
+    return dup, longest
+
+
+def _merge_emulation(cur_d, cur_i, cand_d, cand_i, seed=0):
+    """csrc/knn_kernels.cu's knn_merge, step by step, with torch ops: the
+    pool pads to a power of two of at least 32; a warp owns it up to 128,
+    else a block of 256 threads; the hash dedup over twice the padded
+    pool, inserts in a random order; keys: a list entry's order bits
+    unless it is +-inf or >= FLT_MAX, a candidate's unless it is a dup or
+    >= FLT_MAX, the sentinel else; then the select's core
+    (``_radix_winners``) picks k, and the picks at positions >= k count.
+    Returns (dist, idx, accepted) as torch tensors, the dup masks and the
+    (s, T, need) per row."""
+    cur_d, cur_i, cand_d, cand_i = (torch.as_tensor(a) for a in
+                                    (cur_d, cur_i, cand_d, cand_i))
+    n, k = cur_d.shape
+    m = k + cand_d.shape[1]
+    padded = 32
+    while padded < m:
+        padded *= 2
+    threads = 32 if padded <= 128 else 256
+    big = int(_order_bits(np.array([np.finfo(np.float32).max],
+                                   np.float32))[0])
+    g = torch.Generator().manual_seed(seed)
+    od = torch.full((n, k), torch.inf)
+    oi = torch.full((n, k), -1, dtype=torch.int32)
+    acc = torch.zeros(n, dtype=torch.int32)
+    dups, trace = [], []
+    fmax = torch.finfo(torch.float32).max
+    for row in range(n):
+        pool_d = torch.cat([cur_d[row], cand_d[row]])
+        pool_i = torch.cat([cur_i[row], cand_i[row]])
+        dup, longest = _hash_dedup_emulation(
+            pool_i, k, 2 * padded, torch.randperm(m, generator=g))
+        assert longest < 2 * padded
+        bits = torch.from_numpy(_order_bits(pool_d.numpy()).astype(np.int64))
+        live = pool_d < fmax
+        live[:k] &= pool_d[:k] != -torch.inf
+        live[k:] &= ~dup
+        key = torch.full((padded,), big, dtype=torch.int64)
+        key[:m] = torch.where(live, bits, big)
+        pos, tr = _radix_winners(key.numpy().astype(np.uint32), k, threads)
+        pos = torch.from_numpy(pos)
+        od[row, :len(pos)] = pool_d[pos]
+        oi[row, :len(pos)] = pool_i[pos]
+        acc[row] = int((pos >= k).sum())
+        dups.append(dup)
+        trace.append(tr)
+    return od, oi, acc, torch.stack(dups), trace
+
+
+def _merge_case(kind, n, k, c, seed):
+    """Pools for the merge emulation: "mixed" (random ids with -1, a
+    third of the candidates repeating list ids, distances on a grid of
+    ties), "all_dup" (every candidate one id), "list_ids" (every candidate
+    a list id), "repeated_list" (each list holds one id three times: all
+    survive), "invalid" (ids -1), "ties" (one distance throughout, list
+    included) and "placeholder" (list entries at 3e38, the +inf tail)."""
+    rng = np.random.RandomState(seed)
+    cur_d = np.sort(rng.rand(n, k).astype(np.float32), axis=1)
+    cur_i = rng.randint(0, 4 * c, size=(n, k)).astype(np.int32)
+    cand_d = (np.round(rng.rand(n, c) * 16) / 16).astype(np.float32)
+    cand_i = rng.randint(-1, 4 * c, size=(n, c)).astype(np.int32)
+    take = rng.rand(n, c) < 0.3
+    cand_i[take] = cur_i[np.nonzero(take)[0], rng.randint(0, k, take.sum())]
+    if kind == "all_dup":
+        cand_i[:] = cand_i[:, :1].clip(0)
+    elif kind == "list_ids":
+        cand_i = cur_i[np.arange(n)[:, None], rng.randint(0, k, (n, c))]
+    elif kind == "repeated_list":
+        cur_d[:, :4] = 0.0           # ties with the best candidates
+        cur_i[:, 1:4] = cur_i[:, :1]
+    elif kind == "invalid":
+        cand_i[rng.rand(n, c) < 0.5] = -1
+        cand_i[0] = -1
+    elif kind == "ties":
+        cur_d[:] = 0.5
+        cand_d[:] = 0.5
+    elif kind == "placeholder":
+        cur_d[:, k - 3:] = np.float32(3.0e38)
+        cur_d[:, k - 1] = np.inf
+        cur_i[:, k - 1] = -1
+        cand_d[:, ::3] = np.float32(3.0e38)
+    return cur_d, cur_i, cand_d, cand_i
+
+
+@pytest.mark.parametrize("kind", ["mixed", "all_dup", "list_ids",
+                                  "repeated_list", "invalid", "ties",
+                                  "placeholder"])
+@pytest.mark.parametrize("k,c", [
+    (20, 60),            # the build's merge: a warp per row
+    (20, 400),           # the online refinement and delete refill: k^2
+    (20, 500),           # the online self-join at the batch width
+    (20, 8172),          # the widest pool the kernel takes
+])
+def test_merge_emulation_matches_jax(kind, k, c):
+    """The merge kernel's hash dedup and radix selection, emulated, bitwise
+    against the port's plain version and JAX's Pallas kernel in interpret
+    mode, and by id and value on the finite slots against JAX's oracle;
+    the dedup mask is the plain version's, whatever order the inserts
+    take. A repeated list id survives every time."""
+    n = 2 if c > 1000 else 4
+    cur_d, cur_i, cand_d, cand_i = _merge_case(kind, n, k, c, k + c)
+    ed, ei, eup, dup, trace = _merge_emulation(cur_d, cur_i, cand_d, cand_i)
+    args = [_t(a) for a in (cur_d, cur_i, cand_d, cand_i)]
+    td, ti, tup = tref.knn_merge(*args)
+    assert torch.equal(dup, tref.candidate_dups(args[1], args[3]))
+    assert torch.equal(ei, ti) and torch.equal(eup, tup)
+    assert torch.equal(ed.view(torch.int32), td.view(torch.int32))
+    jargs = [jnp.asarray(a) for a in (cur_d, cur_i, cand_d, cand_i)]
+    kd, ki, kup = knn_merge_blocked(*jargs, tm=1, interpret=True)
+    np.testing.assert_array_equal(ed.numpy(), np.asarray(kd))
+    np.testing.assert_array_equal(ei.numpy(), np.asarray(ki))
+    np.testing.assert_array_equal(eup.numpy(), np.asarray(kup))
+    rd, ri, rup = (np.asarray(a) for a in jref.knn_merge(*jargs))
+    fin = np.isfinite(rd)
+    np.testing.assert_array_equal(np.isfinite(ed.numpy()), fin)
+    np.testing.assert_array_equal(ed.numpy()[fin], rd[fin])
+    np.testing.assert_array_equal(ei.numpy()[fin], ri[fin])
+    np.testing.assert_array_equal(eup.numpy(), rup)
+    if kind == "repeated_list":
+        assert ((ei == args[1][:, :1]).sum(1) >= 4).all()
+    if kind in ("all_dup", "list_ids"):
+        assert (dup.sum(1) >= c - (kind == "all_dup")).all()
+    if kind == "ties":
+        assert all(need > 0 for _, _, need in trace)
+
+
+def test_merge_emulation_dedup_order_free():
+    """The hash dedup's answer does not depend on the order the inserts
+    land in: three orders, one mask, the plain version's."""
+    cur_d, cur_i, cand_d, cand_i = _merge_case("mixed", 3, 20, 500, 5)
+    want = tref.candidate_dups(_t(cur_i), _t(cand_i))
+    for seed in range(3):
+        _, _, _, dup, _ = _merge_emulation(cur_d, cur_i, cand_d, cand_i,
+                                           seed=seed)
+        assert torch.equal(dup, want)
 
 
 def test_merge_dedup():
