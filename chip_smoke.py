@@ -15,9 +15,11 @@ script started:
   build_lib    nvcc builds src/repro_torch/kernels/csrc/*.cu (one nvcc per
                source, all started together): seconds, registers / shared
                memory / spills per kernel (and per template instance),
-               ptxas's notes of wgmma it serialised, and whether the SASS
-               of each flash_attention device function holds HGMMA
-               (cuobjdump -sass): the bf16 kernel must;
+               ptxas's notes of wgmma it serialised, and the count of
+               HGMMA in the SASS of each flash_attention device function
+               (cuobjdump -sass): the bf16 kernel must have some; of HMMA
+               in each join's: the bf16 join must have some (mma.sync),
+               the fp32 join none (fp32 stays on the CUDA cores);
   build_check  mnist_like(16000, 784), DescentConfig(k=20, rho=1.0), built
                through the kernels and through their plain versions with
                the same generator seed, at precision f32, int8 and bf16:
@@ -115,7 +117,11 @@ script started:
                same masked keys as its library row (the merges: of the
                masked pool, plus gather); knn_merge_rows at every c the
                online path recorded; pairwise_sq_l2 also on the online
-               path's centroid_assign tile (the router's); flash_attention at
+               path's centroid_assign tile and on the router's graph tile;
+               knn_join_dists also on the kNN-LM's and the online store's
+               builds; knn_merge also on the search's pool; the bf16
+               tiles' library row torch.baddbmm(out_dtype=float32), beside
+               it the same with a bf16 output; flash_attention at
                bf16 on the inputs the lm_serve prefill gave it and at f32
                on attention_check's causal_gqa_32_4 inputs, with
                scaled_dot_product_attention as its library row.
@@ -128,8 +134,10 @@ that width's calls added to the kernel's count in its path; these add up
 to the path's count, or the script fails), knn_merge_rows once per
 further c of the online path (every row-merge entry's ``launches`` is its
 own c's; they add up to the path's count, or the script fails),
-pairwise_sq_l2 once more on the online path's centroid_assign tile
-(``launches``: those calls) and
+knn_join_dists once more on the kNN-LM's build and once on the online
+store's, knn_merge once more on the search path, pairwise_sq_l2 once more
+on the online path's centroid_assign tile and once on the router's graph
+tile (``launches``: the calls at that key; FURTHER_ROWS) and
 flash_attention once more at f32 (``launches``: its calls in
 attention_check; no main path runs attention at f32); ``call`` tells the
 entries apart. Last, {"ok": true, "device": ...}. Any failure
@@ -196,13 +204,25 @@ QUANT_OWNER = {
 ONLINE_KERNELS = ("knn_compact", "knn_merge_rows", "knn_compact_rows")
 SELECT_PATHS = ("build", "search", "online")   # their selects join the line
 OWNED = {path: name for name, path in QUANT_OWNER.items()}
-# the select runs on every graph path, at its own widths: each is checked
+# the select runs on every graph path, at its own widths: each is checked;
 # the online path's centroid_assign tiles are checked too, at the router's
-# width
+# width, and its fp32 join (the store's build, C 40); the kNN-LM path
+# checks its fp32 join alone (C 32 at d 4096)
 CHECKED = {**{path: {name, "knn_join_select"} for path, name in OWNED.items()},
-           "online": {*ONLINE_KERNELS, "knn_join_select", "pairwise_sq_l2"},
-           "lm_serve": {"flash_attention"}}
+           "online": {*ONLINE_KERNELS, "knn_join_select", "pairwise_sq_l2",
+                      "knn_join_dists"},
+           "lm_serve": {"flash_attention"}, "knn_lm": {"knn_join_dists"}}
 CENTROID_KEY = "online:pairwise_sq_l2:centroid_assign"
+# recorded calls that join the kernels line after their kernel's own entry,
+# each with its own launches: the fp32 join of the kNN-LM's build (row 1a)
+# and of the online store's (1b), the search's pool merge (3a), and the
+# online path's two pairwise tiles, centroid_assign's (4a) and the
+# router's graph (4b)
+FURTHER_ROWS = {
+    "knn_join_dists": ("knn_lm:knn_join_dists", "online:knn_join_dists"),
+    "knn_merge": ("search:knn_merge",),
+    "pairwise_sq_l2": (CENTROID_KEY, "online:pairwise_sq_l2"),
+}
 PRECISIONS = ("int8", "bf16")
 N, CHECK_N, SEED = 70_000, 16_000, 0   # the main path's and the check's n
 N_QUERIES, CHECK_QUERIES = 10_000, 2048
@@ -701,7 +721,7 @@ def check_quant_kernel(name, args, got, want, entry, reps):
         flops = 2 * data.shape[1] * pairs
         if not int8:
             xg = torch.where(valid[:, :, None], data[safe], 0)
-            base = scale.to(torch.bfloat16)
+            base = scale
             xgt = xg.transpose(1, 2)
             ok = torch.isfinite(wd)
     else:
@@ -725,7 +745,7 @@ def check_quant_kernel(name, args, got, want, entry, reps):
         flops = 2 * x.shape[1] * n_valid
         if not int8:
             xg = x[safe]
-            base = scale[:, :, None].to(torch.bfloat16)
+            base = scale[:, :, None]
             xgt = q[:, :, None]
             ok = valid
     if not torch.equal(torch.isinf(gd), torch.isinf(wd)):
@@ -745,14 +765,22 @@ def check_quant_kernel(name, args, got, want, entry, reps):
         entry.update(close_to_plain(name, gd, wd, scale))
         entry["tolerance"] = "1e-4 + 1e-5 * (|a|^2 + |b|^2); inf exact"
 
-        def library():
-            dd = torch.baddbmm(base, xg, xgt, alpha=-2.0).float()
-            if dd.dim() == 3 and dd.shape[2] == 1:
+        def library(bf16_out=False):
+            if bf16_out:   # rounds every distance to bf16: not the function
+                dd = torch.baddbmm(base.to(torch.bfloat16), xg, xgt,
+                                   alpha=-2.0).float()
+            else:
+                dd = torch.baddbmm(base, xg, xgt, alpha=-2.0,
+                                   out_dtype=torch.float32)
+            if name.startswith("knn_search"):
                 dd = dd[:, :, 0]
             return torch.where(ok, dd.clamp_min(0.0), torch.inf)
         entry["library_ms"] = time_ms(library, reps)
-        entry["library_call"] = "torch.baddbmm on bf16 rows gathered " \
-            "beforehand + mask"
+        entry["library_bf16_out_ms"] = time_ms(
+            lambda: library(bf16_out=True), reps)
+        entry["library_call"] = "torch.baddbmm(out_dtype=torch.float32) " \
+            "on bf16 rows gathered beforehand + mask (library_bf16_out_ms: " \
+            "the same with a bf16 output, which rounds every distance)"
     return flops, nbytes, peak
 
 
@@ -1350,18 +1378,27 @@ def main() -> int:
     # -- build_lib
     _lib.build(force=True)
     _lib.lib()
-    hgmma = {k: v for k, v in _lib.sass_functions(
-        Path(_lib.build_info["path"]), "HGMMA").items()
-        if k.startswith("flash_attention")}
+    so = Path(_lib.build_info["path"])
+    hgmma = {k: v for k, v in _lib.sass_functions(so, "HGMMA").items()
+             if k.startswith("flash_attention")}
+    # the joins: the bf16 one on the tensor cores, the fp32 one never
+    hmma = {k: v for k, v in _lib.sass_functions(so, "HMMA").items()
+            if k.startswith(("knn_join_dists<", "knn_join_dists_bf16"))}
     emit("build_lib", seconds=_lib.build_info["seconds"],
-         path=str(Path(_lib.build_info["path"]).relative_to(ROOT)),
+         path=str(so.relative_to(ROOT)),
          kernels=_lib.build_info["kernels"], hgmma_in_sass=hgmma,
+         hmma_in_sass=hmma,
          ptxas_performance_notes=_lib.build_info["performance_notes"])
     sm90 = [v for k, v in hgmma.items()
             if k.startswith("flash_attention_sm90")]
     if not sm90 or not all(sm90):
         raise AssertionError(f"the bf16 attention kernel has no HGMMA: "
                              f"{hgmma}")
+    bf16_join = [v for k, v in hmma.items() if "_bf16" in k]
+    f32_join = [v for k, v in hmma.items() if "_bf16" not in k]
+    if not bf16_join or not all(bf16_join) or not f32_join or any(f32_join):
+        raise AssertionError(f"HMMA in the joins' SASS: {hmma} (the bf16 "
+                             "join must have it, the fp32 join none)")
 
     # -- build_check: kernels vs plain versions, same generator seed
     xc = datasets.mnist_like(CHECK_N, 784, seed=SEED + 1,
@@ -1680,7 +1717,7 @@ def main() -> int:
     del reqs, stats
 
     # -- knn_lm: path 10, kNN-LM retrieval over the port's graph
-    res, wall, launches["knn_lm"], peak, _ = drive(
+    res, wall, launches["knn_lm"], peak, recs["knn_lm"] = drive(
         "knn_lm", lambda: knn_lm_run(params, lm_cfg, dev, SEED + 12))
     require_launched("knn_lm", launches["knn_lm"], (
         "flash_attention", "knn_join_dists", "knn_join_select", "knn_merge",
@@ -1719,7 +1756,7 @@ def main() -> int:
                 f"{tag}: {name} launches by width sum to {per_key}, the "
                 f"path launched {launches[tag][name]}")
     merges = {}        # c -> entry, the online path's row merges
-    centroid = None    # the online path's centroid_assign tile
+    further = {}       # key -> entry, the calls of FURTHER_ROWS
     for key, call in sorted(calls.items()):
         tag, name = key.split(":")[:2]
         if tag in CHECKED and name not in CHECKED[tag]:
@@ -1743,8 +1780,8 @@ def main() -> int:
             # each width's entry carries that width's launches
             merges[int(key.split(":c=")[1])] = {
                 **e, "launches": e["launches_at_this_key"]}
-        if key == CENTROID_KEY:
-            centroid = {**e, "launches": e["launches_at_this_key"]}
+        if key in FURTHER_ROWS.get(name, ()):
+            further[key] = {**e, "launches": e["launches_at_this_key"]}
         # the line keeps one entry per kernel, from the path that owns
         # it; the build's widest select (the receiver select) and the
         # online path's widest row merge stand for their kernels
@@ -1754,8 +1791,10 @@ def main() -> int:
             e = merges[int(key.split(":c=")[1])]
         if name not in entries or width_of(e) > width_of(entries[name]):
             entries[name] = e
-    if centroid is None:
-        raise AssertionError("online: no second centroid_assign call")
+    missing = [k for keys in FURTHER_ROWS.values() for k in keys
+               if k not in further]
+    if missing:
+        raise AssertionError(f"no second call recorded at {missing}")
     # flash_attention at f32: the SIMT kernel on attention_check's inputs
     f32 = check_attention_kernel(f32_attention["args"],
                                  f32_attention["kwargs"], reps=20)
@@ -1779,8 +1818,7 @@ def main() -> int:
                 if e is not entries[n]:
                     line.append(
                         {**e, "launches": e["launches_at_this_key"]})
-        if n == "pairwise_sq_l2":
-            line.append(centroid)      # the router's tile, online path
+        line.extend(further[k] for k in FURTHER_ROWS.get(n, ()))
         if n == "knn_merge_rows":
             # every other recorded c of the online path
             line.extend(e for c, e in sorted(merges.items())

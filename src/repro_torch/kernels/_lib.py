@@ -2,8 +2,8 @@
 
 Each source is compiled at first use by its own ``nvcc`` for ``sm_90a``,
 all started together, and the objects are linked into one shared library
-with a plain C interface, under
-``<repo>/build/repro_torch/libknn_kernels_<hash of the sources>.so``, and
+with a plain C interface, under ``<repo>/build/repro_torch/
+libknn_kernels_<hash of the sources and csrc/common.cuh>.so``, and
 loaded with ``ctypes``. Nothing here runs at import: the CPU tests import
 every module on a machine with no ``nvcc``.
 
@@ -33,6 +33,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = tuple(sorted(CSRC.glob("*.cu")))
+HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -115,7 +116,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libknn_kernels_{h.hexdigest()[:16]}.so"
@@ -156,19 +157,20 @@ def _parse_ptxas(log: str) -> dict:
     return out
 
 
-def sass_functions(path: Path, opcode: str) -> dict[str, bool]:
+def sass_functions(path: Path, opcode: str) -> dict[str, int]:
     """For each device function in the library's SASS (``cuobjdump
-    -sass``): whether its code holds ``opcode`` (e.g. ``HGMMA``). Keyed by
-    ``report_name`` and template arguments, as ``_parse_ptxas``."""
+    -sass``): how many of its instructions are ``opcode`` (e.g. ``HGMMA``,
+    ``HMMA``). Keyed by ``report_name`` and template arguments, as
+    ``_parse_ptxas``."""
     tool = Path(_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(path)], check=True,
                           capture_output=True, text=True).stdout
-    out: dict[str, bool] = {}
+    out: dict[str, int] = {}
     for part in sass.split("Function : ")[1:]:
         mangled = part.split(None, 1)[0]
         args = re.findall(r"Li(\d+)E", mangled)
         key = report_name(mangled) + (f"<{','.join(args)}>" if args else "")
-        out[key] = out.get(key, False) or opcode in part
+        out[key] = out.get(key, 0) + len(re.findall(rf"\b{opcode}\b", part))
     return out
 
 

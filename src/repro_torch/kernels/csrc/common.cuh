@@ -1,0 +1,74 @@
+// Device helpers shared by knn_kernels.cu, search_kernels.cu and
+// quant_kernels.cu: asynchronous copies into shared memory, and the local
+// join's epilogue.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+// kBytes (4 or 16) from global to shared memory without a register stage;
+// with ok false nothing is read and the destination is zero-filled.
+// 16-byte copies bypass L1 (.cg); 4-byte ones may only go through it.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool ok) {
+  static_assert(kBytes == 4 || kBytes == 16, "cp.async size");
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(ok ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(kBytes), "r"(ok ? kBytes : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// The local join's epilogue for one row, entries e0, e0 + step, ... of
+// its C x C output: the distance by the norm expansion, (n2[s] + n2[t]) -
+// 2 g, with __fadd_rn / __fmul_rn so that nothing is contracted, clamped at
+// 0; +inf on the diagonal and on pairs the join mask refuses (neither slot
+// in the "new" prefix cn, a slot invalid, or one id twice). gram holds the
+// cross terms g on its upper triangle (C x C, s < t); sid the slots' ids
+// (-1 invalid), n2 their squared norms. The output is written in order, so
+// a warp's stores are coalesced. Returns the valid unordered pairs among
+// this thread's entries.
+__device__ __forceinline__ int join_epilogue(const float* gram,
+                                             const int* sid, const float* n2,
+                                             float* __restrict__ out, int C,
+                                             int cn, int e0, int step) {
+  int local = 0;
+  for (int e = e0; e < C * C; e += step) {
+    const int s = e / C;
+    const int t = e - s * C;
+    const int lo = min(s, t);
+    const int hi = max(s, t);
+    const int a = sid[lo];
+    const int b = sid[hi];
+    float v = INFINITY;
+    if (lo != hi && lo < cn && a >= 0 && b >= 0 && a != b) {
+      v = fmaxf(__fsub_rn(__fadd_rn(n2[lo], n2[hi]),
+                          __fmul_rn(2.0f, gram[lo * C + hi])),
+                0.0f);
+      local += s < t ? 1 : 0;
+    }
+    out[e] = v;
+  }
+  return local;
+}
+
+}  // namespace

@@ -18,6 +18,8 @@
 #include <climits>
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -26,112 +28,178 @@ namespace {
 //
 // Per row of candidate ids (C <= 64), the C x C squared-l2 pair tensor with
 // the join mask folded in, plus the count of valid unordered pairs.
-// Bound: operations. At the default build (C = 20, dp = 896) each row does
-// 190 dot products of length 896 against 20 gathered rows of 3.5 KB, about
-// 10 FMA per byte read, so the fp32 pipe (no tensor cores: fp32 is the exact
-// stage) is the limit once the gathered rows sit in L2.
-// Design: one block per row gathers its candidates' rows itself (no (n, C,
-// dp) gathered copy in device memory), 64 features at a time, into shared
-// memory with a padded row stride so that the threads of a warp, which read
-// different rows at the same feature, hit different banks. Each thread owns
-// up to 8 of the row's upper-triangle pairs and keeps their sums in
-// registers across the feature tiles.
+// Bound: fp32 operations, fed from shared memory. At the build's call (C =
+// 20, dp = 896) a row needs 190 dot products of 896; the fp32 pipe (no
+// TF32 or tensor cores: fp32 is the exact stage) is the limit once the
+// gathered rows sit in L2, and a design that reads two shared-memory
+// operands per multiply-add is held to a quarter of that by the SM's 128
+// bytes of shared memory per clock.
+// Design: a register-tiled Gram (a SYRK) of the row's gathered candidates
+// X (C x dp). One block per row. The rows, padded to 4 nb (nb = ceil(C /
+// 4)), form nb blocks of 4, and G = X X^T is cut into the nb (nb + 1) / 2
+// 4 x 4 tiles on or above the diagonal. A thread owns one tile and one of
+// kS feature slices: per 32-feature chunk it reads float4 q = slice,
+// slice + kS, ... (features 4q..4q+3) of the tile's 4 + 4 rows, eight
+// 16-byte loads, for 64 multiply-adds kept in 16 registers; 8 lanes (kS =
+// 8) read one row's 128 contiguous bytes, so a warp's loads are free of
+// bank conflicts. After the last chunk a butterfly of shuffles adds the kS
+// partial tiles. kS is 8 up to C 40 and drops to 4 and 2 so that a block
+// stays at most 512 threads (C 64: 136 tiles x 2). The block gathers its
+// candidates' rows itself (no (n, C, dp) gathered copy in device memory)
+// with cp.async into a ring of 3 stages, 16-byte copies where the rows
+// are 16-byte aligned (dp a multiple of 4) and 4-byte copies for any other
+// dp; an invalid slot and the features past dp are zero-filled, not read.
+// The next chunks' copies are in flight while a chunk is multiplied. The
+// Gram goes through the ring's shared memory to the epilogue (common.cuh),
+// which writes the row's C x C tensor in order.
 // ---------------------------------------------------------------------------
 
-constexpr int kJoinThreads = 256;
-constexpr int kJoinTile = 64;
-constexpr int kJoinStride = kJoinTile + 1;
 constexpr int kJoinMaxC = 64;
-constexpr int kJoinPairsPerThread =
-    (kJoinMaxC * (kJoinMaxC - 1) / 2 + kJoinThreads - 1) / kJoinThreads;
+constexpr int kJoinChunk = 32;                  // features per stage
+constexpr int kJoinStride = kJoinChunk + 4;     // floats per staged row
+constexpr int kJoinStages = 3;
+constexpr int kJoinMaxThreads = 512;
 
-__global__ void __launch_bounds__(kJoinThreads) knn_join_dists_kernel(
+// features [d0, d0 + kJoinChunk) of the row's C candidates into a stage,
+// kVec floats per copy
+template <int kVec>
+__device__ __forceinline__ void join_load_chunk(float* st,
+                                                const float* __restrict__ x,
+                                                const int* sid, int C, int dp,
+                                                int d0, int tid,
+                                                int nthreads) {
+  constexpr int kPieces = kJoinChunk / kVec;
+  for (int e = tid; e < C * kPieces; e += nthreads) {
+    const int s = e / kPieces;
+    const int f = (e - s * kPieces) * kVec;
+    const int id = sid[s];
+    const bool ok = id >= 0 && d0 + f < dp;
+    cp_async<4 * kVec>(st + s * kJoinStride + f,
+                       ok ? x + (int64_t)id * dp + d0 + f : x, ok);
+  }
+}
+
+// kS feature slices per tile; kVec floats per copy (4, or 1 for any dp).
+// One block per SM in the bounds: without it ptxas held the 512-thread
+// instances to 64 registers and spilled.
+template <int kS, int kVec>
+__global__ void __launch_bounds__(kJoinMaxThreads, 1) knn_join_dists_kernel(
     const float* __restrict__ x, const float* __restrict__ x2,
     const int* __restrict__ ids, float* __restrict__ od,
     int* __restrict__ ev, int N, int C, int dp, int cn) {
-  extern __shared__ float smem[];
-  float* tile = smem;                                     // C x kJoinStride
-  int* sid = reinterpret_cast<int*>(tile + C * kJoinStride);   // C
-  float* sx2 = reinterpret_cast<float*>(sid + C);              // C
+  // kJoinStages x (4 nb rows of kJoinStride); then the C x C Gram
+  extern __shared__ __align__(16) float jsm[];
+  __shared__ int sid[kJoinMaxC];
+  __shared__ float sx2[kJoinMaxC];
   __shared__ int s_evals;
 
   const int row = blockIdx.x;
   const int tid = threadIdx.x;
-  for (int s = tid; s < C; s += kJoinThreads) {
+  const int nthreads = blockDim.x;
+  const int nb = (C + 3) >> 2;
+  const int stage = 4 * nb * kJoinStride;
+  for (int s = tid; s < C; s += nthreads) {
     int id = ids[(int64_t)row * C + s];
     if (id >= N) id = -1;             // out of range: an invalid slot
     sid[s] = id;
     sx2[s] = id >= 0 ? x2[id] : 0.0f;
   }
+  // the padding rows [C, 4 nb) of every stage stay zero
+  const int pad = (4 * nb - C) * kJoinStride;
+  for (int e = tid; e < kJoinStages * pad; e += nthreads) {
+    const int st = e / pad;
+    jsm[st * stage + C * kJoinStride + e - st * pad] = 0.0f;
+  }
   if (tid == 0) s_evals = 0;
+  __syncthreads();
 
-  // this thread's pairs p = tid + j * kJoinThreads, as (s, t) with s < t
-  // in row-major upper-triangle order
-  const int P = C * (C - 1) / 2;
-  int ps[kJoinPairsPerThread], pt[kJoinPairsPerThread];
-  float acc[kJoinPairsPerThread];
+  // this thread's tile (bi, bj), bi <= bj, in row-major upper-triangle
+  // order, and its slice; threads past the last tile compute tile (0, 0)
+  // and write nothing
+  const int tiles = nb * (nb + 1) / 2;
+  const int slice = tid % kS;
+  int tile = tid / kS;
+  const bool owner = tile < tiles;
+  if (!owner) tile = 0;
+  int bi = 0;
+  while (tile >= nb - bi) {
+    tile -= nb - bi;
+    ++bi;
+  }
+  const int bj = bi + tile;
+
+  float acc[4][4];
 #pragma unroll
-  for (int j = 0; j < kJoinPairsPerThread; ++j) {
-    const int p = tid + j * kJoinThreads;
-    int s = 0, t = 0;
-    if (p < P) {
-      int rem = p;
-      while (rem >= C - 1 - s) {
-        rem -= C - 1 - s;
-        ++s;
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+
+  const int chunks = (dp + kJoinChunk - 1) / kJoinChunk;
+#pragma unroll
+  for (int s = 0; s < kJoinStages - 1; ++s) {
+    if (s < chunks)
+      join_load_chunk<kVec>(jsm + s * stage, x, sid, C, dp, s * kJoinChunk,
+                            tid, nthreads);
+    cp_async_commit();
+  }
+  for (int kc = 0; kc < chunks; ++kc) {
+    cp_async_wait<kJoinStages - 2>();   // this thread's copies of chunk kc
+    __syncthreads();                    // everyone's; stage kc - 1 is free
+    const int nxt = kc + kJoinStages - 1;
+    if (nxt < chunks)
+      join_load_chunk<kVec>(jsm + (nxt % kJoinStages) * stage, x, sid, C, dp,
+                            nxt * kJoinChunk, tid, nthreads);
+    cp_async_commit();
+
+    const float* st = jsm + (kc % kJoinStages) * stage;
+    const float* ra = st + 4 * bi * kJoinStride;
+    const float* rb = st + 4 * bj * kJoinStride;
+#pragma unroll
+    for (int j = 0; j < kJoinChunk / 4 / kS; ++j) {
+      const int q = 4 * (slice + j * kS);
+      float4 b[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        b[c] = *reinterpret_cast<const float4*>(rb + c * kJoinStride + q);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 a = *reinterpret_cast<const float4*>(ra + r * kJoinStride
+                                                          + q);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float v = fmaf(a.x, b[c].x, acc[r][c]);
+          v = fmaf(a.y, b[c].y, v);
+          v = fmaf(a.z, b[c].z, v);
+          acc[r][c] = fmaf(a.w, b[c].w, v);
+        }
       }
-      t = s + 1 + rem;
     }
-    ps[j] = s;
-    pt[j] = t;
-    acc[j] = 0.0f;
+  }
+  cp_async_wait<0>();                   // only empty groups are left
+  __syncthreads();                      // the ring now holds the Gram
+
+  // the slices' partial tiles: a butterfly over kS neighbouring lanes
+#pragma unroll
+  for (int off = 1; off < kS; off <<= 1)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], off);
+  float* gram = jsm;
+  if (owner) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int s = 4 * bi + e / 4;
+      const int t = 4 * bj + e % 4;
+      if (e % kS == slice && s < t && t < C)
+        gram[s * C + t] = acc[e / 4][e % 4];
+    }
   }
   __syncthreads();
 
-  for (int d0 = 0; d0 < dp; d0 += kJoinTile) {
-    const int width = min(kJoinTile, dp - d0);
-    for (int e = tid; e < C * kJoinTile; e += kJoinThreads) {
-      const int s = e / kJoinTile;
-      const int dd = e - s * kJoinTile;
-      const int id = sid[s];
-      float v = 0.0f;
-      if (id >= 0 && dd < width) v = x[(int64_t)id * dp + d0 + dd];
-      tile[s * kJoinStride + dd] = v;   // zero beyond dp: adds exactly 0
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kJoinPairsPerThread; ++j) {
-      if (tid + j * kJoinThreads < P) {
-        const float* a = tile + ps[j] * kJoinStride;
-        const float* b = tile + pt[j] * kJoinStride;
-        float sum = acc[j];
-#pragma unroll 16
-        for (int dd = 0; dd < kJoinTile; ++dd) sum = fmaf(a[dd], b[dd], sum);
-        acc[j] = sum;
-      }
-    }
-    __syncthreads();
-  }
-
-  // epilogue: norm expansion, clamp, join mask; both (s, t) and (t, s)
-  float* out = od + (int64_t)row * C * C;
-  int local = 0;
-#pragma unroll
-  for (int j = 0; j < kJoinPairsPerThread; ++j) {
-    if (tid + j * kJoinThreads < P) {
-      const int s = ps[j], t = pt[j];
-      const int a = sid[s], b = sid[t];
-      const bool ok = (s < cn || t < cn) && a >= 0 && b >= 0 && a != b;
-      float d = __fsub_rn(__fadd_rn(sx2[s], sx2[t]), __fmul_rn(2.0f, acc[j]));
-      d = fmaxf(d, 0.0f);
-      const float v = ok ? d : INFINITY;
-      out[s * C + t] = v;
-      out[t * C + s] = v;
-      local += ok ? 1 : 0;
-    }
-  }
-  for (int s = tid; s < C; s += kJoinThreads) out[s * C + s] = INFINITY;
-
+  int local = join_epilogue(gram, sid, sx2, od + (int64_t)row * C * C, C,
+                            cn, tid, nthreads);
   for (int off = 16; off > 0; off >>= 1)
     local += __shfl_down_sync(0xffffffffu, local, off);
   if ((tid & 31) == 0) atomicAdd(&s_evals, local);
@@ -894,11 +962,30 @@ const char* knn_error_string(int code) {
 int knn_join_dists_launch(const float* x, const float* x2, const int* ids,
                           float* od, int* ev, int N, int n, int C, int dp,
                           int cn, cudaStream_t stream) {
-  if (n <= 0 || C < 1 || C > kJoinMaxC) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)C * kJoinStride * sizeof(float) +
-                      (size_t)C * (sizeof(int) + sizeof(float));
-  knn_join_dists_kernel<<<n, kJoinThreads, smem, stream>>>(x, x2, ids, od, ev,
-                                                            N, C, dp, cn);
+  if (n <= 0 || C < 1 || C > kJoinMaxC || dp < 0)
+    return (int)cudaErrorInvalidValue;
+  const int nb = (C + 3) / 4;
+  const int tiles = nb * (nb + 1) / 2;
+  const int slices = tiles * 8 <= kJoinMaxThreads   ? 8
+                     : tiles * 4 <= kJoinMaxThreads ? 4
+                                                    : 2;
+  const int threads = (tiles * slices + 31) / 32 * 32;
+  const size_t smem = (size_t)kJoinStages * 4 * nb * kJoinStride *
+                      sizeof(float);
+  const bool vec =
+      (dp & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+#define JOIN_LAUNCH(S, V)                                             \
+  knn_join_dists_kernel<S, V><<<n, threads, smem, stream>>>(x, x2, ids, od, \
+                                                            ev, N, C, dp, cn)
+  switch (slices * (vec ? 1 : -1)) {
+    case 8: JOIN_LAUNCH(8, 4); break;
+    case 4: JOIN_LAUNCH(4, 4); break;
+    case 2: JOIN_LAUNCH(2, 4); break;
+    case -8: JOIN_LAUNCH(8, 1); break;
+    case -4: JOIN_LAUNCH(4, 1); break;
+    default: JOIN_LAUNCH(2, 1); break;
+  }
+#undef JOIN_LAUNCH
   return (int)cudaGetLastError();
 }
 

@@ -21,13 +21,17 @@
 // bit: the epilogue keeps the plain version's order of operations,
 //   (q2 + c2) - (2 * (s_q * s_c)) * (float)ab,
 // with __fadd_rn / __fmul_rn so that no multiply-add is contracted. bf16
-// products are exact in f32 and are summed in f32 (fmaf), so a bf16
-// kernel differs from its plain version by the order of the sums only.
+// products are exact in f32 and are summed in f32 (fmaf in the search
+// tile; in the join, 16 at a time on the tensor cores, the 16-value sums
+// added in order with __fadd_rn), so a bf16 kernel differs from its plain
+// version by the order of the sums only.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+
+#include "common.cuh"
 
 namespace {
 
@@ -165,9 +169,8 @@ __global__ void __launch_bounds__(kQSearchThreads)
 }
 
 // ---------------------------------------------------------------------------
-// knn_join_dists_q8 / _bf16: replace knn_join_dists_q8_blocked and
-// knn_join_dists_bf16_blocked (src/repro/kernels/l2_quant.py:241,279;
-// bodies _join_dists_q8_kernel :211, _join_dists_bf16_kernel :233).
+// knn_join_dists_q8: replaces knn_join_dists_q8_blocked
+// (src/repro/kernels/l2_quant.py:241; body _join_dists_q8_kernel :194).
 //
 // Per row of candidate ids (C <= 64), the C x C quantized squared-l2 pair
 // tensor with the join mask folded in (at least one slot in the "new"
@@ -176,13 +179,12 @@ __global__ void __launch_bounds__(kQSearchThreads)
 // Bound: bytes at the build's shapes (about a third of the C*(C-1)/2 pairs
 // are valid, so the int8 tensor-core peak is far away); operations count
 // only on dense candidate sets.
-// Design: knn_join_dists's. One block per row gathers its candidates' rows
-// itself, 64 words (256 bytes: 256 int8 or 128 bf16 values) of each row
-// at a time, with 16-byte loads into shared memory at a padded row stride
-// of 65 words, so that threads reading different rows at one word hit
-// different banks. Each thread owns up to 8 upper-triangle pairs and keeps
-// their sums (int32 or f32) in registers across the tiles; the epilogue
-// writes (s, t) and (t, s) and warp-reduces the evals.
+// Design: one block per row gathers its candidates' rows itself, 64 words
+// (256 int8 values) of each row at a time, with 16-byte loads into shared
+// memory at a padded row stride of 65 words, so that threads reading
+// different rows at one word hit different banks. Each thread owns up to 8
+// upper-triangle pairs and keeps their int32 sums in registers across the
+// tiles; the epilogue writes (s, t) and (t, s) and warp-reduces the evals.
 // ---------------------------------------------------------------------------
 
 constexpr int kQJoinThreads = 256;
@@ -192,8 +194,7 @@ constexpr int kQJoinMaxC = 64;
 constexpr int kQJoinPairsPerThread =
     (kQJoinMaxC * (kQJoinMaxC - 1) / 2 + kQJoinThreads - 1) / kQJoinThreads;
 
-template <bool kQ8>
-__device__ __forceinline__ void quant_join_row(
+__device__ __forceinline__ void q8_join_row(
     uint32_t* tile, const uint32_t* __restrict__ data,
     const float* __restrict__ scale, const float* __restrict__ x2,
     const int* __restrict__ rids, float* __restrict__ out,
@@ -208,13 +209,13 @@ __device__ __forceinline__ void quant_join_row(
     if (id >= N) id = -1;             // out of range: an invalid slot
     sid[s] = id;
     sx2[s] = id >= 0 ? x2[id] : 0.0f;
-    ssc[s] = (kQ8 && id >= 0) ? scale[id] : 0.0f;
+    ssc[s] = id >= 0 ? scale[id] : 0.0f;
   }
   if (tid == 0) s_evals = 0;
 
   const int P = C * (C - 1) / 2;
   int ps[kQJoinPairsPerThread], pt[kQJoinPairsPerThread];
-  typename Word<kQ8>::Acc acc[kQJoinPairsPerThread];
+  int acc[kQJoinPairsPerThread];
 #pragma unroll
   for (int j = 0; j < kQJoinPairsPerThread; ++j) {
     const int p = tid + j * kQJoinThreads;
@@ -256,13 +257,13 @@ __device__ __forceinline__ void quant_join_row(
       if (tid + j * kQJoinThreads < P) {
         const uint32_t* a = tile + ps[j] * kQJoinStride;
         const uint32_t* b = tile + pt[j] * kQJoinStride;
-        typename Word<kQ8>::Acc sum = acc[j];
+        int sum = acc[j];
 #pragma unroll 4
         for (int w = 0; w < width; w += 4) {
-          sum = Word<kQ8>::dot(a[w], b[w], sum);
-          sum = Word<kQ8>::dot(a[w + 1], b[w + 1], sum);
-          sum = Word<kQ8>::dot(a[w + 2], b[w + 2], sum);
-          sum = Word<kQ8>::dot(a[w + 3], b[w + 3], sum);
+          sum = Word<true>::dot(a[w], b[w], sum);
+          sum = Word<true>::dot(a[w + 1], b[w + 1], sum);
+          sum = Word<true>::dot(a[w + 2], b[w + 2], sum);
+          sum = Word<true>::dot(a[w + 3], b[w + 3], sum);
         }
         acc[j] = sum;
       }
@@ -278,7 +279,7 @@ __device__ __forceinline__ void quant_join_row(
       const int a = sid[s], b = sid[t];
       const bool ok = (s < cn || t < cn) && a >= 0 && b >= 0 && a != b;
       const float d = fmaxf(
-          Word<kQ8>::dist(sx2[s], sx2[t], ssc[s], ssc[t], acc[j]), 0.0f);
+          Word<true>::dist(sx2[s], sx2[t], ssc[s], ssc[t], acc[j]), 0.0f);
       const float v = ok ? d : INFINITY;
       out[s * C + t] = v;
       out[t * C + s] = v;
@@ -301,20 +302,219 @@ __global__ void __launch_bounds__(kQJoinThreads) knn_join_dists_q8_kernel(
     int row_words, int cn) {
   __shared__ uint32_t tile[kQJoinMaxC * kQJoinStride];
   const int row = blockIdx.x;
-  quant_join_row<true>(tile, data, scale, x2, ids + (int64_t)row * C,
-                       od + (int64_t)row * C * C, ev + row, N, C, row_words,
-                       cn);
+  q8_join_row(tile, data, scale, x2, ids + (int64_t)row * C,
+              od + (int64_t)row * C * C, ev + row, N, C, row_words, cn);
 }
 
-__global__ void __launch_bounds__(kQJoinThreads) knn_join_dists_bf16_kernel(
-    const uint32_t* __restrict__ data, const float* __restrict__ x2,
-    const int* __restrict__ ids, float* __restrict__ od,
-    int* __restrict__ ev, int N, int C, int row_words, int cn) {
-  __shared__ uint32_t tile[kQJoinMaxC * kQJoinStride];
-  const int row = blockIdx.x;
-  quant_join_row<false>(tile, data, nullptr, x2, ids + (int64_t)row * C,
-                        od + (int64_t)row * C * C, ev + row, N, C,
-                        row_words, cn);
+// ---------------------------------------------------------------------------
+// knn_join_dists_bf16: replaces knn_join_dists_bf16_blocked
+// (src/repro/kernels/l2_quant.py:279; body _join_dists_bf16_kernel :215).
+//
+// The same pair tensor from bf16 rows, with f32 sums.
+// Bound: the gather. At the build's call (70000 x 20 candidates, w 800) a
+// row reads 20 mirror rows of 1600 bytes for 190 products of 800: about
+// 4 operations per byte, far below the tensor cores' 295 per byte of
+// device memory, so the rows' bytes (from L2 or device memory) set the
+// time, not the multiply-adds.
+// Design: the row's Gram G = X X^T (X: C x w bf16) on the tensor cores
+// with mma.sync.m16n8k16 (bf16 in, f32 out). Not wgmma: its 64-row tiles
+// would waste most of their work on C 20 (a row's product is at most 64 x
+// 64 x w) and the kernel waits on its gather, not on the tensor rate. One
+// warp per row, 4 rows per block, no block barrier: the warp gathers its
+// candidates' rows itself with 16-byte cp.async (the mirror's rows are
+// 16-byte aligned), 64 values of each row per stage, into its own ring of
+// 3 stages, rows padded to 16 kMB with zero rows and to a stride of 72
+// values (144 bytes), so that the 8 rows an ldmatrix reads hit distinct
+// banks. An invalid slot and the values past w are zero-filled, not read.
+// Per 16 values, ldmatrix.x4 loads each 16-row block of X once as an A
+// fragment; since both operands are the same rows, the fragment's halves
+// are also the B fragments of the two 8-column blocks of those rows (no
+// transpose), and only the 16 x 8 blocks that touch the upper triangle
+// and the first C columns are multiplied. Each mma starts from zero, and
+// its 16-value sum is added to the block's f32 running sums with
+// __fadd_rn: the tensor core's f32 accumulate does not round to nearest
+// at each add, so chunks are added in order with rounding to nearest, and
+// the result differs from the plain version by the order of the sums
+// only. The Gram goes through the ring's shared memory to the epilogue
+// (common.cuh), which writes the row's C x C tensor in order.
+// ---------------------------------------------------------------------------
+
+constexpr int kBJoinWarps = 4;                  // rows per block
+constexpr int kBJoinChunk = 64;                 // values of a row per stage
+constexpr int kBJoinStride = kBJoinChunk + 8;   // 144 bytes per staged row
+constexpr int kBJoinStages = 3;
+
+template <int kMB>
+constexpr size_t bjoin_smem() {
+  return (size_t)kBJoinWarps * kBJoinStages * 16 * kMB * kBJoinStride *
+         sizeof(uint16_t);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const uint16_t* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d = A B for one 16 x 8 block: A 16 x 16 (a), B 16 x 8 (b0, b1), from 0
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.0f));
+}
+
+// values [k0, k0 + kBJoinChunk) of the row's C candidates into a stage
+__device__ __forceinline__ void bjoin_load_chunk(
+    uint16_t* st, const uint16_t* __restrict__ data, const int* sid, int C,
+    int w, int k0, int lane) {
+  constexpr int kPieces = kBJoinChunk / 8;
+  for (int e = lane; e < C * kPieces; e += 32) {
+    const int s = e / kPieces;
+    const int v = (e - s * kPieces) * 8;
+    const int id = sid[s];
+    const bool ok = id >= 0 && k0 + v < w;
+    cp_async<16>(st + s * kBJoinStride + v,
+                 ok ? data + (int64_t)id * w + k0 + v : data, ok);
+  }
+}
+
+// kMB 16-row blocks: C <= 16 kMB
+template <int kMB>
+__global__ void __launch_bounds__(kBJoinWarps * 32, 1)
+    knn_join_dists_bf16_kernel(const uint16_t* __restrict__ data,
+                               const float* __restrict__ x2,
+                               const int* __restrict__ ids,
+                               float* __restrict__ od, int* __restrict__ ev,
+                               int N, int n, int C, int w, int cn) {
+  constexpr int kRows = 16 * kMB;
+  constexpr int kStage = kRows * kBJoinStride;
+  // the k-steps of a stage unrolled up to 32 rows; wider, the hoisted
+  // fragments of four steps beside 60-80 sums would spill
+  constexpr int kUnroll = kMB <= 2 ? kBJoinChunk / 16 : 1;
+  extern __shared__ __align__(16) uint16_t bsm[];
+  __shared__ int sid_all[kBJoinWarps][kQJoinMaxC];
+  __shared__ float sx2_all[kBJoinWarps][kQJoinMaxC];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kBJoinWarps + warp;
+  if (row >= n) return;               // the block never synchronises
+  uint16_t* ring = bsm + warp * kBJoinStages * kStage;
+  int* sid = sid_all[warp];
+  float* sx2 = sx2_all[warp];
+  for (int s = lane; s < C; s += 32) {
+    int id = ids[(int64_t)row * C + s];
+    if (id < 0 || id >= N) id = -1;   // out of range: an invalid slot
+    sid[s] = id;
+    sx2[s] = id >= 0 ? x2[id] : 0.0f;
+  }
+  // the padding rows [C, kRows) of every stage stay zero
+  const int pad = (kRows - C) * kBJoinStride / 8;       // 16-byte words
+  for (int e = lane; e < kBJoinStages * pad; e += 32) {
+    const int st = e / pad;
+    reinterpret_cast<uint4*>(ring + st * kStage + C * kBJoinStride)
+        [e - st * pad] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncwarp();
+
+  float acc[kMB][2 * kMB][4];
+#pragma unroll
+  for (int mi = 0; mi < kMB; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 2 * kMB; ++nj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][nj][i] = 0.0f;
+
+  // ldmatrix.x4: lane l addresses row l % 8 of matrix l / 8, the matrices
+  // being (rows 0-7, 8-15) x (values 0-7, 8-15) of a 16 x 16 block
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lcol = (lane >> 4) * 8;
+  const int chunks = (w + kBJoinChunk - 1) / kBJoinChunk;
+#pragma unroll
+  for (int s = 0; s < kBJoinStages - 1; ++s) {
+    if (s < chunks)
+      bjoin_load_chunk(ring + s * kStage, data, sid, C, w, s * kBJoinChunk,
+                       lane);
+    cp_async_commit();
+  }
+  for (int kc = 0; kc < chunks; ++kc) {
+    cp_async_wait<kBJoinStages - 2>();   // this lane's copies of chunk kc
+    __syncwarp();                        // the warp's; stage kc - 1 is free
+    const int nxt = kc + kBJoinStages - 1;
+    if (nxt < chunks)
+      bjoin_load_chunk(ring + (nxt % kBJoinStages) * kStage, data, sid, C, w,
+                       nxt * kBJoinChunk, lane);
+    cp_async_commit();
+
+    const uint16_t* st = ring + (kc % kBJoinStages) * kStage;
+#pragma unroll kUnroll
+    for (int kk = 0; kk < kBJoinChunk; kk += 16) {
+      uint32_t fa[kMB][4];
+#pragma unroll
+      for (int mi = 0; mi < kMB; ++mi)
+        ldmatrix_x4(fa[mi], st + (mi * 16 + lrow) * kBJoinStride + kk + lcol);
+#pragma unroll
+      for (int mi = 0; mi < kMB; ++mi)
+#pragma unroll
+        for (int nj = 2 * mi; nj < 2 * kMB; ++nj) {
+          if (nj * 8 >= C) continue;
+          // B's 8 columns are rows 8 nj.. of X: half nj % 2 of block nj / 2
+          float d[4];
+          mma_bf16(d, fa[mi], fa[nj >> 1][nj & 1], fa[nj >> 1][2 + (nj & 1)]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[mi][nj][i] = __fadd_rn(acc[mi][nj][i], d[i]);
+        }
+    }
+  }
+  cp_async_wait<0>();                    // only empty groups are left
+  __syncwarp();                          // the ring now holds the Gram
+
+  // accumulator i of lane l: row l / 4 + 8 (i / 2), column 2 (l % 4) + i % 2
+  float* gram = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int mi = 0; mi < kMB; ++mi)
+#pragma unroll
+    for (int nj = 2 * mi; nj < 2 * kMB; ++nj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = mi * 16 + (lane >> 2) + (i >> 1) * 8;
+        const int t = nj * 8 + 2 * (lane & 3) + (i & 1);
+        if (s < t && t < C) gram[s * C + t] = acc[mi][nj][i];
+      }
+  __syncwarp();
+
+  int local = join_epilogue(gram, sid, sx2, od + (int64_t)row * C * C, C,
+                            cn, lane, 32);
+  for (int off = 16; off > 0; off >>= 1)
+    local += __shfl_xor_sync(0xffffffffu, local, off);
+  if (lane == 0) ev[row] = local;
+}
+
+template <int kMB>
+int launch_bjoin(const uint16_t* data, const float* x2, const int* ids,
+                 float* od, int* ev, int N, int n, int C, int w, int cn,
+                 cudaStream_t stream) {
+  constexpr size_t smem = bjoin_smem<kMB>();
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        knn_join_dists_bf16_kernel<kMB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  knn_join_dists_bf16_kernel<kMB>
+      <<<(n + kBJoinWarps - 1) / kBJoinWarps, kBJoinWarps * 32, smem,
+         stream>>>(data, x2, ids, od, ev, N, n, C, w, cn);
+  return (int)cudaGetLastError();
 }
 
 bool rows_ok(const void* p, int row_bytes) {
@@ -374,10 +574,16 @@ int knn_join_dists_bf16_launch(const uint16_t* data, const float* x2,
                                cudaStream_t stream) {
   if (n <= 0 || C < 1 || C > kQJoinMaxC || w < 0 || !rows_ok(data, 2 * w))
     return (int)cudaErrorInvalidValue;
-  knn_join_dists_bf16_kernel<<<n, kQJoinThreads, 0, stream>>>(
-      reinterpret_cast<const uint32_t*>(data), x2, ids, od, ev, N, C,
-      w / 2, cn);
-  return (int)cudaGetLastError();
+  switch ((C + 15) / 16) {
+    case 1:
+      return launch_bjoin<1>(data, x2, ids, od, ev, N, n, C, w, cn, stream);
+    case 2:
+      return launch_bjoin<2>(data, x2, ids, od, ev, N, n, C, w, cn, stream);
+    case 3:
+      return launch_bjoin<3>(data, x2, ids, od, ev, N, n, C, w, cn, stream);
+    default:
+      return launch_bjoin<4>(data, x2, ids, od, ev, N, n, C, w, cn, stream);
+  }
 }
 
 }  // extern "C"

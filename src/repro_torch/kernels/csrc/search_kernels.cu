@@ -14,6 +14,8 @@
 #include <cmath>
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -66,23 +68,6 @@ constexpr int kL2Tile = kL2BK * kL2BM;    // floats of one operand's stage
 constexpr size_t kL2Smem = (size_t)kL2Stages * 2 * kL2Tile * sizeof(float);
 static_assert(kL2BM == kL2BN, "one loader and one norm layout for both");
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
 // Features [k0, k0 + 32) of columns [c0, c0 + 128) of one k-major operand
 // (D rows of ld floats) into a stage: 1024 16-byte pieces, four per
 // thread; 32 threads cover one feature row.
@@ -96,7 +81,7 @@ __device__ __forceinline__ void l2_load_tile(float* st,
     const int kk = e >> 5;
     const int c = (e & 31) * 4;
     const bool ok = k0 + kk < D && c0 + c < ld;
-    cp_async16(st + kk * kL2BM + c,
+    cp_async<16>(st + kk * kL2BM + c,
                ok ? g + (int64_t)(k0 + kk) * ld + c0 + c : g, ok);
   }
 }

@@ -5,9 +5,11 @@
   takes the ids and the base rows and gathers in-kernel, so the (n, C, dp)
   gathered copy the TPU kernel takes as input (n*C*dp*4 bytes, 5 GB on the
   card at 70000 x 896, C = 20) is never made. Bound on this card: fp32
-  operations (the 190 dot products of 896 it computes per row at C = 20);
-  one block per row keeps its C rows in shared memory a 64-feature tile at
-  a time and each thread's pair sums in registers.
+  operations (the 190 dot products of 896 it computes per row at C = 20),
+  fed from shared memory; one block per row computes the rows' Gram on
+  register-tiled 4 x 4 tiles of its upper triangle, the features split
+  over 8 lanes (4 or 2 above C 40) and summed by shuffles, the rows
+  gathered by ``cp.async`` into a 3-stage ring (any dp).
 * ``knn_join_select_cuda`` replaces ``knn_join_select_blocked``
   (knn_join.py:152, body ``_join_select_kernel`` :125). Bound: bytes (8 in
   per entry, 8 out per winner). A radix select, not a sort of the row: one

@@ -11,11 +11,13 @@
 
 Like the fp32 tiles they take the ids and the base mirror (data, scale,
 x2 of core/quantize.py) and gather the rows in-kernel; an id outside
-[0, N) is an invalid slot. Bound on this card: bytes (one quantized row per
-valid candidate). The kernels read rows in 16-byte chunks, so each wrapper
-also requires the rows to start on 16-byte boundaries: a row of a multiple
-of 16 bytes (16 int8 or 8 bf16 values; the mirror's 32-column quantum
-gives that) in a tensor whose storage is 16-byte aligned. Every wrapper
+[0, N) is an invalid slot. Bound on this card: bytes (one quantized row
+per valid candidate); the bf16 join runs its products on the tensor cores
+(``mma.sync``, one warp per row). The kernels read rows in 16-byte
+chunks, so each wrapper also requires the rows to start on 16-byte
+boundaries: a row of a multiple of 16 bytes (16 int8 or 8 bf16 values;
+the mirror's 32-column quantum gives that) in a tensor whose storage is
+16-byte aligned. Every wrapper
 checks device, dtype, shape, contiguity and that alignment and raises on
 failure, allocates its outputs with ``torch.empty``, launches on the
 current stream, raises on a non-zero launch code, and counts its launches

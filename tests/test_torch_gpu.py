@@ -73,6 +73,9 @@ def _both(fn, *args, **kw):
     (37, 12, 5, 16), (64, 8, 8, 32), (10, 6, 0, 8), (33, 1, 1, 20),
     (4096, 20, 10, 896),         # the main path: C = 20, dp = 896
     (257, 64, 30, 130),          # the widest C the kernel takes
+    (300, 17, 9, 130),           # C not a multiple of the 4 x 4 tile
+    (512, 32, 16, 4096),         # the kNN-LM's build: C = 32, d = 4096
+    (2048, 40, 20, 896),         # the online store's build: rho 1.0
 ])
 def test_join_dists_kernel(dev, n, c, cn, dp):
     rng = np.random.RandomState(n + c)
@@ -394,6 +397,7 @@ def test_quant_search_dists_kernel(dev, mode, nq, w_cand, width, big_n):
     (4096, 20, 10, 800),         # the default build: C = 20, w = 800
     (4096, 40, 20, 800),         # rho 1.0: C = 40
     (257, 64, 30, 288),          # the widest C the kernel takes
+    (300, 17, 9, 800),           # C not a multiple of 16 (nor of 4)
 ])
 def test_quant_join_dists_kernel(dev, mode, n, c, cn, width):
     big_n = 4 * n

@@ -4,8 +4,10 @@ same numpy inputs, plus the dispatch rules of repro_torch/kernels/ops.py.
 
 Tolerances: ids, counts and evals exact; +inf positions exact; join
 distances rtol 1e-5 / atol 1e-4 (the dot products are summed in another
-order); select and merge bitwise (they only compare and copy), and so is
-a numpy emulation of the CUDA select's radix passes; pairwise
+order), and a numpy emulation of the CUDA join's order of sums within
+the card's 1e-4 + 1e-5 * (x2[a] + x2[b]); select and merge bitwise (they
+only compare and copy), and so is a numpy emulation of the CUDA select's
+radix passes; pairwise
 l2 rtol 1e-5 / atol 1e-5 * (|a|^2 + |b|^2) (the norm expansion cancels
 the digits the norms share); search distances rtol 1e-4 / atol 1e-4, as
 tests/test_search.py:66."""
@@ -97,6 +99,97 @@ def test_join_dists_plain_matches_jax(n, c, cn, dp, tb):
     assert int(tev[3]) == 0
     if cn == 0:
         assert int(tev.sum()) == 0
+
+
+def _join_slices(c):
+    """The feature slices per 4 x 4 tile that knn_join_dists_launch picks:
+    8, or 4 or 2 so that a block stays at most 512 threads."""
+    nb = -(-c // 4)
+    tiles = nb * (nb + 1) // 2
+    return 8 if tiles * 8 <= 512 else 4 if tiles * 4 <= 512 else 2
+
+
+def _join_epilogue_np(gram, x2g, ids, cn):
+    """The kernels' epilogue (csrc/common.cuh): (n2[s] + n2[t]) - 2 g in
+    f32 with no contraction, clamped at 0; +inf where the join mask (the
+    port's plain one) refuses. Returns (dists, evals)."""
+    ok = tref._join_ok(_t(ids), cn).numpy()
+    dd = (x2g[:, :, None] + x2g[:, None, :]) - np.float32(2.0) * gram
+    out = np.where(ok, np.maximum(dd, np.float32(0.0)), np.float32(np.inf))
+    return out, (ok.sum(axis=(1, 2)) // 2).astype(np.int32)
+
+
+def _join_gram_emulation(x, x2, ids, cn):
+    """csrc/knn_kernels.cu's knn_join_dists in numpy, in its order of
+    operations. Slice k of S (``_join_slices``) of a tile adds, per
+    32-feature chunk, float4 q = k, k + S, ... (features 4q..4q+3) into
+    its sums with one f32 multiply-add per feature (emulated in f64 and
+    rounded once to f32: the product is exact in f64); then a butterfly
+    adds the S partial sums (lanes k and k ^ off, off = 1, 2, 4), then the
+    epilogue. Ids outside [0, N) are invalid slots, zero rows."""
+    big_n, dp = x.shape
+    n, c = ids.shape
+    ids = np.where(ids >= big_n, -1, ids)
+    valid = ids >= 0
+    chunks = -(-dp // 32)
+    xg = np.zeros((n, c, 32 * chunks), np.float32)
+    xg[:, :, :dp] = np.where(valid[:, :, None], x[np.where(valid, ids, 0)],
+                             0.0)
+    s = _join_slices(c)
+    part = np.zeros((s, n, c, c), np.float32)
+    for kc in range(chunks):
+        for j in range(8 // s):
+            for comp in range(4):
+                f = 32 * kc + 4 * (np.arange(s) + j * s) + comp
+                a = xg[:, :, f].transpose(2, 0, 1).astype(np.float64)
+                prod = a[:, :, :, None] * a[:, :, None, :]
+                part = (part + prod).astype(np.float32)
+    lane = np.arange(s)
+    off = 1
+    while off < s:
+        part = (part + part[lane ^ off]).astype(np.float32)
+        off *= 2
+    x2g = np.where(valid, x2[np.where(valid, ids, 0)], 0.0).astype(np.float32)
+    return _join_epilogue_np(part[0], x2g, ids, cn)
+
+
+@pytest.mark.parametrize("cn_of", ["none", "half", "all"])
+@pytest.mark.parametrize("c,dp", [
+    (1, 45), (17, 130), (20, 96), (40, 45), (64, 130)])
+def test_join_gram_emulation_matches_jax(c, dp, cn_of):
+    """The fp32 kernel's order of sums (``_join_gram_emulation``) against
+    the Pallas kernel in interpret mode and the port's plain version, with
+    invalid slots (-1 and >= N), a repeated id and dp not a multiple of
+    the 32-feature chunk."""
+    cn = {"none": 0, "half": c // 2, "all": c}[cn_of]
+    n, big_n = 6, 40
+    rng = np.random.RandomState(7 * c + dp)
+    x = rng.randn(big_n, dp).astype(np.float32)
+    x2 = (x * x).sum(1).astype(np.float32)
+    ids = rng.randint(-1, big_n, size=(n, c)).astype(np.int32)
+    ids[3] = -1                             # an all-invalid row
+    ids[0, 0] = big_n                       # >= N: an invalid slot
+    ids[2, -1] = big_n + 5
+    if c > 2:
+        ids[4, 2] = ids[4, 0]               # a repeated id
+    ed, eev = _join_gram_emulation(x, x2, ids, cn)
+    jids = np.where(ids >= big_n, -1, ids)
+    valid = jids >= 0
+    safe = np.where(valid, jids, 0)
+    x2g = np.where(valid, x2[safe], 0.0).astype(np.float32)
+    kd, kev = knn_join_dists_blocked(jnp.asarray(x[safe]), jnp.asarray(x2g),
+                                     jnp.asarray(jids), cn=cn, tb=8,
+                                     interpret=True)
+    td, tev = tref.knn_join_dists(_t(x), _t(x2), _t(jids), cn)
+    tol = 1e-4 + 1e-5 * (x2g[:, :, None] + x2g[:, None, :])
+    for want, want_ev in ((np.asarray(kd), kev), (td.numpy(), tev.numpy())):
+        np.testing.assert_array_equal(np.isinf(ed), np.isinf(want))
+        np.testing.assert_array_equal(eev, np.asarray(want_ev))
+        fin = np.isfinite(want)
+        assert (np.abs(ed - want)[fin] <= tol[fin]).all()
+    assert eev[3] == 0 and np.isinf(ed[3]).all()
+    if cn == 0:
+        assert eev.sum() == 0
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,9 @@ norms rtol 1e-6 (a sum of d non-integer squares in f32: the two packages
 add them in another order, a few ulps apart); ids, +inf positions and
 evals exact; int8 tile distances rtol 1e-6 (the cross terms are exact
 integers, only the epilogue's rounding can differ); bf16 tile distances
-rtol 1e-5 / atol 1e-4 (tests/test_quantize.py's own); returned fp32
+rtol 1e-5 / atol 1e-4 (tests/test_quantize.py's own), and a numpy
+emulation of the CUDA bf16 join's order of sums within the card's
+1e-4 + 1e-5 * (x2[a] + x2[b]); returned fp32
 distances rtol 1e-4 / atol 1e-3 (tests/test_quantize.py:362-367), or,
 on a large-norm corpus, 1e-4 + 1e-5 (|a|^2 + |b|^2) (the norm expansion's
 cancellation, as in tests/test_torch_gpu.py)."""
@@ -267,6 +269,74 @@ def test_join_bf16_plain_matches_jax(n, c, cn, dp, tb):
     _assert_dists(gd, wd, kd, rtol=1e-5, atol=1e-4)
     np.testing.assert_array_equal(gev.numpy(), np.asarray(wev))
     np.testing.assert_array_equal(gev.numpy(), np.asarray(kev))
+
+
+def _bf16_join_emulation(data, x2, ids, cn):
+    """csrc/quant_kernels.cu's knn_join_dists_bf16 in numpy, in its order
+    of sums: per 16-value chunk of the rows, one mma from a zero
+    accumulator (the chunk's exact products summed, emulated in f64 and
+    rounded once to f32), the chunks added in order in f32 (__fadd_rn);
+    then the epilogue (csrc/common.cuh): (x2[s] + x2[t]) - 2 g in f32,
+    clamped at 0, +inf where the join mask refuses. data: (N, w) bf16
+    values as f32; ids outside [0, N) are invalid slots, zero rows."""
+    big_n, w = data.shape
+    n, c = ids.shape
+    ids = np.where(ids >= big_n, -1, ids)
+    valid = ids >= 0
+    safe = np.where(valid, ids, 0)
+    chunks = -(-w // 16)
+    xg = np.zeros((n, c, 16 * chunks), np.float64)
+    xg[:, :, :w] = np.where(valid[:, :, None], data[safe], 0.0)
+    gram = np.zeros((n, c, c), np.float32)
+    for kc in range(chunks):
+        a = xg[:, :, 16 * kc:16 * (kc + 1)]
+        gram = gram + np.einsum("nsk,ntk->nst", a, a).astype(np.float32)
+    x2g = np.where(valid, x2[safe], 0.0).astype(np.float32)
+    ok = tref._join_ok(_t(ids), cn).numpy()
+    dd = (x2g[:, :, None] + x2g[:, None, :]) - np.float32(2.0) * gram
+    out = np.where(ok, np.maximum(dd, np.float32(0.0)), np.float32(np.inf))
+    return out, (ok.sum(axis=(1, 2)) // 2).astype(np.int32), x2g
+
+
+@pytest.mark.parametrize("cn_of", ["none", "half", "all"])
+@pytest.mark.parametrize("c,w", [
+    (1, 24), (17, 136), (20, 72), (40, 200), (64, 8)])
+def test_join_bf16_emulation_matches_jax(c, w, cn_of):
+    """The bf16 kernel's order of sums (``_bf16_join_emulation``) against
+    the Pallas kernel in interpret mode and the port's plain version,
+    within 1e-4 + 1e-5 (x2[a] + x2[b]) (the card's tolerance), +inf
+    positions and evals exact; with invalid slots (-1 and >= N), a
+    repeated id, an all-invalid row and w not a multiple of the kernel's
+    64-value stage (nor, at 8, 24, 72 and 136, of its 16-value step)."""
+    cn = {"none": 0, "half": c // 2, "all": c}[cn_of]
+    n, big_n = 6, 40
+    rng = np.random.RandomState(5 * c + w)
+    base = jq.quantize_corpus(jnp.asarray(
+        rng.randn(big_n, w).astype(np.float32) * 3.0), "bf16")
+    ids = rng.randint(-1, big_n, size=(n, c)).astype(np.int32)
+    ids[3] = -1                                  # an all-invalid row
+    ids[0, 0] = big_n                            # >= N: an invalid slot
+    ids[2, -1] = big_n + 5
+    if c > 2:
+        ids[4, 2] = ids[4, 0]                    # a repeated id
+    data = np.asarray(base.data.astype(jnp.float32))
+    ed, eev, x2g = _bf16_join_emulation(data, np.asarray(base.x2), ids, cn)
+    jids = np.where(ids >= big_n, -1, ids)
+    safe = jnp.asarray(np.where(jids >= 0, jids, 0))
+    kd, kev = knn_join_dists_bf16_blocked(
+        base.data[safe], jnp.asarray(x2g), jnp.asarray(jids), cn=cn, tb=8,
+        interpret=True)
+    td, tev = tref.knn_join_dists_bf16(_t(base.data), _t(base.x2), _t(ids),
+                                       cn)
+    tol = 1e-4 + 1e-5 * (x2g[:, :, None] + x2g[:, None, :])
+    for want, want_ev in ((np.asarray(kd), kev), (td.numpy(), tev.numpy())):
+        np.testing.assert_array_equal(np.isinf(ed), np.isinf(want))
+        np.testing.assert_array_equal(eev, np.asarray(want_ev))
+        fin = np.isfinite(want)
+        assert (np.abs(ed - want)[fin] <= tol[fin]).all()
+    assert eev[3] == 0 and np.isinf(ed[3]).all()
+    if cn == 0:
+        assert eev.sum() == 0
 
 
 def test_near_identical_points_cancellation_guard():
