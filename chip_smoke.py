@@ -17,9 +17,13 @@ script started:
                memory / spills per kernel (and per template instance),
                ptxas's notes of wgmma it serialised, and the count of
                HGMMA in the SASS of each flash_attention device function
-               (cuobjdump -sass): the bf16 kernel must have some; of HMMA
-               in each join's: the bf16 join must have some (mma.sync),
-               the fp32 join none (fp32 stays on the CUDA cores);
+               (cuobjdump -sass): the bf16 kernel must have some, the f32
+               kernel (flash_attention<...>) no HGMMA, HMMA or IMMA (fp32
+               stays on the CUDA cores); of HMMA in each join's: the bf16
+               join must have some (mma.sync), the fp32 join none; of IMMA
+               in each int8 join instance: every one must have some (s8
+               mma.sync); ptxas's spill bytes of the f32 attention and
+               int8 join instances;
   build_check  mnist_like(16000, 784), DescentConfig(k=20, rho=1.0), built
                through the kernels and through their plain versions with
                the same generator seed, at precision f32, int8 and bf16:
@@ -1379,15 +1383,28 @@ def main() -> int:
     _lib.build(force=True)
     _lib.lib()
     so = Path(_lib.build_info["path"])
-    hgmma = {k: v for k, v in _lib.sass_functions(so, "HGMMA").items()
+    sass = {op: _lib.sass_functions(so, op)
+            for op in ("HGMMA", "HMMA", "IMMA")}
+    hgmma = {k: v for k, v in sass["HGMMA"].items()
              if k.startswith("flash_attention")}
     # the joins: the bf16 one on the tensor cores, the fp32 one never
-    hmma = {k: v for k, v in _lib.sass_functions(so, "HMMA").items()
+    hmma = {k: v for k, v in sass["HMMA"].items()
             if k.startswith(("knn_join_dists<", "knn_join_dists_bf16"))}
+    # the int8 join on the tensor cores (s8 mma.sync)
+    imma = {k: v for k, v in sass["IMMA"].items()
+            if k.startswith("knn_join_dists_q8")}
+    # the f32 attention: fp32 on the CUDA cores, no tensor-core opcode
+    f32_attn = {f"{op}:{k}": v for op, counts in sass.items()
+                for k, v in counts.items() if k.startswith("flash_attention<")}
+    spills = {k: v.get("spill_store_bytes", 0)
+              for k, v in _lib.build_info["kernels"].items()
+              if k.startswith(("flash_attention<", "knn_join_dists_q8<"))}
     emit("build_lib", seconds=_lib.build_info["seconds"],
          path=str(so.relative_to(ROOT)),
          kernels=_lib.build_info["kernels"], hgmma_in_sass=hgmma,
-         hmma_in_sass=hmma,
+         hmma_in_sass=hmma, imma_in_sass=imma,
+         f32_attention_tensor_ops_in_sass=f32_attn,
+         spill_store_bytes_of_new_instances=spills,
          ptxas_performance_notes=_lib.build_info["performance_notes"])
     sm90 = [v for k, v in hgmma.items()
             if k.startswith("flash_attention_sm90")]
@@ -1399,6 +1416,11 @@ def main() -> int:
     if not bf16_join or not all(bf16_join) or not f32_join or any(f32_join):
         raise AssertionError(f"HMMA in the joins' SASS: {hmma} (the bf16 "
                              "join must have it, the fp32 join none)")
+    if not imma or not all(imma.values()):
+        raise AssertionError(f"the int8 join has no IMMA: {imma}")
+    if not f32_attn or any(f32_attn.values()):
+        raise AssertionError(f"tensor-core opcodes in the f32 attention "
+                             f"kernel's SASS: {f32_attn}")
 
     # -- build_check: kernels vs plain versions, same generator seed
     xc = datasets.mnist_like(CHECK_N, 784, seed=SEED + 1,

@@ -1,6 +1,6 @@
-// Device helpers shared by knn_kernels.cu, search_kernels.cu and
-// quant_kernels.cu: asynchronous copies into shared memory, and the local
-// join's epilogue.
+// Device helpers shared by the kernel sources: asynchronous copies into
+// shared memory (all but attention_sm90.cu), and the local join's epilogue
+// (knn_kernels.cu, quant_kernels.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,17 +40,19 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // The local join's epilogue for one row, entries e0, e0 + step, ... of
 // its C x C output: the distance by the norm expansion, (n2[s] + n2[t]) -
-// 2 g, with __fadd_rn / __fmul_rn so that nothing is contracted, clamped at
-// 0; +inf on the diagonal and on pairs the join mask refuses (neither slot
-// in the "new" prefix cn, a slot invalid, or one id twice). gram holds the
-// cross terms g on its upper triangle (C x C, s < t); sid the slots' ids
-// (-1 invalid), n2 their squared norms. The output is written in order, so
-// a warp's stores are coalesced. Returns the valid unordered pairs among
-// this thread's entries.
+// f g with f = 2, or f = 2 (sc[s] sc[t]) where per-slot scales sc are given
+// (the int8 join), with __fadd_rn / __fmul_rn so that nothing is
+// contracted, clamped at 0; +inf on the diagonal and on pairs the join mask
+// refuses (neither slot in the "new" prefix cn, a slot invalid, or one id
+// twice). gram holds the cross terms g on its upper triangle (C x C, s <
+// t); sid the slots' ids (-1 invalid), n2 their squared norms. The output
+// is written in order, so a warp's stores are coalesced. Returns the valid
+// unordered pairs among this thread's entries.
 __device__ __forceinline__ int join_epilogue(const float* gram,
                                              const int* sid, const float* n2,
                                              float* __restrict__ out, int C,
-                                             int cn, int e0, int step) {
+                                             int cn, int e0, int step,
+                                             const float* sc = nullptr) {
   int local = 0;
   for (int e = e0; e < C * C; e += step) {
     const int s = e / C;
@@ -61,8 +63,9 @@ __device__ __forceinline__ int join_epilogue(const float* gram,
     const int b = sid[hi];
     float v = INFINITY;
     if (lo != hi && lo < cn && a >= 0 && b >= 0 && a != b) {
+      const float f = sc ? __fmul_rn(2.0f, __fmul_rn(sc[lo], sc[hi])) : 2.0f;
       v = fmaxf(__fsub_rn(__fadd_rn(n2[lo], n2[hi]),
-                          __fmul_rn(2.0f, gram[lo * C + hi])),
+                          __fmul_rn(f, gram[lo * C + hi])),
                 0.0f);
       local += s < t ? 1 : 0;
     }

@@ -10,16 +10,19 @@ that are not tile multiples; this one masks the tails by position).
 Bound on this card: operations (4 * Dh per visible (q, k) pair). It
 dispatches by dtype, one kernel each (no fallback from one to the other):
 
-* f32 (the exact path, "fp32 means fp32"): csrc/attention_kernels.cu, one
-  block per (b*h, 64 query rows) with fp32 k / v tiles in shared memory and
-  fp32 FMAs; Dq and Dv multiples of 4 up to 256.
+* f32 (the exact path, "fp32 means fp32"): csrc/attention_kernels.cu,
+  fp32 FMAs on the CUDA cores, 8 x 8 logits and outputs per thread: one
+  128-thread block per (b*h, 64 query rows; 32 above Dh 128), two blocks
+  to an SM, k and v streamed through a 2-stage cp.async ring in slices,
+  the heaviest causal tiles first; Dq and Dv multiples of 4 up to 256.
 * bf16: csrc/attention_sm90.cu, wgmma on the tensor cores fed by TMA: one
   block per (b*h, 128 query rows), a producer warp keeping (k, v) tiles in
   flight, P rounded to bf16 for the second product; Dq and Dv multiples of
-  16 up to 256, tensors 16-byte aligned (TMA).
+  16 up to 256.
 
 Both skip the kv tiles no row of a query tile can see. The wrapper checks
-device, dtype, shape, contiguity and alignment, allocates the output with
+device, dtype, shape, contiguity and 16-byte alignment (both kernels copy
+16 bytes at a time), allocates the output with
 ``torch.empty``, launches on the current stream, raises on a non-zero
 launch code, and counts the launches of both in
 ``_lib.LAUNCHES["flash_attention"]``.
@@ -67,8 +70,6 @@ def flash_attention_cuda(
         if not (quantum <= d <= ATTN_MAX_D and d % quantum == 0):
             raise ValueError(f"{name}={d} must be a multiple of {quantum} in "
                              f"[{quantum}, {ATTN_MAX_D}] at {q.dtype}")
-    if b * h > 65535:
-        raise ValueError(f"B*H={b * h} exceeds the grid's 65535")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive; got {softcap}")
     o = torch.empty((b, lq, h, dv), dtype=q.dtype, device=dev)
@@ -80,10 +81,10 @@ def flash_attention_cuda(
             0.0 if softcap is None else float(softcap), int(causal),
             -1 if window is None else int(window), int(q_offset))
     stream = torch.cuda.current_stream(dev).cuda_stream
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16 and t.numel():
+            raise ValueError(f"{name} must be 16-byte aligned")
     if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 and t.numel():
-                raise ValueError(f"{name} must be 16-byte aligned (TMA)")
         code = _lib.lib().flash_attention_sm90_launch(*args, stream)
     else:
         code = _lib.lib().flash_attention_launch(*args, stream)

@@ -12,8 +12,9 @@
 Like the fp32 tiles they take the ids and the base mirror (data, scale,
 x2 of core/quantize.py) and gather the rows in-kernel; an id outside
 [0, N) is an invalid slot. Bound on this card: bytes (one quantized row
-per valid candidate); the bf16 join runs its products on the tensor cores
-(``mma.sync``, one warp per row). The kernels read rows in 16-byte
+per valid candidate); both joins run their Gram on the tensor cores
+(``mma.sync``, s8 -> s32 and bf16 -> f32, one warp per row), the int8 one
+bitwise equal to its plain version. The kernels read rows in 16-byte
 chunks, so each wrapper also requires the rows to start on 16-byte
 boundaries: a row of a multiple of 16 bytes (16 int8 or 8 bf16 values;
 the mirror's 32-column quantum gives that) in a tensor whose storage is

@@ -7,7 +7,9 @@ Tolerances: the port's oracle and plain chunked scan against JAX's at
 rtol/atol 1e-5 (both fp32; the sums run in another order); the Pallas
 kernel against the port's oracle at 2e-3, as tests/test_kernels.py holds
 it to JAX's; an emulation of the bf16 CUDA kernel's arithmetic against
-JAX's oracle at the card's bf16 limit (rtol 1e-2, atol 2e-3). Rows that
+JAX's oracle at the card's bf16 limit (rtol 1e-2, atol 2e-3), and one of
+the f32 kernel's (its tiles, skip range and log2-domain softmax) at the
+f32 limit, rtol / atol 2e-3. Rows that
 see no key are NaN in both oracles (softmax over
 all -inf), so oracle comparisons skip them, and a separate test holds the
 chunked scan (and hence the kernel's contract) to 0 there.
@@ -262,6 +264,130 @@ def test_single_bf16_p_exceeds_bf16_limit():
     weight) the causal rows that see few keys leave the bf16 limit."""
     worst, _ = _bf16_worst("causal_gqa", split=False)
     assert worst > 1.0
+
+
+def _f32_tile_rows(dq, dv):
+    """The f32 kernel's query rows per block (flash_attention_launch): 64
+    where Dq and Dv are at most 128, else 32."""
+    return 64 if dq <= 128 and dv <= 128 else 32
+
+
+F32_BK = 128          # kAttnBK: keys per kv tile of the f32 kernel
+
+
+def _f32_kv_range(q0, bq, lq, lk, causal=True, window=None, q_offset=0,
+                  **_):
+    """The kv range the f32 kernel visits for the query tile at row q0
+    (its kbeg / kend): from the tile of the first key the first row's
+    window reaches to the last key the last row sees (causal) or Lk; none
+    where the window starts past that key."""
+    qlo = q_offset + q0
+    qhi = q_offset + min(q0 + bq, lq) - 1
+    kend = min(lk, qhi + 1) if causal else lk
+    kbeg = max(0, qlo - window + 1) if window is not None else 0
+    if kbeg >= kend:                 # no row sees a key
+        kend = 0
+    return kbeg // F32_BK * F32_BK, kend
+
+
+def _f32_emulation(q, k, v, *, causal=True, window=None, softcap=None,
+                   scale=None, q_offset=0):
+    """csrc/attention_kernels.cu's arithmetic in torch f32: per query tile
+    (_f32_tile_rows), the kv tiles of 128 keys in [kbeg, kend)
+    (_f32_kv_range), logits in the log2 domain (scale log2(e), or softcap
+    log2(e) tanh(s scale / softcap)), masked logits -inf against a running
+    max that starts at -1e30, exp2, the sum l and the accumulator rescaled
+    by alpha = exp2(m - m_new), 0 where l = 0."""
+    b, lq, h, dq = q.shape
+    lk, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    kr = k.repeat_interleave(h // hkv, 2)
+    vr = v.repeat_interleave(h // hkv, 2)
+    scale = 1 / np.sqrt(dq) if scale is None else scale
+    bq = _f32_tile_rows(dq, dv)
+    out = torch.zeros((b, h, lq, dv))
+    for q0 in range(0, lq, bq):
+        rows = slice(q0, min(q0 + bq, lq))
+        qpos = torch.arange(q0, rows.stop)[:, None] + q_offset
+        m = torch.full((b, h, rows.stop - q0), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, h, rows.stop - q0, dv))
+        kbeg, kend = _f32_kv_range(q0, bq, lq, lk, causal, window, q_offset)
+        for k0 in range(kbeg, kend, F32_BK):
+            keys = slice(k0, min(k0 + F32_BK, lk))
+            s = torch.einsum("bqhd,bkhd->bhqk", q[:, rows], kr[:, keys])
+            x = (softcap * LOG2E * torch.tanh(s * (scale / softcap))
+                 if softcap is not None else s * (scale * LOG2E))
+            kpos = torch.arange(k0, keys.stop)[None, :]
+            ok = torch.ones(x.shape[-2:], dtype=torch.bool)
+            if causal:
+                ok &= kpos <= qpos
+            if window is not None:
+                ok &= kpos > qpos - window
+            x = x.masked_fill(~ok, -np.inf)
+            mn = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp2(m - mn)
+            p = torch.exp2(x - mn[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p, vr[:, keys])
+            m = mn
+        out[:, :, rows] = torch.where(
+            l[..., None] > 0, acc / l.clamp_min(1e-30)[..., None], 0.0)
+    return out.permute(0, 2, 1, 3)
+
+
+# (B, Lq, Lk, H, Hkv, Dq, Dv, keyword arguments): SM90_MODES, plus Dh 256
+# (32-row tiles) and Dq above 128 beside a narrow Dv
+F32_MODES = {
+    **SM90_MODES,
+    "dh_256": (1, 161, 161, 4, 2, 256, 256, dict(causal=True)),
+    "dq_192_dv_64": (1, 97, 200, 4, 2, 192, 64, dict(causal=False)),
+    "softcap_window": (2, 300, 300, 4, 2, 32, 32,
+                       dict(causal=True, window=100, softcap=30.0)),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(F32_MODES))
+def test_f32_emulation_matches_jax(mode):
+    """The f32 kernel's tiles, skip range and log2-domain softmax against
+    JAX's fp32 oracle within rtol / atol 2e-3 (the card's f32 limit) on
+    the rows that see a key; the rows that see none exactly 0."""
+    b, lq, lk, h, hkv, dq, dv, kw = F32_MODES[mode]
+    q, k, v = _qkv(lq + lk + dq, b, lq, lk, h, hkv, dq, dv)
+    want = torch.from_numpy(np.array(jref.attention(*_j(q, k, v), **kw)))
+    got = _f32_emulation(*_t(q, k, v), **kw)
+    seen = ~torch.isnan(want).any(-1).any(-1).any(0)
+    torch.testing.assert_close(got[:, seen], want[:, seen], rtol=2e-3,
+                               atol=2e-3)
+    assert bool((got[:, ~seen] == 0).all())
+
+
+@pytest.mark.parametrize("bq", [64, 32])
+def test_f32_skip_range_visits_exactly_the_seen_tiles(bq):
+    """Over ragged lengths, q_offset, windows and both masks: the kv tiles
+    in [kbeg, kend) are exactly those in which some row of the query tile
+    sees a key."""
+    rng = np.random.RandomState(bq)
+    for _ in range(300):
+        lq, lk = rng.randint(1, 400, size=2)
+        kw = dict(causal=bool(rng.rand() < 0.75),
+                  window=int(rng.randint(1, 300)) if rng.rand() < 0.5
+                  else None,
+                  q_offset=int(rng.randint(0, 300)) if rng.rand() < 0.5
+                  else 0)
+        qpos = np.arange(lq)[:, None] + kw["q_offset"]
+        kpos = np.arange(lk)[None, :]
+        ok = np.ones((lq, lk), bool)
+        if kw["causal"]:
+            ok &= kpos <= qpos
+        if kw["window"] is not None:
+            ok &= kpos > qpos - kw["window"]
+        for q0 in range(0, lq, bq):
+            seen = {int(kp) // F32_BK
+                    for kp in np.nonzero(ok[q0:q0 + bq].any(0))[0]}
+            kbeg, kend = _f32_kv_range(q0, bq, lq, lk, **kw)
+            assert set(range(kbeg // F32_BK, -(-kend // F32_BK))) == seen, \
+                (lq, lk, kw, q0)
 
 
 def test_dispatch_by_device():

@@ -398,6 +398,8 @@ def test_quant_search_dists_kernel(dev, mode, nq, w_cand, width, big_n):
     (4096, 40, 20, 800),         # rho 1.0: C = 40
     (257, 64, 30, 288),          # the widest C the kernel takes
     (300, 17, 9, 800),           # C not a multiple of 16 (nor of 4)
+    (300, 27, 13, 800),          # ring and static arrays past 48 KB
+    (300, 28, 14, 800),          # C = 2 rho k: k 14 rho 1.0, k 20 rho 0.7
 ])
 def test_quant_join_dists_kernel(dev, mode, n, c, cn, width):
     big_n = 4 * n
@@ -426,6 +428,27 @@ def test_quant_join_dists_kernel(dev, mode, n, c, cn, width):
         tol = 1e-4 + 1e-5 * (x2g[:, :, None] + x2g[:, None, :])
         fin = torch.isfinite(wd)
         assert bool(((gd - wd).abs()[fin] <= tol[fin]).all())
+
+
+@pytest.mark.parametrize("c", [33, 48, 64])
+@pytest.mark.parametrize("width", [16, 48, 816])
+def test_join_q8_mma_widths(dev, c, width):
+    """The int8 join's mma.sync Gram (k-steps of 32 bytes, 128-byte ring
+    stages) at 3 and 4 row blocks and at widths that end inside a k-step
+    (16, 48) or a stage (816): bitwise equal to the plain version."""
+    n, big_n = 130, 500
+    xs = _mirror(dev, big_n, width, "int8", c + width)
+    g = torch.Generator(device=dev).manual_seed(c * width)
+    ids = torch.randint(-1, big_n + 2, (n, c), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids[3] = -1
+    ids[4, 1] = ids[4, 0]
+    for cn in (0, c // 2, c):
+        (gd, gev), (wd, wev), launched = _both(
+            ops.knn_join_dists_q8, xs.data, xs.scale, xs.x2, ids, cn)
+        assert launched["knn_join_dists_q8"] == 1
+        assert torch.equal(gd, wd) and torch.equal(gev, wev)
+        assert int(gev[3]) == 0 and (cn > 0 or int(gev.sum()) == 0)
 
 
 @pytest.mark.parametrize("mode", ["int8", "bf16"])
@@ -692,6 +715,7 @@ ATTN_BF16_SHAPES = {
     "long_kv_noncausal": (1, 130, 4096, 4, 2, 64, 64, dict(causal=False)),
     "b2_q_offset": (2, 200, 712, 8, 2, 64, 64,
                     dict(causal=True, q_offset=512)),
+    "bh_65544": (2, 3, 5, 32772, 4, 16, 16, dict(causal=True)),
 }
 
 
@@ -699,8 +723,8 @@ ATTN_BF16_SHAPES = {
 def test_attention_kernel_bf16_shapes(dev, case):
     """The bf16 (wgmma) kernel at the recorded prefill, at Dh 256 and 80
     and at Dq 48 / Dv 32 (TMA zero-fills the panels past D), with a kv ring
-    much longer than its stages, and at B 2 with q_offset: against the
-    plain version, at the bf16 limit."""
+    much longer than its stages, at B 2 with q_offset, and at B*H past
+    65535: against the plain version, at the bf16 limit."""
     b, lq, lk, h, hkv, dq, dv, kw = ATTN_BF16_SHAPES[case]
     g = torch.Generator(device=dev).manual_seed(lq + lk)
     q = torch.randn(b, lq, h, dq, generator=g, device=dev).bfloat16()
@@ -713,6 +737,58 @@ def test_attention_kernel_bf16_shapes(dev, case):
     assert torch.equal(got[:, ~seen], torch.zeros_like(got[:, ~seen]))
     torch.testing.assert_close(got[:, seen].float(), want[:, seen].float(),
                                rtol=1e-2, atol=2e-3)
+
+
+# the f32 kernel's tiles (64 query rows, 32 above Dh 128; kv tiles of 128
+# keys, k slices of 32 features) at lengths and widths that are not
+# multiples of them: (B, Lq, Lk, H, Hkv, Dq, Dv, kwargs)
+ATTN_F32_SHAPES = {
+    "dh_4": (2, 70, 130, 4, 2, 4, 4, dict(causal=True, q_offset=60)),
+    "dh_12": (2, 129, 129, 4, 1, 12, 12, dict(causal=False)),
+    "dh_256": (2, 161, 161, 4, 2, 256, 256, dict(causal=True)),
+    "dq_256_dv_64": (1, 97, 200, 4, 2, 256, 64, dict(causal=False)),
+    "dq_36_dv_200": (1, 200, 200, 2, 1, 36, 200, dict(causal=True)),
+    "q_offset": (2, 65, 300, 8, 2, 128, 128, dict(causal=True, q_offset=235)),
+    "window_100": (2, 333, 333, 4, 2, 128, 128, dict(causal=True,
+                                                      window=100)),
+    "softcap_30": (2, 191, 191, 8, 2, 64, 64, dict(causal=True,
+                                                    softcap=30.0)),
+    "encoder_window": (1, 257, 257, 4, 2, 128, 128,
+                       dict(causal=False, window=33)),
+    "long_kv": (1, 64, 1500, 8, 2, 128, 128, dict(causal=True,
+                                                  q_offset=1436)),
+    "bh_65544": (2, 3, 5, 32772, 4, 4, 4, dict(causal=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_F32_SHAPES))
+def test_attention_kernel_f32_shapes(dev, case):
+    """The f32 kernel at ragged lengths, Dh 4, 12 and 256, Dq != Dv on both
+    tile heights, q_offset, window, softcap and B*H past 65535 (one 1-D
+    grid): against the plain version within rtol / atol 2e-3, rows that
+    see no key exactly 0."""
+    b, lq, lk, h, hkv, dq, dv, kw = ATTN_F32_SHAPES[case]
+    g = torch.Generator(device=dev).manual_seed(lq + lk + dq)
+    q = torch.randn(b, lq, h, dq, generator=g, device=dev)
+    k = torch.randn(b, lk, hkv, dq, generator=g, device=dev)
+    v = torch.randn(b, lk, hkv, dv, generator=g, device=dev)
+    got, want, launched = _both(ops.attention, q, k, v, **kw)
+    assert launched["flash_attention"] == 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, lq, h, dv)
+    seen = _seen_rows(lq, lk, **kw).to(dev)
+    assert torch.equal(got[:, ~seen], torch.zeros_like(got[:, ~seen]))
+    torch.testing.assert_close(got[:, seen], want[:, seen], rtol=2e-3,
+                               atol=2e-3)
+
+
+def test_attention_refuses_misaligned_f32(dev):
+    """The f32 kernel copies 16 bytes at a time: a view that starts off a
+    16-byte boundary raises, and nothing is launched."""
+    q = torch.zeros(8 * 2 * 8 + 1, device=dev)[1:].view(1, 8, 2, 8)
+    before = _lib.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.attention(q, q, q)
+    assert _lib.LAUNCHES["flash_attention"] == before
 
 
 def test_attention_bf16_refuses_other_widths(dev):

@@ -339,6 +339,130 @@ def test_join_bf16_emulation_matches_jax(c, w, cn_of):
         assert eev.sum() == 0
 
 
+# PTX's fragment layouts of mma.m16n8k32 .s8 (lane l, group g = l // 4,
+# t = l % 4): A register r holds row g + 8 (r % 2), bytes 4 t + 16 (r // 2)
+# .. + 3; B register r holds bytes 4 t + 16 r .. + 3 of column g; the
+# accumulator i holds row g + 8 (i // 2), column 2 t + i % 2
+_LANE = np.arange(32)
+_G, _T4 = _LANE // 4, _LANE % 4
+_E = np.arange(4)
+_A_ROW = np.broadcast_to((_G[None, :] + 8 * (np.arange(4) % 2)[:, None])
+                         [:, :, None], (4, 32, 4)).ravel()
+_A_COL = (4 * _T4[None, :, None] + 16 * (np.arange(4) // 2)[:, None, None]
+          + _E).ravel()
+_B_ROW = (4 * _T4[None, :, None] + 16 * np.arange(2)[:, None, None]
+          + _E).ravel()
+_B_COL = np.broadcast_to(_G[None, :, None], (2, 32, 4)).ravel()
+_D_ROW = (_G[:, None] + 8 * (np.arange(4) // 2)[None, :])
+_D_COL = (2 * _T4[:, None] + np.arange(4)[None, :] % 2)
+
+
+def _mma_m16n8k32(a, b0, b1):
+    """One mma.sync.m16n8k32.s32.s8.s8 from the lanes' registers: A (16 x
+    32) and B (32 x 8) put together by the PTX layouts above, D = A B in
+    int64, handed back as each lane's 4 accumulators. a: (n, 4 registers,
+    32 lanes, 4 bytes); b0, b1: (n, 32, 4)."""
+    n = a.shape[0]
+    am = np.zeros((n, 16, 32), np.int64)
+    am[:, _A_ROW, _A_COL] = a.reshape(n, -1)
+    bm = np.zeros((n, 32, 8), np.int64)
+    bm[:, _B_ROW, _B_COL] = np.stack([b0, b1], 1).reshape(n, -1)
+    return np.einsum("nik,nkj->nij", am, bm)[:, _D_ROW, _D_COL]
+
+
+def _q8_join_mma_emulation(data, scale, x2, ids, cn):
+    """csrc/quant_kernels.cu's knn_join_dists_q8 in numpy int64, fragment
+    by fragment: the warp's ring holds the C candidate rows (invalid slots
+    and bytes past w zero) padded to 16 kMB rows and to whole 128-byte
+    stages; per 32-byte k-step, ldmatrix.x4 of each 16-row block gives lane
+    l register j = 4 bytes of row 8 (j % 2) + l // 4 at byte 16 (j // 2) +
+    4 (l % 4); the 16 x 8 blocks (mi, nj) with nj >= 2 mi and 8 nj < C are
+    multiplied, B of block nj being quarters nj % 2 and 2 + nj % 2 of block
+    nj // 2's registers, the s32 sums accumulated in the mma; the
+    accumulators go to the upper triangle of the Gram, and the epilogue
+    (common.cuh) gives (x2[s] + x2[t]) - (2 (sc[s] sc[t])) (float)ab in f32,
+    clamped at 0, +inf where the join mask refuses. Also returns the
+    entries (s < t < C) no block wrote (none)."""
+    big_n, w = data.shape
+    n, c = ids.shape
+    ids = np.where((ids >= 0) & (ids < big_n), ids, -1)
+    valid = ids >= 0
+    safe = np.where(valid, ids, 0)
+    kmb = -(-c // 16)
+    width = 128 * -(-w // 128)
+    x = np.zeros((n, 16 * kmb, width), np.int64)
+    x[:, :c, :w] = np.where(valid[:, :, None], data[safe], 0)
+    acc = {}
+    for k0 in range(0, width, 32):
+        fa = [np.stack([x[:, (16 * mi + 8 * (j % 2) + _G)[:, None],
+                          k0 + 16 * (j // 2) + 4 * _T4[:, None] + _E]
+                        for j in range(4)], 1) for mi in range(kmb)]
+        for mi in range(kmb):
+            for nj in range(2 * mi, 2 * kmb):
+                if 8 * nj >= c:
+                    continue
+                d = _mma_m16n8k32(fa[mi], fa[nj // 2][:, nj % 2],
+                                  fa[nj // 2][:, 2 + nj % 2])
+                acc[mi, nj] = acc.get((mi, nj), 0) + d
+    gram = np.full((n, c, c), np.nan, np.float32)
+    for (mi, nj), d in acc.items():
+        for lane in range(32):
+            for i in range(4):
+                s_ = 16 * mi + _D_ROW[lane, i]
+                t_ = 8 * nj + _D_COL[lane, i]
+                if s_ < t_ < c:
+                    gram[:, s_, t_] = d[:, lane, i].astype(np.float32)
+    upper = np.triu(np.ones((c, c), bool), 1)
+    missing = int(np.isnan(gram[:, upper]).sum())
+    lo = np.minimum.outer(np.arange(c), np.arange(c))
+    hi = np.maximum.outer(np.arange(c), np.arange(c))
+    sc = np.where(valid, scale[safe], 0.0).astype(np.float32)
+    n2 = np.where(valid, x2[safe], 0.0).astype(np.float32)
+    g = np.nan_to_num(gram[:, lo, hi])
+    f = np.float32(2.0) * (sc[:, lo] * sc[:, hi])
+    dd = (n2[:, lo] + n2[:, hi]) - f * g
+    ok = tref._join_ok(_t(ids), cn).numpy()
+    out = np.where(ok, np.maximum(dd, np.float32(0.0)), np.float32(np.inf))
+    return out, (ok.sum(axis=(1, 2)) // 2).astype(np.int32), missing
+
+
+@pytest.mark.parametrize("cn_of", ["none", "half", "all"])
+@pytest.mark.parametrize("w", [16, 32, 48, 800])
+@pytest.mark.parametrize("c", [1, 5, 16, 17, 20, 33, 48, 60, 64])
+def test_join_q8_emulation_matches_jax(c, w, cn_of):
+    """The int8 kernel's blocks and fragment mapping
+    (``_q8_join_mma_emulation``) cover the whole upper triangle and give
+    JAX's oracle bit for bit, evals exact; with invalid slots (-1 and >=
+    N), a repeated id, an all-invalid row, and w ending inside a k-step
+    (16, 48) or a stage (48, 800)."""
+    cn = {"none": 0, "half": c // 2, "all": c}[cn_of]
+    n, big_n = 6, 40
+    rng = np.random.RandomState(7 * c + w)
+    base = jq.quantize_corpus(jnp.asarray(
+        rng.randn(big_n, w).astype(np.float32) * 3.0), "int8")
+    ids = rng.randint(-1, big_n, size=(n, c)).astype(np.int32)
+    ids[3] = -1                                  # an all-invalid row
+    ids[0, 0] = big_n                            # >= N: an invalid slot
+    ids[2, -1] = big_n + 5
+    if c > 2:
+        ids[4, 2] = ids[4, 0]                    # a repeated id
+    data, scale, x2 = (np.asarray(a) for a in (base.data, base.scale,
+                                               base.x2))
+    ed, eev, missing = _q8_join_mma_emulation(data, scale, x2, ids, cn)
+    assert missing == 0
+    jids = np.where(ids >= big_n, -1, ids)
+    safe = np.where(jids >= 0, jids, 0)
+    x2g = np.where(jids >= 0, x2[safe], 0.0).astype(np.float32)
+    wd, wev = jref.knn_join_dists_q8(
+        jnp.asarray(data[safe]), jnp.asarray(scale[safe]), jnp.asarray(x2g),
+        jnp.asarray(jids), cn)
+    np.testing.assert_array_equal(ed, np.asarray(wd))
+    np.testing.assert_array_equal(eev, np.asarray(wev))
+    assert eev[3] == 0 and np.isinf(ed[3]).all()
+    if cn == 0:
+        assert eev.sum() == 0
+
+
 def test_near_identical_points_cancellation_guard():
     """tests/test_quantize.py:214: near-identical high-norm rows come out
     finite, >= 0 and tiny; a row scored against itself is exactly 0."""
