@@ -22,8 +22,10 @@ script started:
                stays on the CUDA cores); of HMMA in each join's: the bf16
                join must have some (mma.sync), the fp32 join none; of IMMA
                in each int8 join instance: every one must have some (s8
-               mma.sync); ptxas's spill bytes of the f32 attention and
-               int8 join instances;
+               mma.sync); each fp32 search tile instance
+               (knn_search_dists) no HGMMA, HMMA or IMMA; ptxas's spill
+               bytes of the f32 attention and int8 join instances and the
+               registers and spills of the search tiles (fp32, bf16);
   build_check  mnist_like(16000, 784), DescentConfig(k=20, rho=1.0), built
                through the kernels and through their plain versions with
                the same generator seed, at precision f32, int8 and bf16:
@@ -123,7 +125,14 @@ script started:
                online path recorded; pairwise_sq_l2 also on the online
                path's centroid_assign tile and on the router's graph tile;
                knn_join_dists also on the kNN-LM's and the online store's
-               builds; knn_merge also on the search's pool; the bf16
+               builds; knn_merge also on the search's pool; the fp32 and
+               bf16 search tiles also at round 6 of the first block
+               (LATE_ROUND; round 2 is the second call), where the
+               queries share fewer rows, each search tile with its valid
+               candidates, distinct rows, distinct rows summed over groups
+               of 16 consecutive queries (what a tile that read a row once
+               per group would read), and its effective rate (valid rows x
+               row bytes / time); the bf16
                tiles' library row torch.baddbmm(out_dtype=float32), beside
                it the same with a bf16 output; flash_attention at
                bf16 on the inputs the lm_serve prefill gave it and at f32
@@ -141,7 +150,10 @@ own c's; they add up to the path's count, or the script fails),
 knn_join_dists once more on the kNN-LM's build and once on the online
 store's, knn_merge once more on the search path, pairwise_sq_l2 once more
 on the online path's centroid_assign tile and once on the router's graph
-tile (``launches``: the calls at that key; FURTHER_ROWS) and
+tile (``launches``: the calls at that key; FURTHER_ROWS), the fp32 and
+bf16 search tiles once more at round 6 (``launches``: 0, a second
+reading of the launches the round-2 entry counts; ``call`` ends in
+``:round=6``) and
 flash_attention once more at f32 (``launches``: its calls in
 attention_check; no main path runs attention at f32); ``call`` tells the
 entries apart. Last, {"ok": true, "device": ...}. Any failure
@@ -269,6 +281,16 @@ ATTN_MODES = {
                      dict(causal=True, q_offset=3840)),
 }
 ATTN_F32_KERNEL_MODE = "causal_gqa_32_4"   # its f32 call: the kernels line
+# the search tiles are recorded again at this call of their key, round 6
+# of the first query block, where the queries share fewer rows than at
+# round 2; the sharing is counted over groups of SHARING_GROUP queries
+LATE_ROUND = 6
+SHARING_GROUP = 16
+LATE_KEYS = ("search:knn_search_dists:W=120",
+             "search_bf16:knn_search_dists_bf16:W=120")
+SEARCH_TILES = ("knn_search_dists", "knn_search_dists_bf16")
+SEARCH_FIELDS = ("valid_candidates", "distinct_rows", "group_distinct_rows",
+                 "effective_bytes_per_s")
 
 
 def emit(phase: str, **fields) -> None:
@@ -359,7 +381,9 @@ class Recorder:
     kernel entry point in ``kernels/ops.py`` (per select width and search
     width) — for the join distances that is the first iteration after the
     reorder, where both candidate pools are full; for the search tile the
-    second round of the first block, for attention (kept as
+    second round of the first block (and, for LATE_KEYS, round
+    LATE_ROUND of it too, under the key plus ``:round=6``; the script
+    fails if that call is not the first block's), for attention (kept as
     ``flash_attention``, keyword arguments too) the second layer of the
     first prefill — and the host time of the greedy reorder. It wraps the
     module attributes the path calls and restores them on exit; the
@@ -384,6 +408,7 @@ class Recorder:
         self.seen: dict[str, int] = {}
         self.launched: dict[str, int] = {}
         self.reorder_s: list[float] = []
+        self.first_q: dict[str, int] = {}
 
     def __enter__(self):
         from repro_torch.core import nn_descent
@@ -420,6 +445,18 @@ class Recorder:
             elif name == "centroid_assign":
                 key += ":centroid_assign"
             self.seen[key] = self.seen.get(key, 0) + 1
+            if key in LATE_KEYS:
+                # a block's queries are one slice of the padded batch
+                if self.seen[key] == 1:
+                    self.first_q[key] = args[0].data_ptr()
+                elif self.seen[key] == LATE_ROUND:
+                    if args[0].data_ptr() != self.first_q[key]:
+                        raise AssertionError(
+                            f"{key}: call {LATE_ROUND} is not the first "
+                            "block's")
+                    self.calls[f"{key}:round={LATE_ROUND}"] = tuple(
+                        a.clone() for a in args)
+                    self.kwargs[f"{key}:round={LATE_ROUND}"] = dict(kw)
             if self.seen[key] == 2:
                 # centroid_assign's tile: pairwise_sq_l2(q, centroids)
                 rec = (args[0].contiguous(), args[2].contiguous()) \
@@ -500,6 +537,15 @@ def close_to_plain(name, got, want, scale) -> dict:
             "max_err_over_tol": worst}
 
 
+def group_rows(ids, valid) -> int:
+    """Distinct valid ids summed over groups of SHARING_GROUP consecutive
+    queries: the rows a tile that read a row once per group would read."""
+    import torch
+    return sum(int(torch.unique(ids[s:s + SHARING_GROUP][
+        valid[s:s + SHARING_GROUP]]).numel())
+        for s in range(0, ids.shape[0], SHARING_GROUP))
+
+
 def check_kernel(name, args, reps):
     """Kernel vs plain version on one recorded call; times and bound."""
     import torch
@@ -566,7 +612,9 @@ def check_kernel(name, args, reps):
         nq, dp = q.shape
         n_valid = int(valid.sum())
         rows = int(torch.unique(ids[valid]).numel())
-        entry.update(valid_candidates=n_valid, distinct_rows=rows)
+        entry.update(valid_candidates=n_valid, distinct_rows=rows,
+                     group_distinct_rows=group_rows(ids, valid),
+                     row_bytes=4 * dp)
         # each distinct candidate row (and its norm) read once; the
         # queries, ids and output once
         nbytes = 4 * (rows * (dp + 1) + nq * (dp + 1) + 2 * ids.numel())
@@ -622,6 +670,9 @@ def check_kernel(name, args, reps):
     entry["ms"] = time_ms(lambda: fn(*args), reps)
     entry["plain_ms"] = time_ms(lambda: fn(*args, backend="ref"),
                                 max(2, reps // 5))
+    if name in SEARCH_TILES:
+        entry["effective_bytes_per_s"] = entry["valid_candidates"] * \
+            entry["row_bytes"] / (entry["ms"] * 1e-3)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     entry["bound_ms"] = max(t_bytes, t_ops)
@@ -741,7 +792,9 @@ def check_quant_kernel(name, args, got, want, entry, reps):
         scale = q2[:, None] + x2[safe]
         n_valid = int(valid.sum())
         rows = int(torch.unique(ids[valid]).numel())
-        entry.update(valid_candidates=n_valid, distinct_rows=rows)
+        entry.update(valid_candidates=n_valid, distinct_rows=rows,
+                     group_distinct_rows=group_rows(ids, valid),
+                     row_bytes=x.shape[1] * x.element_size())
         row_bytes = x.shape[1] * x.element_size() + (8 if int8 else 4)
         # each distinct candidate row (and its scale, norm) read once; the
         # queries, ids and output once
@@ -1396,15 +1449,24 @@ def main() -> int:
     # the f32 attention: fp32 on the CUDA cores, no tensor-core opcode
     f32_attn = {f"{op}:{k}": v for op, counts in sass.items()
                 for k, v in counts.items() if k.startswith("flash_attention<")}
+    # the fp32 search tile (16- and 4-byte loads): fp32 on the CUDA cores,
+    # no tensor-core opcode
+    f32_search = {f"{op}:{k}": v for op, counts in sass.items()
+                  for k, v in counts.items()
+                  if k.startswith("knn_search_dists<")}
     spills = {k: v.get("spill_store_bytes", 0)
               for k, v in _lib.build_info["kernels"].items()
               if k.startswith(("flash_attention<", "knn_join_dists_q8<"))}
+    search_tiles = {k: v for k, v in _lib.build_info["kernels"].items()
+                    if k.split("<")[0] in SEARCH_TILES}
     emit("build_lib", seconds=_lib.build_info["seconds"],
          path=str(so.relative_to(ROOT)),
          kernels=_lib.build_info["kernels"], hgmma_in_sass=hgmma,
          hmma_in_sass=hmma, imma_in_sass=imma,
          f32_attention_tensor_ops_in_sass=f32_attn,
+         f32_search_tensor_ops_in_sass=f32_search,
          spill_store_bytes_of_new_instances=spills,
+         search_tiles=search_tiles,
          ptxas_performance_notes=_lib.build_info["performance_notes"])
     sm90 = [v for k, v in hgmma.items()
             if k.startswith("flash_attention_sm90")]
@@ -1421,6 +1483,9 @@ def main() -> int:
     if not f32_attn or any(f32_attn.values()):
         raise AssertionError(f"tensor-core opcodes in the f32 attention "
                              f"kernel's SASS: {f32_attn}")
+    if len(f32_search) != 6 or any(f32_search.values()):
+        raise AssertionError(f"tensor-core opcodes in the fp32 search "
+                             f"tile's SASS: {f32_search}")
 
     # -- build_check: kernels vs plain versions, same generator seed
     xc = datasets.mnist_like(CHECK_N, 784, seed=SEED + 1,
@@ -1779,6 +1844,7 @@ def main() -> int:
                 f"path launched {launches[tag][name]}")
     merges = {}        # c -> entry, the online path's row merges
     further = {}       # key -> entry, the calls of FURTHER_ROWS
+    late = {}          # name -> entry, the search tiles at LATE_ROUND
     for key, call in sorted(calls.items()):
         tag, name = key.split(":")[:2]
         if tag in CHECKED and name not in CHECKED[tag]:
@@ -1787,11 +1853,16 @@ def main() -> int:
             e = check_attention_kernel(call, kwargs[key], reps=20)
         else:
             e = check_kernel(name, call, reps=20)
+        base = key.split(":round=")[0]
         e.update(route="cuda", source=SOURCES[name],
                  replaces=REPLACES[name], launches=launches[tag][name],
-                 path=tag, call=key, calls_at_this_key=seen[key],
-                 launches_at_this_key=launched[key])
+                 path=tag, call=key, calls_at_this_key=seen[base],
+                 launches_at_this_key=launched[base])
         emit("kernels", **e)
+        if base != key:
+            # a second reading of the launches the round-2 entry counts
+            late[name] = {**e, "launches": 0}
+            continue
         if name == "knn_join_select" and tag in SELECT_PATHS:
             wc = tuple(key.split(":")[2:])
             prev = selects.get(wc)
@@ -1815,6 +1886,7 @@ def main() -> int:
             entries[name] = e
     missing = [k for keys in FURTHER_ROWS.values() for k in keys
                if k not in further]
+    missing += [k for k in LATE_KEYS if k.split(":")[1] not in late]
     if missing:
         raise AssertionError(f"no second call recorded at {missing}")
     # flash_attention at f32: the SIMT kernel on attention_check's inputs
@@ -1841,6 +1913,8 @@ def main() -> int:
                     line.append(
                         {**e, "launches": e["launches_at_this_key"]})
         line.extend(further[k] for k in FURTHER_ROWS.get(n, ()))
+        if n in late:
+            line.append(late[n])
         if n == "knn_merge_rows":
             # every other recorded c of the online path
             line.extend(e for c, e in sorted(merges.items())
@@ -1848,7 +1922,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in line]}),
+    print(json.dumps({"kernels": [
+        {**{k: e[k] for k in keys},
+         **{k: e[k] for k in SEARCH_FIELDS if k in e}} for e in line]}),
           flush=True)
 
     if any(m == "jax" or m.startswith(("jax.", "repro."))

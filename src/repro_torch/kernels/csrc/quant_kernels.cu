@@ -23,9 +23,9 @@
 //   (q2 + c2) - (2 * (s_q * s_c)) * (float)ab,
 // with __fadd_rn / __fmul_rn so that no multiply-add is contracted. bf16
 // products are exact in f32 and are summed in f32 (fmaf in the search
-// tile; in the join, 16 at a time on the tensor cores, the 16-value sums
-// added in order with __fadd_rn), so a bf16 kernel differs from its plain
-// version by the order of the sums only.
+// tile, search_tile.cuh; in the join, 16 at a time on the tensor cores,
+// the 16-value sums added in order with __fadd_rn), so a bf16 kernel
+// differs from its plain version by the order of the sums only.
 
 #include <cuda_runtime.h>
 
@@ -33,11 +33,13 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "search_tile.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// One 32-bit word of two rows: four int8 or two bf16 values.
+// One 32-bit word of two int8 rows: four values (the int8 search tile; the
+// bf16 one is search_tile.cuh's).
 // ---------------------------------------------------------------------------
 
 template <bool kQ8>
@@ -63,28 +65,6 @@ struct Word<true> {
   }
 };
 
-template <>
-struct Word<false> {
-  using Acc = float;
-  // a bf16 value is the high half of the f32 with the same bits
-  static __device__ __forceinline__ float dot(uint32_t a, uint32_t b,
-                                              float acc) {
-    acc = fmaf(__uint_as_float(a << 16), __uint_as_float(b << 16), acc);
-    return fmaf(__uint_as_float(a & 0xffff0000u),
-                __uint_as_float(b & 0xffff0000u), acc);
-  }
-  static __device__ __forceinline__ float sum(float acc) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    return acc;
-  }
-  static __device__ __forceinline__ float dist(float n2a, float n2b, float,
-                                               float, float ab) {
-    return __fsub_rn(__fadd_rn(n2a, n2b), __fmul_rn(2.0f, ab));
-  }
-};
-
 template <bool kQ8>
 __device__ __forceinline__ typename Word<kQ8>::Acc dot16(
     uint4 a, uint4 b, typename Word<kQ8>::Acc acc) {
@@ -95,17 +75,16 @@ __device__ __forceinline__ typename Word<kQ8>::Acc dot16(
 }
 
 // ---------------------------------------------------------------------------
-// knn_search_dists_q8 / _bf16: replace knn_search_dists_q8_blocked and
-// knn_search_dists_bf16_blocked (src/repro/kernels/l2_quant.py:92,137;
-// bodies _search_dists_q8_kernel :53, _search_dists_bf16_kernel :74).
+// knn_search_dists_q8: replaces knn_search_dists_q8_blocked
+// (src/repro/kernels/l2_quant.py:92; body _search_dists_q8_kernel :53).
 //
-// Per query, the quantized squared l2 to each of its W candidates.
-// Bound: bytes. Each valid candidate costs one mirror row (w bytes int8,
-// 2w bf16) for 2w operations.
-// Design: knn_search_dists's, on 16-byte chunks of quantized rows: one
-// block per query keeps the query row in shared memory; each of its 8
-// warps takes every 8th candidate, its lanes stream the row's 16-byte
-// chunks (16 int8 or 8 bf16 values each) and the warp sums with shuffles.
+// Per query, the int8 squared l2 to each of its W candidates.
+// Bound: bytes. Each valid candidate costs one mirror row (w bytes) for 2w
+// operations.
+// Design: one block per query keeps the query row in shared memory; each
+// of its 8 warps takes every 8th candidate, its lanes stream the row's
+// 16-byte chunks (16 int8 values each), __dp4a sums them in int32 and the
+// warp adds with shuffles.
 // ---------------------------------------------------------------------------
 
 constexpr int kQSearchThreads = 256;
@@ -154,19 +133,27 @@ __global__ void __launch_bounds__(kQSearchThreads) knn_search_dists_q8_kernel(
                          od + (int64_t)row * W, N, W, chunks);
 }
 
-__global__ void __launch_bounds__(kQSearchThreads)
-    knn_search_dists_bf16_kernel(const uint4* __restrict__ q,
+// ---------------------------------------------------------------------------
+// knn_search_dists_bf16: replaces knn_search_dists_bf16_blocked
+// (src/repro/kernels/l2_quant.py:137; body _search_dists_bf16_kernel :74).
+//
+// Per query, the bf16 squared l2 to each of its W candidates, f32 sums.
+// Bound and design: search_tile.cuh, the body it shares with the fp32
+// tile (knn_search_dists, search_kernels.cu): a block per query, its row
+// in registers, each warp's candidate ids and norms loaded before its
+// first row, mirror rows streamed with 16-byte loads, bf16 values widened
+// to f32 and multiplied with fmaf (their products are exact).
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kSearchThreads, kSearchMinBlocks)
+    knn_search_dists_bf16_kernel(const uint16_t* __restrict__ q,
                                  const float* __restrict__ q2,
-                                 const uint4* __restrict__ data,
+                                 const uint16_t* __restrict__ data,
                                  const float* __restrict__ x2,
                                  const int* __restrict__ ids,
-                                 float* __restrict__ od, int N, int W,
-                                 int chunks) {
-  extern __shared__ uint4 sqb[];
-  const int row = blockIdx.x;
-  quant_search_row<false>(sqb, q + (int64_t)row * chunks, 1.0f, q2[row],
-                          data, nullptr, x2, ids + (int64_t)row * W,
-                          od + (int64_t)row * W, N, W, chunks);
+                                 float* __restrict__ od, SearchTile t) {
+  extern __shared__ __align__(16) unsigned char search_smem[];
+  search_tile<uint16_t, true>(q, q2, data, x2, ids, od, t, search_smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -519,12 +506,8 @@ int knn_search_dists_bf16_launch(const uint16_t* q, const float* q2,
   if (nq <= 0 || W <= 0 || w < 0 || row_bytes > kQSearchMaxBytes ||
       !rows_ok(q, row_bytes) || !rows_ok(data, row_bytes))
     return (int)cudaErrorInvalidValue;
-  const int chunks = row_bytes / 16;
-  knn_search_dists_bf16_kernel<<<nq, kQSearchThreads, (size_t)row_bytes,
-                                 stream>>>(
-      reinterpret_cast<const uint4*>(q), q2,
-      reinterpret_cast<const uint4*>(data), x2, ids, od, N, W, chunks);
-  return (int)cudaGetLastError();
+  return launch_search_tile<uint16_t>(knn_search_dists_bf16_kernel, q, q2,
+                                      data, x2, ids, od, N, nq, W, w, stream);
 }
 
 int knn_join_dists_q8_launch(const int8_t* data, const float* scale,

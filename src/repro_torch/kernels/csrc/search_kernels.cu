@@ -15,6 +15,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "search_tile.cuh"
 
 namespace {
 
@@ -315,68 +316,26 @@ __global__ void __launch_bounds__(kL2Threads) pairwise_sq_l2_kernel_split_sum(
 // (nq, W, dp). At the search's shape (q_block 512, W = expand * k = 120,
 // dp 784) that copy is about 190 MB per round, so this kernel takes the
 // ids and the base rows and gathers them itself.
-// Bound: bytes. Each valid candidate costs one row of dp floats read for
-// 2*dp operations, a quarter of an operation per byte.
-// Design: one block per query keeps the query row in shared memory; each of
-// its 8 warps takes every 8th candidate and streams that row with 16-byte
-// loads (4-byte loads where dp % 4 != 0 or a row is not 16-byte aligned),
-// then reduces the dot product with shuffles. No row is read for an
-// invalid id.
+// Bound and design: search_tile.cuh, the body it shares with the bf16
+// tile: a block per query, its row in registers a 2 KB piece at a time,
+// each warp's candidate ids and norms loaded before its first row, rows
+// streamed with 16-byte loads (kVec 1; the instance kVec 0 takes 4-byte
+// loads where dp % 4 != 0 or a row is not 16-byte aligned), fp32 fmaf on
+// the CUDA cores.
 // ---------------------------------------------------------------------------
 
-constexpr int kSearchThreads = 256;
-constexpr int kSearchWarps = kSearchThreads / 32;
 constexpr int kSearchMaxDp = 12288;   // 48 KB of query row in shared memory
 
-__global__ void __launch_bounds__(kSearchThreads) knn_search_dists_kernel(
-    const float* __restrict__ q, const float* __restrict__ q2,
-    const float* __restrict__ x, const float* __restrict__ x2,
-    const int* __restrict__ ids, float* __restrict__ od, int N, int W,
-    int dp, bool vec) {
-  extern __shared__ __align__(16) float sq[];
-  const int row = blockIdx.x;
-  const float* qr = q + (int64_t)row * dp;
-  for (int j = threadIdx.x; j < dp; j += kSearchThreads) sq[j] = qr[j];
-  __syncthreads();
-
-  const float q2r = q2[row];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int* rid = ids + (int64_t)row * W;
-  float* out = od + (int64_t)row * W;
-  for (int w = warp; w < W; w += kSearchWarps) {
-    const int id = rid[w];          // the same for the whole warp
-    if (id < 0 || id >= N) {
-      if (lane == 0) out[w] = INFINITY;
-      continue;
-    }
-    const float* xr = x + (int64_t)id * dp;
-    float acc = 0.0f;
-    if (vec) {
-      const float4* xv = reinterpret_cast<const float4*>(xr);
-      const float4* qv = reinterpret_cast<const float4*>(sq);
-      const int n4 = dp >> 2;
-#pragma unroll 4
-      for (int j = lane; j < n4; j += 32) {
-        const float4 c = __ldg(xv + j);
-        const float4 s = qv[j];
-        acc = fmaf(c.x, s.x, acc);
-        acc = fmaf(c.y, s.y, acc);
-        acc = fmaf(c.z, s.z, acc);
-        acc = fmaf(c.w, s.w, acc);
-      }
-    } else {
-#pragma unroll 4
-      for (int j = lane; j < dp; j += 32) acc = fmaf(__ldg(xr + j), sq[j], acc);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      const float d = __fsub_rn(__fadd_rn(q2r, x2[id]), __fmul_rn(2.0f, acc));
-      out[w] = fmaxf(d, 0.0f);
-    }
-  }
+template <int kVec>
+__global__ void __launch_bounds__(kSearchThreads, kSearchMinBlocks)
+    knn_search_dists_kernel(const float* __restrict__ q,
+                            const float* __restrict__ q2,
+                            const float* __restrict__ x,
+                            const float* __restrict__ x2,
+                            const int* __restrict__ ids,
+                            float* __restrict__ od, SearchTile t) {
+  extern __shared__ __align__(16) unsigned char search_smem[];
+  search_tile<float, kVec != 0>(q, q2, x, x2, ids, od, t, search_smem);
 }
 
 bool aligned16(const void* p) {
@@ -451,11 +410,11 @@ int knn_search_dists_launch(const float* q, const float* q2, const float* x,
                             int nq, int W, int dp, cudaStream_t stream) {
   if (nq <= 0 || W <= 0 || dp < 0 || dp > kSearchMaxDp)
     return (int)cudaErrorInvalidValue;
-  const bool vec = (dp & 3) == 0 && aligned16(q) && aligned16(x);
-  const size_t smem = (size_t)dp * sizeof(float);
-  knn_search_dists_kernel<<<nq, kSearchThreads, smem, stream>>>(
-      q, q2, x, x2, ids, od, N, W, dp, vec);
-  return (int)cudaGetLastError();
+  if ((dp & 3) == 0 && aligned16(q) && aligned16(x))
+    return launch_search_tile<float>(knn_search_dists_kernel<1>, q, q2, x,
+                                     x2, ids, od, N, nq, W, dp, stream);
+  return launch_search_tile<float>(knn_search_dists_kernel<0>, q, q2, x, x2,
+                                   ids, od, N, nq, W, dp, stream);
 }
 
 }  // extern "C"

@@ -6,9 +6,11 @@ The TPU kernel takes the candidate rows gathered beforehand, (nq, W, dp);
 this one takes the ids and the base rows and gathers them itself, so the
 copy (about 190 MB per round at q_block 512, W 120, dp 784) is never made.
 Bound on this card: bytes (one row of dp floats per valid candidate).
-One block per query keeps the query row in shared memory; its warps
-stream candidate rows with 16-byte loads and skip invalid ids. Same
-checks, allocation, stream and launch count as the join wrappers
+The kernel (``csrc/search_tile.cuh``, shared with the bf16 tile) runs a
+block per query with the query row in registers and each warp's
+candidate ids and norms loaded before its first row, so no row waits on
+its id; rows stream with 16-byte loads and invalid ids are skipped.
+Same checks, allocation, stream and launch count as the join wrappers
 (kernels/knn_join.py).
 """
 from __future__ import annotations

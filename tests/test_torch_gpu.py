@@ -15,7 +15,8 @@ norms, not the distance). The int8
 tiles bitwise (their cross terms are exact integers and the epilogue keeps
 the plain version's order of operations); the bf16 tiles 1e-4 + 1e-5 *
 (|a|^2 + |b|^2), as the fp32 ones (bf16 products are exact in f32; only
-the order of the sums differs). The online store's compaction and row
+the order of the sums differs), also for the fp32 and bf16 search tiles
+at every sharing pattern. The online store's compaction and row
 kernels bitwise (they only move values). Attention at f32 rtol/atol 2e-3
 (tests/test_kernels.py's limit for the Pallas kernel), at bf16 rtol 1e-2 /
 atol 2e-3 (one bf16 rounding of the output, 2^-7 relative, on top), on
@@ -345,6 +346,137 @@ def test_search_through_kernels_matches_plain(dev):
             _lib.LAUNCHES
     assert recalls["auto"] > 0.9, recalls
     assert abs(recalls["auto"] - recalls["plain"]) <= 0.01, recalls
+
+
+# ---------------------------------------------------------------------------
+# the search tile (csrc/search_tile.cuh), fp32 and bf16
+# ---------------------------------------------------------------------------
+
+def _tile_ids(dev, case, nq, w, big_n, seed):
+    """(nq, w) ids for a sharing pattern of 16-query groups: "shared"
+    (every query of a group names its first query's ids), "half" (the
+    first half of each query's slots are its group's first query's),
+    "repeat" (each id twice in its query) or random; with ids -1 and >= N
+    sprinkled in."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, big_n, (nq, w), generator=g, device=dev,
+                        dtype=torch.int32)
+    lead = torch.arange(nq, device=dev) // 16 * 16
+    if case == "shared":
+        ids = ids[lead]
+    elif case == "half":
+        ids[:, :w // 2] = ids[lead, :w // 2]
+    elif case == "repeat" and w > 1:
+        ids[:, 1::2] = ids[:, 0:w - 1:2]
+    ids[::7, 0] = -1
+    ids[1::9, -1] = big_n + 3                    # >= N: an invalid slot
+    return ids
+
+
+def _check_tile(dev, mode, q, x, ids):
+    """The search tile through the kernel against its plain version on
+    fp32 rows (mode "fp32") or on their bf16 mirrors: one launch, +inf
+    exactly at the invalid ids, 1e-4 + 1e-5 (q2 + c2) elsewhere."""
+    big_n = x.shape[0]
+    if mode == "fp32":
+        fn, name = ops.knn_search_dists, "knn_search_dists"
+        q2, x2 = (q * q).sum(1), (x * x).sum(1)
+        args = (q, q2, x, x2, ids)
+    else:
+        fn, name = ops.knn_search_dists_bf16, "knn_search_dists_bf16"
+        qs = quantize_corpus(q, "bf16")
+        xs = quantize_corpus(x, "bf16")
+        q2, x2 = qs.x2, xs.x2
+        args = (qs.data, q2, xs.data, x2, ids)
+    got, want, launched = _both(fn, *args)
+    assert launched[name] == 1
+    assert torch.equal(torch.isinf(got), (ids < 0) | (ids >= big_n))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    tol = 1e-4 + 1e-5 * (q2[:, None] + x2[ids.clamp(0, big_n - 1).long()])
+    assert bool(((got - want).abs()[fin] <= tol[fin]).all())
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("case,nq,w", [
+    ("shared", 512, 120),        # full sharing: a group names 120 rows
+    ("half", 512, 120),
+    ("repeat", 512, 120),        # one id in two slots of a query
+    ("random", 1, 120),          # one query: one block
+    ("random", 513, 120),        # nq not a multiple of the group
+    ("shared", 512, 1),          # W 1
+    ("half", 70, 300),           # 38 candidates a warp: two rounds of 32
+    ("random", 64, 128),         # 16 candidates a warp
+    ("half", 512, 32),           # the quantized search's re-rank width
+])
+def test_search_tile_sharing(dev, mode, case, nq, w):
+    big_n, dp = 5000, 784
+    g = torch.Generator(device=dev).manual_seed(nq + w)
+    q = torch.rand(nq, dp, generator=g, device=dev)
+    x = torch.rand(big_n, dp, generator=g, device=dev)
+    _check_tile(dev, mode, q, x, _tile_ids(dev, case, nq, w, big_n, w))
+
+
+@pytest.mark.parametrize("case,dp,offset", [
+    ("half", 131, 0),            # dp % 4 != 0: the 4-byte instance
+    ("half", 784, 1),            # rows not 16-byte aligned
+    ("shared", 12288, 0),        # the widest dp: 24 pieces of 2 KB
+    ("half", 4100, 1),           # pieces, the last one partial, 4-byte
+])
+def test_search_tile_fp32_rows(dev, case, dp, offset):
+    nq, w, big_n = 40, 50, 3000
+    g = torch.Generator(device=dev).manual_seed(dp + offset)
+    q = torch.rand(nq, dp, generator=g, device=dev)
+    flat = torch.rand(big_n * dp + offset, generator=g, device=dev)
+    x = flat[offset:].view(big_n, dp)
+    _check_tile(dev, "fp32", q, x, _tile_ids(dev, case, nq, w, big_n, dp))
+
+
+def test_search_tile_bf16_widest_rows(dev):
+    """bf16 rows of 48 KB (w 24576), the tile's widest: 24 pieces."""
+    nq, w, big_n, width = 40, 50, 600, 24576
+    g = torch.Generator(device=dev).manual_seed(width)
+    q = torch.rand(nq, width, generator=g, device=dev)
+    x = torch.rand(big_n, width, generator=g, device=dev)
+    _check_tile(dev, "bf16", q, x, _tile_ids(dev, "half", nq, w, big_n, 1))
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+def test_search_tile_late_round(dev, mode, monkeypatch):
+    """A graph search's own tile at round 6 of its first block (where the
+    queries share fewer rows than at round 2), held against the plain
+    version."""
+    x = datasets.mnist_like(8000, 784, seed=1, device=dev)
+    _, gidx, _ = build_knn_graph(
+        x, k=20, cfg=DescentConfig(k=20, rho=1.0),
+        generator=torch.Generator(device=dev).manual_seed(1))
+    q = x[:512] + 0.01 * torch.randn(512, 784, device=dev,
+                                     generator=torch.Generator(
+                                         device=dev).manual_seed(2))
+    name = "knn_search_dists" if mode == "fp32" else "knn_search_dists_bf16"
+    real, tiles = getattr(ops, name), []
+
+    def record(*args, **kw):
+        tiles.append(tuple(a.clone() for a in args))
+        return real(*args, **kw)
+    monkeypatch.setattr(ops, name, record)
+    graph_search(x, gidx, q, k_out=10, cfg=SearchConfig(
+        beam=32, rounds=48, expand=6, q_block=512,
+        precision="f32" if mode == "fp32" else "bf16"))
+    monkeypatch.undo()
+    assert len(tiles) >= 6
+    ids = tiles[5][-1]
+    assert ids.shape == (512, 120)
+    if mode == "fp32":
+        _check_tile(dev, mode, q, x, ids)
+    else:
+        got, want, launched = _both(real, *tiles[5])
+        assert launched[name] == 1
+        fin = torch.isfinite(want)
+        qx2, xx2 = tiles[5][1], tiles[5][3]
+        tol = 1e-4 + 1e-5 * (qx2[:, None] + xx2[ids.clamp(0).long()])
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        assert bool(((got - want).abs()[fin] <= tol[fin]).all())
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,9 @@ only compare and copy), and so is a numpy emulation of the CUDA select's
 radix passes; pairwise
 l2 rtol 1e-5 / atol 1e-5 * (|a|^2 + |b|^2) (the norm expansion cancels
 the digits the norms share); search distances rtol 1e-4 / atol 1e-4, as
-tests/test_search.py:66."""
+tests/test_search.py:66, and a numpy emulation of the CUDA search
+tile's order of sums within the card's 1e-4 + 1e-5 * (q2 + c2), +inf
+positions exact."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -699,6 +701,107 @@ def test_search_dists_plain_matches_jax(nq, w, dp, big_n, tq):
     assert np.isinf(got[2]).all()
 
 
+# The search tile (csrc/search_tile.cuh): 8 warps a query, warp w taking
+# the candidates w, w + 8, ...; rows in pieces of 128 16-byte vectors,
+# vector j of a piece on lane j % 32
+SEARCH_WARPS, SEARCH_PIECE_VECS = 8, 128
+
+
+def _search_tile_emulation(q, q2, x, x2, ids, vec_elems):
+    """csrc/search_tile.cuh in numpy, in its order of operations: for each
+    (query, candidate) and piece, every lane's fmaf chain over the values
+    of its vectors (``vec_elems`` a vector: 4 fp32 or 8 bf16) in order,
+    each product exact in f64 and every step rounded to f32; the 32 lane
+    sums added by the xor butterfly (offsets 16 .. 1), whose value the
+    lane that holds the candidate (its index among the warp's, mod 32)
+    keeps; the pieces' dots added in f32 in order; then (q2 + c2) - 2 ab
+    in f32, clamped at 0; +inf at an id outside [0, N). ``q`` and ``x``
+    hold f32 values (bf16 ones widened)."""
+    nq, dp = q.shape
+    big_n = x.shape[0]
+    w = ids.shape[1]
+    valid = (ids >= 0) & (ids < big_n)
+    safe = np.where(valid, ids, 0)
+    vecs = max(1, -(-dp // vec_elems))
+    pad = vecs * vec_elems - dp
+    qp = np.pad(q, ((0, 0), (0, pad))).reshape(nq, vecs, vec_elems)
+    xp = np.pad(x, ((0, 0), (0, pad))).reshape(big_n, vecs, vec_elems)
+    lanes = np.arange(32)
+    ab = np.zeros((nq, w), np.float32)
+    for v0 in range(0, vecs, SEARCH_PIECE_VECS):
+        acc = np.zeros((nq, w, 32), np.float32)
+        for jj in range(SEARCH_PIECE_VECS // 32):
+            j = v0 + jj * 32 + lanes
+            ok = j < min(vecs, v0 + SEARCH_PIECE_VECS)
+            jc = np.where(ok, j, 0)
+            for e in range(vec_elems):
+                a = np.where(ok, qp[:, jc, e], 0.0)[:, None, :]
+                b = np.where(ok, xp[safe][:, :, jc, e], 0.0)
+                acc = (acc.astype(np.float64) + a.astype(np.float64)
+                       * b.astype(np.float64)).astype(np.float32)
+        for o in (16, 8, 4, 2, 1):
+            acc = (acc + acc[:, :, lanes ^ o]).astype(np.float32)
+        keep = (np.arange(w) // SEARCH_WARPS) % 32
+        dot = np.take_along_axis(acc, keep[None, :, None], 2)[:, :, 0]
+        ab = dot if v0 == 0 else (ab + dot).astype(np.float32)
+    d = ((q2.astype(np.float32)[:, None] + x2.astype(np.float32)[safe])
+         .astype(np.float32) - np.float32(2.0) * ab).astype(np.float32)
+    return np.where(valid, np.maximum(d, np.float32(0.0)), np.inf)
+
+
+def _search_tile_case(nq, w, dp, big_n, seed):
+    """Random rows and ids, an id repeated in two slots of each query, ids
+    -1 and >= N."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(nq, dp).astype(np.float32)
+    x = rng.randn(big_n, dp).astype(np.float32)
+    ids = rng.randint(0, big_n, size=(nq, w)).astype(np.int32)
+    if w > 2:
+        ids[:, 2] = ids[:, 1]
+    ids[::5, 0] = -1
+    ids[1::7, -1] = big_n + 2                    # >= N: an invalid slot
+    return q, x, ids
+
+
+SEARCH_TILE_CASES = [
+    # nq, w, dp, big_n
+    (37, 23, 16, 99),            # a short row: one vector of four lanes
+    (1, 120, 784, 300),          # the search's width: 2 pieces (196 vectors)
+    (9, 120, 45, 200),           # dp % 4 != 0: the 4-byte instance
+    (20, 1, 130, 50),            # W 1
+    (5, 300, 64, 400),           # 38 candidates a warp: two rounds of 32
+    (6, 9, 1100, 60),            # 3 pieces, the last one partial
+    (16, 32, 512, 80),           # the quantized search's re-rank width
+    (3, 17, 3, 10),              # dp 3: one partial vector
+]
+
+
+@pytest.mark.parametrize("nq,w,dp,big_n", SEARCH_TILE_CASES)
+def test_search_tile_emulation_matches_jax(nq, w, dp, big_n):
+    """The fp32 tile's order of sums (``_search_tile_emulation``) against
+    the Pallas kernel in interpret mode and the port's plain version,
+    within 1e-4 + 1e-5 (q2 + c2), +inf positions exact."""
+    q, x, ids = _search_tile_case(nq, w, dp, big_n, nq * w + dp)
+    q2 = (q * q).sum(1).astype(np.float32)
+    x2 = (x * x).sum(1).astype(np.float32)
+    got = _search_tile_emulation(q, q2, x, x2, ids, 4)
+    jids = np.where(ids >= big_n, -1, ids)
+    safe = np.where(jids >= 0, jids, 0)
+    c2 = np.where(jids >= 0, x2[safe], 0.0).astype(np.float32)
+    args = (jnp.asarray(q), jnp.asarray(q2), jnp.asarray(x[safe]),
+            jnp.asarray(c2), jnp.asarray(jids))
+    tol = 1e-4 + 1e-5 * (q2[:, None] + x2[safe])
+    plain = tref.knn_search_dists(_t(q), _t(q2), _t(x), _t(x2),
+                                  _t(ids)).numpy()
+    for want in (np.asarray(knn_search_dists_blocked(*args, tq=8,
+                                                     interpret=True)),
+                 plain):
+        np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+        fin = np.isfinite(want)
+        assert (np.abs(got[fin] - want[fin]) <= tol[fin]).all()
+    assert np.array_equal(np.isinf(got), (ids < 0) | (ids >= big_n))
+
+
 # ---------------------------------------------------------------------------
 # dispatch and wrappers
 # ---------------------------------------------------------------------------
@@ -786,12 +889,12 @@ def test_ptxas_report_parsing():
                      "iii",
         "pairwise_sq_l2": "_ZN12_GLOBAL__N_121pairwise_sq_l2_kernelEPKfS1_"
                           "Pfiiib",
-        "knn_search_dists": "_ZN12_GLOBAL__N_123knn_search_dists_kernelEPKf"
-                            "S1_S1_S1_PKiPfiiib",
+        "knn_search_dists": "_ZN12_GLOBAL__N_123knn_search_dists_kernelILi1EE"
+                            "EvPKfS2_S2_S2_PKiPfNS_10SearchTileE",
         "knn_search_dists_q8": "_ZN12_GLOBAL__N_126knn_search_dists_q8_kernel"
                                "EPK5uint4PKfS4_S2_S4_S4_PKiPfiii",
         "knn_search_dists_bf16": "_ZN12_GLOBAL__N_128knn_search_dists_bf16_"
-                                 "kernelEPK5uint4PKfS2_S4_PKiPfiii",
+                                 "kernelEPKtPKfS1_S3_PKiPfNS_10SearchTileE",
         "knn_join_dists_q8": "_ZN12_GLOBAL__N_124knn_join_dists_q8_kernelEPKj"
                              "PKfS3_PKiPfPiiiii",
         "knn_join_dists_bf16": "_ZN12_GLOBAL__N_126knn_join_dists_bf16_kernel"

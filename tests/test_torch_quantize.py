@@ -10,7 +10,8 @@ evals exact; int8 tile distances rtol 1e-6 (the cross terms are exact
 integers, only the epilogue's rounding can differ); bf16 tile distances
 rtol 1e-5 / atol 1e-4 (tests/test_quantize.py's own), and a numpy
 emulation of the CUDA bf16 join's order of sums within the card's
-1e-4 + 1e-5 * (x2[a] + x2[b]); returned fp32
+1e-4 + 1e-5 * (x2[a] + x2[b]), and of the bf16 search tile's within
+1e-4 + 1e-5 * (q2 + c2); returned fp32
 distances rtol 1e-4 / atol 1e-3 (tests/test_quantize.py:362-367), or,
 on a large-norm corpus, 1e-4 + 1e-5 (|a|^2 + |b|^2) (the norm expansion's
 cancellation, as in tests/test_torch_gpu.py)."""
@@ -50,6 +51,7 @@ from repro_torch.core import quantize as tq
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.l2_quant import _check_rows
+from test_torch_kernels import _search_tile_case, _search_tile_emulation
 
 K = 10
 
@@ -218,6 +220,43 @@ def test_search_bf16_plain_matches_jax(nq, w, dp, tq_):
     got = tref.knn_search_dists_bf16(_t(qs.data), _t(qs.x2), _t(base.data),
                                      _t(base.x2), _t(ids))
     _assert_dists(got, want, kern, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("nq,w,dp,big_n", [
+    (37, 23, 16, 99),            # two vectors of eight values
+    (1, 120, 784, 300),          # the search's width: one piece of 98
+    (20, 1, 136, 50),            # W 1
+    (5, 300, 64, 400),           # 38 candidates a warp: two rounds of 32
+    (6, 9, 2200, 60),            # 3 pieces, the last one partial
+    (16, 32, 512, 80),           # the quantized search's re-rank width
+    (9, 120, 1024, 200),         # exactly one whole piece
+])
+def test_search_bf16_tile_emulation_matches_jax(nq, w, dp, big_n):
+    """The bf16 tile's order of sums (the fp32 tile's emulation on bf16
+    values widened to f32, eight a vector; their products are exact)
+    against the Pallas kernel in interpret mode and the port's plain
+    version, within 1e-4 + 1e-5 (q2 + c2), +inf positions exact."""
+    q, x, ids = _search_tile_case(nq, w, dp, big_n, nq * w + dp)
+    qs = jq.quantize_corpus(jnp.asarray(q), "bf16")
+    base = jq.quantize_corpus(jnp.asarray(3.0 * x), "bf16")
+    qf = np.asarray(qs.data.astype(jnp.float32))
+    xf = np.asarray(base.data.astype(jnp.float32))
+    q2, x2 = np.asarray(qs.x2), np.asarray(base.x2)
+    got = _search_tile_emulation(qf, q2, xf, x2, ids, 8)
+    jids = np.where(ids >= big_n, -1, ids)
+    safe = np.where(jids >= 0, jids, 0)
+    c2 = jnp.where(jnp.asarray(jids) >= 0, base.x2[safe], 0.0)
+    kern = knn_search_dists_bf16_blocked(qs.data, qs.x2, base.data[safe],
+                                         c2, jnp.asarray(jids), tq=8,
+                                         interpret=True)
+    plain = tref.knn_search_dists_bf16(_t(qs.data), _t(qs.x2),
+                                       _t(base.data), _t(base.x2), _t(ids))
+    tol = 1e-4 + 1e-5 * (q2[:, None] + x2[safe])
+    for want in (np.asarray(kern), plain.numpy()):
+        np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+        fin = np.isfinite(want)
+        assert (np.abs(got[fin] - want[fin]) <= tol[fin]).all()
+    assert np.array_equal(np.isinf(got), (ids < 0) | (ids >= big_n))
 
 
 def _join_case(mode, n, c, dp, seed):
