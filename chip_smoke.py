@@ -24,8 +24,10 @@ script started:
                in each int8 join instance: every one must have some (s8
                mma.sync); each fp32 search tile instance
                (knn_search_dists) no HGMMA, HMMA or IMMA; ptxas's spill
-               bytes of the f32 attention and int8 join instances and the
-               registers and spills of the search tiles (fp32, bf16);
+               bytes of the f32 attention and int8 join instances, the
+               registers and spills of the search tiles (fp32, bf16,
+               int8: at most 64 registers and no spill, or the script
+               fails) and of the compaction's instances;
   build_check  mnist_like(16000, 784), DescentConfig(k=20, rho=1.0), built
                through the kernels and through their plain versions with
                the same generator seed, at precision f32, int8 and bf16:
@@ -125,9 +127,9 @@ script started:
                online path recorded; pairwise_sq_l2 also on the online
                path's centroid_assign tile and on the router's graph tile;
                knn_join_dists also on the kNN-LM's and the online store's
-               builds; knn_merge also on the search's pool; the fp32 and
-               bf16 search tiles also at round 6 of the first block
-               (LATE_ROUND; round 2 is the second call), where the
+               builds; knn_merge also on the search's pool; the fp32,
+               bf16 and int8 search tiles also at round 6 of the first
+               block (LATE_ROUND; round 2 is the second call), where the
                queries share fewer rows, each search tile with its valid
                candidates, distinct rows, distinct rows summed over groups
                of 16 consecutive queries (what a tile that read a row once
@@ -150,8 +152,8 @@ own c's; they add up to the path's count, or the script fails),
 knn_join_dists once more on the kNN-LM's build and once on the online
 store's, knn_merge once more on the search path, pairwise_sq_l2 once more
 on the online path's centroid_assign tile and once on the router's graph
-tile (``launches``: the calls at that key; FURTHER_ROWS), the fp32 and
-bf16 search tiles once more at round 6 (``launches``: 0, a second
+tile (``launches``: the calls at that key; FURTHER_ROWS), the fp32,
+bf16 and int8 search tiles once more at round 6 (``launches``: 0, a second
 reading of the launches the round-2 entry counts; ``call`` ends in
 ``:round=6``) and
 flash_attention once more at f32 (``launches``: its calls in
@@ -287,8 +289,11 @@ ATTN_F32_KERNEL_MODE = "causal_gqa_32_4"   # its f32 call: the kernels line
 LATE_ROUND = 6
 SHARING_GROUP = 16
 LATE_KEYS = ("search:knn_search_dists:W=120",
-             "search_bf16:knn_search_dists_bf16:W=120")
-SEARCH_TILES = ("knn_search_dists", "knn_search_dists_bf16")
+             "search_bf16:knn_search_dists_bf16:W=120",
+             "search_int8:knn_search_dists_q8:W=120")
+SEARCH_TILES = ("knn_search_dists", "knn_search_dists_bf16",
+                "knn_search_dists_q8")
+COMPACTIONS = ("knn_compact", "knn_compact_rows")
 SEARCH_FIELDS = ("valid_candidates", "distinct_rows", "group_distinct_rows",
                  "effective_bytes_per_s")
 
@@ -698,8 +703,9 @@ def check_online_kernel(name, args, entry, reps):
         cd, ci, drop = args
         n, k = cd.shape
         keep = ~drop & (ci >= 0) & torch.isfinite(cd)
-        # one extraction round (a scan of k) per survivor
-        flops = int(keep.sum()) * k
+        # a key per entry, then a compare per pair of survivors (the
+        # select's rank step: every survivor wins, c = k)
+        flops = n * k + int((keep.sum(1) ** 2).sum())
         nbytes = 9 * n * k + 8 * n * k + 4 * n
         masked = torch.where(keep, cd, torch.inf)
 
@@ -734,7 +740,7 @@ def check_online_kernel(name, args, entry, reps):
         keep = ~drop & (sub_i >= 0) & torch.isfinite(sub_d)
         pool_d = torch.where(keep, sub_d, torch.inf)
         pool_i = sub_i
-        flops = int(keep[sel].sum()) * k
+        flops = f * k + int((keep[sel].sum(1) ** 2).sum())   # as above
         nbytes = 16 * n * k + f * (k + 8)
 
     def library():
@@ -1459,6 +1465,8 @@ def main() -> int:
               if k.startswith(("flash_attention<", "knn_join_dists_q8<"))}
     search_tiles = {k: v for k, v in _lib.build_info["kernels"].items()
                     if k.split("<")[0] in SEARCH_TILES}
+    compactions = {k: v for k, v in _lib.build_info["kernels"].items()
+                   if "<" in k and k.split("<")[0] in COMPACTIONS}
     emit("build_lib", seconds=_lib.build_info["seconds"],
          path=str(so.relative_to(ROOT)),
          kernels=_lib.build_info["kernels"], hgmma_in_sass=hgmma,
@@ -1466,7 +1474,7 @@ def main() -> int:
          f32_attention_tensor_ops_in_sass=f32_attn,
          f32_search_tensor_ops_in_sass=f32_search,
          spill_store_bytes_of_new_instances=spills,
-         search_tiles=search_tiles,
+         search_tiles=search_tiles, compaction_instances=compactions,
          ptxas_performance_notes=_lib.build_info["performance_notes"])
     sm90 = [v for k, v in hgmma.items()
             if k.startswith("flash_attention_sm90")]
@@ -1486,6 +1494,11 @@ def main() -> int:
     if len(f32_search) != 6 or any(f32_search.values()):
         raise AssertionError(f"tensor-core opcodes in the fp32 search "
                              f"tile's SASS: {f32_search}")
+    q8_tile = search_tiles.get("knn_search_dists_q8", {})
+    if q8_tile.get("registers", 99) > 64 or q8_tile.get(
+            "spill_store_bytes", 0):
+        raise AssertionError(f"the int8 search tile passes 64 registers "
+                             f"or spills: {q8_tile}")
 
     # -- build_check: kernels vs plain versions, same generator seed
     xc = datasets.mnist_like(CHECK_N, 784, seed=SEED + 1,

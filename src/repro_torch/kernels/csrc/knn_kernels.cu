@@ -15,8 +15,8 @@
 
 #include <cfloat>
 #include <cmath>
-#include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -239,7 +239,8 @@ __global__ void __launch_bounds__(kJoinMaxThreads, 1) knn_join_dists_kernel(
 //  4. their distances and ids are read back from the input (so -0.0 keeps
 //     its sign), the rest of the c slots filled with (+inf, -1).
 // Where a warp owns the row, its only barriers are warp barriers.
-// The core (select_winners) is also the merges' selection, below.
+// The core (select_winners) is also the merges' and the compaction's
+// selection, below.
 // ---------------------------------------------------------------------------
 
 constexpr int kSelectThreads = 256;
@@ -377,12 +378,13 @@ __device__ __forceinline__ void find_bin(const int* hist, int r, int lane,
   rin = __shfl_sync(0xffffffffu, rr, src);
 }
 
-// The select's core, shared by knn_join_select and the merges. The row
-// group's keys are in registers (item i of thread t is position i * T + t);
-// keys below `big` survive. Finds the c smallest (key, position) winners
-// and calls put(slot, position) once for each, from one thread of the
-// group; returns (on every thread) how many there are. Every thread of the
-// row group calls it. `sm` holds select_group_bytes<G, IPL>(cap) bytes.
+// The select's core, shared by knn_join_select, the merges and the
+// compaction. The row group's keys are in registers (item i of thread t
+// is position i * T + t); keys below `big` survive. Finds the c smallest
+// (key, position) winners and calls put(slot, position) once for each,
+// from one thread of the group; returns (on every thread) how many there
+// are. Every thread of the row group calls it. `sm` holds
+// select_group_bytes<G, IPL>(cap) bytes.
 template <int G, int IPL, class Put>
 __device__ __forceinline__ int select_winners(const uint32_t (&key)[IPL],
                                               uint32_t big, int c, int cap,
@@ -788,6 +790,31 @@ int launch_merge(const float* cd, const int* ci, const int* rows,
   return (int)cudaGetLastError();
 }
 
+// The row group of a padded row of `padded` entries (a power of two, 32
+// to 8192): launch(G, IPL), as std::integral_constant values, with a warp
+// per row up to kMergeWarpMaxPadded and a block of kSelectThreads above.
+// The merges and the compaction dispatch through it.
+template <class Launch>
+int row_group_dispatch(int padded, Launch launch) {
+  using W = std::integral_constant<int, 1>;
+  using B = std::integral_constant<int, 8>;
+  if (padded <= kMergeWarpMaxPadded) {
+    switch (padded) {
+      case 32: return launch(W{}, std::integral_constant<int, 1>{});
+      case 64: return launch(W{}, std::integral_constant<int, 2>{});
+      default: return launch(W{}, std::integral_constant<int, 4>{});
+    }
+  }
+  switch (padded / kSelectThreads) {
+    case 1: return launch(B{}, std::integral_constant<int, 1>{});
+    case 2: return launch(B{}, std::integral_constant<int, 2>{});
+    case 4: return launch(B{}, std::integral_constant<int, 4>{});
+    case 8: return launch(B{}, std::integral_constant<int, 8>{});
+    case 16: return launch(B{}, std::integral_constant<int, 16>{});
+    default: return launch(B{}, std::integral_constant<int, 32>{});
+  }
+}
+
 // the instance for a pool of k + c (1 <= k, k + c <= kMergeMaxPool)
 int merge_dispatch(const float* cd, const int* ci, const int* rows,
                    const float* qd, const int* qi, float* od, int* oi,
@@ -797,158 +824,166 @@ int merge_dispatch(const float* cd, const int* ci, const int* rows,
   while (padded < k + c) padded <<= 1;
   int cap = 1;                      // the winners' sort: at most k
   while (cap < k) cap <<= 1;
-  if (padded <= kMergeWarpMaxPadded) {
-    switch (padded) {
-      case 32:
-        return launch_merge<1, 1>(cd, ci, rows, qd, qi, od, oi, upd, n, f,
-                                  k, c, cap, stream);
-      case 64:
-        return launch_merge<1, 2>(cd, ci, rows, qd, qi, od, oi, upd, n, f,
-                                  k, c, cap, stream);
-      default:
-        return launch_merge<1, 4>(cd, ci, rows, qd, qi, od, oi, upd, n, f,
-                                  k, c, cap, stream);
-    }
-  }
-  switch (padded / kSelectThreads) {
-    case 1:
-      return launch_merge<8, 1>(cd, ci, rows, qd, qi, od, oi, upd, n, f, k,
-                                c, cap, stream);
-    case 2:
-      return launch_merge<8, 2>(cd, ci, rows, qd, qi, od, oi, upd, n, f, k,
-                                c, cap, stream);
-    case 4:
-      return launch_merge<8, 4>(cd, ci, rows, qd, qi, od, oi, upd, n, f, k,
-                                c, cap, stream);
-    case 8:
-      return launch_merge<8, 8>(cd, ci, rows, qd, qi, od, oi, upd, n, f, k,
-                                c, cap, stream);
-    case 16:
-      return launch_merge<8, 16>(cd, ci, rows, qd, qi, od, oi, upd, n, f, k,
-                                 c, cap, stream);
-    default:
-      return launch_merge<8, 32>(cd, ci, rows, qd, qi, od, oi, upd, n, f, k,
-                                 c, cap, stream);
-  }
+  return row_group_dispatch(padded, [&](auto g, auto ipl) {
+    return launch_merge<decltype(g)::value, decltype(ipl)::value>(
+        cd, ci, rows, qd, qi, od, oi, upd, n, f, k, c, cap, stream);
+  });
 }
 
 // ---------------------------------------------------------------------------
 // knn_compact replaces knn_compact_blocked / _compact_kernel
 // (src/repro/kernels/knn_merge.py:72,108), the tombstone purge, and
 // knn_compact_rows replaces knn_compact_rows_blocked (:237), its frontier
-// form (the row indirection as in knn_merge_rows). Per row: the survivors
-// (not dropped, id >= 0, finite distance, so valid entries at the 3e38
-// placeholder survive) come out ascending, ties in input order, whatever
-// the order of the input row; freed slots are (+inf, -1); `removed` counts
-// dropped entries with id >= 0.
+// form (the row indirection of knn_merge_rows: slot s compacts list row
+// rows[s] under drop row s into the copy of the lists the wrapper made; -1
+// is padding: removed 0, nothing written). Per row: the survivors (not
+// dropped, id >= 0, finite distance, so valid entries at the 3e38
+// placeholder and at FLT_MAX survive) come out ascending, ties to the
+// lowest position (-0 tied with +0, each read back with its stored sign),
+// whatever the order of the input row; freed slots are (+inf, -1);
+// `removed` counts dropped entries with id >= 0.
 // Bound: bytes (8 per list entry in and out, 1 per drop flag).
-// Design: one warp per row stages the row in shared memory, +inf on every
-// entry that does not survive. Each round is a strided scan plus a
-// butterfly shuffle reduction over (dist, position), so every lane ends the
-// round with the same winner and no block barrier is needed; the round
-// loop stops at the first +inf.
+// Design: a row is one row of the radix select (select_winners) with c = k
+// and the keep mask as its prefilter. A survivor's key is its distance's
+// order bits, which lie below +inf's because it is finite; every other
+// entry (dropped, id < 0, -inf, +inf, NaN) carries +inf's bits, the
+// sentinel `big`, so "key < big" is exactly the keep mask. With c = k every
+// survivor wins (the select's step 1): no histogram pass runs, and the
+// survivors are ranked in one step, by rank up to 4 T of them, by the
+// bitonic sort above. Rows go through the merges' dispatch: a warp per row
+// up to a padded k of 128 (eight rows a block), a block of 256 threads
+// above, up to the select's widest row (8192).
 // ---------------------------------------------------------------------------
 
-constexpr int kCompactWarps = 4;
-constexpr int kCompactMaxK = 1536;       // 4 warps x 1536 x 8 B = 48 KB
-
-// Rounds of argmin over pd[0, m), ties to the lowest position, until k
-// entries are out or only +inf is left. Writes them to rod / roi and fills
-// the rest with (+inf, -1).
-__device__ __forceinline__ void extract_rounds(float* pd, const int* pi,
-                                               int m, int k, float* rod,
-                                               int* roi, int lane) {
-  int r = 0;
-  for (; r < k; ++r) {
-    float best = INFINITY;
-    int bpos = INT_MAX;
-    for (int p = lane; p < m; p += 32) {
-      const float d = pd[p];
-      if (d < best) {
-        best = d;
-        bpos = p;
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-      const int op = __shfl_xor_sync(0xffffffffu, bpos, off);
-      if (ob < best || (ob == best && op < bpos)) {
-        best = ob;
-        bpos = op;
-      }
-    }
-    if (best == INFINITY) break;         // only dropped entries are left
-    if (lane == 0) {
-      rod[r] = best;
-      roi[r] = pi[bpos];
-      pd[bpos] = INFINITY;               // taken: above every live entry
-    }
-    __syncwarp();
-  }
-  for (int j = r + lane; j < k; j += 32) {
-    rod[j] = INFINITY;
-    roi[j] = -1;
-  }
-}
-
-// One warp compacts list row `row` under drop mask slot `slot`.
+// One row group compacts list row rows[slot] under drop row `slot`; rows
+// == nullptr is the dense form (slot s is list row s).
+template <int G, int IPL>
 __device__ __forceinline__ void compact_row(
-    const float* __restrict__ cd, const int* __restrict__ ci,
-    const unsigned char* __restrict__ drop, float* __restrict__ od,
-    int* __restrict__ oi, int* __restrict__ removed, int slot, int row, int k,
-    float* pd, int* pi, int lane) {
-  const float* rcd = cd + (int64_t)row * k;
-  const int* rci = ci + (int64_t)row * k;
-  const unsigned char* rdr = drop + (int64_t)slot * k;
-  int rm = 0;
-  for (int j = lane; j < k; j += 32) {
-    const float d = rcd[j];
-    const int id = rci[j];
-    const bool dr = rdr[j] != 0;
-    rm += (dr && id >= 0) ? 1 : 0;
-    pd[j] = (!dr && id >= 0 && isfinite(d)) ? d : INFINITY;
-    pi[j] = id;
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    rm += __shfl_xor_sync(0xffffffffu, rm, off);
-  __syncwarp();
-  extract_rounds(pd, pi, k, k, od + (int64_t)row * k, oi + (int64_t)row * k,
-                 lane);
-  if (lane == 0) removed[slot] = rm;
-}
-
-__global__ void __launch_bounds__(kCompactWarps * 32) knn_compact_kernel(
-    const float* __restrict__ cd, const int* __restrict__ ci,
-    const unsigned char* __restrict__ drop, float* __restrict__ od,
-    int* __restrict__ oi, int* __restrict__ removed, int n, int k) {
-  extern __shared__ float msm[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kCompactWarps + warp;
-  float* pd = msm + (int64_t)warp * 2 * k;
-  int* pi = reinterpret_cast<int*>(pd + k);
-  if (row >= n) return;
-  compact_row(cd, ci, drop, od, oi, removed, row, row, k, pd, pi, lane);
-}
-
-__global__ void __launch_bounds__(kCompactWarps * 32) knn_compact_rows_kernel(
     const float* __restrict__ cd, const int* __restrict__ ci,
     const int* __restrict__ rows, const unsigned char* __restrict__ drop,
     float* __restrict__ od, int* __restrict__ oi, int* __restrict__ removed,
-    int n, int f, int k) {
-  extern __shared__ float msm[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int slot = blockIdx.x * kCompactWarps + warp;
-  float* pd = msm + (int64_t)warp * 2 * k;
-  int* pi = reinterpret_cast<int*>(pd + k);
-  if (slot >= f) return;
-  const int row = rows[slot];
-  if (row < 0 || row >= n) {
-    if (lane == 0) removed[slot] = 0;
+    int n, int f, int k, int cap, unsigned long long* compact_smem,
+    int* s_removed) {
+  constexpr int T = 32 * G;
+  constexpr int kRows = kSelectThreads / T;
+  const int grp = threadIdx.x / T;
+  const int t = threadIdx.x - grp * T;
+  const int lane = t & 31;
+  const int slot = blockIdx.x * kRows + grp;
+  if (slot >= f) return;                 // a whole row group
+  const int row = rows == nullptr ? slot : rows[slot];
+  if (row < 0 || row >= n) {             // padding: removed 0, no write
+    if (t == 0) removed[slot] = 0;
     return;
   }
-  compact_row(cd, ci, drop, od, oi, removed, slot, row, k, pd, pi, lane);
+  char* sm = reinterpret_cast<char*>(compact_smem) +
+             grp * select_group_bytes<G, IPL>(cap);
+  const float* rcd = cd + (int64_t)row * k;
+  const int* rci = ci + (int64_t)row * k;
+  const unsigned char* rdr = drop + (int64_t)slot * k;
+  if (G > 1 && t == 0) *s_removed = 0;   // the select's barriers follow
+
+  const uint32_t big = order_bits(INFINITY);
+  uint32_t key[IPL];
+  int rm = 0;
+#pragma unroll
+  for (int i = 0; i < IPL; ++i) {
+    const int p = i * T + t;
+    uint32_t kb = big;
+    if (p < k) {
+      const float d = rcd[p];
+      const int id = rci[p];
+      const bool dr = rdr[p] != 0;
+      rm += dr && id >= 0 ? 1 : 0;
+      if (!dr && id >= 0 && isfinite(d)) kb = order_bits(d);
+    }
+    key[i] = kb;
+  }
+  float* rod = od + (int64_t)row * k;
+  int* roi = oi + (int64_t)row * k;
+  // distances and ids are read back from the input, so -0.0 keeps its sign
+  const int nwin = select_winners<G, IPL>(key, big, k, cap, sm, t,
+                                          [&](int s, int p) {
+                                            rod[s] = rcd[p];
+                                            roi[s] = rci[p];
+                                          });
+  for (int j = nwin + t; j < k; j += T) {
+    rod[j] = INFINITY;
+    roi[j] = -1;
+  }
+  rm = __reduce_add_sync(0xffffffffu, rm);
+  if (G == 1) {
+    if (lane == 0) removed[slot] = rm;
+  } else {
+    if (lane == 0) atomicAdd(s_removed, rm);
+    __syncthreads();
+    if (t == 0) removed[slot] = *s_removed;
+  }
+}
+
+template <int G, int IPL>
+__global__ void __launch_bounds__(kSelectThreads) knn_compact_kernel(
+    const float* __restrict__ cd, const int* __restrict__ ci,
+    const unsigned char* __restrict__ drop, float* __restrict__ od,
+    int* __restrict__ oi, int* __restrict__ removed, int n, int k, int cap) {
+  extern __shared__ __align__(16) unsigned long long compact_smem[];
+  __shared__ int s_removed;
+  compact_row<G, IPL>(cd, ci, nullptr, drop, od, oi, removed, n, n, k, cap,
+                      compact_smem, &s_removed);
+}
+
+template <int G, int IPL>
+__global__ void __launch_bounds__(kSelectThreads) knn_compact_rows_kernel(
+    const float* __restrict__ cd, const int* __restrict__ ci,
+    const int* __restrict__ rows, const unsigned char* __restrict__ drop,
+    float* __restrict__ od, int* __restrict__ oi, int* __restrict__ removed,
+    int n, int f, int k, int cap) {
+  extern __shared__ __align__(16) unsigned long long compact_smem[];
+  __shared__ int s_removed;
+  compact_row<G, IPL>(cd, ci, rows, drop, od, oi, removed, n, f, k, cap,
+                      compact_smem, &s_removed);
+}
+
+template <int G, int IPL>
+int launch_compact(const float* cd, const int* ci, const int* rows,
+                   const unsigned char* drop, float* od, int* oi,
+                   int* removed, int n, int f, int k, int cap,
+                   cudaStream_t stream) {
+  constexpr int kRows = kSelectThreads / (32 * G);
+  const size_t smem = kRows * select_group_bytes<G, IPL>(cap);
+  const int blocks = (f + kRows - 1) / kRows;
+  // always opted in: the dynamic part may not pass 48 KB less the static
+  // s_removed otherwise (k 8192 needs 68 KB)
+  if (rows == nullptr) {
+    cudaError_t err = cudaFuncSetAttribute(
+        knn_compact_kernel<G, IPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    knn_compact_kernel<G, IPL><<<blocks, kSelectThreads, smem, stream>>>(
+        cd, ci, drop, od, oi, removed, n, k, cap);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        knn_compact_rows_kernel<G, IPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    knn_compact_rows_kernel<G, IPL><<<blocks, kSelectThreads, smem, stream>>>(
+        cd, ci, rows, drop, od, oi, removed, n, f, k, cap);
+  }
+  return (int)cudaGetLastError();
+}
+
+// the instance for lists of k (1 <= k <= kSelectMaxPadded)
+int compact_dispatch(const float* cd, const int* ci, const int* rows,
+                     const unsigned char* drop, float* od, int* oi,
+                     int* removed, int n, int f, int k, cudaStream_t stream) {
+  int padded = 32;
+  while (padded < k) padded <<= 1;
+  int cap = 1;                      // the winners' sort: at most k
+  while (cap < k) cap <<= 1;
+  return row_group_dispatch(padded, [&](auto g, auto ipl) {
+    return launch_compact<decltype(g)::value, decltype(ipl)::value>(
+        cd, ci, rows, drop, od, oi, removed, n, f, k, cap, stream);
+  });
 }
 
 }  // namespace
@@ -1048,24 +1083,20 @@ int knn_merge_rows_launch(const float* cd, const int* ci, const int* rows,
 int knn_compact_launch(const float* cd, const int* ci,
                        const unsigned char* drop, float* od, int* oi,
                        int* removed, int n, int k, cudaStream_t stream) {
-  if (n <= 0 || k < 1 || k > kCompactMaxK) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kCompactWarps * k * 2 * sizeof(float);
-  const int blocks = (n + kCompactWarps - 1) / kCompactWarps;
-  knn_compact_kernel<<<blocks, kCompactWarps * 32, smem, stream>>>(
-      cd, ci, drop, od, oi, removed, n, k);
-  return (int)cudaGetLastError();
+  if (n <= 0 || k < 1 || k > kSelectMaxPadded)
+    return (int)cudaErrorInvalidValue;
+  return compact_dispatch(cd, ci, nullptr, drop, od, oi, removed, n, n, k,
+                          stream);
 }
 
 int knn_compact_rows_launch(const float* cd, const int* ci, const int* rows,
                             const unsigned char* drop, float* od, int* oi,
                             int* removed, int n, int f, int k,
                             cudaStream_t stream) {
-  if (f <= 0 || k < 1 || k > kCompactMaxK) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kCompactWarps * k * 2 * sizeof(float);
-  const int blocks = (f + kCompactWarps - 1) / kCompactWarps;
-  knn_compact_rows_kernel<<<blocks, kCompactWarps * 32, smem, stream>>>(
-      cd, ci, rows, drop, od, oi, removed, n, f, k);
-  return (int)cudaGetLastError();
+  if (f <= 0 || k < 1 || k > kSelectMaxPadded)
+    return (int)cudaErrorInvalidValue;
+  return compact_dispatch(cd, ci, rows, drop, od, oi, removed, n, f, k,
+                          stream);
 }
 
 }  // extern "C"

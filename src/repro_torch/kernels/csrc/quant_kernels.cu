@@ -17,9 +17,9 @@
 // [0, N) is an invalid slot: +inf, and no row is read for it.
 //
 // Arithmetic. int8 cross terms are summed exactly in int32 (__dp4a on
-// signed bytes in the search tile, s8 mma.sync in the join), so an int8
-// kernel agrees with its plain version bit for bit: the epilogue keeps the
-// plain version's order of operations,
+// signed bytes in the search tile, search_tile.cuh; s8 mma.sync in the
+// join), so an int8 kernel agrees with its plain version bit for bit: the
+// epilogue keeps the plain version's order of operations,
 //   (q2 + c2) - (2 * (s_q * s_c)) * (float)ab,
 // with __fadd_rn / __fmul_rn so that no multiply-add is contracted. bf16
 // products are exact in f32 and are summed in f32 (fmaf in the search
@@ -38,122 +38,48 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// One 32-bit word of two int8 rows: four values (the int8 search tile; the
-// bf16 one is search_tile.cuh's).
-// ---------------------------------------------------------------------------
-
-template <bool kQ8>
-struct Word;
-
-template <>
-struct Word<true> {
-  using Acc = int;
-  static __device__ __forceinline__ int dot(uint32_t a, uint32_t b, int acc) {
-    return __dp4a(static_cast<int>(a), static_cast<int>(b), acc);
-  }
-  static __device__ __forceinline__ int sum(int acc) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    return acc;
-  }
-  // (c2 + q2) - (2 * (s_a * s_b)) * ab
-  static __device__ __forceinline__ float dist(float n2a, float n2b, float sa,
-                                               float sb, int ab) {
-    const float f = __fmul_rn(2.0f, __fmul_rn(sa, sb));
-    return __fsub_rn(__fadd_rn(n2a, n2b), __fmul_rn(f, __int2float_rn(ab)));
-  }
-};
-
-template <bool kQ8>
-__device__ __forceinline__ typename Word<kQ8>::Acc dot16(
-    uint4 a, uint4 b, typename Word<kQ8>::Acc acc) {
-  acc = Word<kQ8>::dot(a.x, b.x, acc);
-  acc = Word<kQ8>::dot(a.y, b.y, acc);
-  acc = Word<kQ8>::dot(a.z, b.z, acc);
-  return Word<kQ8>::dot(a.w, b.w, acc);
-}
-
-// ---------------------------------------------------------------------------
-// knn_search_dists_q8: replaces knn_search_dists_q8_blocked
-// (src/repro/kernels/l2_quant.py:92; body _search_dists_q8_kernel :53).
+// knn_search_dists_q8 / knn_search_dists_bf16: replace
+// knn_search_dists_q8_blocked and knn_search_dists_bf16_blocked
+// (src/repro/kernels/l2_quant.py:92,137; bodies _search_dists_q8_kernel
+// :53, _search_dists_bf16_kernel :74).
 //
-// Per query, the int8 squared l2 to each of its W candidates.
-// Bound: bytes. Each valid candidate costs one mirror row (w bytes) for 2w
-// operations.
-// Design: one block per query keeps the query row in shared memory; each
-// of its 8 warps takes every 8th candidate, its lanes stream the row's
-// 16-byte chunks (16 int8 values each), __dp4a sums them in int32 and the
-// warp adds with shuffles.
-// ---------------------------------------------------------------------------
-
-constexpr int kQSearchThreads = 256;
-constexpr int kQSearchWarps = kQSearchThreads / 32;
-constexpr int kQSearchMaxBytes = 48 * 1024;   // the query row in shared mem
-
-template <bool kQ8>
-__device__ __forceinline__ void quant_search_row(
-    uint4* sq, const uint4* __restrict__ qrow, float qs, float q2r,
-    const uint4* __restrict__ data, const float* __restrict__ scale,
-    const float* __restrict__ x2, const int* __restrict__ rid,
-    float* __restrict__ out, int N, int W, int chunks) {
-  for (int j = threadIdx.x; j < chunks; j += kQSearchThreads) sq[j] = qrow[j];
-  __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int w = warp; w < W; w += kQSearchWarps) {
-    const int id = rid[w];            // the same for the whole warp
-    if (id < 0 || id >= N) {
-      if (lane == 0) out[w] = INFINITY;
-      continue;
-    }
-    const uint4* xr = data + (int64_t)id * chunks;
-    typename Word<kQ8>::Acc acc = 0;
-#pragma unroll 2
-    for (int j = lane; j < chunks; j += 32)
-      acc = dot16<kQ8>(__ldg(xr + j), sq[j], acc);
-    acc = Word<kQ8>::sum(acc);
-    if (lane == 0) {
-      const float cs = kQ8 ? scale[id] : 1.0f;
-      out[w] = fmaxf(Word<kQ8>::dist(q2r, x2[id], qs, cs, acc), 0.0f);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kQSearchThreads) knn_search_dists_q8_kernel(
-    const uint4* __restrict__ qq, const float* __restrict__ qscale,
-    const float* __restrict__ q2, const uint4* __restrict__ data,
-    const float* __restrict__ scale, const float* __restrict__ x2,
-    const int* __restrict__ ids, float* __restrict__ od, int N, int W,
-    int chunks) {
-  extern __shared__ uint4 sq8[];
-  const int row = blockIdx.x;
-  quant_search_row<true>(sq8, qq + (int64_t)row * chunks, qscale[row],
-                         q2[row], data, scale, x2, ids + (int64_t)row * W,
-                         od + (int64_t)row * W, N, W, chunks);
-}
-
-// ---------------------------------------------------------------------------
-// knn_search_dists_bf16: replaces knn_search_dists_bf16_blocked
-// (src/repro/kernels/l2_quant.py:137; body _search_dists_bf16_kernel :74).
-//
-// Per query, the bf16 squared l2 to each of its W candidates, f32 sums.
-// Bound and design: search_tile.cuh, the body it shares with the fp32
+// Per query, the int8 (bf16) squared l2 to each of its W candidates.
+// Bound and design: search_tile.cuh, the body both share with the fp32
 // tile (knn_search_dists, search_kernels.cu): a block per query, its row
-// in registers, each warp's candidate ids and norms loaded before its
-// first row, mirror rows streamed with 16-byte loads, bf16 values widened
-// to f32 and multiplied with fmaf (their products are exact).
+// in registers, each warp's candidate ids, norms and (int8) scales loaded
+// before its first row, mirror rows streamed with 16-byte loads. int8:
+// four rows in flight a warp, 1 KB pieces, __dp4a int32 sums added across
+// the warp by one redux.sync, the scales in the epilogue; bf16: two rows,
+// 2 KB pieces, values widened to f32 and multiplied with fmaf (their
+// products are exact).
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kSearchThreads, kSearchMinBlocks)
+    knn_search_dists_q8_kernel(const int8_t* __restrict__ q,
+                               const float* __restrict__ qs,
+                               const float* __restrict__ q2,
+                               const int8_t* __restrict__ data,
+                               const float* __restrict__ scale,
+                               const float* __restrict__ x2,
+                               const int* __restrict__ ids,
+                               float* __restrict__ od, SearchTile t) {
+  extern __shared__ __align__(16) unsigned char search_smem[];
+  search_tile<int8_t, true>(q, qs, q2, data, scale, x2, ids, od, t,
+                            search_smem);
+}
+
+__global__ void __launch_bounds__(kSearchThreads, kSearchMinBlocks)
     knn_search_dists_bf16_kernel(const uint16_t* __restrict__ q,
+                                 const float* __restrict__ qs,
                                  const float* __restrict__ q2,
                                  const uint16_t* __restrict__ data,
+                                 const float* __restrict__ xs,
                                  const float* __restrict__ x2,
                                  const int* __restrict__ ids,
                                  float* __restrict__ od, SearchTile t) {
   extern __shared__ __align__(16) unsigned char search_smem[];
-  search_tile<uint16_t, true>(q, q2, data, x2, ids, od, t, search_smem);
+  search_tile<uint16_t, true>(q, qs, q2, data, xs, x2, ids, od, t,
+                              search_smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -488,26 +414,22 @@ int knn_search_dists_q8_launch(const int8_t* qq, const float* qscale,
                                const float* scale, const float* x2,
                                const int* ids, float* od, int N, int nq,
                                int W, int w, cudaStream_t stream) {
-  if (nq <= 0 || W <= 0 || w < 0 || w > kQSearchMaxBytes ||
-      !rows_ok(qq, w) || !rows_ok(data, w))
+  if (!rows_ok(qq, w) || !rows_ok(data, w))
     return (int)cudaErrorInvalidValue;
-  const int chunks = w / 16;
-  knn_search_dists_q8_kernel<<<nq, kQSearchThreads, (size_t)w, stream>>>(
-      reinterpret_cast<const uint4*>(qq), qscale, q2,
-      reinterpret_cast<const uint4*>(data), scale, x2, ids, od, N, W, chunks);
-  return (int)cudaGetLastError();
+  return launch_search_tile<int8_t>(knn_search_dists_q8_kernel, qq, qscale,
+                                    q2, data, scale, x2, ids, od, N, nq, W,
+                                    w, stream);
 }
 
 int knn_search_dists_bf16_launch(const uint16_t* q, const float* q2,
                                  const uint16_t* data, const float* x2,
                                  const int* ids, float* od, int N, int nq,
                                  int W, int w, cudaStream_t stream) {
-  const int row_bytes = 2 * w;
-  if (nq <= 0 || W <= 0 || w < 0 || row_bytes > kQSearchMaxBytes ||
-      !rows_ok(q, row_bytes) || !rows_ok(data, row_bytes))
+  if (!rows_ok(q, 2 * w) || !rows_ok(data, 2 * w))
     return (int)cudaErrorInvalidValue;
-  return launch_search_tile<uint16_t>(knn_search_dists_bf16_kernel, q, q2,
-                                      data, x2, ids, od, N, nq, W, w, stream);
+  return launch_search_tile<uint16_t>(knn_search_dists_bf16_kernel, q,
+                                      nullptr, q2, data, nullptr, x2, ids,
+                                      od, N, nq, W, w, stream);
 }
 
 int knn_join_dists_q8_launch(const int8_t* data, const float* scale,

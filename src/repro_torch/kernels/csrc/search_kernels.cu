@@ -317,25 +317,27 @@ __global__ void __launch_bounds__(kL2Threads) pairwise_sq_l2_kernel_split_sum(
 // dp 784) that copy is about 190 MB per round, so this kernel takes the
 // ids and the base rows and gathers them itself.
 // Bound and design: search_tile.cuh, the body it shares with the bf16
-// tile: a block per query, its row in registers a 2 KB piece at a time,
-// each warp's candidate ids and norms loaded before its first row, rows
-// streamed with 16-byte loads (kVec 1; the instance kVec 0 takes 4-byte
-// loads where dp % 4 != 0 or a row is not 16-byte aligned), fp32 fmaf on
-// the CUDA cores.
+// and int8 tiles: a block per query, its row in registers a 2 KB piece at
+// a time, each warp's candidate ids and norms loaded before its first row,
+// rows streamed with 16-byte loads (kVec 1; the instance kVec 0 takes
+// 4-byte loads where dp % 4 != 0 or a row is not 16-byte aligned), fp32
+// fmaf on the CUDA cores. dp is at most 12288 (rows of 48 KB,
+// kSearchMaxRowBytes).
 // ---------------------------------------------------------------------------
-
-constexpr int kSearchMaxDp = 12288;   // 48 KB of query row in shared memory
 
 template <int kVec>
 __global__ void __launch_bounds__(kSearchThreads, kSearchMinBlocks)
     knn_search_dists_kernel(const float* __restrict__ q,
+                            const float* __restrict__ qs,
                             const float* __restrict__ q2,
                             const float* __restrict__ x,
+                            const float* __restrict__ xs,
                             const float* __restrict__ x2,
                             const int* __restrict__ ids,
                             float* __restrict__ od, SearchTile t) {
   extern __shared__ __align__(16) unsigned char search_smem[];
-  search_tile<float, kVec != 0>(q, q2, x, x2, ids, od, t, search_smem);
+  search_tile<float, kVec != 0>(q, qs, q2, x, xs, x2, ids, od, t,
+                                search_smem);
 }
 
 bool aligned16(const void* p) {
@@ -408,13 +410,13 @@ int pairwise_sq_l2_launch(const float* a, const float* b, float* at,
 int knn_search_dists_launch(const float* q, const float* q2, const float* x,
                             const float* x2, const int* ids, float* od, int N,
                             int nq, int W, int dp, cudaStream_t stream) {
-  if (nq <= 0 || W <= 0 || dp < 0 || dp > kSearchMaxDp)
-    return (int)cudaErrorInvalidValue;
   if ((dp & 3) == 0 && aligned16(q) && aligned16(x))
-    return launch_search_tile<float>(knn_search_dists_kernel<1>, q, q2, x,
-                                     x2, ids, od, N, nq, W, dp, stream);
-  return launch_search_tile<float>(knn_search_dists_kernel<0>, q, q2, x, x2,
-                                   ids, od, N, nq, W, dp, stream);
+    return launch_search_tile<float>(knn_search_dists_kernel<1>, q, nullptr,
+                                     q2, x, nullptr, x2, ids, od, N, nq, W,
+                                     dp, stream);
+  return launch_search_tile<float>(knn_search_dists_kernel<0>, q, nullptr,
+                                   q2, x, nullptr, x2, ids, od, N, nq, W, dp,
+                                   stream);
 }
 
 }  // extern "C"

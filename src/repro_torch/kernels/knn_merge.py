@@ -15,10 +15,11 @@
 Bound on this card: bytes (8 per list and candidate entry in, 8 per list
 entry out, 1 per drop flag). A merge is one row of the join select's radix
 select over the pool [list | candidates], a warp per row up to a pool of
-256 and a block above, after a dedup through a shared-memory hash table of
-the pool's ids; the compaction is one warp per row running rounds of a
-strided scan plus a shuffle argmin. Same checks, allocation, stream and
-launch count as the join wrappers (kernels/knn_join.py).
+128 and a block above, after a dedup through a shared-memory hash table of
+the pool's ids; a compaction is one row of the same select with c = k and
+the keep mask as its prefilter, through the same dispatch. Same checks,
+allocation, stream and launch count as the join wrappers
+(kernels/knn_join.py).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.knn_join import _check
 
 MERGE_MAX_POOL = 8192    # kMergeMaxPool in csrc/knn_kernels.cu
-COMPACT_MAX_K = 1536     # kCompactMaxK
+COMPACT_MAX_K = 8192     # kSelectMaxPadded: the select's widest row
 
 
 def knn_merge_cuda(

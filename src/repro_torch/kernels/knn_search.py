@@ -6,8 +6,8 @@ The TPU kernel takes the candidate rows gathered beforehand, (nq, W, dp);
 this one takes the ids and the base rows and gathers them itself, so the
 copy (about 190 MB per round at q_block 512, W 120, dp 784) is never made.
 Bound on this card: bytes (one row of dp floats per valid candidate).
-The kernel (``csrc/search_tile.cuh``, shared with the bf16 tile) runs a
-block per query with the query row in registers and each warp's
+The kernel (``csrc/search_tile.cuh``, shared with the quantized tiles)
+runs a block per query with the query row in registers and each warp's
 candidate ids and norms loaded before its first row, so no row waits on
 its id; rows stream with 16-byte loads and invalid ids are skipped.
 Same checks, allocation, stream and launch count as the join wrappers
@@ -20,7 +20,7 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.knn_join import _check
 
-SEARCH_MAX_DP = 12288    # kSearchMaxDp in csrc/search_kernels.cu
+SEARCH_MAX_DP = 12288    # kSearchMaxRowBytes / 4 in csrc/search_tile.cuh
 
 
 def knn_search_dists_cuda(

@@ -12,7 +12,9 @@
 Like the fp32 tiles they take the ids and the base mirror (data, scale,
 x2 of core/quantize.py) and gather the rows in-kernel; an id outside
 [0, N) is an invalid slot. Bound on this card: bytes (one quantized row
-per valid candidate); both joins run their Gram on the tensor cores
+per valid candidate). Both search tiles are instances of the fp32 tile's
+body (``csrc/search_tile.cuh``; int8: ``__dp4a`` int32 sums, bitwise
+equal to the plain version); both joins run their Gram on the tensor cores
 (``mma.sync``, s8 -> s32 and bf16 -> f32, one warp per row), the int8 one
 bitwise equal to its plain version. The kernels read rows in 16-byte
 chunks, so each wrapper also requires the rows to start on 16-byte
@@ -31,7 +33,7 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.knn_join import JOIN_MAX_C, _check
 
-SEARCH_MAX_ROW_BYTES = 48 * 1024   # kQSearchMaxBytes in quant_kernels.cu
+SEARCH_MAX_ROW_BYTES = 48 * 1024   # kSearchMaxRowBytes in search_tile.cuh
 
 
 def _check_rows(t: torch.Tensor, name: str) -> None:

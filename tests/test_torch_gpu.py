@@ -375,13 +375,20 @@ def _tile_ids(dev, case, nq, w, big_n, seed):
 
 def _check_tile(dev, mode, q, x, ids):
     """The search tile through the kernel against its plain version on
-    fp32 rows (mode "fp32") or on their bf16 mirrors: one launch, +inf
-    exactly at the invalid ids, 1e-4 + 1e-5 (q2 + c2) elsewhere."""
+    fp32 rows (mode "fp32") or on their bf16 or int8 mirrors: one launch,
+    +inf exactly at the invalid ids, 1e-4 + 1e-5 (q2 + c2) elsewhere
+    (int8: bitwise)."""
     big_n = x.shape[0]
     if mode == "fp32":
         fn, name = ops.knn_search_dists, "knn_search_dists"
         q2, x2 = (q * q).sum(1), (x * x).sum(1)
         args = (q, q2, x, x2, ids)
+    elif mode == "int8":
+        fn, name = ops.knn_search_dists_q8, "knn_search_dists_q8"
+        qs = quantize_corpus(q, "int8")
+        xs = quantize_corpus(x, "int8")
+        q2, x2 = qs.x2, xs.x2
+        args = (qs.data, qs.scale, q2, xs.data, xs.scale, x2, ids)
     else:
         fn, name = ops.knn_search_dists_bf16, "knn_search_dists_bf16"
         qs = quantize_corpus(q, "bf16")
@@ -392,12 +399,15 @@ def _check_tile(dev, mode, q, x, ids):
     assert launched[name] == 1
     assert torch.equal(torch.isinf(got), (ids < 0) | (ids >= big_n))
     assert torch.equal(torch.isinf(got), torch.isinf(want))
+    if mode == "int8":
+        assert torch.equal(got, want)
+        return
     fin = torch.isfinite(want)
     tol = 1e-4 + 1e-5 * (q2[:, None] + x2[ids.clamp(0, big_n - 1).long()])
     assert bool(((got - want).abs()[fin] <= tol[fin]).all())
 
 
-@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8"])
 @pytest.mark.parametrize("case,nq,w", [
     ("shared", 512, 120),        # full sharing: a group names 120 rows
     ("half", 512, 120),
@@ -441,7 +451,22 @@ def test_search_tile_bf16_widest_rows(dev):
     _check_tile(dev, "bf16", q, x, _tile_ids(dev, "half", nq, w, big_n, 1))
 
 
-@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("width", [
+    49152,                       # 48 KB rows, the tile's widest: 48 pieces
+    1040,                        # 65 vectors: a second piece of one vector
+    16,                          # one vector: one lane of the first piece
+    2064,                        # 129 vectors: three pieces, the last of one
+])
+def test_search_tile_int8_rows(dev, width):
+    """int8 rows at the 1 KB piece's edges and at 48 KB, bitwise."""
+    nq, w, big_n = 40, 50, 600
+    g = torch.Generator(device=dev).manual_seed(width)
+    q = torch.randn(nq, width, generator=g, device=dev)
+    x = torch.randn(big_n, width, generator=g, device=dev)
+    _check_tile(dev, "int8", q, x, _tile_ids(dev, "half", nq, w, big_n, 2))
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8"])
 def test_search_tile_late_round(dev, mode, monkeypatch):
     """A graph search's own tile at round 6 of its first block (where the
     queries share fewer rows than at round 2), held against the plain
@@ -453,7 +478,8 @@ def test_search_tile_late_round(dev, mode, monkeypatch):
     q = x[:512] + 0.01 * torch.randn(512, 784, device=dev,
                                      generator=torch.Generator(
                                          device=dev).manual_seed(2))
-    name = "knn_search_dists" if mode == "fp32" else "knn_search_dists_bf16"
+    name = {"fp32": "knn_search_dists", "bf16": "knn_search_dists_bf16",
+            "int8": "knn_search_dists_q8"}[mode]
     real, tiles = getattr(ops, name), []
 
     def record(*args, **kw):
@@ -462,21 +488,24 @@ def test_search_tile_late_round(dev, mode, monkeypatch):
     monkeypatch.setattr(ops, name, record)
     graph_search(x, gidx, q, k_out=10, cfg=SearchConfig(
         beam=32, rounds=48, expand=6, q_block=512,
-        precision="f32" if mode == "fp32" else "bf16"))
+        precision="f32" if mode == "fp32" else mode))
     monkeypatch.undo()
     assert len(tiles) >= 6
     ids = tiles[5][-1]
     assert ids.shape == (512, 120)
     if mode == "fp32":
         _check_tile(dev, mode, q, x, ids)
-    else:
-        got, want, launched = _both(real, *tiles[5])
-        assert launched[name] == 1
-        fin = torch.isfinite(want)
-        qx2, xx2 = tiles[5][1], tiles[5][3]
-        tol = 1e-4 + 1e-5 * (qx2[:, None] + xx2[ids.clamp(0).long()])
-        assert torch.equal(torch.isinf(got), torch.isinf(want))
-        assert bool(((got - want).abs()[fin] <= tol[fin]).all())
+        return
+    got, want, launched = _both(real, *tiles[5])
+    assert launched[name] == 1
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    if mode == "int8":
+        assert torch.equal(got, want)
+        return
+    fin = torch.isfinite(want)
+    qx2, xx2 = tiles[5][1], tiles[5][3]
+    tol = 1e-4 + 1e-5 * (qx2[:, None] + xx2[ids.clamp(0).long()])
+    assert bool(((got - want).abs()[fin] <= tol[fin]).all())
 
 
 # ---------------------------------------------------------------------------
@@ -663,20 +692,66 @@ def _lists(rng, n, k, hi, sort=True):
     return d, i
 
 
+# entries the compaction must order by its contract: -0.0 tied with +0.0
+# (each read back with its stored sign), survivors at FLT_MAX and at the
+# 3e38 placeholder, and -inf, NaN and +inf, which never survive
+EDGES = np.array([-0.0, 0.0, -0.0, np.finfo(np.float32).max, 3.0e38,
+                  -np.inf, np.nan, np.inf, 0.0], np.float32)
+
+
+def _plant_edges(d, i, drop, list_rows, drop_rows):
+    """EDGES at consecutive slots of the listed rows (row-major, so k 1
+    spreads them over nine rows), with valid ids and not dropped."""
+    k = d.shape[1]
+    for s, v in enumerate(EDGES):
+        r, p = s // k, s % k
+        if r >= len(list_rows):
+            return
+        d[list_rows[r], p] = v
+        i[list_rows[r], p] = 7 + s
+        drop[drop_rows[r], p] = False
+
+
 @pytest.mark.parametrize("n,k,sort", [
     (100, 20, True), (37, 8, False), (245, 32, True), (16, 512, False),
-    (3, 1536, True), (2048, 20, True)])
+    (3, 1536, True), (2048, 20, True),
+    (12, 1, False),              # k 1: one edge entry a row
+    (5, 1537, False),            # above the old cap: a block per row
+    (4, 8192, True)])            # the cap: the bitonic sort of 8192 words
 def test_compact_kernel(dev, n, k, sort):
     rng = np.random.RandomState(n + k)
     d, i = _lists(rng, n, k, 5 * n, sort)
     d[0] = d[0, ::-1].copy()                      # an unsorted row
     drop = rng.rand(n, k) < 0.3
     drop[2, -1] = False
+    edge_rows = np.arange(3, n)
+    _plant_edges(d, i, drop, edge_rows, edge_rows)
     args = [torch.from_numpy(a).to(dev) for a in (d, i, drop)]
     got, want, launched = _both(ops.knn_compact, *args)
     assert launched["knn_compact"] == 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    # the stored sign of a zero survives (torch.equal holds -0.0 == 0.0)
+    assert torch.equal(torch.signbit(got[0]), torch.signbit(want[0]))
+
+
+def test_compact_wrappers_refuse_k_above_cap(dev):
+    """k 8192 (the select's widest row) is the cap of both forms; k 8193
+    raises ValueError before any launch."""
+    from repro_torch.kernels.knn_merge import (
+        COMPACT_MAX_K, knn_compact_cuda, knn_compact_rows_cuda)
+    assert COMPACT_MAX_K == 8192
+    k = COMPACT_MAX_K + 1
+    d = torch.zeros((2, k), device=dev)
+    i = torch.zeros((2, k), dtype=torch.int32, device=dev)
+    drop = torch.zeros((2, k), dtype=torch.bool, device=dev)
+    rows = torch.tensor([1, -1], dtype=torch.int32, device=dev)
+    before = dict(_lib.LAUNCHES)
+    with pytest.raises(ValueError, match="k <= 8192"):
+        knn_compact_cuda(d, i, drop)
+    with pytest.raises(ValueError, match="k <= 8192"):
+        knn_compact_rows_cuda(d, i, rows, drop)
+    assert _lib.LAUNCHES == before
 
 
 @pytest.mark.parametrize("n,k,f,c,pad", [
@@ -729,18 +804,24 @@ def test_merge_rows_kernel_wide_pools(dev, n, k, f, c, pad, dups):
 
 
 @pytest.mark.parametrize("n,k,f,pad,sort", [
-    (64, 8, 16, 3, True), (5000, 20, 1024, 40, True), (40, 33, 9, 0, False)])
+    (64, 8, 16, 3, True), (5000, 20, 1024, 40, True), (40, 33, 9, 0, False),
+    (30, 1, 20, 2, False),       # k 1
+    (10, 1537, 4, 1, False),     # above the old cap
+    (6, 8192, 3, 1, True)])      # the cap
 def test_compact_rows_kernel(dev, n, k, f, pad, sort):
     rng = np.random.RandomState(n * k)
     d, i = _lists(rng, n, k, 5 * n, sort)
     rows = np.full((f,), -1, np.int32)
     rows[pad:] = rng.choice(n, size=f - pad, replace=False)
     drop = rng.rand(f, k) < 0.4
+    _plant_edges(d, i, drop, rows[pad:], np.arange(pad, f))
     args = [torch.from_numpy(a).to(dev) for a in (d, i, rows, drop)]
     got, want, launched = _both(ops.knn_compact_rows, *args)
     assert launched["knn_compact_rows"] == 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    assert torch.equal(torch.signbit(got[0]), torch.signbit(want[0]))
+    assert bool((got[2][torch.from_numpy(rows).to(dev) < 0] == 0).all())
 
 
 def test_online_store_through_kernels(dev):

@@ -127,6 +127,94 @@ def test_compact_plain_matches_jax(n, k, sort):
     assert (got[0][:, 1:] >= got[0][:, :-1])[fin[:, 1:]].all()
 
 
+# entries the compaction orders by its contract: -0.0 tied with +0.0 (each
+# read back with its stored sign), survivors at FLT_MAX and at the 3e38
+# placeholder, and -inf, NaN and +inf, which never survive
+F32_MAX = np.finfo(np.float32).max
+EDGES = np.array([-0.0, 0.0, -0.0, F32_MAX, 3.0e38, -np.inf, np.nan, np.inf,
+                  0.0], np.float32)
+
+
+def _order_bits(d):
+    """csrc/knn_kernels.cu's order_bits: f32 -> u32 in the same order, -0
+    as +0."""
+    b = np.where(d == 0, np.float32(0.0), d).astype(np.float32).view(
+        np.uint32)
+    return np.where(b & 0x80000000, ~b, b | 0x80000000).astype(np.uint32)
+
+
+def _compact_select_emulation(d, i, drop):
+    """The compaction as the CUDA kernel runs it: one row of the radix
+    select with c = k, every entry keyed by ``_order_bits`` of its distance
+    if it survives (not dropped, id >= 0, finite), else by +inf's bits;
+    with c = k every key below +inf's wins, ranked by (key, position), and
+    each winner's stored distance and id read back; freed slots (+inf,
+    -1); removed = dropped entries with id >= 0."""
+    n, k = d.shape
+    big = _order_bits(np.array([np.inf], np.float32))[0]
+    keep = ~drop & (i >= 0) & np.isfinite(d)
+    key = np.where(keep, _order_bits(d), big)
+    od = np.full((n, k), np.inf, np.float32)
+    oi = np.full((n, k), -1, np.int32)
+    for r in range(n):
+        words = (key[r].astype(np.uint64) << np.uint64(32)) | np.arange(
+            k, dtype=np.uint64)
+        win = words[key[r] < big]
+        rank = (win[None, :] < win[:, None]).sum(1)
+        pos = (win & np.uint64(0xffffffff)).astype(np.int64)
+        od[r, rank] = d[r, pos]
+        oi[r, rank] = i[r, pos]
+    removed = (drop & (i >= 0)).sum(1).astype(np.int32)
+    return od, oi, removed
+
+
+@pytest.mark.parametrize("n,k", [(12, 1), (20, 8), (16, 20), (9, 33),
+                                 (8, 64)])
+def test_compact_select_emulation_matches_jax(n, k):
+    """``_compact_select_emulation`` bitwise (the sign of a zero too)
+    against the port's plain version on rows that hold every EDGES entry
+    (k 1 spreads them over nine rows), and against the Pallas kernel in
+    interpret mode and JAX's oracle where those keep the contract. The
+    Pallas kernel returns min(-0, +0) and not the stored value, so its
+    zeros are compared by value; it loses a survivor at exactly FLT_MAX
+    (its sentinel: an argmin ties it with the taken entries), and JAX's
+    oracle keeps -inf and NaN distances beside id -1, so those rows are
+    held against the port's plain version alone (ROADMAP, Reference-side
+    caveats)."""
+    rng = np.random.default_rng(n * k)
+    d, i = _random_lists(rng, n, k, 50, sort=False)
+    d[rng.random((n, k)) < 0.2] = 0.0
+    drop = rng.random((n, k)) < 0.3
+    for s, v in enumerate(EDGES):
+        r, p = 1 + s // k, s % k
+        d[r, p], i[r, p], drop[r, p] = v, 3 + s, False
+    got = _compact_select_emulation(d, i, drop)
+    plain = ref.knn_compact(*_t(d, i, drop))
+    for g, w in zip(got, plain):
+        np.testing.assert_array_equal(g, w.numpy())
+    np.testing.assert_array_equal(np.signbit(got[0]),
+                                  np.signbit(plain[0].numpy()))
+    jargs = [jnp.asarray(a) for a in (d, i, drop)]
+    krn = [np.asarray(a) for a in knn_compact_blocked(*jargs, tm=8,
+                                                      interpret=True)]
+    orc = [np.asarray(a) for a in jref.knn_compact(*jargs)]
+    keep = ~drop & (i >= 0)
+    at_max = (keep & (d == F32_MAX)).any(1)
+    non_finite = (keep & ~np.isfinite(d)).any(1)
+    assert at_max.any() and non_finite.any()
+    for r in range(n):
+        if not at_max[r]:
+            np.testing.assert_array_equal(got[0][r], krn[0][r])   # -0 == 0
+            np.testing.assert_array_equal(got[1][r], krn[1][r])
+        if not non_finite[r]:
+            for g, w in zip(got[:2], orc[:2]):
+                np.testing.assert_array_equal(g[r], w[r])
+            np.testing.assert_array_equal(np.signbit(got[0][r]),
+                                          np.signbit(orc[0][r]))
+    np.testing.assert_array_equal(got[2], krn[2].reshape(-1))
+    np.testing.assert_array_equal(got[2], orc[2])
+
+
 @pytest.mark.parametrize("n,k,f,c,pad", [(41, 6, 16, 9, 3), (64, 10, 8, 40, 0),
                                          (30, 20, 12, 1, 5)])
 def test_merge_rows_plain_matches_jax(n, k, f, c, pad):

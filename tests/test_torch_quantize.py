@@ -259,6 +259,98 @@ def test_search_bf16_tile_emulation_matches_jax(nq, w, dp, big_n):
     assert np.array_equal(np.isinf(got), (ids < 0) | (ids >= big_n))
 
 
+Q8_VPL, Q8_VEC = 2, 16      # search_tile.cuh's int8 trait: 1 KB pieces
+
+
+def _q8_search_tile_emulation(qq, qs, q2, data, scale, x2, ids,
+                              contract=False):
+    """The int8 instance of csrc/search_tile.cuh in numpy: each lane's
+    __dp4a sums (four 4-byte words a 16-byte vector, Q8_VPL vectors of a
+    1 KB piece a lane, int32), the 32 lane sums added by redux.sync, the
+    pieces' dots added in int32 (every partial checked to stay inside
+    int32, so the order of the sums cannot matter); then the epilogue in
+    f32, each step rounded, in the plain version's order: (q2 + c2) -
+    (2 (s_q s_c)) (float)ab, clamped at 0; +inf at an id outside [0, N).
+    ``contract``: the last product and subtraction fused into one rounding
+    (an FMA), as XLA may compile the Pallas kernel's epilogue on a CPU;
+    the CUDA kernel never contracts (__fmul_rn / __fsub_rn)."""
+    nq, w = qq.shape
+    big_n = data.shape[0]
+    nw = ids.shape[1]
+    valid = (ids >= 0) & (ids < big_n)
+    safe = np.where(valid, ids, 0)
+    vecs = max(1, -(-w // Q8_VEC))
+    pad = vecs * Q8_VEC - w
+    qp = np.pad(qq.astype(np.int64), ((0, 0), (0, pad))).reshape(
+        nq, vecs, Q8_VEC)
+    xp = np.pad(data.astype(np.int64), ((0, 0), (0, pad))).reshape(
+        big_n, vecs, Q8_VEC)
+    lanes = np.arange(32)
+    piece = 32 * Q8_VPL
+    lim = 2 ** 31
+    ab = np.zeros((nq, nw), np.int64)
+    for v0 in range(0, vecs, piece):
+        acc = np.zeros((nq, nw, 32), np.int64)
+        for jj in range(Q8_VPL):
+            j = v0 + jj * 32 + lanes
+            ok = j < min(vecs, v0 + piece)
+            jc = np.where(ok, j, 0)
+            for word in range(4):
+                e = slice(4 * word, 4 * word + 4)
+                a = np.where(ok[:, None], qp[:, jc, e], 0)[:, None]
+                b = np.where(ok[:, None], xp[safe][:, :, jc, e], 0)
+                acc = acc + (a * b).sum(-1)
+                assert (np.abs(acc) < lim).all()
+        dot = acc.sum(-1)
+        assert (np.abs(dot) < lim).all()
+        ab = ab + dot
+        assert (np.abs(ab) < lim).all()
+    f32 = np.float32
+    f = (f32(2.0) * (qs.astype(f32)[:, None] * scale.astype(f32)[safe])
+         .astype(f32)).astype(f32)
+    s = (q2.astype(f32)[:, None] + x2.astype(f32)[safe]).astype(f32)
+    t = f.astype(np.float64) * ab.astype(f32).astype(np.float64)  # exact
+    d = (s.astype(np.float64) - (t if contract else t.astype(f32))).astype(
+        f32)
+    return np.where(valid, np.maximum(d, f32(0.0)), np.inf)
+
+
+@pytest.mark.parametrize("nq,w,dp,big_n", [
+    (37, 23, 16, 99),            # one vector: one lane of the piece
+    (1, 120, 784, 300),          # MNIST's width: 49 vectors, one piece
+    (20, 1, 32, 50),             # W 1
+    (5, 300, 64, 400),           # 38 candidates a warp: two rounds of 32
+    (16, 32, 1024, 80),          # exactly one whole piece
+    (9, 120, 1040, 200),         # 65 vectors: a second piece of one
+    (6, 9, 2064, 60),            # 3 pieces, the last of one vector
+    (2, 5, 49152, 8),            # 48 KB rows, the widest: 48 pieces
+])
+def test_search_q8_tile_emulation_matches_jax(nq, w, dp, big_n):
+    """The int8 tile's layout and epilogue (``_q8_search_tile_emulation``)
+    bitwise against the port's plain version, and, with the epilogue's
+    product and subtraction contracted or not (XLA on this CPU contracts
+    them), bitwise against the Pallas kernel in interpret mode; +inf
+    exactly at the invalid ids."""
+    q, x, ids = _search_tile_case(nq, w, dp, big_n, nq * w + dp)
+    qs = jq.quantize_corpus(jnp.asarray(q), "int8")
+    base = jq.quantize_corpus(jnp.asarray(3.0 * x), "int8")
+    qn = [np.asarray(a) for a in (qs.data, qs.scale, qs.x2)]
+    xn = [np.asarray(a) for a in (base.data, base.scale, base.x2)]
+    got = _q8_search_tile_emulation(*qn, *xn, ids)
+    jids = np.where(ids >= big_n, -1, ids)
+    safe = np.where(jids >= 0, jids, 0)
+    c2 = jnp.where(jnp.asarray(jids) >= 0, base.x2[safe], 0.0)
+    kern = knn_search_dists_q8_blocked(
+        qs.data, qs.scale, qs.x2, base.data[safe], base.scale[safe], c2,
+        jnp.asarray(jids), tq=8, interpret=True)
+    plain = tref.knn_search_dists_q8(*map(_t, qn), *map(_t, xn), _t(ids))
+    np.testing.assert_array_equal(got, plain.numpy())
+    fused = _q8_search_tile_emulation(*qn, *xn, ids, contract=True)
+    kern = np.asarray(kern)
+    assert np.array_equal(kern, fused) or np.array_equal(kern, got)
+    assert np.array_equal(np.isinf(got), (ids < 0) | (ids >= big_n))
+
+
 def _join_case(mode, n, c, dp, seed):
     rng = np.random.RandomState(seed)
     base = jq.quantize_corpus(jnp.asarray(rng.randn(50, dp).astype(
