@@ -2,14 +2,15 @@
 """Drive the port (repro_torch) on one CUDA card and check it: the build
 (build_knn_graph), its exact truth (brute_force_knn), the query path
 (graph_search), the two-stage int8 / bf16 build and search, the online
-store (insert, delete, the router), and the LM serving path (yi-6b
-prefill, decode, continuous batching and kNN-LM retrieval). Run from
-the root of a checkout, on a machine with an H100:
+store (insert, delete, the router), its snapshots and cold starts
+(core/persist.py), and the LM serving path (yi-6b prefill, decode,
+continuous batching, kNN-LM retrieval and its datastore's restore). Run
+from the root of a checkout, on a machine with an H100:
 
     python3 chip_smoke.py
 
 Phases, each printed as one JSON line with ``t_s``, the seconds since the
-script started:
+script started (phases with several lanes print one line a lane):
   device       the card (nvidia-smi name and power limit), torch and CUDA
                versions; the capability must be (9, 0);
   build_lib    nvcc builds src/repro_torch/kernels/csrc/*.cu (one nvcc per
@@ -33,7 +34,23 @@ script started:
                the same generator seed, at precision f32, int8 and bf16:
                the recalls against an exact fp32 k-NN computed here, which
                nothing in the port uses; the quantized graphs' distances
-               must be exact fp32 (check_graph);
+               must be exact fp32 (check_graph); then three lanes:
+               ref_iteration, one sampled iteration from one random init
+               and one set of draws through the kernels (join_src wide
+               enough that no incidence overflows), through the fused
+               path's plain versions and through the lexsort
+               backend="ref" path on the card, each fused list held to
+               the "ref" list (compare_lists: distances within 1e-4 +
+               1e-5 (|a|^2 + |b|^2); ids exact but where the paths order
+               entries of equal distance differently, counted),
+               evaluations equal, updates equal but for at most one a
+               cut tie, no launch but on the kernels' side; ref_build, a
+               whole "ref" build
+               beside the fused one: its recall at least the fused
+               build's - 0.02, its wall time, no launch; selection,
+               builds with selection "heap" and "naive" through the
+               kernels, each recall within 0.06 of turbo's
+               (tests/test_core.py:80-92);
   search_check 2048 queries (the corpus's first rows plus 0.01 N(0, 1))
                against that kernel-built graph, SearchConfig(beam=32,
                rounds=48, expand=6, q_block=512), k_out=10, through the
@@ -69,6 +86,14 @@ script started:
                then the JAX router test's shape (64 clusters x 784 rows at
                d 16, per-cluster exact graphs) through the kernels: routed
                seeds reach recall@10 >= 0.85, random entries < 0.75;
+  persist      lane quantized_first: on online_check's corpus, a routed
+               int8 store of 14400 rows is snapshotted; the quantized-first
+               restore answers 2048 queries at once (full rows of live
+               ids), and after fp32_loader.apply it is the store, bit for
+               bit, and answers bit-equal to it; a second snapshot torn by
+               a FaultPlan (persist.torn on nl_idx.npy) makes
+               restore_store() fall back to the first (fallback_from
+               [2]) and quarantine the torn directory by rename;
   attention_check
                ops.attention through the kernel against its plain version
                (backend "ref") on the card, f32 (the SIMT kernel) and bf16
@@ -88,6 +113,21 @@ script started:
                rows, peak memory, recall@20 of the live lists against an
                exact k-NN and against a from-scratch build of the 63000
                live rows, search recall@10 against brute_force_knn;
+  persist      lane online_store: that path's final store (capacity
+               131072, 70000 rows allocated, 63000 live, routed, f32; x
+               alone 470 MB) is snapshotted (snapshot_store) under a
+               temporary directory in build/, removed after; restored
+               with restore_store(device="cuda") in this process and in a
+               fresh Python process (this script with --restore-child,
+               which imports no JAX and loads the library already built
+               in build/), each bit for bit and answering the 10000
+               queries with the live store's ids and bit-equal
+               distances; one knn_insert of 500 rows with the same draws
+               into the live and the restored store gives the same lists;
+               a SnapshotWriter.save with an insert on this thread during
+               the write restores as the store before the insert; bytes
+               written, write and restore seconds (the host disk's) and
+               their ratio to the online build's seconds;
   lm_check     yi-6b at full width (32 layers, d 4096, 32/4 heads, d_ff
                11008, vocab 64000), weights drawn from the seed, matrices
                in bf16: a ragged 1537-token prompt's prefill logits and 4
@@ -111,7 +151,10 @@ script started:
                search seconds, recall@8 against brute_force_knn through
                the kernels and through the plain versions on the same
                graph and entries (within 0.01), mean log-likelihood at
-               lambda 0 and 0.25;
+               lambda 0 and 0.25; then step 5: ds.snapshot and
+               KNNDatastore.restore(device="cuda") (no rebuild), the same
+               queries and entries giving bit-equal knn_logits: snapshot
+               bytes, write and restore seconds beside the build's;
   profile      every path but truth once more under torch.profiler (and
                a window of lm_serve: its first 4 requests, 8 new tokens
                each): device time by kernel name and the device's idle
@@ -166,6 +209,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -329,6 +373,16 @@ def time_ms(fn, reps: int) -> float:
     ms = start.elapsed_time(end) / reps
     del graph
     return ms
+
+
+def timed(fn):
+    """(fn(), seconds), the time ended by a synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def exact_knn(x, k: int, chunk: int = 4096):
@@ -955,14 +1009,6 @@ def run_online(x, n_base, ins_batch, dels, del_batch, cfg, descent,
     from repro_torch import MutableKNNStore, knn_delete, knn_insert
     g = torch.Generator(device=x.device).manual_seed(SEED)
     out = {"insert_s": [], "delete_s": [], "insert": [], "delete": []}
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t0
-
     (store, out["build_stats"]), out["build_s"] = timed(
         lambda: MutableKNNStore.build(x[:n_base], 20, cfg=cfg,
                                       descent=descent, generator=g))
@@ -1107,6 +1153,321 @@ def cluster_router_check(dev) -> dict:
             or out["routed_recall_at_10"] < 0.85:
         raise AssertionError(f"online_check router shape failed: {out}")
     return out
+
+def compare_lists(got, want, x2) -> dict:
+    """Two (n, k) neighbor lists that two paths built from the same
+    candidates by the norm expansion, summed in other orders: +inf at the
+    same slots; distances slot by slot within 1e-4 + 1e-5 (|a|^2 + |b|^2)
+    (``x2`` the rows' squared norms: the expansion cancels the digits the
+    norms share); ids exact at every slot but where the paths order two
+    entries whose distances agree within twice that differently: the id
+    sits at such a slot of the other list, or ties with the row's k-th
+    distance (one path's rounding kept it at the cut, the other's not).
+    Counts both kinds; fails on any other difference."""
+    import torch
+    gd, gi, wd, wi = got.dist, got.idx, want.dist, want.idx
+    fin = torch.isfinite(wd)
+    if not torch.equal(torch.isfinite(gd), fin):
+        raise AssertionError("lists: +inf at other slots")
+    rows = torch.arange(wd.shape[0], device=wd.device)[:, None]
+    tol = 1e-4 + 1e-5 * (x2[rows] + x2[wi.clamp_min(0).long()])
+    over = torch.where(fin, (gd - wd).abs() / tol, 0.0)
+    if bool((over > 1).any()):
+        raise AssertionError(f"lists: distances off by {float(over.max())}"
+                             " x the tolerance")
+    mism = gi != wi
+    near = (wd[:, None, :] - wd[:, :, None]).abs() \
+        <= 2 * torch.maximum(tol[:, :, None], tol[:, None, :])
+    held = ((gi[:, :, None] == wi[:, None, :]) & near).any(-1)
+    at_cut = (wd - wd[:, -1:]).abs() <= 2 * torch.maximum(tol, tol[:, -1:])
+    tie = mism & held
+    cut = mism & ~held & at_cut
+    other = int((mism & ~held & ~at_cut).sum())
+    out = {"slots": int(mism.numel()), "id_mismatches": int(mism.sum()),
+           "tie_order_mismatches": int(tie.sum()),
+           "cut_tie_mismatches": int(cut.sum()),
+           "rows_with_a_mismatch": int(mism.any(1).sum()),
+           "other_mismatches": other,
+           "dist_err_over_tol": float(over.max())}
+    if other:
+        raise AssertionError(f"lists: ids differ past tie order: {out}")
+    return out
+
+
+def ref_iteration_check(xc, dev) -> dict:
+    """One sampled iteration at DescentConfig(k=20, rho=1.0) on the check
+    corpus, from one random init and one set of draws, through the kernels
+    (join_src = the largest in-degree of the candidate buffers, so no
+    incidence overflows), through the fused path's plain versions and
+    through the lexsort "ref" path on the card (tests/test_knn_join.py:195
+    at 16000 x 784). Each fused list against the "ref" list as
+    ``compare_lists`` holds them; evaluations equal; updates equal but for
+    at most one a cut tie (a pair at the receiver's k-th distance that one
+    path's rounding admits and the other's not); the "ref" and plain runs
+    launch no kernel."""
+    import torch
+    from repro_torch import DescentConfig
+    from repro_torch.core import heap, nn_descent, selection
+    from repro_torch.core.layout import pad_features
+    from repro_torch.kernels import _lib
+    n, k = xc.shape[0], 20
+    xp = pad_features(xc).contiguous()
+    x2 = (xp * xp).sum(1)
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    nl0 = heap.init_random_with_dists(xp, k, generator=g)
+    draws = tuple(torch.rand(2 * n * k, generator=g, device=dev)
+                  for _ in range(3))
+    cands = selection.selection_turbo(nl0, k, draws=draws)
+    ids = torch.cat([cands.new_idx, cands.old_idx], 1)
+    src = int(torch.bincount(ids[ids >= 0].long()).max())
+    out, lists = {"join_src": src}, {}
+    for backend in ("auto", "plain", "ref"):
+        cfg = DescentConfig(k=k, rho=1.0, join_src=src, backend=backend)
+        _lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lists[backend], upd, ev = nn_descent.nn_descent_iteration(
+            xp, x2, nl0, cfg, draws=draws)
+        torch.cuda.synchronize()
+        out[backend] = {"seconds": time.perf_counter() - t0, "updates": upd,
+                        "evals": ev, "launches": {
+                            k: v for k, v in _lib.LAUNCHES.items() if v}}
+    require_launched("build_check ref_iteration",
+                     {**dict.fromkeys(_lib.KERNELS, 0),
+                      **out["auto"]["launches"]},
+                     ("knn_join_dists", "knn_join_select", "knn_merge"))
+    if out["ref"]["launches"] or out["plain"]["launches"]:
+        raise AssertionError(f"the ref / plain iteration launched: {out}")
+    for backend in ("auto", "plain"):
+        c = compare_lists(lists[backend], lists["ref"], x2)
+        out[f"{backend}_vs_ref"] = c
+        if out[backend]["evals"] != out["ref"]["evals"] or abs(
+                out[backend]["updates"] - out["ref"]["updates"]) \
+                > c["cut_tie_mismatches"]:
+            raise AssertionError(f"ref iteration: updates / evals: {out}")
+    return out
+
+
+def same_store(got, want, what: str) -> None:
+    """Two stores bit for bit: every array (floats by their bits), the
+    router's stale count, n, d, the config and the mips bound."""
+    import torch
+
+    def bits(t):
+        if t.dtype == torch.float32:
+            return t.view(torch.int32)
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    def arrays(s):
+        out = {"x": s.x, "x2": s.x2, "alive": s.alive,
+               **dict(zip(("nl_dist", "nl_idx", "nl_new"), s.nl))}
+        if s.qs is not None:
+            out.update(zip(("qs_data", "qs_scale", "qs_x2"), s.qs))
+        r = s.router
+        if r is not None:
+            out.update(centroids=r.centroids, c2=r.c2, graph=r.graph,
+                       assign=r.assign, counts=r.counts,
+                       **dict(zip(("m_dist", "m_idx", "m_new"), r.members)))
+        return out
+    a, b = arrays(got), arrays(want)
+    diff = [k for k in b if k not in a or a[k].dtype != b[k].dtype
+            or not torch.equal(bits(a[k]), bits(b[k]))]
+    if (got.router is None) != (want.router is None) or (
+            want.router is not None and got.router.stale != want.router.stale):
+        diff.append("router")
+    if (got.n, got.d, got.cfg, got.mips_m) != (want.n, want.d, want.cfg,
+                                              want.mips_m):
+        diff.append("n, d, cfg or mips_m")
+    if diff:
+        raise AssertionError(f"{what}: the stores differ in {diff}")
+
+
+def same_answers(got, want, what: str) -> None:
+    """Two searches' (dist, idx): ids equal, distances bit-equal."""
+    import torch
+    (gd, gi), (wd, wi) = got, want
+    if not (torch.equal(gi.to(wi.device), wi) and torch.equal(
+            gd.to(wd.device).view(torch.int32), wd.view(torch.int32))):
+        raise AssertionError(f"{what}: the answers differ")
+
+
+def snapshot_dir():
+    """A fresh directory for snapshots under the checkout's git-ignored
+    build/ (removed by the caller)."""
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    return Path(tempfile.mkdtemp(prefix="chip_smoke_snapshots_",
+                                 dir=ROOT / "build"))
+
+
+def persist_check(store, queries, rows, build_s: float) -> dict:
+    """The online path's final store snapshotted and restored on the card:
+    restored in this process and in a fresh Python process (this script,
+    ``--restore-child``), each answering the path's queries with the live
+    store's ids and bit-equal distances; an insert of ``rows`` with the
+    same draws into the live and the restored store giving the same lists;
+    then an async snapshot with an insert on this thread during the write,
+    restored as the store before the insert."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import knn_insert
+    from repro_torch.core.persist import (SnapshotWriter, restore_store,
+                                          snapshot_store)
+    dev = store.x.device
+    tmp = snapshot_dir()
+    try:
+        want = store.search(queries, k_out=10)
+        step_dir, write_s = timed(lambda: snapshot_store(
+            store, str(tmp / "sync"), store.n))
+        nbytes = sum(f.stat().st_size for f in Path(step_dir).iterdir())
+        r, restore_s = timed(lambda: restore_store(str(tmp / "sync"),
+                                                   device="cuda"))
+        same_store(r.store, store, "persist: restore in this process")
+        same_answers(r.store.search(queries, k_out=10), want,
+                     "persist: restored search")
+        # a fresh process: the same restore and search, its answers on disk
+        np.save(tmp / "queries.npy", queries.cpu().numpy())
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--restore-child",
+             str(tmp / "sync"), str(tmp)], capture_output=True, text=True,
+            timeout=600, cwd=ROOT)
+        fresh_wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"persist: the fresh process failed: "
+                                 f"{proc.stderr[-3000:]}")
+        fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+        same_answers((torch.from_numpy(np.load(tmp / "child_dist.npy")),
+                      torch.from_numpy(np.load(tmp / "child_idx.npy"))),
+                     want, "persist: the fresh process's search")
+        # the same insert into the live and the restored store
+        outs = [knn_insert(s, rows, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 20))[0] for s in (store, r.store)]
+        same_store(outs[1], outs[0], "persist: insert after restore")
+        del outs, r
+        # async: the capture is the store at save; an insert on this thread
+        # runs while the writer copies and writes
+        w = SnapshotWriter(str(tmp / "async"), keep=1)
+        _, save_s = timed(lambda: w.save(store, store.n))
+        (after, _), insert_s = timed(lambda: knn_insert(
+            store, rows, generator=torch.Generator(device=dev).manual_seed(
+                SEED + 21)))
+        t0 = time.perf_counter()
+        w.wait()
+        wait_s = time.perf_counter() - t0
+        # the sync snapshot, written before any insert, is the yardstick
+        same_store(restore_store(str(tmp / "async"), device="cuda").store,
+                   restore_store(str(tmp / "sync"), device="cuda").store,
+                   "persist: the async snapshot")
+        if after.n == store.n:
+            raise AssertionError("persist: the insert added no row")
+        return {
+            "capacity": store.capacity, "allocated": store.n,
+            "live": store.live_count(), "dp": int(store.x.shape[1]),
+            "snapshot_bytes": nbytes, "write_s": write_s,
+            "write_bytes_per_s": nbytes / write_s,
+            "restore_s": restore_s, "restore_bytes_per_s": nbytes / restore_s,
+            "fresh_process": {**fresh, "wall_s": fresh_wall},
+            "online_build_s": build_s,
+            "cold_start_over_build": restore_s / build_s,
+            "fresh_cold_start_over_build": fresh["restore_s"] / build_s,
+            "async": {"save_s": save_s, "insert_during_write_s": insert_s,
+                      "wait_after_insert_s": wait_s},
+            "disk": str(tmp.parent)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def restore_child(snap: str, out: str) -> int:
+    """``--restore-child``: restore the snapshot in this fresh process,
+    search the parent's queries, save the answers; print one JSON line."""
+    t0 = time.perf_counter()
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.persist import restore_store
+    from repro_torch.kernels import _lib
+    import_s = time.perf_counter() - t0
+    r, restore_s = timed(lambda: restore_store(snap, device="cuda"))
+    q = torch.from_numpy(np.load(Path(out) / "queries.npy")).cuda()
+    (d, i), search_s = timed(lambda: r.store.search(q, k_out=10))
+    np.save(Path(out) / "child_dist.npy", d.cpu().numpy())
+    np.save(Path(out) / "child_idx.npy", i.cpu().numpy())
+    bad = [m for m in sys.modules if m in ("jax", "ml_dtypes")
+           or m.startswith(("jax.", "repro.", "ml_dtypes."))]
+    print(json.dumps({"import_s": import_s, "restore_s": restore_s,
+                      "first_search_s": search_s,
+                      "library_built_here": "seconds" in _lib.build_info,
+                      "launches": {k: v for k, v in _lib.LAUNCHES.items()
+                                   if v},
+                      "imported_jax_repro_or_ml_dtypes": bad}), flush=True)
+    return 1 if bad else 0
+
+
+def quantized_first_check(xc, dev) -> dict:
+    """On the check corpus: a routed int8 store of 14400 rows, snapshotted;
+    the quantized-first restore answers at once (full rows of live ids
+    from the dequantized mirror), and after ``fp32_loader.apply`` it is the
+    store and answers bit-equal to it; then a second snapshot torn by a
+    fault plan (``persist.torn`` on nl_idx.npy) makes the restore fall back
+    to the first and quarantine (rename, not delete) the torn one."""
+    import shutil
+    import warnings
+
+    import torch
+    from repro_torch import (DescentConfig, MutableKNNStore, OnlineConfig,
+                             RouterConfig)
+    from repro_torch.core.faults import FaultPlan, FaultSpec
+    from repro_torch.core.persist import restore_store, snapshot_store
+    store, _ = MutableKNNStore.build(
+        xc[:CHECK_BASE], 20, cfg=OnlineConfig(precision="int8",
+                                              router=RouterConfig()),
+        descent=DescentConfig(k=20, rho=1.0, max_iters=15),
+        generator=torch.Generator(device=dev).manual_seed(SEED + 9))
+    q = noisy_queries(xc, CHECK_QUERIES, SEED + 2)
+    want = store.search(q, k_out=10)
+    tmp = snapshot_dir()
+    try:
+        snapshot_store(store, str(tmp), 1)
+        qf, first_s = timed(lambda: restore_store(
+            str(tmp), quantized_first=True, device="cuda"))
+        (qd, qi), first_search_s = timed(lambda: qf.store.search(q,
+                                                                 k_out=10))
+        check_search(qd, qi, CHECK_BASE, 10)
+        if not bool(store.alive[qi.long()].all()):
+            raise AssertionError("quantized-first: a dead id returned")
+        overlap = float((qi[:, :, None] == want[1][:, None, :]).any(-1)
+                        .float().mean())
+        done, apply_s = timed(lambda: qf.fp32_loader.apply(qf.store))
+        same_store(done, store, "quantized-first after apply")
+        same_answers(done.search(q, k_out=10), want,
+                     "quantized-first after apply")
+        plan = FaultPlan(specs=(FaultSpec(site="persist.torn",
+                                          arg="nl_idx.npy"),))
+        with plan.active():
+            snapshot_store(store, str(tmp), 2)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            r = restore_store(str(tmp), device="cuda")
+        if r.step != 1 or r.fallback_from != (2,) or not (
+                tmp / "step_00000002.bad").is_dir() or (
+                tmp / "step_00000002").exists():
+            raise AssertionError(
+                f"torn snapshot: step {r.step}, fallback {r.fallback_from}, "
+                f"{sorted(os.listdir(tmp))}")
+        same_store(r.store, store, "restore past the torn snapshot")
+        return {"rows": CHECK_BASE, "precision": "int8",
+                "restore_to_first_answer_s": first_s + first_search_s,
+                "quantized_first_restore_s": first_s,
+                "quantized_answers_in_exact_top10": overlap,
+                "apply_s": apply_s, "torn_fallback_from": list(
+                    r.fallback_from), "quarantined": "step_00000002.bad",
+                "warnings": [str(w.message)[:160] for w in caught]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
 
 def seen_rows(lq: int, lk: int, causal=True, window=None, q_offset=0, **_):
     """(lq,) bool: the query rows that see at least one key, and the number
@@ -1366,8 +1727,34 @@ def knn_lm_run(params, cfg, dev, entry_seed: int):
         mixed = interpolate(lm_logits, knl, lam=lam) if lam \
             else torch.log_softmax(lm_logits, dim=-1)
         ll[str(lam)] = float(mixed[rows, tgt].mean())
-    return {"ds": ds, "q": q, "entry": entry, "timing": timing, "ll": ll,
-            "keys": int(keys.shape[0])}
+    return {"ds": ds, "q": q, "entry": entry, "knl": knl, "timing": timing,
+            "ll": ll, "keys": int(keys.shape[0])}
+
+
+def knn_lm_restore(res, vocab: int) -> dict:
+    """examples/knn_serve.py step 5: the datastore snapshotted and restored
+    on the card (no rebuild); the same queries and entries give bit-equal
+    knn_logits."""
+    import shutil
+
+    import torch
+    from repro_torch.serve import KNNDatastore, knn_logits
+    tmp = snapshot_dir()
+    try:
+        step_dir, write_s = timed(lambda: res["ds"].snapshot(str(tmp)))
+        nbytes = sum(f.stat().st_size for f in Path(step_dir).iterdir())
+        ds, restore_s = timed(lambda: KNNDatastore.restore(str(tmp),
+                                                           device="cuda"))
+        got = knn_logits(ds, res["q"], vocab, k=8, entry=res["entry"])
+        if not torch.equal(got.view(torch.int32),
+                           res["knl"].view(torch.int32)):
+            raise AssertionError("knn_lm: the restored datastore's "
+                                 "knn_logits differ")
+        return {"snapshot_bytes": nbytes, "write_s": write_s,
+                "restore_s": restore_s, "build_s": res["timing"]["build_s"],
+                "restore_over_build": restore_s / res["timing"]["build_s"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def knn_lm_recall(res) -> dict:
@@ -1548,6 +1935,39 @@ def main() -> int:
         if qgap > 0.01 or qcheck["auto"]["recall"] < \
                 check["auto"]["recall"] - 0.02:
             raise AssertionError(f"build_check {prec} failed: {qcheck}")
+    # the lexsort "ref" path: one iteration against the kernels' from one
+    # state and one set of draws, then a whole build beside the fused one
+    emit("build_check", n=CHECK_N, d=784, k=20, rho=1.0,
+         lane="ref_iteration", **ref_iteration_check(xc, dev))
+    _lib.reset_launches()
+    (_, idx, st), ref_s = timed(lambda: build_knn_graph(
+        xc, k=20, cfg=DescentConfig(k=20, rho=1.0, backend="ref"),
+        generator=torch.Generator(device=dev).manual_seed(SEED)))
+    ref_build = {"seconds": ref_s, "recall": recall_at_k(idx, truth_c),
+                 "iters": st.iters, "dist_evals": st.dist_evals,
+                 "launches": {k: v for k, v in _lib.LAUNCHES.items() if v}}
+    emit("build_check", n=CHECK_N, d=784, k=20, rho=1.0, lane="ref_build",
+         ref=ref_build, kernels={k: check["auto"][k] for k in (
+             "seconds", "recall", "iters", "dist_evals")})
+    if ref_build["launches"] or ref_build["recall"] < \
+            check["auto"]["recall"] - 0.02:
+        raise AssertionError(f"build_check ref build failed: {ref_build}")
+    # the paper's heap and naive selections, through the kernels
+    sel = {}
+    for name in ("heap", "naive"):
+        _lib.reset_launches()
+        (_, idx, st), sec = timed(lambda: build_knn_graph(
+            xc, k=20, cfg=DescentConfig(k=20, rho=1.0, selection=name),
+            generator=torch.Generator(device=dev).manual_seed(SEED)))
+        require_launched(f"build_check {name}", _lib.LAUNCHES,
+                         ("knn_join_dists", "knn_join_select", "knn_merge"))
+        sel[name] = {"seconds": sec, "recall": recall_at_k(idx, truth_c),
+                     "iters": st.iters, "dist_evals": st.dist_evals}
+    emit("build_check", n=CHECK_N, d=784, k=20, rho=1.0, lane="selection",
+         turbo_recall=check["auto"]["recall"], **sel)
+    if any(abs(v["recall"] - check["auto"]["recall"]) > 0.06
+           for v in sel.values()):
+        raise AssertionError(f"build_check selections failed: {sel}")
     del truth_c
 
     # -- search_check: kernels vs plain versions vs the greedy oracle
@@ -1562,6 +1982,8 @@ def main() -> int:
          batch=CHECK_BATCH, **online_check(xc, dev))
     emit("online_check", shape="64 clusters x 784 rows, d 16",
          **cluster_router_check(dev))
+    emit("persist", lane="quantized_first", n=CHECK_N, d=784,
+         **quantized_first_check(xc, dev))
     del xc
 
     # -- attention_check: the attention kernel against its plain version
@@ -1749,7 +2171,14 @@ def main() -> int:
                   "dist_evals": rst.dist_evals,
                   "insert_evals_over_rebuild": ins_evals / rst.dist_evals},
          **checks)
-    del res, store, ridx
+    del ridx
+
+    # -- persist: the online path's final store, snapshotted and restored
+    emit("persist", lane="online_store", queries=N_QUERIES,
+         insert_batch=INSERT_BATCH, **persist_check(
+             store, q, noisy_queries(x, INSERT_BATCH, SEED + 21),
+             res["build_s"]))
+    del res, store
 
     # -- profile: the builds and the searches again under torch.profiler
     for prec in ("f32",) + PRECISIONS:
@@ -1827,7 +2256,8 @@ def main() -> int:
          queries=int(res["q"].shape[0]), k_out=8, beam=32, rounds=24,
          wall_s=wall, **res["timing"], build_stats=res["ds"].build_stats,
          log_likelihood=res["ll"], max_memory_allocated=peak,
-         launches=launches["knn_lm"], **knn_lm_recall(res))
+         launches=launches["knn_lm"], **knn_lm_recall(res),
+         restore=knn_lm_restore(res, lm_cfg.vocab))
     del res, params
     torch.cuda.empty_cache()
 
@@ -1940,9 +2370,11 @@ def main() -> int:
          **{k: e[k] for k in SEARCH_FIELDS if k in e}} for e in line]}),
           flush=True)
 
-    if any(m == "jax" or m.startswith(("jax.", "repro."))
+    if any(m in ("jax", "ml_dtypes")
+           or m.startswith(("jax.", "repro.", "ml_dtypes."))
            for m in sys.modules):
-        raise AssertionError("the port imported JAX or the JAX package")
+        raise AssertionError("the port imported JAX, the JAX package or "
+                             "ml_dtypes")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1950,4 +2382,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--restore-child"]:
+        sys.exit(restore_child(*sys.argv[2:4]))
     sys.exit(main())

@@ -1,11 +1,13 @@
 """repro_torch — the port of ``repro`` to PyTorch and hand-written CUDA
 kernels for Hopper (H100, sm_90a). ``repro`` (JAX) stays the reference.
 
-Public API so far (the build, query, quantized, online and LM serving
-slices):
+Public API so far (the build, query, quantized, online, persistence and
+LM serving slices):
   * ``repro_torch.build_knn_graph`` / ``repro_torch.core`` — NN-Descent
-    with turbosampling, the fused local join, the greedy reorder and the
-    terminal polish; ``DescentConfig.precision`` "int8" / "bf16" scores
+    with turbosampling (or the paper's heap / naive selections), the fused
+    local join (or the lexsort ``backend="ref"`` oracle), the greedy
+    reorder (``locality_stats`` / ``window_cluster_purity`` measure it)
+    and the terminal polish; ``DescentConfig.precision`` "int8" / "bf16" scores
     the sampled joins on a quantized mirror and re-ranks in fp32
     (``rerank_lists``);
   * ``repro_torch.brute_force_knn`` — the exact k-NN, the recall truth;
@@ -19,7 +21,10 @@ slices):
     refined by localized NN-Descent, deletes by tombstone purge and
     refill, both on compacted frontiers; ``RouterConfig`` /
     ``build_router`` / ``route_entries`` / ``ensure_router`` — the
-    centroid router that seeds searches;
+    centroid router that seeds searches; ``repro_torch.core`` also holds
+    ``snapshot_store`` / ``restore_store`` / ``SnapshotWriter``, snapshots
+    in the JAX package's format (a cold start restores instead of
+    rebuilding), and the fault plans (``FaultPlan``) that script them;
   * ``repro_torch.configs`` / ``repro_torch.models`` — the dense GQA LM
     stack (yi-6b: ``get_config``, ``model_schema``, ``init_tree``,
     ``params_from_numpy``, ``forward``, ``run_stack``), whose attention
@@ -39,6 +44,9 @@ from repro_torch.core import (
     BuildDraws,
     DescentConfig,
     DescentStats,
+    FaultPlan,
+    FaultSpec,
+    InjectedFault,
     MutableKNNStore,
     NeighborLists,
     OnlineConfig,
@@ -46,10 +54,13 @@ from repro_torch.core import (
     Router,
     RouterConfig,
     SearchConfig,
+    SnapshotError,
+    SnapshotWriter,
     apply_permutation,
     brute_force_knn,
     build_knn_graph,
     build_router,
+    dequantize,
     distance_recall,
     ensure_router,
     expand_frontier,
@@ -57,13 +68,20 @@ from repro_torch.core import (
     greedy_reorder,
     knn_delete,
     knn_insert,
+    latest_snapshot,
+    locality_stats,
     neighbor_lists_from_numpy,
     nn_descent_iteration,
+    poison_batch,
     quantize_corpus,
+    quantize_sym_int8,
     recall_at_k,
     rerank_lists,
+    restore_store,
     route_entries,
+    snapshot_store,
     store_from_numpy,
+    window_cluster_purity,
 )
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import forward, init_tree, model_schema, run_stack
@@ -87,6 +105,9 @@ __all__ = [
     "Request",
     "DescentConfig",
     "DescentStats",
+    "FaultPlan",
+    "FaultSpec",
+    "InjectedFault",
     "MutableKNNStore",
     "NeighborLists",
     "OnlineConfig",
@@ -94,10 +115,13 @@ __all__ = [
     "Router",
     "RouterConfig",
     "SearchConfig",
+    "SnapshotError",
+    "SnapshotWriter",
     "apply_permutation",
     "brute_force_knn",
     "build_knn_graph",
     "build_router",
+    "dequantize",
     "distance_recall",
     "ensure_router",
     "expand_frontier",
@@ -105,13 +129,20 @@ __all__ = [
     "greedy_reorder",
     "knn_delete",
     "knn_insert",
+    "latest_snapshot",
+    "locality_stats",
     "neighbor_lists_from_numpy",
     "nn_descent_iteration",
+    "poison_batch",
     "quantize_corpus",
+    "quantize_sym_int8",
     "recall_at_k",
     "rerank_lists",
+    "restore_store",
     "route_entries",
+    "snapshot_store",
     "store_from_numpy",
+    "window_cluster_purity",
     "forward",
     "get_config",
     "get_smoke_config",

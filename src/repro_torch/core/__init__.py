@@ -1,6 +1,12 @@
 """The paper's contribution, ported slice by slice: fast K-NN-graph
 construction (NN-Descent with turbosampling selection, greedy memory
 reordering and blocked distance evaluation) on PyTorch and CUDA."""
+from repro_torch.core.faults import (
+    FaultPlan,
+    FaultSpec,
+    InjectedFault,
+    poison_batch,
+)
 from repro_torch.core.graph_search import (
     SearchConfig,
     expand_frontier,
@@ -23,13 +29,30 @@ from repro_torch.core.online import (
     knn_insert,
     store_from_numpy,
 )
-from repro_torch.core.quantize import QuantizedStore, quantize_corpus
+from repro_torch.core.persist import (
+    SnapshotError,
+    SnapshotWriter,
+    latest_snapshot,
+    restore_store,
+    snapshot_store,
+)
+from repro_torch.core.quantize import (
+    QuantizedStore,
+    dequantize,
+    quantize_corpus,
+    quantize_sym_int8,
+)
 from repro_torch.core.recall import (
     brute_force_knn,
     distance_recall,
     recall_at_k,
 )
-from repro_torch.core.reorder import apply_permutation, greedy_reorder
+from repro_torch.core.reorder import (
+    apply_permutation,
+    greedy_reorder,
+    locality_stats,
+    window_cluster_purity,
+)
 from repro_torch.core.router import (
     Router,
     RouterConfig,
@@ -41,6 +64,9 @@ __all__ = [
     "BuildDraws",
     "DescentConfig",
     "DescentStats",
+    "FaultPlan",
+    "FaultSpec",
+    "InjectedFault",
     "MutableKNNStore",
     "NeighborLists",
     "OnlineConfig",
@@ -48,10 +74,13 @@ __all__ = [
     "Router",
     "RouterConfig",
     "SearchConfig",
+    "SnapshotError",
+    "SnapshotWriter",
     "apply_permutation",
     "brute_force_knn",
     "build_knn_graph",
     "build_router",
+    "dequantize",
     "distance_recall",
     "ensure_router",
     "expand_frontier",
@@ -59,11 +88,18 @@ __all__ = [
     "greedy_reorder",
     "knn_delete",
     "knn_insert",
+    "latest_snapshot",
+    "locality_stats",
     "neighbor_lists_from_numpy",
     "nn_descent_iteration",
+    "poison_batch",
     "quantize_corpus",
+    "quantize_sym_int8",
     "recall_at_k",
     "rerank_lists",
+    "restore_store",
     "route_entries",
+    "snapshot_store",
     "store_from_numpy",
+    "window_cluster_purity",
 ]

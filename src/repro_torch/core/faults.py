@@ -1,6 +1,5 @@
-"""Deterministic, seedable fault injection, the part the online store
-uses (a copy of the JAX package's stdlib-only module: the port imports
-nothing of it).
+"""Deterministic, seedable fault injection (a copy of the JAX package's
+stdlib-only module: the port imports nothing of it).
 
 A ``FaultPlan`` is a seeded registry of ``FaultSpec`` entries keyed by
 site; an injectable site calls ``fire`` (or ``maybe_raise``) at its
@@ -8,9 +7,23 @@ boundary. With no plan active, ``fire`` is one ``is None`` test.
 
 Sites the port consults so far:
 
+  * ``persist.write``  — raise ``InjectedFault`` inside
+    ``core/persist.write_snapshot`` before the COMMIT marker lands, so
+    the staged snapshot is never committed;
+  * ``persist.torn``   — truncate one array file of a committed snapshot
+    (``arg`` = a filename substring, default the first ``.npy``): a torn
+    page that the COMMIT ordering cannot catch;
+  * ``persist.rename`` — fail the quarantine rename in ``restore_store``'s
+    fallback;
   * ``router.rebuild`` — fail the lazy router rebuild in
     ``core/online._maybe_rebuild_router`` (the store keeps serving the
-    stale router).
+    stale router);
+  * ``shard.dead`` / ``shard.slow`` (``dead_shards``) and
+    ``shard.degrade`` (``degrade_factors``) — read by the sharded search
+    once it is ported; nothing calls them yet.
+
+``poison_batch`` manufactures the adversarial query batches (NaN, Inf,
+a wrong feature dim) that the search's admission checks must catch.
 
 A spec with ``prob < 1.0`` draws from a per-site ``random.Random`` seeded
 by ``(plan.seed, site)``, so two runs of one plan see the same schedule;
@@ -121,3 +134,71 @@ def maybe_raise(site: str) -> None:
     """``fire``, raising ``InjectedFault`` when it triggers."""
     if fire(site) is not None:
         raise InjectedFault(f"injected fault at {site}")
+
+
+def dead_shards(n_shards: int) -> list:
+    """The shard indices the active plan marks dead or slow (a shard past
+    its timeout degrades like a dead one), sorted, in [0, n_shards); []
+    with no plan."""
+    if _PLAN is None:
+        return []
+    out = set()
+    for site in ("shard.dead", "shard.slow"):
+        spec = fire(site)
+        if spec is None:
+            continue
+        arg = spec.arg
+        for i in arg if isinstance(arg, (list, tuple)) else [arg]:
+            if i is not None and 0 <= int(i) < n_shards:
+                out.add(int(i))
+    return sorted(out)
+
+
+def degrade_factors(n_shards: int) -> dict:
+    """Per-shard latency factors from the active plan's ``shard.degrade``
+    spec: ``arg`` a shard index (factor 10), a ``(shard, factor)`` pair,
+    or a list of either. {} with no plan or when the spec does not fire
+    this event."""
+    if _PLAN is None:
+        return {}
+    spec = fire("shard.degrade")
+    if spec is None:
+        return {}
+    arg = spec.arg
+    if isinstance(arg, tuple) and len(arg) == 2 \
+            and isinstance(arg[1], float):
+        items = [arg]                     # one bare (shard, factor) pair
+    elif isinstance(arg, (list, tuple)):
+        items = list(arg)
+    else:
+        items = [arg]
+    out = {}
+    for it in items:
+        if isinstance(it, (list, tuple)):
+            s, f = int(it[0]), float(it[1])
+        else:
+            s, f = int(it), 10.0
+        if 0 <= s < n_shards:
+            out[s] = f
+    return out
+
+
+def poison_batch(queries, mode: str):
+    """An adversarial copy of a clean query batch, a float32 tensor on the
+    batch's device: "nan" poisons the first eighth of the rows (at least
+    one) with NaN in column 0, "inf" fills them with +Inf / -Inf in
+    alternate columns, "dim" appends a feature column. Imports torch
+    lazily, so the module stays stdlib-only otherwise."""
+    import torch
+    q = torch.as_tensor(queries, dtype=torch.float32).clone()
+    if mode == "dim":
+        return torch.cat([q, q[:, :1]], dim=1)
+    bad = max(1, q.shape[0] // 8)
+    if mode == "nan":
+        q[:bad, 0] = torch.nan
+    elif mode == "inf":
+        q[:bad, ::2] = torch.inf
+        q[:bad, 1::2] = -torch.inf
+    else:
+        raise ValueError(f"unknown poison mode {mode!r}")
+    return q

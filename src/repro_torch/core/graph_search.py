@@ -289,16 +289,14 @@ def graph_search(
     entry, alive = on_dev(entry, torch.int32), on_dev(alive, torch.bool)
     x2, filter_ids = on_dev(x2, torch.float32), on_dev(filter_ids, torch.bool)
 
-    if cfg.metric == "cosine":
-        queries = metric_mod.normalize_rows(queries)
-    elif cfg.metric == "mips" and queries.dim() == 2 \
-            and queries.shape[1] < x.shape[1]:
-        # the mips query transform is zero right-padding (the augmented
-        # coordinate is 0), the same as feature padding
+    narrow = queries.dim() == 2 and queries.shape[1] < x.shape[1]
+    if cfg.metric != "mips" or narrow:
+        # a mips batch at the corpus width was transformed by its caller
+        queries = metric_mod.transform_queries(queries, cfg.metric)
+    if cfg.metric == "mips" and narrow:
+        # the augmented coordinate is 0, so the rest is feature padding
         queries = torch.nn.functional.pad(
             queries, (0, x.shape[1] - queries.shape[1]))
-    else:
-        metric_mod.check_metric(cfg.metric)
     queries, bad_rows = _admit_queries(queries, x.shape[1], cfg.strict)
     queries = queries.contiguous()
     nq = queries.shape[0]

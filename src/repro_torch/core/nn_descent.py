@@ -3,7 +3,8 @@
 reordering), on PyTorch with the build's CUDA kernels.
 
 One iteration:
-  1. selection (core/selection.py): bounded new/old candidate buffers;
+  1. selection (core/selection.py): bounded new/old candidate buffers,
+     by turbosampling or the paper's heap / naive baselines;
   2. fused local join (``local_join_fused``): the per-row pair tensor from
      the ``knn_join_dists`` kernel; one stable sort of the n*C candidate
      incidences tells every receiver which (row, slot) positions list it
@@ -24,11 +25,14 @@ through the ``knn_join_dists_q8`` / ``_bf16`` kernels; then
 (``knn_search_dists``) and the fp32 polish rounds finish, so the graph
 returned never carries a quantized distance.
 
-Not ported yet (ROADMAP.md, Queue 1): the lexsort ``backend="ref"`` build
-path (its grouping step, ``compact_pairs``, is ported: the router and the
-online store use it) and ``heap``/``naive`` selection. ``backend="plain"`` runs the fused path
-through the kernels' plain versions on any device (a reference build on
-the card).
+``backend="ref"`` keeps the seed implementation as the fused path's parity
+oracle: every (new x new, new x old) pair of every row is scored by
+``pair_block`` and flattened into an O(n*C^2) (receiver, candidate, dist)
+list, prefiltered against the receiver's k-th distance, grouped by one
+global (receiver, dist) lexsort (``compact_pairs``) and merged by
+``heap.merge``; its polish merges the full k*k row, and it builds in fp32
+whatever ``precision`` says. It runs no kernel. ``backend="plain"`` runs
+the fused path through the kernels' plain versions on any device.
 """
 from __future__ import annotations
 
@@ -57,20 +61,23 @@ class DescentConfig:
     max_iters: int = 12
     delta: float = 0.001       # stop when updates < delta*n*k (paper §2)
     merge_size: int = 0        # merge buffer per node (0 = 3*k)
-    selection: str = "turbo"   # turbo (heap | naive: not ported yet)
+    selection: str = "turbo"   # turbo | heap | naive (paper's 3 tiers)
     reorder: bool = True       # paper §3.2 greedy reordering
     reorder_after: int = 1     # run reorder after this iteration
     polish: int = 2            # terminal exhaustive local-join rounds
-    backend: str = "auto"      # auto: kernels on a card, plain versions on
-                               # the CPU; plain: plain versions anywhere;
-                               # ref: the lexsort path (not ported yet)
+    backend: str = "auto"      # auto: the fused path, kernels on a card,
+                               # plain versions on the CPU; plain: the
+                               # fused path through the plain versions
+                               # anywhere; ref: the lexsort compact_pairs
+                               # oracle path, no kernel
     block_k: int = 512         # kept for parity with the JAX config
     fetch: str = "a2a"         # kept for parity (distributed build)
     join_chunk: int = 2048     # fused join: receiver rows per chunk
     join_src: int = 0          # per-receiver incidence buffer (0 = 2*C)
     metric: str = "l2"         # l2 | cosine | mips (core/metric.py)
     precision: str = "f32"     # f32 | bf16 | int8: the sampled joins'
-                               # scoring dtype (two-stage build)
+                               # scoring dtype (two-stage build); "ref"
+                               # ignores it and builds in fp32
 
     @property
     def rho_k(self) -> int:
@@ -98,29 +105,32 @@ class DescentStats:
 
 class BuildDraws(NamedTuple):
     """Injected randomness of a build: the raw (n, k) init ids in [0, n),
-    and per sampled iteration the (u, rnd_new, rnd_old) uniforms, each
-    (2*n*k,), of ``selection_turbo``."""
+    and per sampled iteration the draws of the configured selection: turbo
+    (u, rnd_new, rnd_old), each (2*n*k,); heap (w,), (2*n*k,); naive
+    (rev_rnd (n*k,), u_new (n, 3k), u_old (n, 3k))."""
     init: torch.Tensor
-    iters: Sequence[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+    iters: Sequence[tuple[torch.Tensor, ...]]
 
 
 def _ops_backend(cfg: DescentConfig) -> str:
     if cfg.backend not in BACKENDS:
         raise ValueError(f"unknown backend {cfg.backend!r}; expected "
                          f"{BACKENDS}")
-    if cfg.backend == "ref":
-        raise NotImplementedError(
-            "backend='ref' (the lexsort compact_pairs path) is not ported "
-            "yet (ROADMAP.md, Queue 1); use 'plain' for the fused path "
-            "through the plain versions")
     if cfg.precision not in PRECISIONS:
         raise ValueError(f"unknown precision {cfg.precision!r}; expected "
                          f"{PRECISIONS}")
-    if cfg.selection != "turbo":
-        raise NotImplementedError(
-            f"selection={cfg.selection!r} is not ported yet (ROADMAP.md, "
-            "Queue 1)")
-    return "ref" if cfg.backend == "plain" else "auto"
+    if cfg.selection not in selection.SELECTIONS:
+        raise ValueError(f"unknown selection {cfg.selection!r}; expected "
+                         f"{tuple(selection.SELECTIONS)}")
+    return "auto" if cfg.backend == "auto" else "ref"
+
+
+def pair_block(xg: torch.Tensor, x2g: torch.Tensor, yg: torch.Tensor,
+               y2g: torch.Tensor) -> torch.Tensor:
+    """Batched norm-expansion distances: (n, a, d) x (n, b, d) ->
+    (n, a, b), clamped at 0."""
+    ab = torch.bmm(xg, yg.transpose(1, 2))
+    return (x2g[:, :, None] + y2g[:, None, :] - 2.0 * ab).clamp_min(0.0)
 
 
 def compact_pairs(
@@ -248,22 +258,77 @@ def local_join_fused(
     return nl, int(upd), int(ev.sum())
 
 
+def local_join_ref(
+    x: torch.Tensor,       # (n, dp) feature-padded points
+    x2: torch.Tensor,      # (n,) squared norms
+    nl: NeighborLists,
+    cn: torch.Tensor,      # (n, Cn) new candidates
+    co: torch.Tensor,      # (n, Co) old candidates
+    cfg: DescentConfig,
+) -> tuple[NeighborLists, int, int]:
+    """The lexsort local join (``backend="ref"``): every unordered new x
+    new and every new x old pair of a row, scored by ``pair_block`` and
+    routed to both ends as one flat (receiver, candidate, dist) list;
+    pairs that do not beat the receiver's k-th distance are dropped, the
+    rest grouped by ``compact_pairs`` at merge_k and merged by
+    ``heap.merge``. Returns (nl, accepted, evals)."""
+    n = nl.idx.shape[0]
+    vn, vo = cn >= 0, co >= 0
+    sn = torch.where(vn, cn, 0).long()
+    so = torch.where(vo, co, 0).long()
+    xg_n, xg_o = x[sn], x[so]
+    x2_n = torch.where(vn, x2[sn], 0.0)
+    x2_o = torch.where(vo, x2[so], 0.0)
+    d_nn = pair_block(xg_n, x2_n, xg_n, x2_n)        # (n, Cn, Cn)
+    d_no = pair_block(xg_n, x2_n, xg_o, x2_o)        # (n, Cn, Co)
+    del xg_n, xg_o
+
+    cn_b, co_b = cn.shape[1], co.shape[1]
+    iu0, iu1 = torch.triu_indices(cn_b, cn_b, offset=1, device=cn.device)
+    # new x new: unordered pairs i < j, both directions
+    a_nn, b_nn = cn[:, iu0], cn[:, iu1]
+    dd_nn = d_nn[:, iu0, iu1]
+    ok_nn = vn[:, iu0] & vn[:, iu1] & (a_nn != b_nn)
+    # new x old: every pair, both directions
+    a_no = cn[:, :, None].expand(n, cn_b, co_b).reshape(n, -1)
+    b_no = co[:, None, :].expand(n, cn_b, co_b).reshape(n, -1)
+    dd_no = d_no.reshape(n, -1)
+    ok_no = (vn[:, :, None] & vo[:, None, :]).reshape(n, -1) & (a_no != b_no)
+
+    a = torch.cat([a_nn, b_nn, a_no, b_no], dim=1).reshape(-1)
+    b = torch.cat([b_nn, a_nn, b_no, a_no], dim=1).reshape(-1)
+    dd = torch.cat([dd_nn, dd_nn, dd_no, dd_no], dim=1).reshape(-1)
+    ok = torch.cat([ok_nn, ok_nn, ok_no, ok_no], dim=1).reshape(-1)
+    # receiver-side prefilter: only pairs beating the receiver's k-th
+    # distance can change the graph
+    kth = nl.dist[:, -1]
+    ok &= dd < kth[torch.where(ok, a, 0).long()]
+    cand_d, cand_i = compact_pairs(torch.where(ok, a, -1), b, dd, n,
+                                   cfg.merge_k)
+    nl, upd = heap.merge(nl, cand_d, cand_i, cand_new=True)
+    return nl, int(upd.sum()), int(ok_nn.sum()) + int(ok_no.sum())
+
+
 def nn_descent_iteration(
     x: torch.Tensor,       # (n, dp) feature-padded
     x2: torch.Tensor,      # (n,) squared norms
     nl: NeighborLists,
     cfg: DescentConfig,
     *,
-    draws: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+    draws: tuple[torch.Tensor, ...] | None = None,
     generator: torch.Generator | None = None,
     qs: QuantizedStore | None = None,   # quantized mirror (precision)
 ) -> tuple[NeighborLists, int, int]:
-    """One sampled iteration: selection, flag clearing, fused join.
-    Returns (nl, accepted, evals)."""
+    """One sampled iteration: selection (``cfg.selection``, fed ``draws``
+    in that selection's form), flag clearing, then the fused join, or
+    with ``backend="ref"`` the lexsort join. Returns (nl, accepted,
+    evals)."""
     _ops_backend(cfg)
-    cands = selection.selection_turbo(nl, cfg.rho_k, draws=draws,
-                                      generator=generator)
+    cands = selection.SELECTIONS[cfg.selection](
+        nl, cfg.rho_k, draws=draws, generator=generator)
     nl = heap.mark_sampled_old(nl, cands.sampled_fwd)
+    if cfg.backend == "ref":
+        return local_join_ref(x, x2, nl, cands.new_idx, cands.old_idx, cfg)
     return local_join_fused(x, x2, nl, cands.new_idx, cands.old_idx, cfg,
                             qs)
 
@@ -275,16 +340,18 @@ def polish_iteration(
     backend: str = "auto",
     *,
     chunk: int = 2048,
+    full_merge: bool = False,
 ) -> tuple[NeighborLists, int, int]:
     """One exhaustive local-join round: every node joins against ALL k*k
     of its neighbors-of-neighbors (forward direction). The k*k candidate
     row is reduced by the ``knn_join_select`` kernel (k-th prefilter +
-    best 6k) before the plain merge. The JAX version gathers x[nb] as one
-    (n, k*k, dp) array; on the card that would need n*k*k*dp*4 bytes (100
-    GB at 70000 x 400 x 896), so this one computes the distances
-    ``chunk`` rows at a time, with the same results.
-    ``backend`` is an ops backend (auto | ref). Returns (nl, accepted,
-    evals)."""
+    best 6k) before the plain merge; ``full_merge`` (the "ref" build)
+    merges the full row directly instead. The JAX version gathers x[nb]
+    as one (n, k*k, dp) array; on the card that would need n*k*k*dp*4
+    bytes (100 GB at 70000 x 400 x 896), so this one computes the
+    distances, and the full merge, ``chunk`` rows at a time, with the
+    same results. ``backend`` is an ops backend (auto | ref). Returns
+    (nl, accepted, evals)."""
     n, k = nl.idx.shape
     ni = nl.idx
     nbl = ni.clamp(0, n - 1).long()
@@ -300,6 +367,14 @@ def polish_iteration(
         dd[s:s + chunk] = x2[s:s + chunk, None] + x2[ii] - 2.0 * ab
     dd = torch.where(ok, dd.clamp_min(0.0), torch.inf)
     evals = int(ok.sum())
+    if full_merge:
+        ci = torch.where(ok, nb, -1)
+        parts = [heap.merge(NeighborLists(*(t[s:s + chunk] for t in nl)),
+                            dd[s:s + chunk], ci[s:s + chunk])
+                 for s in range(0, n, chunk)]
+        nl = NeighborLists(*(torch.cat([p[0][f] for p in parts])
+                             for f in range(3)))
+        return nl, sum(int(p[1].sum()) for p in parts), evals
     cd, ci = ops.knn_join_select(
         dd, torch.where(ok, nb, -1).contiguous(),
         nl.dist[:, -1].contiguous(), min(6 * k, k * k), backend=backend)
@@ -356,8 +431,9 @@ def build_knn_graph(
 
     # two-stage quantized build: the sampled joins score on a mirror at
     # its own width (the fp32 layout's zero padding dropped); rerank_lists
-    # and the fp32 polish rounds restore exact distances
-    quant = cfg.precision != "f32"
+    # and the fp32 polish rounds restore exact distances ("ref", the
+    # lexsort oracle, is always fp32)
+    quant = cfg.precision != "f32" and cfg.backend != "ref"
     qs = (quantize.quantize_corpus(
         xp, cfg.precision, width=quantize.mirror_width(x.shape[1],
                                                        xp.shape[1]))
@@ -400,7 +476,8 @@ def build_knn_graph(
 
     polish_updates = []
     for _ in range(cfg.polish):
-        nl, upd_p, ev_p = polish_iteration(xp, x2, nl, backend)
+        nl, upd_p, ev_p = polish_iteration(
+            xp, x2, nl, backend, full_merge=cfg.backend == "ref")
         polish_updates.append(upd_p)
         stats.dist_evals += ev_p
     stats.polish_updates = tuple(polish_updates)

@@ -202,7 +202,7 @@ class MutableKNNStore:
         cfg = cfg or OnlineConfig()
         _backend(cfg)
         device = resolve_device(device, "MutableKNNStore.empty")
-        d_t = d + 1 if metric_mod.check_metric(cfg.metric) == "mips" else d
+        d_t = metric_mod.transformed_dim(d, cfg.metric)
         dp = ceil_to(d_t, 128)
         x = torch.full((8, dp), _FILL, device=device)
         store = cls(
@@ -264,7 +264,7 @@ class MutableKNNStore:
             if short > 0:
                 filter_ids = torch.nn.functional.pad(filter_ids, (0, short),
                                                      value=False)
-        q = _pad_to(_transform_queries(
+        q = _pad_to(metric_mod.transform_queries(
             torch.as_tensor(queries, dtype=torch.float32, device=dev),
             self.cfg.metric), self.x.shape[1])
         return graph_search(
@@ -317,16 +317,6 @@ def _next_capacity(n: int) -> int:
 def _ceil_chunk(f: int, chunk: int, cap: int) -> int:
     """Round a frontier size up to whole padded chunks, capped at cap."""
     return min(cap, ((max(f, 1) + chunk - 1) // chunk) * chunk)
-
-
-def _transform_queries(q: torch.Tensor, metric: str) -> torch.Tensor:
-    """The metric's query reduction: cosine normalizes, mips appends the
-    zero coordinate, l2 is the identity."""
-    if metric_mod.check_metric(metric) == "cosine":
-        return metric_mod.normalize_rows(q)
-    if metric == "mips":
-        return torch.nn.functional.pad(q, (0, 1))
-    return q
 
 
 def _pad_to(x: torch.Tensor, dp: int) -> torch.Tensor:

@@ -13,6 +13,7 @@ The pass is an inherently sequential chase of up to n*k steps. The JAX
 package runs it as an on-device ``fori_loop``; here it runs on the host
 over a CPU copy of the ids, one core, as the paper runs it. The
 permutation is then applied once to the points and the graph state.
+``locality_stats`` and ``window_cluster_purity`` measure what it bought.
 """
 from __future__ import annotations
 
@@ -60,3 +61,41 @@ def apply_permutation(
     idx = nl.idx[inv]
     idx = torch.where(idx >= 0, sigma[idx.clamp(0, n - 1).long()], -1)
     return x[inv], NeighborLists(nl.dist[inv], idx, nl.new[inv])
+
+
+def locality_stats(nl: NeighborLists, block: int = 128) -> dict:
+    """The cache-miss stand-in: the fraction of graph edges whose two ends
+    fall in the same ``block`` of rows, and the mean |i - j| gather spread
+    (summed in float: the sum of |i - j| passes int32 past about 1e5
+    rows)."""
+    n, k = nl.idx.shape
+    rows = torch.arange(n, device=nl.idx.device)[:, None].expand(n, k)
+    idx = nl.idx.long()
+    valid = idx >= 0
+    same = torch.div(rows, block, rounding_mode="floor") == torch.div(
+        idx, block, rounding_mode="floor")
+    edges = max(int(valid.sum()), 1)
+    spread = torch.where(valid, (rows - idx).abs(), 0).float().sum()
+    return {
+        "in_block_fraction": float(int((same & valid).sum()) / edges),
+        "mean_gather_spread": float(spread / edges),
+        "block": block,
+    }
+
+
+def window_cluster_purity(labels, sigma, window: int = 2000,
+                          stride: int = 200):
+    """Paper Fig. 4: per-window dominant-cluster fraction along the
+    reordered axis. ``labels`` (n,) int cluster ids; ``sigma`` node ->
+    position. Returns (window starts, purities)."""
+    labels = torch.as_tensor(labels).long()
+    sigma = torch.as_tensor(sigma, device=labels.device).long()
+    n = labels.shape[0]
+    order = torch.zeros_like(labels)
+    order[sigma] = labels
+    n_clusters = int(labels.max()) + 1
+    starts = list(range(0, n - window + 1, stride))
+    purities = [float(torch.bincount(order[s:s + window],
+                                     minlength=n_clusters).max() / window)
+                for s in starts]
+    return starts, purities

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the port's thirteen kernels.
+"""Plain PyTorch versions of the port's thirteen kernels, and the
+difference-form oracle ``pairwise_sq_l2_diff``.
 
 Each function computes exactly what its CUDA kernel in ``csrc/*.cu``
 computes. The CPU tests hold them against the JAX package's oracles, and
@@ -194,6 +195,14 @@ def top_t(d: torch.Tensor, t: int) -> tuple[torch.Tensor, torch.Tensor]:
     the lowest column: (dist, idx i32)."""
     dd, ii = torch.sort(d, dim=1, stable=True)
     return dd[:, :t], ii[:, :t].to(torch.int32)
+
+
+def pairwise_sq_l2_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The direct difference form, sum((a - b)^2): the paper's FMA ladder
+    and the most faithful oracle (no cancellation), O(M*N*D) memory.
+    (M, D), (N, D) -> (M, N) f32. No kernel uses it."""
+    diff = a.float()[:, None, :] - b.float()[None, :, :]
+    return (diff * diff).sum(dim=-1)
 
 
 def pairwise_sq_l2(

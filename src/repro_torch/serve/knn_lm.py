@@ -11,9 +11,10 @@ with the LM's:
     p(y) = (1 - lam) * p_LM(y) + lam * p_kNN(y)
     p_kNN(y) ∝ sum_{(k_i, v_i): v_i = y} exp(-d(q, k_i) / T)
 
-Not ported yet: ``KNNDatastore.snapshot`` / ``restore`` and the growable
-``MutableKNNDatastore``, which wait for ``core/persist.py`` (ROADMAP.md,
-Queue 1, items 5-6).
+``KNNDatastore.snapshot`` / ``restore`` persist the datastore in the
+JAX package's snapshot format (core/persist.py), so a restart serves
+without rebuilding the graph. Not ported yet: the growable
+``MutableKNNDatastore`` (ROADMAP.md, Queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -23,15 +24,12 @@ import math
 import torch
 
 from repro_torch.core import metric as metric_mod
+from repro_torch.core import persist
 from repro_torch.core.device import resolve_device
 from repro_torch.core.graph_search import SearchConfig, graph_search
 from repro_torch.core.nn_descent import DescentConfig, build_knn_graph
 from repro_torch.core.quantize import QuantizedStore, quantize_corpus
 from repro_torch.core.router import Router, RouterConfig, build_router
-
-_PERSIST = "datastore snapshots wait for core/persist.py: ROADMAP.md, " \
-           "Queue 1, item 5"
-
 
 @dataclasses.dataclass
 class KNNDatastore:
@@ -90,12 +88,26 @@ class KNNDatastore:
             mips_m=mips_m,
         )
 
-    def snapshot(self, directory: str, step: int = 0, *, keep: int = 0):
-        raise NotImplementedError(_PERSIST)
+    def snapshot(self, directory: str, step: int = 0, *,
+                 keep: int = 0) -> str:
+        """Persist keys, values, graph (and the mirror and router) as a
+        committed step (core/persist.py, kind ``knn_datastore``). Returns
+        the step directory."""
+        arrays, meta = persist.capture_datastore(self)
+        return persist.write_snapshot(directory, step, arrays, meta,
+                                      keep=keep)
 
     @classmethod
-    def restore(cls, directory: str, step: int | None = None):
-        raise NotImplementedError(_PERSIST)
+    def restore(cls, directory: str, step: int | None = None, *,
+                device=None):
+        """Reload a snapshotted datastore (the newest committed step when
+        ``step`` is None) onto ``device``, "cuda" unless the caller asks
+        otherwise: no NN-Descent, no re-quantization, no router refit;
+        retrieval is bit-identical to the datastore that was saved."""
+        step, arrays, manifest = persist.read_snapshot(directory, step)
+        parts = persist.rebuild_datastore(arrays, manifest, device=device)
+        return cls(build_stats={**manifest.get("build_stats", {}),
+                                "restored_step": step}, **parts)
 
 
 def knn_logits(

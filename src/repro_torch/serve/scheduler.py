@@ -13,8 +13,7 @@ every request that will not be served carries a typed :class:`Rejection`.
 Not ported yet: the retrieval half (``RetrievalScheduler``,
 ``QueryRequest``, ``SchedulerConfig``) and the batcher's online kNN-LM
 datastore growth (``knn_store`` / ``knn_capture``) and its snapshots,
-which wait for ``MutableKNNDatastore`` and ``core/persist.py``
-(ROADMAP.md, Queue 1, items 5-6).
+which wait for ``MutableKNNDatastore`` (ROADMAP.md, Queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -199,7 +198,7 @@ class ContinuousBatcher:
             raise NotImplementedError(
                 f"{sorted(knn)}: the batcher's online kNN-LM datastore "
                 "(knn_store, knn_capture and its snapshots) is not ported "
-                "yet: ROADMAP.md, Queue 1, items 5-6")
+                "yet: ROADMAP.md, Queue 1, item 5")
         self.n_slots = n_slots
         self.step_fn = step_fn
         self.prefill_fn = prefill_fn

@@ -197,10 +197,64 @@ def test_selection_turbo_matches_jax_with_injected_draws(n, k, rho_k):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_selection_variants_not_ported():
-    for fn in (selection.selection_heap, selection.selection_naive):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(None, 4)
+def _heap_draws(key, n, k):
+    """selection_heap's weights, by the JAX package's schedule."""
+    k_w, _ = jax.random.split(key)
+    return (np.array(jax.random.uniform(k_w, (2 * n * k,))),)
+
+
+def _naive_draws(key, n, k):
+    """selection_naive's three uniforms, by the JAX package's schedule."""
+    k1, k2, k3 = jax.random.split(key, 3)
+    return (np.array(jax.random.uniform(k1, (n * k,))),
+            np.array(jax.random.uniform(k2, (n, 3 * k))),
+            np.array(jax.random.uniform(k3, (n, 3 * k))))
+
+
+_DRAWS = {"turbo": _turbo_draws, "heap": _heap_draws, "naive": _naive_draws}
+
+
+@pytest.mark.parametrize("name", ["heap", "naive"])
+@pytest.mark.parametrize("n,k,rho_k", [(60, 6, 6), (97, 8, 4), (40, 5, 20)])
+def test_selection_variants_match_jax_with_injected_draws(name, n, k, rho_k):
+    """Bitwise: the buffers (ties by the stable sorts) and the sampled
+    flags (heap: the masked scatter aimed at slot 0; naive: the forward
+    slots present in the sample)."""
+    dist, idx, new = _random_lists(n, k, n + k)
+    jnl = jheap.NeighborLists(jnp.asarray(dist), jnp.asarray(idx),
+                              jnp.asarray(new))
+    key = jax.random.key(n + 1)
+    want = getattr(jselection, f"selection_{name}")(key, jnl, rho_k)
+    got = getattr(selection, f"selection_{name}")(
+        _tnl(jnl), rho_k, draws=_DRAWS[name](key, n, k))
+    for g, w in zip(got, want):
+        assert g.dtype == (torch.bool if w.dtype == bool else torch.int32)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("name", ["heap", "naive"])
+def test_selection_variants_return_candidate_buffers(name):
+    """The paper's baselines with their own draws: (n, rho_k) buffers of
+    ids from each row's neighborhood (forward or reverse), valid ids first,
+    no id twice in a pool but through repeated list entries, and sampled
+    flags only on new forward slots."""
+    n, k, rho_k = 80, 6, 4
+    dist, idx, new = _random_lists(n, k, 3)
+    nl = heap.neighbor_lists_from_numpy(dist, idx, new)
+    c = getattr(selection, f"selection_{name}")(
+        nl, rho_k, generator=torch.Generator().manual_seed(0))
+    assert c.new_idx.shape == c.old_idx.shape == (n, rho_k)
+    assert c.new_idx.dtype == c.old_idx.dtype == torch.int32
+    hood = [set(idx[u][idx[u] >= 0]) | set(np.nonzero((idx == u).any(1))[0])
+            for u in range(n)]
+    for buf in (c.new_idx, c.old_idx):
+        b = buf.numpy()
+        valid = b >= 0
+        assert not (valid[:, 1:] & ~valid[:, :-1]).any()
+        for u in range(n):
+            assert set(b[u][valid[u]]) <= hood[u]
+    assert not (c.sampled_fwd.numpy() & ~new).any()
+    assert c.sampled_fwd.any()
 
 
 # ---------------------------------------------------------------------------
@@ -297,11 +351,174 @@ def test_polish_iteration_matches_jax():
 
 @pytest.mark.parametrize("field,value", [
     ("backend", "ref"), ("selection", "naive"), ("selection", "heap")])
-def test_unported_options_raise(field, value):
-    cfg = nn_descent.DescentConfig(k=4, **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_build_options_build_on_cpu(field, value):
+    """The lexsort build and the heap / naive selections build on the CPU:
+    full ascending lists without self loops, fp32 distances (within 1e-4 +
+    1e-5 (|a|^2 + |b|^2) of fp64: the norm expansion cancels the digits
+    the norms share), and test_core.py:56's recall floor on its 512-point
+    blob."""
+    x = np.array(jdatasets.clustered(jax.random.key(11), 512, 16, 8))
+    cfg = nn_descent.DescentConfig(k=10, rho=1.0, max_iters=15,
+                                   **{field: value})
+    dist, idx, stats = nn_descent.build_knn_graph(
+        x, k=10, cfg=cfg, generator=torch.Generator().manual_seed(5),
+        device="cpu")
+    assert dist.shape == idx.shape == (512, 10) and idx.dtype == torch.int32
+    assert (idx >= 0).all() and (idx != torch.arange(512)[:, None]).all()
+    assert (dist[:, 1:] >= dist[:, :-1]).all()
+    xt = torch.from_numpy(x).double()
+    d64 = ((xt[:, None] - xt[idx.long()]) ** 2).sum(-1)
+    n2 = (xt * xt).sum(-1)
+    tol = 1e-4 + 1e-5 * (n2[:, None] + n2[idx.long()])
+    assert ((dist.double() - d64).abs() <= tol).all()
+    _, ti = jrecall.brute_force_knn(jnp.asarray(x), jnp.asarray(x), 10)
+    assert recall.recall_at_k(idx, _t(ti)) >= 0.9
+    assert stats.iters <= cfg.max_iters and len(stats.polish_updates) == 2
+
+
+def test_unknown_selection_raises():
+    cfg = nn_descent.DescentConfig(k=4, selection="bogus")
+    with pytest.raises(ValueError, match="unknown selection"):
         nn_descent.build_knn_graph(np.zeros((16, 3), np.float32), k=4,
                                    cfg=cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the lexsort path (backend="ref")
+# ---------------------------------------------------------------------------
+
+def test_pair_block_matches_jax():
+    rng = np.random.RandomState(4)
+    xg, yg = rng.randn(7, 5, 24), rng.randn(7, 3, 24)
+    xg, yg = xg.astype(np.float32), yg.astype(np.float32)
+    x2, y2 = (xg * xg).sum(-1), (yg * yg).sum(-1)
+    x2[:, 0] = 0.0                                  # a masked slot
+    want = jnd.pair_block(*(jnp.asarray(a) for a in (xg, x2, yg, y2)))
+    got = nn_descent.pair_block(*(_t(a) for a in (xg, x2, yg, y2)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    assert (got >= 0).all()
+
+
+@pytest.mark.parametrize("name", ["turbo", "heap", "naive"])
+def test_ref_iteration_matches_jax_with_injected_draws(name):
+    """One backend="ref" iteration, the port's against JAX's from one state
+    and the JAX draws of each selection: lists, flags, updates, evals."""
+    _, xp, x2 = _corpus(300, 16, 0)
+    jnl = _jinit(jax.random.key(2), jnp.asarray(xp), 8)
+    key = jax.random.key(3)
+    kw = dict(k=8, rho=1.0, backend="ref", selection=name)
+    want, wu, we = jnd.nn_descent_iteration(
+        key, jnp.asarray(xp), jnp.asarray(x2), jnl, jnd.DescentConfig(**kw))
+    got, gu, ge = nn_descent.nn_descent_iteration(
+        _t(xp), _t(x2), _tnl(jnl), nn_descent.DescentConfig(**kw),
+        draws=_DRAWS[name](key, 300, 8))
+    _assert_nl(got, want)
+    assert gu == int(wu)
+    assert ge == int(we)
+
+
+def test_ref_polish_matches_jax():
+    """The "ref" polish (the full k*k row merged directly), row-chunked in
+    the port, against JAX's."""
+    x = np.asarray(jdatasets.gaussian(jax.random.key(4), 256, 16))
+    xp = np.asarray(jpad_features(jnp.asarray(x)))
+    x2 = (xp * xp).sum(1).astype(np.float32)
+    jnl = _jinit(jax.random.key(6), jnp.asarray(xp), 6)
+    want, wu, we = jnd.polish_iteration(jnp.asarray(xp), jnp.asarray(x2),
+                                        jnl, "ref")
+    got, gu, ge = nn_descent.polish_iteration(_t(xp), _t(x2), _tnl(jnl),
+                                              chunk=100, full_merge=True)
+    _assert_nl(got, want)
+    assert gu == int(wu)
+    assert ge == int(we)
+
+
+@pytest.mark.parametrize("n,k,chunk", [
+    (150, 8, 64),     # n not a multiple of the receiver chunk
+    (64, 6, 64),      # single exact chunk
+    (97, 5, 256),     # chunk larger than n
+])
+def test_fused_join_matches_lexsort_path(n, k, chunk):
+    """tests/test_knn_join.py:162's parity in the port: the fused join
+    against local_join_ref on one state, all-invalid candidate rows and C <
+    merge_k included: ids exact, dist rtol 1e-5, updates and evals
+    exact."""
+    rng = np.random.RandomState(n)
+    x = rng.randn(n, 24).astype(np.float32)
+    xp = pad_features(_t(x))
+    x2 = (xp * xp).sum(1)
+    nl = heap.init_random_with_dists(xp, k, generator=torch.Generator()
+                                     .manual_seed(1))
+    cn = rng.randint(-1, n, size=(n, k)).astype(np.int32)
+    co = rng.randint(-1, n, size=(n, k)).astype(np.int32)
+    cn[5] = co[5] = co[6] = -1
+    cfg = nn_descent.DescentConfig(k=k, join_chunk=chunk, join_src=8 * k)
+    got, gu, ge = nn_descent.local_join_fused(xp, x2, nl, _t(cn), _t(co),
+                                              cfg)
+    want, wu, we = nn_descent.local_join_ref(xp, x2, nl, _t(cn), _t(co),
+                                             cfg)
+    _assert_nl(got, want.to_numpy(), flags=False)
+    assert (gu, ge) == (wu, we)
+
+
+@pytest.mark.parametrize("name", ["turbo", "heap", "naive"])
+def test_fused_iteration_matches_ref_backend(name):
+    """tests/test_knn_join.py:195 in the port, for each selection: one
+    iteration fused and "ref" from one state and one generator seed; the
+    lists (not the flags: a list may hold an id twice, ROADMAP Queue 3,
+    and the two merges flag its copies differently), updates, evals."""
+    x = np.asarray(jdatasets.clustered(jax.random.key(0), 300, 16, 4))
+    xp = pad_features(_t(x))
+    x2 = (xp * xp).sum(1)
+    nl0 = heap.init_random_with_dists(xp, 8, generator=torch.Generator()
+                                      .manual_seed(2))
+    out = {}
+    for backend in ("auto", "ref"):
+        cfg = nn_descent.DescentConfig(k=8, rho=1.0, join_src=64,
+                                       selection=name, backend=backend)
+        out[backend] = nn_descent.nn_descent_iteration(
+            xp, x2, nl0, cfg, generator=torch.Generator().manual_seed(3))
+    (nf, uf, ef), (nr, ur, er) = out["auto"], out["ref"]
+    _assert_nl(nf, nr.to_numpy(), flags=False)
+    assert (uf, ef) == (ur, er)
+
+
+def test_fused_polish_matches_ref_backend():
+    x = np.asarray(jdatasets.gaussian(jax.random.key(4), 256, 16))
+    xp = pad_features(_t(x))
+    x2 = (xp * xp).sum(1)
+    nl = heap.init_random_with_dists(xp, 6, generator=torch.Generator()
+                                     .manual_seed(6))
+    nf, uf, ef = nn_descent.polish_iteration(xp, x2, nl)
+    nr, ur, er = nn_descent.polish_iteration(xp, x2, nl, full_merge=True)
+    _assert_nl(nf, nr.to_numpy(), flags=False)
+    assert (uf, ef) == (ur, er)
+
+
+def test_ref_build_ignores_precision_and_launches_nothing(monkeypatch):
+    """A quantized config builds in fp32 under "ref" (nn_descent.py:455),
+    and the lexsort path reaches no kernel wrapper: the same graph as the
+    f32 "ref" build."""
+    from repro_torch.kernels import ops
+    calls = []
+    for name in ("knn_join_dists", "knn_join_select", "knn_merge",
+                 "knn_join_dists_q8", "knn_join_dists_bf16",
+                 "knn_search_dists"):
+        fn = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _n=name, _f=fn, **kw:
+                            calls.append(_n) or _f(*a, **kw))
+    x = np.array(jdatasets.clustered(jax.random.key(1), 256, 16, 4))
+    out = []
+    for precision in ("f32", "int8"):
+        cfg = nn_descent.DescentConfig(k=8, rho=1.0, backend="ref",
+                                       precision=precision)
+        out.append(nn_descent.build_knn_graph(
+            x, k=8, cfg=cfg, generator=torch.Generator().manual_seed(0),
+            device="cpu"))
+    assert calls == []
+    assert torch.equal(out[0][1], out[1][1])
+    assert torch.equal(out[0][0], out[1][0])
 
 
 # ---------------------------------------------------------------------------
@@ -338,6 +555,98 @@ def test_transform_corpus_matches_jax(name):
                                    atol=8 * np.finfo(np.float32).eps * wm**2)
     with pytest.raises(ValueError, match="unknown metric"):
         metric.check_metric("hamming")
+
+
+@pytest.mark.parametrize("name", ["l2", "cosine", "mips"])
+def test_transform_queries_matches_jax(name):
+    rng = np.random.RandomState(3)
+    q = (rng.randn(12, 5) * 2).astype(np.float32)
+    q[2] = 0.0
+    want = np.asarray(jmetric.transform_queries(jnp.asarray(q), name))
+    got = metric.transform_queries(_t(q), name)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+    assert metric.transformed_dim(5, name) == \
+        jmetric.transformed_dim(5, name) == got.shape[1]
+    with pytest.raises(ValueError, match="unknown metric"):
+        metric.transform_queries(_t(q), "hamming")
+
+
+@pytest.mark.parametrize("name", ["l2", "cosine", "mips"])
+def test_similarity_from_dist_matches_jax(name):
+    rng = np.random.RandomState(4)
+    dist = (rng.rand(6, 4) * 3).astype(np.float32)
+    dist[1, 2:] = np.inf                         # empty slots
+    q2 = (rng.rand(6) * 2).astype(np.float32)
+    kw = dict(mips_m=1.75)
+    want = np.asarray(jmetric.similarity_from_dist(
+        jnp.asarray(dist), name, q2=jnp.asarray(q2), **kw))
+    got = metric.similarity_from_dist(_t(dist), name, q2=_t(q2), **kw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    if name == "mips":
+        with pytest.raises(ValueError, match="q2"):
+            metric.similarity_from_dist(_t(dist), name)
+
+
+@pytest.mark.parametrize("shape", [None, (50,), (3, 50)])
+def test_filter_frac_matches_jax(shape):
+    mask = None if shape is None else \
+        np.random.RandomState(5).rand(*shape) < 0.3
+    want = jmetric.filter_frac(None if mask is None else jnp.asarray(mask))
+    got = metric.filter_frac(None if mask is None else _t(mask))
+    assert got == pytest.approx(want, rel=1e-6)
+
+
+@pytest.mark.parametrize("block", [8, 128])
+def test_locality_stats_matches_jax(block):
+    dist, idx, new = _random_lists(300, 6, 8)
+    jnl = jheap.NeighborLists(jnp.asarray(dist), jnp.asarray(idx),
+                              jnp.asarray(new))
+    want = jreorder.locality_stats(jnl, block=block)
+    got = reorder.locality_stats(_tnl(jnl), block=block)
+    assert got.keys() == want.keys() and got["block"] == block
+    for name in ("in_block_fraction", "mean_gather_spread"):
+        assert got[name] == pytest.approx(want[name], rel=1e-6), name
+
+
+def test_locality_stats_spread_passes_int32():
+    """The float accumulation: the summed |i - j| of a 70000-row graph
+    whose rows point far away passes int32; the spread is still exact."""
+    n, k = 70_000, 20
+    idx = (torch.arange(n)[:, None] + n // 2) % n
+    nl = heap.NeighborLists(torch.zeros(n, k), idx.expand(n, k)
+                            .to(torch.int32).contiguous(),
+                            torch.zeros(n, k, dtype=torch.bool))
+    got = reorder.locality_stats(nl)
+    assert got["mean_gather_spread"] == pytest.approx(n // 2, rel=1e-6)
+    assert got["in_block_fraction"] == 0.0
+
+
+def test_window_cluster_purity_matches_jax():
+    rng = np.random.RandomState(6)
+    labels = rng.randint(0, 7, size=900).astype(np.int32)
+    sigma = rng.permutation(900).astype(np.int32)
+    ws, wp = jreorder.window_cluster_purity(
+        jnp.asarray(labels), jnp.asarray(sigma), window=200, stride=70)
+    gs, gp = reorder.window_cluster_purity(_t(labels), _t(sigma),
+                                           window=200, stride=70)
+    assert gs == ws
+    np.testing.assert_allclose(gp, wp, rtol=1e-6)
+
+
+def test_pairwise_sq_l2_diff_matches_jax():
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import ref
+    rng = np.random.RandomState(7)
+    a, b = rng.randn(9, 33), rng.randn(14, 33) * 4
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    want = np.asarray(jref.pairwise_sq_l2_diff(jnp.asarray(a),
+                                               jnp.asarray(b)))
+    got = ref.pairwise_sq_l2_diff(_t(a), _t(b))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    assert got.dtype == torch.float32
+    # the difference form has no cancellation: exact zeros on equal rows
+    assert (ref.pairwise_sq_l2_diff(_t(b), _t(b)).diagonal() == 0).all()
 
 
 def test_pad_features_matches_jax():

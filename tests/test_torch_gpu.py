@@ -868,6 +868,107 @@ def test_online_store_through_kernels(dev):
     assert abs(r["cuda"] - r["cpu"]) <= 0.01, r
 
 
+def _ties_only(got, want, x2):
+    """Lists of one iteration by two paths whose distances come from the
+    norm expansion summed in other orders: distances within 1e-4 + 1e-5
+    (|a|^2 + |b|^2) slot by slot, ids equal but where the other list holds
+    the id at a slot of equal distance (within twice that), or where the
+    entry ties with the row's k-th distance. Returns the count of cut
+    ties."""
+    gd, gi, wd, wi = got.dist, got.idx, want.dist, want.idx
+    fin = torch.isfinite(wd)
+    assert torch.equal(torch.isfinite(gd), fin)
+    rows = torch.arange(wd.shape[0], device=wd.device)[:, None]
+    tol = 1e-4 + 1e-5 * (x2[rows] + x2[wi.clamp_min(0).long()])
+    assert bool(((gd - wd).abs() <= tol)[fin].all())
+    near = (wd[:, None, :] - wd[:, :, None]).abs() \
+        <= 2 * torch.maximum(tol[:, :, None], tol[:, None, :])
+    held = ((gi[:, :, None] == wi[:, None, :]) & near).any(-1)
+    cut = (wd - wd[:, -1:]).abs() <= 2 * torch.maximum(tol, tol[:, -1:])
+    mism = gi != wi
+    assert not bool((mism & ~held & ~cut).any())
+    return int((mism & ~held & cut).sum())
+
+
+def test_fused_iteration_through_kernels_matches_ref_backend(dev):
+    """One iteration through the kernels (join_src wide enough that no
+    incidence overflows) and through the lexsort "ref" path on the card,
+    same lists and draws: the lists equal up to the order of tied entries
+    (``_ties_only``), evals equal, updates equal but for cut ties; the
+    "ref" path launches no kernel."""
+    from repro_torch.core import heap, nn_descent, selection
+    from repro_torch.core.layout import pad_features
+    x = datasets.clustered(1000, 16, 4, seed=0, device=dev)
+    xp = pad_features(x).contiguous()
+    x2 = (xp * xp).sum(1)
+    nl0 = heap.init_random_with_dists(
+        xp, 10, generator=torch.Generator(device=dev).manual_seed(2))
+    draws = [torch.rand(2 * 1000 * 10, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(s))
+             for s in (3, 4, 5)]
+    cands = selection.selection_turbo(nl0, 10, draws=draws)
+    ids = torch.cat([cands.new_idx, cands.old_idx], 1)
+    src = int(torch.bincount(ids[ids >= 0].long()).max())
+    out = {}
+    for backend in ("auto", "ref"):
+        _lib.reset_launches()
+        cfg = DescentConfig(k=10, rho=1.0, join_src=src, backend=backend)
+        out[backend] = nn_descent.nn_descent_iteration(xp, x2, nl0, cfg,
+                                                       draws=draws)
+        torch.cuda.synchronize()
+        assert any(_lib.LAUNCHES.values()) == (backend == "auto")
+    (nf, uf, ef), (nr, ur, er) = out["auto"], out["ref"]
+    cut = _ties_only(nf, nr, x2)
+    assert ef == er and abs(uf - ur) <= cut
+
+
+@pytest.mark.parametrize("precision", ["f32", "int8", "bf16"])
+def test_restore_on_card_searches_bit_equal(dev, tmp_path, precision):
+    """A routed store with grown rows and tombstones, snapshotted and
+    restored onto the card: every array bitwise, searches with the
+    same generator bit-equal to the live store's, and an insert with the
+    same draws gives the same lists; at int8 / bf16 the quantized-first
+    restore serves at once and is the exact store after apply."""
+    from repro_torch.core import persist
+    x = datasets.clustered(2304, 16, 8, seed=0, device=dev)
+    cfg = OnlineConfig(router=RouterConfig(), precision=precision)
+    store, _ = MutableKNNStore.build(
+        x[:2048], 10, cfg=cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(1))
+    store, _ = knn_insert(store, x[2048:2176], generator=torch.Generator(
+        device=dev).manual_seed(2))
+    store, _ = knn_delete(store, torch.arange(0, 2176, 9, device=dev))
+    persist.snapshot_store(store, str(tmp_path), store.n)
+    r = persist.restore_store(str(tmp_path), device=dev).store
+    for a, b in ((r.x, store.x), (r.x2, store.x2), (r.alive, store.alive),
+                 *zip(r.nl, store.nl), *zip(r.router.members,
+                                            store.router.members)):
+        assert a.device.type == dev.type and torch.equal(a, b)
+    assert r.router.stale == store.router.stale and r.cfg == store.cfg
+
+    def search(s):
+        return s.search(x[:256] + 0.01, k_out=10, generator=torch.Generator(
+            device=dev).manual_seed(3))
+    (d1, i1), (d2, i2) = search(store), search(r)
+    assert torch.equal(i1, i2)
+    assert torch.equal(d1.view(torch.int32), d2.view(torch.int32))
+    extra = x[2176:] + 0.001
+    a, _ = knn_insert(store, extra, generator=torch.Generator(
+        device=dev).manual_seed(4))
+    b, _ = knn_insert(r, extra, generator=torch.Generator(
+        device=dev).manual_seed(4))
+    for u, v in zip(a.nl, b.nl):
+        assert torch.equal(u, v)
+    if precision != "f32":
+        qf = persist.restore_store(str(tmp_path), quantized_first=True,
+                                   device=dev)
+        _, iq = search(qf.store)
+        assert bool(r.alive[iq.long()].all())
+        (d3, i3) = search(qf.fp32_loader.apply(qf.store))
+        assert torch.equal(i3, i1)
+        assert torch.equal(d3.view(torch.int32), d1.view(torch.int32))
+
+
 # (Lq, Lk, H, Hkv, Dq, Dv, keyword arguments of ops.attention)
 ATTN_MODES = {
     "causal": (300, 300, 8, 2, 64, 64, dict(causal=True)),

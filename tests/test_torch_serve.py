@@ -375,6 +375,35 @@ def test_knn_logits_and_interpolate_match_jax():
                                 lam=0.25)), rtol=1e-5, atol=1e-5)
 
 
+def test_knn_datastore_snapshots_serve_across_packages(tmp_path):
+    """A JAX datastore's snapshot, restored by the port (device="cpu"),
+    answers knn_logits as the JAX datastore does on the same entries; the
+    port's snapshot of it restores into repro with the same bits, so JAX
+    answers as before."""
+    rng = np.random.RandomState(1)
+    n, d, vocab, nq = 512, 16, 64, 24
+    keys = rng.randn(n, d).astype(np.float32)
+    vals = rng.randint(0, vocab, size=n).astype(np.int32)
+    jds = JDatastore.build(jnp.asarray(keys), jnp.asarray(vals), k=8)
+    jds.snapshot(str(tmp_path / "jax"), step=2)
+    tds = KNNDatastore.restore(str(tmp_path / "jax"), device="cpu")
+    assert tds.build_stats["restored_step"] == 2
+    q = keys[:nq] + 0.05 * rng.randn(nq, d).astype(np.float32)
+    key = jax.random.key(12)
+    want = np.asarray(jknn_logits(jds, jnp.asarray(q), vocab, k=8, key=key))
+    entry = torch.tensor(np.asarray(_draw_entries(key, n, 32, None)))
+    got = knn_logits(tds, torch.from_numpy(q), vocab, k=8, entry=entry)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    tds.snapshot(str(tmp_path / "port"), step=3)
+    back = JDatastore.restore(str(tmp_path / "port"))
+    for name in ("keys", "values", "graph_idx"):
+        a, b = np.asarray(getattr(back, name)), np.asarray(getattr(jds, name))
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
+    np.testing.assert_array_equal(
+        np.asarray(jknn_logits(back, jnp.asarray(q), vocab, k=8, key=key)),
+        want)
+
+
 def test_knn_lm_retrieval_shifts_distribution():
     """kNN interpolation must move mass toward retrieved tokens."""
     rng = np.random.RandomState(0)
