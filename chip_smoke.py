@@ -3,9 +3,11 @@
 (build_knn_graph), its exact truth (brute_force_knn), the query path
 (graph_search), the two-stage int8 / bf16 build and search, the online
 store (insert, delete, the router), its snapshots and cold starts
-(core/persist.py), and the LM serving path (yi-6b prefill, decode,
-continuous batching, kNN-LM retrieval and its datastore's restore). Run
-from the root of a checkout, on a machine with an H100:
+(core/persist.py), the retrieval scheduler in front of the online
+store, and the LM serving path (yi-6b prefill, decode, continuous
+batching, kNN-LM retrieval and its datastore's restore, and the datastore
+grown while the LM decodes). Run from the root of a checkout, on a
+machine with an H100:
 
     python3 chip_smoke.py
 
@@ -128,6 +130,30 @@ script started (phases with several lanes print one line a lane):
                the write restores as the store before the insert; bytes
                written, write and restore seconds (the host disk's) and
                their ratio to the online build's seconds;
+  retrieval    path 11: serve/scheduler.RetrievalScheduler in front of
+               that store's search (SearchConfig(beam=32, rounds=48,
+               expand=6, q_block=512), k_out 10, the search path's 10000
+               queries). Lane mixed: 8000 batch-lane queries queued, the
+               other 2000 arriving as interactive bursts of 1-16 (seeded),
+               each pumped alone before a batch dispatch of 512; every
+               dispatch lane-pure, every search tile observed at the
+               dispatch's q_block_bucket, all 10000 served, recall@10
+               against brute force of the live rows within 0.01 of the
+               direct store.search, no tombstoned id; per-lane p50 / p99
+               latency and the batch lane's QPS beside the direct
+               search's. Lane deadline: 2048 queries with deadline_ms half
+               an uncut 2048-query dispatch's time (the clock stopped
+               while they are submitted): answered in full with live ids,
+               max_rounds_deadline > 0 in the search, time and recall
+               beside the uncut dispatch's. Lane overload, twice:
+               max_queue 256, drop-oldest-batch, 3000 arrivals on a
+               virtual clock under a seeded FaultPlan (sched.burst prob
+               0.1 x 8, sched.stall prob 0.05 x 0.25 s): equal shed and
+               expired counts and rejected qids, submitted + injected =
+               served + shed + expired. Lane cache (result_cache 4096):
+               the 2000 interactive queries again are 2000 bit-equal
+               hits; after a knn_insert of 500 rows and invalidate_cache,
+               none. Then one profiled pass of 2048 batch-lane queries;
   lm_check     yi-6b at full width (32 layers, d 4096, 32/4 heads, d_ff
                11008, vocab 64000), weights drawn from the seed, matrices
                in bf16: a ragged 1537-token prompt's prefill logits and 4
@@ -155,6 +181,25 @@ script started (phases with several lanes print one line a lane):
                KNNDatastore.restore(device="cuda") (no rebuild), the same
                queries and entries giving bit-equal knn_logits: snapshot
                bytes, write and restore seconds beside the build's;
+  knn_grow     path 12: MutableKNNDatastore.build over knn_lm's 32752 keys
+               (k 16, capacity 32768), grown by a ContinuousBatcher of
+               lm_serve's slots and prompts (32 new tokens) that captures
+               each step's last hidden state (serve/decode.decode_hidden,
+               the keys' space) and the sampled token, knn_chunk 64,
+               knn_router True (capacity 65536 after the first chunk),
+               knn_snapshot_every 128 under build/ (removed after): n is
+               32752 + 248, the values are the sampled tokens in capture
+               order, the periodic snapshot restores as the datastore at
+               its own step, the drain snapshot is at the final n, a
+               second batcher with no store cold-starts bit-equal, the
+               chunks replayed through the plain versions with the same
+               draws give inserted rows whose recall@16 (against the exact
+               k-NN of the live rows) is within 0.01 of the kernels', and
+               knn_logits of knn_lm's 2048 queries with the same entries
+               and draws are bit-equal on the drained and restored
+               datastores: decode tokens/s beside lm_serve's, seconds per
+               insert chunk, snapshot bytes, write and restore seconds
+               (the host disk's), peak memory;
   profile      every path but truth once more under torch.profiler (and
                a window of lm_serve: its first 4 requests, 8 new tokens
                each): device time by kernel name and the device's idle
@@ -298,6 +343,11 @@ LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_MAX_NEW = 4, 4096, 8, 32
 LM_PROMPT_LENS = (1000, 2048)               # drawn from the seed, inclusive
 LM_PROFILE_NEW = 8                          # the profiled window: one wave
 KNN_SEQS, KNN_SEQ_LEN, KNN_K, KNN_BATCH = 16, 2048, 16, 4
+KNN_CHUNK, KNN_SNAPSHOT_EVERY = 64, 128     # knn_grow: insert, snapshot
+# retrieval: the interactive lane's queries and burst sizes, the deadline
+# lane's batch, the overload runs' arrivals and their pump interval
+RETR_INTERACTIVE, RETR_BURST, RETR_DEADLINE = 2000, (1, 16), 2048
+RETR_OVERLOAD, RETR_PUMP_EVERY = 3000, 48
 ATTN_F32_TOL = (2e-3, 2e-3)     # (rtol, atol): tests/test_kernels.py:122-137
 ATTN_BF16_TOL = (1e-2, 2e-3)    # + one bf16 rounding of the output (2^-7)
 # (Lq, Lk, H, Hkv, Dq, Dv, keyword arguments of ops.attention)
@@ -1780,6 +1830,477 @@ def knn_lm_recall(res) -> dict:
             "recall_gap": gap}
 
 
+def percentiles(ms) -> dict:
+    import numpy as np
+    if not ms:
+        return {"n": 0}
+    return {"n": len(ms), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def retrieval_run(store, queries, qtruth, dead, rows) -> dict:
+    """Path 11: the retrieval scheduler in front of the online store's
+    search. Lanes: mixed (the interactive lane's seeded bursts, each
+    pumped before the next, beside the batch lane at max_batch 512),
+    deadline, overload (twice, on a virtual clock under a seeded
+    FaultPlan), result cache; then one profiled pass of the batch lane.
+    Every dispatch's search tile is observed at its q_block_bucket
+    size."""
+    import numpy as np
+    import torch
+    from repro_torch import SearchConfig, knn_insert, recall_at_k
+    from repro_torch.core.faults import FaultPlan, FaultSpec
+    from repro_torch.core.graph_search import q_block_bucket
+    from repro_torch.kernels import ops
+    from repro_torch.serve import RetrievalScheduler, SchedulerConfig
+    base = SearchConfig(beam=32, rounds=48, expand=6, q_block=512)
+    dev = store.x.device
+    host = queries.cpu().numpy()
+    n_int = RETR_INTERACTIVE
+    holder = {"store": store}
+    log, blocks = [], []
+    tile = ops.knn_search_dists
+
+    def observed(*args, **kw):
+        blocks.append(int(args[0].shape[0]))
+        return tile(*args, **kw)
+
+    def search_fn(qs, cfg):
+        blocks.clear()
+        out = holder["store"].search(qs, k_out=10, cfg=cfg)
+        log.append((int(qs.shape[0]), cfg, sorted(set(blocks))))
+        return out
+
+    def answers(reqs):
+        return (torch.from_numpy(np.stack([r.dist for r in reqs])),
+                torch.from_numpy(np.stack([r.idx for r in reqs])))
+
+    def served_ok(reqs, what):
+        d, i = answers(reqs)
+        check_search(d.to(dev), i.to(dev), store.n, 10)
+        if not bool(store.alive[i.long().to(dev)].all()) or torch.isin(
+                i.long().to(dev), dead.long()).any():
+            raise AssertionError(f"retrieval {what}: a tombstoned id")
+
+    out, lane_s = {}, {}
+    ops.knn_search_dists = observed
+    try:
+        t_lane = time.perf_counter()
+        # the yardsticks: the direct search of the same queries
+        (dd, di), direct_s = timed(lambda: store.search(queries, k_out=10,
+                                                        cfg=base))
+        _, direct_batch_s = timed(lambda: store.search(
+            queries[n_int:], k_out=10, cfg=base))
+        direct_recall = recall_at_k(di, qtruth)
+        # one uncut dispatch of RETR_DEADLINE queries (the deadline's base)
+        s0 = RetrievalScheduler(search_fn, base_cfg=base, cfg=SchedulerConfig(
+            max_queue=RETR_DEADLINE, max_batch=RETR_DEADLINE))
+        r0 = [s0.submit(host[i], lane="batch") for i in range(RETR_DEADLINE)]
+        _, uncut_s = timed(s0.pump)
+        uncut_recall = recall_at_k(answers(r0)[1].to(dev),
+                                   qtruth[:RETR_DEADLINE])
+
+        # mixed: the batch lane queued, the interactive lane in bursts
+        lane_s["direct_and_uncut"] = time.perf_counter() - t_lane
+        t_lane = time.perf_counter()
+        log.clear()
+        s = RetrievalScheduler(search_fn, base_cfg=base, cfg=SchedulerConfig(
+            max_queue=N_QUERIES, max_batch=512))
+        reqs = [None] * N_QUERIES
+        for i in range(n_int, N_QUERIES):
+            reqs[i] = s.submit(host[i], lane="batch")
+        rng = np.random.RandomState(SEED + 30)
+        batch_pumps, lanes = [], []
+        i = 0
+        while i < n_int:
+            b = int(rng.randint(RETR_BURST[0], RETR_BURST[1] + 1))
+            for j in range(i, min(i + b, n_int)):
+                reqs[j] = s.submit(host[j])
+            got = s.pump()
+            if [r.qid for r in got] != [reqs[j].qid
+                                        for j in range(i, min(i + b, n_int))]:
+                raise AssertionError("retrieval: a burst was not served "
+                                     "alone and whole")
+            lanes.append({r.lane for r in got})
+            i += b
+            if s.queue.lanes["batch"]:
+                got, sec = timed(s.pump)
+                batch_pumps.append(sec)
+                lanes.append({r.lane for r in got})
+        while len(s.queue):
+            got, sec = timed(s.pump)
+            batch_pumps.append(sec)
+            lanes.append({r.lane for r in got})
+        st = s.stats()
+        if any(len(ln) != 1 for ln in lanes):
+            raise AssertionError("retrieval: a dispatch mixed lanes")
+        bad = [(nq, seen) for nq, cfg, seen in log
+               if cfg.fixed_block or seen != [q_block_bucket(nq, cfg)]]
+        if bad:
+            raise AssertionError(f"retrieval: dispatches off their "
+                                 f"q_block_bucket: {bad[:5]}")
+        if st["served"] != N_QUERIES or any(r.idx is None for r in reqs):
+            raise AssertionError(f"retrieval: served {st['served']} of "
+                                 f"{N_QUERIES}")
+        served_ok(reqs, "mixed")
+        recall = recall_at_k(answers(reqs)[1].to(dev), qtruth)
+        if abs(recall - direct_recall) > 0.01:
+            raise AssertionError(f"retrieval: recall {recall} against the "
+                                 f"direct search's {direct_recall}")
+        n_batch = N_QUERIES - n_int
+        out["mixed"] = {
+            "interactive": n_int, "batch": n_batch, "dispatches":
+                st["dispatches"], "bursts": len(lanes) - len(batch_pumps),
+            "dispatch_sizes": sorted({nq for nq, _, _ in log}),
+            "latency": {ln: percentiles(v)
+                        for ln, v in st["latency_ms"].items()},
+            "recall_at_10": recall, "direct_recall_at_10": direct_recall,
+            "batch_lane_s": sum(batch_pumps),
+            "batch_lane_queries_per_s": n_batch / sum(batch_pumps),
+            "direct_batch_s": direct_batch_s,
+            "direct_batch_queries_per_s": n_batch / direct_batch_s,
+            "scheduler_cost_share": 1.0 - direct_batch_s / sum(batch_pumps),
+            "direct_s": direct_s}
+
+        # deadline: half an uncut dispatch's time; the clock stops while
+        # the requests are submitted, so the budget is the search's
+        lane_s["mixed"] = time.perf_counter() - t_lane
+        t_lane = time.perf_counter()
+        log.clear()
+        paused = [0.0]
+        sd = RetrievalScheduler(
+            search_fn, base_cfg=base, cfg=SchedulerConfig(
+                max_queue=RETR_DEADLINE, max_batch=RETR_DEADLINE),
+            clock=lambda: time.monotonic() - paused[0])
+        deadline_ms = 0.5e3 * uncut_s
+        t0 = time.monotonic()
+        rd = [sd.submit(host[i], lane="batch", deadline_ms=deadline_ms)
+              for i in range(RETR_DEADLINE)]
+        paused[0] += time.monotonic() - t0
+        _, cut_s = timed(sd.pump)
+        if any(r.rejection is not None or r.idx is None for r in rd):
+            raise AssertionError("retrieval deadline: a request was not "
+                                 "answered")
+        served_ok(rd, "deadline")
+        (nq, cfg, _), = log
+        if not cfg.max_rounds_deadline > 0.0:
+            raise AssertionError("retrieval deadline: no budget reached "
+                                 "the search")
+        out["deadline"] = {
+            "queries": RETR_DEADLINE, "deadline_ms": deadline_ms,
+            "max_rounds_deadline_s": cfg.max_rounds_deadline,
+            "wall_s": cut_s, "recall_at_10": recall_at_k(
+                answers(rd)[1].to(dev), qtruth[:RETR_DEADLINE]),
+            "uncut_wall_s": uncut_s, "uncut_recall_at_10": uncut_recall}
+
+        # overload, twice: the same shedding and expiry, nothing silent
+        lane_s["deadline"] = time.perf_counter() - t_lane
+        t_lane = time.perf_counter()
+
+        def overload():
+            clk = [0.0]
+            so = RetrievalScheduler(
+                search_fn, base_cfg=base, cfg=SchedulerConfig(
+                    max_queue=256, shed_policy="drop-oldest-batch"),
+                clock=lambda: clk[0])
+            plan = FaultPlan(seed=SEED + 31, specs=(
+                FaultSpec(site="sched.burst", prob=0.1, arg=8),
+                FaultSpec(site="sched.stall", prob=0.05, arg=0.25)))
+            rng = np.random.RandomState(SEED + 32)
+            subs, done = [], []
+            with plan.active():
+                for t in range(RETR_OVERLOAD):
+                    clk[0] += 1e-3
+                    lane = "interactive" if rng.rand() < 0.3 else "batch"
+                    subs.append(so.submit(
+                        host[rng.randint(N_QUERIES)], lane=lane,
+                        deadline_ms=100.0 if lane == "interactive"
+                        else 1000.0))
+                    if t % RETR_PUMP_EVERY == RETR_PUMP_EVERY - 1:
+                        done += so.pump()
+                done += so.run_until_drained()
+            sto = so.stats()
+            injected = 8 * plan.fired("sched.burst")
+            served = {r.qid for r in done}
+            return {"submitted": len(subs), "injected": injected,
+                    "served": sto["served"], "shed": sto["shed"],
+                    "expired": sto["expired"],
+                    "dispatches": sto["dispatches"],
+                    "stalls": plan.fired("sched.stall"),
+                    "rejected_qids": sorted(set(range(so._next_qid))
+                                            - served),
+                    "codes": sorted({r.rejection.code for r in subs
+                                     if r.rejection is not None})}, done
+        runs = [overload() for _ in range(2)]
+        a, b = runs[0][0], runs[1][0]
+        for o, _ in runs:
+            if o["submitted"] + o["injected"] != o["served"] + o["shed"] \
+                    + o["expired"] or len(o["rejected_qids"]) != \
+                    o["shed"] + o["expired"]:
+                raise AssertionError(f"retrieval overload: requests "
+                                     f"unaccounted for: {o}")
+        if a != b or not a["shed"] or not a["expired"]:
+            raise AssertionError(f"retrieval overload: the runs differ or "
+                                 f"nothing was shed / expired: {a} {b}")
+        served_ok(runs[0][1], "overload")
+        out["overload"] = {k: v for k, v in a.items()
+                           if k != "rejected_qids"}
+        out["overload"]["rejected"] = len(a["rejected_qids"])
+        out["overload"]["runs_equal"] = True
+
+        # result cache: hits at admission, none after a mutation
+        lane_s["overload"] = time.perf_counter() - t_lane
+        t_lane = time.perf_counter()
+        sc = RetrievalScheduler(search_fn, base_cfg=base, cfg=SchedulerConfig(
+            max_queue=N_QUERIES, max_batch=512, result_cache=4096))
+        first = [sc.submit(host[i]) for i in range(n_int)]
+        sc.run_until_drained()
+        again = [sc.submit(host[i]) for i in range(n_int)]
+        hits = sc.stats()["cache_hits"]
+        same = all(r.done and np.array_equal(r.idx, f.idx)
+                   and np.array_equal(r.dist.view(np.int32),
+                                      f.dist.view(np.int32))
+                   for r, f in zip(again, first))
+        if hits != n_int or not same or len(sc.queue):
+            raise AssertionError(f"retrieval cache: {hits} hits of {n_int}, "
+                                 f"bit-equal {same}")
+        holder["store"], _ = knn_insert(store, rows, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 33))
+        sc.invalidate_cache()
+        after = [sc.submit(host[i]) for i in range(n_int)]
+        if sc.stats()["cache_hits"] != hits or any(r.done for r in after):
+            raise AssertionError("retrieval cache: a hit after the insert")
+        sc.run_until_drained()
+        holder["store"] = store
+        out["cache"] = {"entries": n_int, "hits": hits, "bit_equal": same,
+                        "hits_after_insert_and_invalidate": 0,
+                        "inserted": int(rows.shape[0])}
+        lane_s["cache"] = time.perf_counter() - t_lane
+    finally:
+        ops.knn_search_dists = tile
+
+    # four dispatches of the batch lane: the profile's host processing
+    # grows with its events
+    def batch_lane():
+        sp = RetrievalScheduler(search_fn, base_cfg=base, cfg=SchedulerConfig(
+            max_queue=RETR_DEADLINE, max_batch=512))
+        for i in range(n_int, n_int + RETR_DEADLINE):
+            sp.submit(host[i], lane="batch")
+        sp.run_until_drained()
+    t_lane = time.perf_counter()
+    prof = profile_run(batch_lane)
+    lane_s["profile"] = time.perf_counter() - t_lane
+    out["profile_batch_lane"] = {"queries": RETR_DEADLINE, **{
+        k: prof[k] for k in ("profiled_wall_s", "device_busy_s",
+                             "device_idle_share")}}
+    out["lane_s"] = lane_s
+    return out
+
+
+def knn_grow_run(params, cfg, dev, res, prompts) -> dict:
+    """Path 12: the kNN-LM datastore grown during decode. A
+    MutableKNNDatastore over knn_lm's keys, a ContinuousBatcher of
+    lm_serve's slots and prompts that captures each step's last hidden
+    state (``decode_hidden``, the space of the datastore's keys) and the
+    sampled token, inserts them in chunks of KNN_CHUNK with a router,
+    writes one periodic async snapshot and a drain snapshot; then a cold
+    start from them, the replay of the chunks through the plain versions
+    with the same draws, and knn_logits on the drained and the restored
+    datastores."""
+    import shutil
+
+    import torch
+    from repro_torch import recall_at_k
+    from repro_torch.core import persist
+    from repro_torch.models import output_logits
+    from repro_torch.serve import (ContinuousBatcher, MutableKNNDatastore,
+                                   Request, init_cache, knn_logits, prefill,
+                                   write_slot)
+    from repro_torch.serve.decode import decode_hidden
+    keys, vals = res["ds"].keys, res["ds"].values
+    n0 = int(keys.shape[0])
+    chunks, states = [], []
+
+    class Grown(MutableKNNDatastore):
+        """Keeps each chunk, its generator's state, its seconds and the
+        datastore before and after it."""
+
+        def append(self, k, v, *, generator=None, **kw):
+            state = generator.get_state()
+            (out, st), sec = timed(lambda: super(Grown, self).append(
+                k, v, generator=generator, **kw))
+            chunks.append({"keys": k, "values": v, "gen": state, "s": sec})
+            states.append((self, out))
+            return out, st
+
+    (ds0, build_s) = timed(lambda: MutableKNNDatastore.build(
+        keys, vals, k=KNN_K, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 13)))
+    tmp = snapshot_dir()
+    writes = []
+    write_snapshot = persist.write_snapshot
+
+    def timed_write(directory, step, arrays, meta, **kw):
+        t0 = time.perf_counter()
+        out = write_snapshot(directory, step, arrays, meta, **kw)
+        writes.append({"step": step, "t0": t0, "t1": time.perf_counter(),
+                       "s": time.perf_counter() - t0,
+                       "bytes": sum(f.stat().st_size
+                                    for f in Path(out).iterdir())})
+        return out
+
+    hidden, step_s, sampled, active = [None], [], [], []
+    holder = {}
+
+    def prefill_fn(prompt):
+        logits, one, _ = prefill(
+            params, {"tokens": torch.from_numpy(prompt).to(dev)}, cfg,
+            LM_MAX_LEN, last_only=True)
+        return logits, one, prompt.shape[1]
+
+    def step_fn(cache, tokens, lengths):
+        active.append([s.active for s in holder["bat"].slots])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, cache = decode_hidden(params, cache, tokens.to(dev),
+                                 lengths.to(dev), cfg)
+        logits = output_logits(params, x, cfg)[:, 0]
+        hidden[0] = x[:, 0].float()
+        torch.cuda.synchronize()
+        step_s.append((t0, time.perf_counter()))
+        return logits, cache
+
+    def sampler(logits):
+        t = torch.argmax(logits, -1)
+        if logits.dim() == 2:
+            sampled.append(t.cpu())
+        return t
+
+    def batcher(**kw):
+        return ContinuousBatcher(
+            LM_SLOTS, step_fn, prefill_fn, write_slot, sampler,
+            knn_capture=lambda logits: hidden[0], knn_chunk=KNN_CHUNK,
+            knn_snapshot_dir=str(tmp), device=dev, **kw)
+    try:
+        persist.write_snapshot = timed_write
+        bat = batcher(knn_store=Grown(**vars(ds0)), knn_router=True,
+                      knn_snapshot_every=KNN_SNAPSHOT_EVERY)
+        holder["bat"] = bat
+        reqs = [Request(rid=i, prompt=p, max_new=LM_MAX_NEW)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            bat.submit(r)
+        cache = init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+        _, run_s = timed(lambda: bat.run(cache))
+        del cache
+        persist.write_snapshot = write_snapshot
+        ds = bat.knn_store
+        grown = len(prompts) * (LM_MAX_NEW - 1)
+        if ds.store.n != n0 + grown or ds.store.live_count() != n0 + grown:
+            raise AssertionError(f"knn_grow: n {ds.store.n}, not "
+                                 f"{n0} + {grown}")
+        want = torch.cat([t[torch.tensor(a)] for t, a in
+                          zip(sampled, active)]).to(dev)
+        if not torch.equal(ds.values[n0:n0 + grown].long(), want.long()):
+            raise AssertionError("knn_grow: the values are not the sampled "
+                                 "tokens in capture order")
+        if [c["keys"].shape[0] for c in chunks] != [KNN_CHUNK] * (
+                grown // KNN_CHUNK) + ([grown % KNN_CHUNK]
+                                       if grown % KNN_CHUNK else []):
+            raise AssertionError(f"knn_grow: chunks "
+                                 f"{[c['keys'].shape[0] for c in chunks]}")
+        # the periodic snapshot is its own step, the drain one the last
+        steps = persist.list_snapshots(str(tmp))
+        if steps[-1] != ds.store.n or len(steps) < 2:
+            raise AssertionError(f"knn_grow: snapshots at {steps}")
+        at = {after.store.n: after for _, after in states}
+        restore_periodic_s = []
+        for step in steps[:-1]:
+            periodic, sec = timed(lambda: persist.restore_store(
+                str(tmp), step=step, device=dev))
+            restore_periodic_s.append(sec)
+            same_store(periodic.store, at[step].store,
+                       "knn_grow: a periodic snapshot")
+            if not torch.equal(periodic.values, at[step].values):
+                raise AssertionError("knn_grow: a periodic snapshot's "
+                                     "values")
+            del periodic
+        # a cold start: a second batcher on the directory, no store
+        b2, cold_s = timed(lambda: batcher())
+        same_store(b2.knn_store.store, ds.store, "knn_grow: the cold start")
+        if not torch.equal(b2.knn_store.values, ds.values):
+            raise AssertionError("knn_grow: the cold start's values")
+        # knn_logits, the same entries and draws, drained and restored
+        def logits(d):
+            return knn_logits(d, res["q"], cfg.vocab, k=8, entry=res["entry"],
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(SEED + 14))
+        (got, search_s) = timed(lambda: logits(ds))
+        if not torch.equal(got.view(torch.int32),
+                           logits(b2.knn_store).view(torch.int32)):
+            raise AssertionError("knn_grow: knn_logits differ after the "
+                                 "cold start")
+        del b2
+        # the chunks again through the plain versions, the same draws
+        first = states[0][0]
+        ds_p = MutableKNNDatastore(
+            store=dataclasses.replace(first.store, cfg=dataclasses.replace(
+                first.store.cfg, backend="plain")),
+            values=first.values, build_stats={})
+        for c in chunks:
+            g = torch.Generator(device=dev)
+            g.set_state(c["gen"])
+            ds_p, _ = ds_p.append(c["keys"], c["values"], generator=g)
+        n = ds.store.n
+        x, x2 = ds.store.x[:n], ds.store.x2[:n]
+        rows = torch.arange(n0, n, device=dev)
+        d = x2[rows, None] + x2[None, :] - 2.0 * (x[rows] @ x.T)
+        d[torch.arange(grown, device=dev), rows] = torch.inf
+        truth = d.topk(KNN_K, dim=1, largest=False).indices
+        rec = {"kernels": recall_at_k(ds.store.nl.idx[n0:n], truth),
+               "plain": recall_at_k(ds_p.store.nl.idx[n0:n], truth)}
+        del ds_p, d
+        if abs(rec["kernels"] - rec["plain"]) > 0.01:
+            raise AssertionError(f"knn_grow: inserted rows' recall through "
+                                 f"the kernels and the plain versions: {rec}")
+        periodic_w = [w for w in writes if w["step"] != steps[-1]]
+        drain_w = [w for w in writes if w["step"] == steps[-1]]
+        # decode steps that overlap a periodic write, and the others
+        during = [b - a for a, b in step_s if any(
+            a < w["t1"] and b > w["t0"] for w in periodic_w)]
+        other = [b - a for a, b in step_s if all(
+            a >= w["t1"] or b <= w["t0"] for w in periodic_w)]
+        for w in writes:
+            del w["t0"], w["t1"]
+        decode_s = sum(b - a for a, b in step_s)
+        return {
+            "keys": n0, "grown": grown, "capacity": [ds0.store.capacity,
+                                                    ds.store.capacity],
+            "build_s": build_s, "run_s": run_s,
+            "decode_steps": len(step_s), "decode_s": decode_s,
+            "decode_tokens": grown,
+            "decode_tokens_per_s": grown / decode_s,
+            "step_ms_during_periodic_write": {
+                "steps": len(during), "mean": 1e3 * sum(during) / max(
+                    1, len(during))},
+            "step_ms_otherwise": {"steps": len(other), "mean": 1e3 * sum(
+                other) / max(1, len(other))},
+            "chunks": [c["keys"].shape[0] for c in chunks],
+            "insert_s": [c["s"] for c in chunks],
+            "snapshots": steps, "periodic_write": periodic_w,
+            "drain_write": drain_w,
+            "restore_periodic_s": restore_periodic_s,
+            "cold_start_s": cold_s, "knn_logits_s": search_s,
+            "inserted_recall_at_16": rec["kernels"],
+            "plain_inserted_recall_at_16": rec["plain"],
+            "router_centroids": int(ds.store.router.centroids.shape[0]),
+            "disk": str(tmp.parent),
+            "outs": [r.out for r in reqs]}
+    finally:
+        persist.write_snapshot = write_snapshot
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run it from a checkout of the repository "
@@ -2178,7 +2699,21 @@ def main() -> int:
          insert_batch=INSERT_BATCH, **persist_check(
              store, q, noisy_queries(x, INSERT_BATCH, SEED + 21),
              res["build_s"]))
-    del res, store
+
+    # -- retrieval: path 11, the retrieval scheduler on that store
+    rres, wall, launches["retrieval"], peak, _ = drive(
+        "retrieval", lambda: retrieval_run(
+            store, q, qtruth, dels,
+            noisy_queries(x, INSERT_BATCH, SEED + 22)))
+    require_launched("retrieval", launches["retrieval"], (
+        "knn_search_dists", "knn_join_select", "knn_merge",
+        "pairwise_sq_l2", "knn_merge_rows"))
+    emit("retrieval", n=store.n, live=store.live_count(), d=784,
+         queries=N_QUERIES, k_out=10, cfg=dataclasses.asdict(
+             SearchConfig(beam=32, rounds=48, expand=6, q_block=512)),
+         wall_s=wall, max_memory_allocated=peak,
+         launches=launches["retrieval"], **rres)
+    del res, store, qtruth
 
     # -- profile: the builds and the searches again under torch.profiler
     for prec in ("f32",) + PRECISIONS:
@@ -2223,6 +2758,8 @@ def main() -> int:
     (reqs, stats), wall, launches["lm_serve"], peak, recs["lm_serve"] = \
         drive("lm_serve", lm_serve_run)
     check_served(reqs, stats, launches["lm_serve"], lm_cfg)
+    served_outs = [r.out for r in reqs]
+    served_tps = stats["decode_tokens_per_s"]
     emit("lm_serve", arch=LM_ARCH, slots=LM_SLOTS, max_len=LM_MAX_LEN,
          requests=LM_REQUESTS, max_new=LM_MAX_NEW,
          prompt_lens=[len(p) for p in prompts], wall_s=wall,
@@ -2258,6 +2795,21 @@ def main() -> int:
          log_likelihood=res["ll"], max_memory_allocated=peak,
          launches=launches["knn_lm"], **knn_lm_recall(res),
          restore=knn_lm_restore(res, lm_cfg.vocab))
+
+    # -- knn_grow: path 12, the datastore grown while the LM decodes
+    gres, wall, launches["knn_grow"], peak, _ = drive(
+        "knn_grow", lambda: knn_grow_run(params, lm_cfg, dev, res, prompts))
+    require_launched("knn_grow", launches["knn_grow"], (
+        "flash_attention", "knn_join_dists", "knn_join_select", "knn_merge",
+        "knn_search_dists", "knn_merge_rows", "pairwise_sq_l2"))
+    outs = gres.pop("outs")
+    emit("knn_grow", arch=LM_ARCH, slots=LM_SLOTS, requests=LM_REQUESTS,
+         max_new=LM_MAX_NEW, d=lm_cfg.d_model, k=KNN_K, chunk=KNN_CHUNK,
+         snapshot_every=KNN_SNAPSHOT_EVERY, wall_s=wall,
+         lm_serve_decode_tokens_per_s=served_tps,
+         requests_with_lm_serve_tokens=sum(
+             a == b for a, b in zip(outs, served_outs)),
+         max_memory_allocated=peak, launches=launches["knn_grow"], **gres)
     del res, params
     torch.cuda.empty_cache()
 

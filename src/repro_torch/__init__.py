@@ -30,9 +30,10 @@ LM serving slices):
     ``params_from_numpy``, ``forward``, ``run_stack``), whose attention
     runs the hand-written kernel on a card; ``repro_torch.serve`` —
     ``prefill`` / ``serve_step`` over batched KV caches, the
-    ``ContinuousBatcher`` with lane admission, and kNN-LM retrieval
-    (``KNNDatastore``, ``knn_logits``, ``interpolate``) over the port's
-    graph; ``python -m repro_torch.launch.serve`` — the serving CLI;
+    ``ContinuousBatcher`` with lane admission and decode-time datastore
+    growth, the ``RetrievalScheduler``, and kNN-LM retrieval
+    (``KNNDatastore``, ``MutableKNNDatastore``, ``knn_logits``,
+    ``interpolate``) over the port's graph; ``python -m repro_torch.launch.serve`` — the serving CLI;
   all run on a CUDA device unless asked for the CPU.
   * ``repro_torch.kernels`` — the thirteen kernels (join distances, join
     select, merge, pairwise l2, search distances, the int8 and bf16 twins

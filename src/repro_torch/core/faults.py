@@ -18,6 +18,10 @@ Sites the port consults so far:
   * ``router.rebuild`` — fail the lazy router rebuild in
     ``core/online._maybe_rebuild_router`` (the store keeps serving the
     stale router);
+  * ``sched.burst``   — amplify one ``RetrievalScheduler.submit`` into
+    ``arg`` (default 8) injected copies (serve/scheduler.py);
+  * ``sched.stall``   — advance the retrieval scheduler's clock by ``arg``
+    seconds (default 0.05) at the next ``pump``;
   * ``shard.dead`` / ``shard.slow`` (``dead_shards``) and
     ``shard.degrade`` (``degrade_factors``) — read by the sharded search
     once it is ported; nothing calls them yet.

@@ -1,6 +1,8 @@
 """Serving (src/repro/serve): prefill and decode over batched KV caches,
-the continuous batcher with lane admission, and kNN-LM retrieval over the
-port's graph."""
+the continuous batcher with lane admission and decode-time datastore
+growth, the retrieval scheduler, and kNN-LM retrieval over the port's
+graph. ``abstract_cache`` and ``cache_shardings`` wait for the mesh
+(ROADMAP.md, Queue 1, item 6)."""
 from repro_torch.serve.decode import (
     cache_schema,
     init_cache,
@@ -8,20 +10,32 @@ from repro_torch.serve.decode import (
     serve_step,
     write_slot,
 )
-from repro_torch.serve.knn_lm import KNNDatastore, interpolate, knn_logits
+from repro_torch.serve.knn_lm import (
+    KNNDatastore,
+    MutableKNNDatastore,
+    interpolate,
+    knn_logits,
+)
 from repro_torch.serve.scheduler import (
     ContinuousBatcher,
     LaneQueue,
+    QueryRequest,
     Rejection,
     Request,
+    RetrievalScheduler,
+    SchedulerConfig,
 )
 
 __all__ = [
     "ContinuousBatcher",
     "KNNDatastore",
     "LaneQueue",
+    "MutableKNNDatastore",
+    "QueryRequest",
     "Rejection",
     "Request",
+    "RetrievalScheduler",
+    "SchedulerConfig",
     "cache_schema",
     "init_cache",
     "interpolate",

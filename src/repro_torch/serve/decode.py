@@ -66,9 +66,12 @@ def _attn_block_decode(p, x, c, lengths, cfg, *, window=None):
     return x + cfg.residual_multiplier * m, c2
 
 
-def serve_step(params, cache, tokens, lengths, cfg):
-    """(B, 1) tokens at positions ``lengths`` (B,) -> (logits (B, vocab)
-    fp32, cache), the cache updated in place."""
+def decode_hidden(params, cache, tokens, lengths, cfg):
+    """``serve_step`` up to the output head: (B, 1) tokens at positions
+    ``lengths`` (B,) -> (the last layer's hidden state (B, 1, d_model),
+    cache), the cache updated in place. The kNN-LM's keys live in this
+    space (``run_stack``'s output); ``output_logits`` of it is the step's
+    logits."""
     check_dense(cfg)
     dev = params["embed"]["table"].device
     lengths = torch.as_tensor(lengths, device=dev)
@@ -78,6 +81,13 @@ def serve_step(params, cache, tokens, lengths, cfg):
     for i in range(cfg.n_layers):
         x, _ = _attn_block_decode(layer(stack, i), x, layer(layers, i),
                                   lengths, cfg, window=window)
+    return x, cache
+
+
+def serve_step(params, cache, tokens, lengths, cfg):
+    """(B, 1) tokens at positions ``lengths`` (B,) -> (logits (B, vocab)
+    fp32, cache), the cache updated in place."""
+    x, cache = decode_hidden(params, cache, tokens, lengths, cfg)
     return output_logits(params, x, cfg)[:, 0], cache
 
 

@@ -969,6 +969,83 @@ def test_restore_on_card_searches_bit_equal(dev, tmp_path, precision):
         assert torch.equal(d3.view(torch.int32), d1.view(torch.int32))
 
 
+def _grown_datastore(dev):
+    """A routed datastore on the card, grown past its capacity by three
+    chunks and with tombstones."""
+    from repro_torch.serve import MutableKNNDatastore
+    x = datasets.clustered(2304, 64, 8, seed=4, device=dev)
+    vals = torch.arange(2304, device=dev, dtype=torch.int32) % 50
+    ds = MutableKNNDatastore.build(
+        x[:2040], vals[:2040], k=10, router=RouterConfig(), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1))
+    for s in range(2040, 2304, 88):
+        ds, _ = ds.append(x[s:s + 88], vals[s:s + 88],
+                          generator=torch.Generator(device=dev).manual_seed(s))
+    ds, _ = ds.delete(torch.arange(0, 2304, 11, device=dev))
+    return ds, x
+
+
+def test_grown_datastore_knn_logits_bit_equal_through_restore(dev, tmp_path):
+    """knn_logits on a grown MutableKNNDatastore through the kernels, and
+    on its restore onto the card with the same draws: bit-equal, and no
+    tombstoned row carries mass."""
+    from repro_torch.serve import MutableKNNDatastore, knn_logits
+    ds, x = _grown_datastore(dev)
+    assert ds.store.capacity == 4096 and ds.values.shape[0] == 4096
+    ds.snapshot(str(tmp_path))
+    r = MutableKNNDatastore.restore(str(tmp_path), device=dev)
+    assert r.store.x.device.type == "cuda"
+    assert torch.equal(r.values, ds.values)
+    q = x[::9] + 0.01
+    before = dict(_lib.LAUNCHES)
+
+    def logits(d):
+        return knn_logits(d, q, 50, k=8, generator=torch.Generator(
+            device=dev).manual_seed(3))
+    a = logits(ds)
+    assert _lib.LAUNCHES["knn_search_dists"] > before["knn_search_dists"]
+    b = logits(r)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    _, ids = ds.store.search(q, k_out=8)
+    assert bool(ds.store.alive[ids.long()].all())
+
+
+def test_batcher_cold_starts_onto_the_card(dev, tmp_path):
+    """A batcher with a snapshot directory and no store restores onto the
+    card by default, and grows the restored store through the kernels."""
+    from repro_torch.serve import ContinuousBatcher, Request
+    ds, _ = _grown_datastore(dev)
+    ds.snapshot(str(tmp_path))
+    proj = torch.randn(16, 64, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(5))
+
+    def step_fn(cache, toks, lengths):
+        lg = torch.nn.functional.one_hot(
+            ((toks[:, 0] * 3 + lengths) % 16).long(), 16).float() * 4.0
+        return lg.to(dev), cache
+
+    def prefill_fn(toks):
+        return torch.ones((1, 16), device=dev), None, toks.shape[1]
+
+    b = ContinuousBatcher(2, step_fn, prefill_fn, lambda c, i, o, n: c,
+                          knn_capture=lambda lg: lg @ proj, knn_chunk=8,
+                          knn_snapshot_dir=str(tmp_path))
+    assert b.knn_store.store.x.device.type == "cuda"
+    n0 = b.knn_store.store.n
+    for rid in range(3):
+        b.submit(Request(rid=rid, prompt=np.array([1, 2, 3], np.int32),
+                         max_new=8))
+    before = _lib.LAUNCHES["knn_merge_rows"]
+    b.run(None)
+    assert b.knn_store.store.n == n0 + 21
+    assert _lib.LAUNCHES["knn_merge_rows"] > before
+    b2 = ContinuousBatcher(2, step_fn, prefill_fn, lambda c, i, o, n: c,
+                           knn_snapshot_dir=str(tmp_path))
+    for u, v in zip(b2.knn_store.store.nl, b.knn_store.store.nl):
+        assert torch.equal(u, v)
+    assert torch.equal(b2.knn_store.values, b.knn_store.values)
+
+
 # (Lq, Lk, H, Hkv, Dq, Dv, keyword arguments of ops.attention)
 ATTN_MODES = {
     "causal": (300, 300, 8, 2, 64, 64, dict(causal=True)),

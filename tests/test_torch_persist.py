@@ -1,7 +1,7 @@
 """The port's snapshots (repro_torch.core.persist, KNNDatastore.snapshot /
 restore) against the JAX package's, both ways, and the JAX persistence
-tests (tests/test_persist.py, but its two scheduler cases) re-held on the
-port.
+tests (tests/test_persist.py, its two scheduler cases too) re-held on the
+port, and the growable kNN-LM datastore's snapshots both ways.
 
 Cross-restore: one store state, made by the port (a build, one insert
 and one delete, so that grown rows and tombstones are present, with a
@@ -31,6 +31,7 @@ from repro.core.quantize import QuantizedStore as JQuantizedStore
 from repro.core.router import Router as JRouter
 from repro.core.router import RouterConfig as JRouterConfig
 from repro.serve.knn_lm import KNNDatastore as JKNNDatastore
+from repro.serve.knn_lm import MutableKNNDatastore as JMutable
 from repro_torch import (
     DescentConfig,
     MutableKNNStore,
@@ -41,7 +42,13 @@ from repro_torch import (
 )
 from repro_torch.core import persist
 from repro_torch.core.faults import FaultPlan, FaultSpec, InjectedFault
-from repro_torch.serve import KNNDatastore, knn_logits
+from repro_torch.serve import (
+    ContinuousBatcher,
+    KNNDatastore,
+    MutableKNNDatastore,
+    Request,
+    knn_logits,
+)
 
 D, K = 8, 6
 RCFG = dict(n_centroids=8, sample=256, members=16, iters=2)
@@ -590,3 +597,146 @@ def test_static_datastore_round_trip(tmp_path):
         arrays, meta = persist.capture_store(_build(router=False))
         persist.rebuild_datastore(arrays, {"kind": "mutable_store", **meta},
                                   device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the growable datastore's snapshots, and the batcher's
+# ---------------------------------------------------------------------------
+
+def _mutable(precision="int8"):
+    """A datastore over the cross-restore state: rows, tombstones, a
+    router, and values aligned with the store's capacity."""
+    store = _state(precision)
+    return MutableKNNDatastore(store=store, values=_values(store),
+                               build_stats={})
+
+
+def test_mutable_datastore_snapshots_both_ways(tmp_path):
+    """The port's datastore snapshot restores into repro's
+    MutableKNNDatastore with every array and the values bitwise, and
+    repro's snapshot of the same state restores into the port's."""
+    ds = _mutable()
+    ours = ds.snapshot(str(tmp_path / "port"))
+    assert persist.latest_snapshot(str(tmp_path / "port")) == ds.store.n
+    jr = JMutable.restore(str(tmp_path / "port"))
+    _assert_arrays_equal(_store_arrays(jr.store), _store_arrays(ds.store))
+    _assert_arrays_equal({"v": jr.values}, {"v": ds.values})
+    assert jr.build_stats["restored_step"] == ds.store.n
+    JMutable(store=_jax_of(ds.store), values=_j(ds.values),
+             build_stats={}).snapshot(str(tmp_path / "jax"), step=4)
+    tr = MutableKNNDatastore.restore(str(tmp_path / "jax"), device="cpu")
+    _assert_stores_equal(tr.store, ds.store)
+    assert torch.equal(tr.values, ds.values)
+    assert tr.build_stats == {"restored_step": 4,
+                              "live": ds.store.live_count(),
+                              "tombstones": 5}
+    mo, mj = _manifest(ours), _manifest(
+        os.path.join(str(tmp_path / "jax"), os.listdir(tmp_path / "jax")[0]))
+    assert (mo.pop("step"), mj.pop("step")) == (ds.store.n, 4)
+    assert mo == mj
+
+
+def test_mutable_datastore_quantized_first_then_fp32(tmp_path):
+    """quantized_first serves from the mirror at once; finish_fp32 gives
+    the exact datastore, bit for bit, and is a no-op afterwards."""
+    ds = _mutable("int8")
+    ds.snapshot(str(tmp_path))
+    qf = MutableKNNDatastore.restore(str(tmp_path), quantized_first=True,
+                                     device="cpu")
+    assert qf.fp32_loader is not None and torch.equal(qf.values, ds.values)
+    _, ids = _search_bits(qf.store)
+    assert ds.store.alive[torch.from_numpy(ids).long()].all()
+    done = qf.finish_fp32()
+    assert done.fp32_loader is None and done.finish_fp32() is done
+    _assert_stores_equal(done.store, ds.store)
+    b1, i1 = _search_bits(ds.store)
+    b2, i2 = _search_bits(done.store)
+    assert (i1 == i2).all() and (b1 == b2).all()
+
+
+def _one_hot_lm(vocab=16):
+    """tests/test_persist.py:297-303's LM, on torch tensors."""
+    def prefill_fn(toks):
+        return torch.ones((1, vocab)), None, toks.shape[1]
+
+    def step_fn(cache, toks, lengths):
+        lg = torch.nn.functional.one_hot(
+            ((toks[:, 0] * 3 + lengths) % vocab).long(), vocab) * 4.0
+        return lg.float(), cache
+    return prefill_fn, step_fn
+
+
+def _lm_datastore(tmp_path, vocab=16, dk=8):
+    rng = np.random.RandomState(0)
+    ds = MutableKNNDatastore.build(
+        rng.randn(64, dk).astype(np.float32),
+        rng.randint(0, vocab, size=64).astype(np.int32), k=8,
+        generator=torch.Generator().manual_seed(2), device="cpu")
+    ds.snapshot(str(tmp_path))
+    proj = torch.from_numpy(np.random.RandomState(5).randn(
+        vocab, dk).astype(np.float32))
+    return ds, proj
+
+
+def _lm_batcher(tmp_path, proj, **kw):
+    prefill_fn, step_fn = _one_hot_lm()
+    return ContinuousBatcher(
+        2, step_fn, prefill_fn, lambda c, i, o, length: c,
+        knn_capture=lambda lg: lg @ proj, knn_chunk=8,
+        knn_snapshot_dir=str(tmp_path), device="cpu", **kw)
+
+
+def test_scheduler_cold_start_and_drain_snapshot(tmp_path):
+    """tests/test_persist.py:286 on the port: with no store passed, the
+    batcher restores from the newest committed snapshot; run() leaves a
+    drain snapshot carrying the streamed inserts for the next cold
+    start."""
+    ds, proj = _lm_datastore(tmp_path)
+    b = _lm_batcher(tmp_path, proj, knn_snapshot_every=8)
+    assert b.knn_store is not None
+    assert b.knn_store.build_stats["restored_step"] == ds.store.n
+    _assert_stores_equal(ds.store, b.knn_store.store)
+    for r in range(3):
+        b.submit(Request(rid=r, prompt=np.array([1, 2, 3], np.int32),
+                         max_new=8))
+    b.run(None)
+    assert b.knn_store.store.n == ds.store.n + 21
+    assert persist.latest_snapshot(str(tmp_path)) == ds.store.n + 21
+    b2 = _lm_batcher(tmp_path, proj)
+    _assert_stores_equal(b.knn_store.store, b2.knn_store.store)
+    assert torch.equal(b.knn_store.values, b2.knn_store.values)
+
+
+def test_drain_snapshot_survives_failed_periodic_write(tmp_path):
+    """tests/test_persist.py:329 on the port: a periodic background
+    snapshot that fails for good does not abort the drain's; the drain
+    commits and the stale error is a warning."""
+    _, proj = _lm_datastore(tmp_path)
+    b = _lm_batcher(tmp_path, proj, knn_snapshot_every=16)
+    for r in range(3):
+        b.submit(Request(rid=r, prompt=np.array([1, 2, 3], np.int32),
+                         max_new=8))
+    # 21 streamed rows: ONE periodic snapshot (at 16 rows), whose write
+    # fails 3 times (past the 2 retries); the drain's write is clean
+    plan = FaultPlan(specs=(FaultSpec(site="persist.write", times=3),))
+    with plan.active(), pytest.warns(RuntimeWarning, match="supersedes"):
+        b.run(None)
+    assert plan.fired("persist.write") == 3
+    assert persist.latest_snapshot(str(tmp_path)) == b.knn_store.store.n
+    b2 = _lm_batcher(tmp_path, proj)
+    _assert_stores_equal(b.knn_store.store, b2.knn_store.store)
+
+
+def test_drain_failure_reraises_after_failed_periodic_write(tmp_path):
+    """When the drain's write fails too, it raises, and the earlier
+    periodic failure is reported beside it."""
+    _, proj = _lm_datastore(tmp_path)
+    b = _lm_batcher(tmp_path, proj, knn_snapshot_every=16)
+    for r in range(3):
+        b.submit(Request(rid=r, prompt=np.array([1, 2, 3], np.int32),
+                         max_new=8))
+    plan = FaultPlan(specs=(FaultSpec(site="persist.write"),))
+    with plan.active(), pytest.warns(RuntimeWarning, match="already"), \
+            pytest.raises(InjectedFault):
+        b.run(None)
+    assert persist.latest_snapshot(str(tmp_path)) == 64

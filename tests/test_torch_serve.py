@@ -26,12 +26,14 @@ from repro.models import model_schema as jmodel_schema
 from repro.serve import ContinuousBatcher as JBatcher
 from repro.serve import KNNDatastore as JDatastore
 from repro.serve import LaneQueue as JLaneQueue
+from repro.serve import MutableKNNDatastore as JMutable
 from repro.serve import Request as JRequest
 from repro.serve import init_cache as jinit_cache
 from repro.serve import interpolate as jinterpolate
 from repro.serve import knn_logits as jknn_logits
 from repro.serve import prefill as jprefill
 from repro.serve import serve_step as jserve_step
+from repro_torch import DescentConfig, OnlineConfig
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import forward, params_from_numpy
@@ -40,6 +42,7 @@ from repro_torch.serve import (
     ContinuousBatcher,
     KNNDatastore,
     LaneQueue,
+    MutableKNNDatastore,
     Request,
     init_cache,
     interpolate,
@@ -341,9 +344,104 @@ def test_batcher_max_steps_marks_truncated():
     assert all(r.done for r in rs)
 
 
-def test_batcher_refuses_the_unported_knn_capture():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _fake_batcher(knn_store=object())
+def test_batcher_grows_its_knn_store_on_cpu():
+    """A batcher with a CPU datastore: every decode step's (key, token)
+    pair of each active slot lands in the store once the stream drains,
+    with the sampled tokens as values, in capture order."""
+    rng = np.random.RandomState(3)
+    ds = MutableKNNDatastore.build(
+        rng.randn(40, 8).astype(np.float32), np.arange(40, dtype=np.int32),
+        k=6, cfg=DescentConfig(k=6, rho=1.0, max_iters=6), device="cpu",
+        generator=torch.Generator().manual_seed(0))
+    proj = torch.from_numpy(rng.randn(8, 8).astype(np.float32))
+    toks = []
+
+    def step_fn(cache, tokens, lengths):
+        lg = torch.nn.functional.one_hot(
+            ((tokens[:, 0] * 5 + lengths) % 8).long(), 8).float()
+        return lg, cache
+
+    bat = _fake_batcher(n_slots=2, knn_store=ds,
+                        knn_capture=lambda lg: lg @ proj, knn_chunk=4)
+    bat.step_fn = step_fn
+    reqs = [_lm_req(i) for i in range(3)]
+    for r in reqs:
+        bat.submit(r)
+    bat.run({})
+    assert all(r.done for r in reqs)
+    st = bat.knn_store.store
+    assert st.n == 40 + 3 * 2 and st.live_count() == 46
+    got = bat.knn_store.values[40:46].tolist()
+    # slots 0 and 1 step together (requests 0, 1), then request 2 alone
+    want = [reqs[0].out[1], reqs[1].out[1], reqs[0].out[2], reqs[1].out[2],
+            reqs[2].out[1], reqs[2].out[2]]
+    assert got == want
+    assert st.nl.idx[40:46].ge(0).all()
+
+
+def test_serve_exports_cover_the_jax_package():
+    """repro_torch.serve exports every name of repro.serve's __all__ but
+    the two that wait for the mesh."""
+    import repro.serve
+    import repro_torch.serve
+    want = set(repro.serve.__all__) - {"abstract_cache", "cache_shardings"}
+    assert want <= set(repro_torch.serve.__all__), \
+        want - set(repro_torch.serve.__all__)
+    assert all(hasattr(repro_torch.serve, n)
+               for n in repro_torch.serve.__all__)
+
+
+# ---------------------------------------------------------------------------
+# the growable datastore
+# ---------------------------------------------------------------------------
+
+def _jax_datastore():
+    keys = jax.random.normal(jax.random.key(0), (60, 8))
+    vals = jax.random.randint(jax.random.key(1), (60,), 0, 32)
+    return JMutable.build(keys, vals, k=8, key=jax.random.key(2))
+
+
+def _port_twin(jds):
+    from test_torch_online import _port_of
+    return MutableKNNDatastore(
+        store=_port_of(jds.store, OnlineConfig()),
+        values=torch.from_numpy(np.array(jds.values)), build_stats={})
+
+
+def test_mutable_datastore_matches_jax():
+    """From one state, with the JAX insert draws injected: an append that
+    doubles the capacity (60 + 9 rows pass 64), a delete, then knn_logits
+    with the same entries. Stores close, values equal, log-probabilities
+    within 1e-5."""
+    from test_torch_online import _seed_draw, _store_close
+    jds = _jax_datastore()
+    tds = _port_twin(jds)
+    extra = np.array(jax.random.normal(jax.random.key(3), (9, 8)))
+    ev = np.arange(9, dtype=np.int32) + 20
+    key = jax.random.key(4)
+    draw = _seed_draw(jds.store, 9, key)
+    jds2, jst = jds.append(jnp.asarray(extra), jnp.asarray(ev), key=key)
+    tds2, tst = tds.append(torch.from_numpy(extra), torch.from_numpy(ev),
+                           **draw)
+    assert tst.dist_evals == jst.dist_evals
+    assert tds2.store.capacity == jds2.store.capacity == 128
+    assert tds.values.shape[0] == 64        # the old datastore is untouched
+    dead = np.array([1, 5, 61, 66], np.int32)
+    jds3, _ = jds2.delete(jnp.asarray(dead))
+    tds3, _ = tds2.delete(torch.from_numpy(dead))
+    _store_close(tds3.store, jds3.store)
+    np.testing.assert_array_equal(tds3.values.numpy(),
+                                  np.asarray(jds3.values))
+    assert tds3.values[60:69].tolist() == ev.tolist()
+    q = extra + 0.01
+    skey = jax.random.key(6)
+    want = np.asarray(jknn_logits(jds3, jnp.asarray(q), 32, k=4, key=skey))
+    entry = torch.tensor(np.asarray(_draw_entries(
+        skey, jds3.store.capacity, 32, jds3.store.alive)))
+    got = knn_logits(tds3, torch.from_numpy(q), 32, k=4, entry=entry)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    ids = tds3.store.search(torch.from_numpy(q), k_out=4, entry=entry)[1]
+    assert not np.isin(ids.numpy(), dead).any()
 
 
 # ---------------------------------------------------------------------------
