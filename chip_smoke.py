@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the port (repro_torch) on one CUDA card and check it: the build
 (build_knn_graph), its exact truth (brute_force_knn), the query path
-(graph_search), the two-stage int8 / bf16 build and search, the online
-store (insert, delete, the router), its snapshots and cold starts
+(graph_search), the two-stage int8 / bf16 build and search, the sharded
+search and its circuit breaker (core/distributed.py), the online store
+(insert, delete, the router), its snapshots and cold starts
 (core/persist.py), the retrieval scheduler in front of the online
 store, and the LM serving path (yi-6b prefill, decode, continuous
 batching, kNN-LM retrieval and its datastore's restore, and the datastore
@@ -79,6 +80,33 @@ script started (phases with several lanes print one line a lane):
                the f32 graph (every round through knn_search_dists_q8 /
                _bf16, the fp32 re-rank through knn_search_dists once per
                block);
+  sharded      path 13: graph_search_sharded over
+               ShardMesh(["cuda:0"] * 4), four logical shards of 17500
+               rows of path 1's corpus, each with its own
+               build_knn_graph(k=20) subgraph; path 3's queries and
+               SearchConfig (torch.cuda.device_count() printed beside).
+               Main path: the replicated dispatch, the routed one
+               (build_router over the global corpus, route_p 2, default
+               route_cap) and exact_knn_sharded(x, 20), each timed. Lanes:
+               p1, one shard over path 1's graph returns path 3's ids and
+               distance bits (shard 0 draws from the batch key); replicated,
+               the stable merge of four direct searches with the same
+               entries, bitwise, at f32 and int8, recall and queries/s
+               beside path 3's, one profile's idle share; routed, fan-out
+               2, 0 dropped, searched == routed, recall and the overlap
+               with replicated, then the JAX chaos bench's shape (1024 x
+               16, shard 1 dead, route_cap 256: degraded recall >= 0.80
+               against the survivors' truth, 0 dropped); dead, shard 1
+               dead under a FaultPlan, replicated (cover_frac 0.75, the
+               survivors' merge bitwise) and routed, no id of shard 1;
+               breaker, ShardBreaker(4, min_samples 3, probe_every 50)
+               under shard.degrade (2, 40.0) trips shard 2 within 4
+               dispatches of 512 queries, and the next dispatch leaves it
+               out; exact, ids equal to path 2's brute force but at ties
+               (counted), distances within 1e-4 + 1e-5 (|a|^2 + |b|^2);
+               fetch, fetch_rows_a2a on seeded ids with a cap some buckets
+               overflow: rows bit-equal to x[ids] where ok, ok exactly the
+               in-bucket non-negative ids;
   online_check mnist_like(16000, 784): a store built on 14400 rows with
                OnlineConfig(router=RouterConfig()), 1600 rows inserted and
                1600 seeded rows deleted in batches of 400, through the
@@ -213,8 +241,9 @@ script started (phases with several lanes print one line a lane):
                same masked keys as its library row (the merges: of the
                masked pool, plus gather); knn_merge_rows at every c the
                online path recorded; pairwise_sq_l2 also on the online
-               path's centroid_assign tile and on the router's graph tile;
-               knn_join_dists also on the kNN-LM's and the online store's
+               path's centroid_assign tile, on the router's graph tile and
+               on the sharded path's ring tile (two 17500-row blocks) and
+               routed query-centroid tile; knn_join_dists also on the kNN-LM's and the online store's
                builds; knn_merge also on the search's pool; the fp32,
                bf16 and int8 search tiles also at round 6 of the first
                block (LATE_ROUND; round 2 is the second call), where the
@@ -240,7 +269,9 @@ own c's; they add up to the path's count, or the script fails),
 knn_join_dists once more on the kNN-LM's build and once on the online
 store's, knn_merge once more on the search path, pairwise_sq_l2 once more
 on the online path's centroid_assign tile and once on the router's graph
-tile (``launches``: the calls at that key; FURTHER_ROWS), the fp32,
+tile (``launches``: the calls at that key; FURTHER_ROWS), then once on
+the sharded path's ring tile and once on its routed tile (``launches``:
+that tile's calls in the path's main run), the fp32,
 bf16 and int8 search tiles once more at round 6 (``launches``: 0, a second
 reading of the launches the round-2 entry counts; ``call`` ends in
 ``:round=6``) and
@@ -348,6 +379,12 @@ KNN_CHUNK, KNN_SNAPSHOT_EVERY = 64, 128     # knn_grow: insert, snapshot
 # lane's batch, the overload runs' arrivals and their pump interval
 RETR_INTERACTIVE, RETR_BURST, RETR_DEADLINE = 2000, (1, 16), 2048
 RETR_OVERLOAD, RETR_PUMP_EVERY = 3000, 48
+# path 13: logical shards on cuda:0, the fetch lane's ids a shard and
+# bucket cap (the mean load, so some buckets overflow), the breaker lane's
+# dispatch size and trip budget, the chaos gate (check_gate.py
+# --chaos-floor)
+SHARDS, SHARD_FETCH_M, SHARD_FETCH_CAP = 4, 4096, 1024
+BREAKER_QUERIES, BREAKER_DISPATCHES, CHAOS_FLOOR = 512, 4, 0.80
 ATTN_F32_TOL = (2e-3, 2e-3)     # (rtol, atol): tests/test_kernels.py:122-137
 ATTN_BF16_TOL = (1e-2, 2e-3)    # + one bf16 rounding of the output (2^-7)
 # (Lq, Lk, H, Hkv, Dq, Dv, keyword arguments of ops.attention)
@@ -2301,6 +2338,347 @@ def knn_grow_run(params, cfg, dev, res, prompts) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def same_bits(got, want) -> bool:
+    """Equal shapes and bits (fp32 compared as int32)."""
+    import torch
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return got.shape == want.shape and torch.equal(got, want)
+
+
+def stable_merge(parts_d, parts_i, k: int):
+    """The plain merge of per-shard lists (global ids): concatenated
+    shard-major, a stable sort by distance, the first k, (+inf, -1) for
+    empty slots. Held apart from the code under test."""
+    import torch
+    d, i = torch.cat(parts_d, 1), torch.cat(parts_i, 1)
+    d = torch.where(i >= 0, d, torch.inf)
+    sd, order = torch.sort(d, dim=1, stable=True)
+    sd = sd[:, :k]
+    si = torch.gather(i, 1, order)[:, :k]
+    return sd, torch.where(torch.isfinite(sd), si, -1)
+
+
+def shard_searches(x, gidx, q, ents, cfg, shards):
+    """Each shard's direct graph_search on its rows and subgraph with the
+    given entries, ids lifted to global."""
+    import torch
+    from repro_torch import graph_search
+    n_local = x.shape[0] // len(shards)
+    ds, is_ = [], []
+    for p in shards:
+        sl = slice(p * n_local, (p + 1) * n_local)
+        d, i = graph_search(x[sl], gidx[sl], q, k_out=10, entry=ents[p],
+                            cfg=cfg)
+        ds.append(d)
+        is_.append(torch.where(i >= 0, i + p * n_local, -1))
+    return ds, is_
+
+
+def ids_up_to_ties(x, q, got_d, got_i, want_d, want_i) -> dict:
+    """Distances within 1e-4 + 1e-5 (|q|^2 + |x|^2); ids equal but where
+    both ids lie at the same distance from the query to that tolerance
+    (recomputed in fp64). Returns how many positions differ, how many of
+    them hold bit-equal fp32 distances in both lists (ties of the kernel's
+    values) and how many are exact ties in fp64, and the largest distance
+    difference."""
+    import torch
+    if not torch.equal(torch.isfinite(got_d), torch.isfinite(want_d)):
+        raise AssertionError("+inf positions differ")
+    x2, q2 = (x * x).sum(1), (q * q).sum(1)
+    tol = 1e-4 + 1e-5 * (q2[:, None] + x2[want_i.clamp_min(0).long()])
+    fin = torch.isfinite(want_d)
+    if ((got_d - want_d).abs()[fin] > tol[fin]).any():
+        raise AssertionError("distances differ beyond 1e-4 + 1e-5 (|q|^2 "
+                             "+ |x|^2)")
+    r, c = torch.nonzero(got_i != want_i, as_tuple=True)
+    qd = q[r].double()
+    dg = ((x[got_i[r, c].long()].double() - qd) ** 2).sum(1)
+    dw = ((x[want_i[r, c].long()].double() - qd) ** 2).sum(1)
+    if ((dg - dw).abs() > tol[r, c]).any():
+        raise AssertionError("ids differ at a distance that is not a tie")
+    return {"tied_ids_that_differ": int(r.numel()),
+            "of_them_equal_fp32_distances": int(
+                (got_d[r, c] == want_d[r, c]).sum()),
+            "of_them_exact_fp64_ties": int((dg == dw).sum()),
+            "max_abs_dist_diff": float((got_d - want_d).abs()[fin].max())}
+
+
+def fetch_check(mesh, x) -> dict:
+    """fetch_rows_a2a on seeded random ids (SHARD_FETCH_M a shard, -1
+    included) with a bucket cap near the mean load: rows bit-equal to
+    x[ids] where ok, ok exactly the non-negative ids within their owner's
+    first ``cap`` (by position), zero rows elsewhere."""
+    import torch
+    from repro_torch.core.distributed import fetch_rows_a2a
+    P, n = mesh.size, x.shape[0]
+    n_local = n // P
+    g = torch.Generator(device=x.device).manual_seed(SEED + 31)
+    ids = [torch.randint(-1, n, (SHARD_FETCH_M,), generator=g,
+                         device=x.device, dtype=torch.int32)
+           for _ in range(P)]
+    (rows, ok), seconds = timed(lambda: fetch_rows_a2a(
+        mesh, mesh.split(x), ids, cap=SHARD_FETCH_CAP))
+    overflowed = 0
+    for p in range(P):
+        idp = ids[p].long()
+        owner = torch.where(idp >= 0, idp // n_local, P)
+        onehot = owner[:, None] == torch.arange(P + 1, device=x.device)
+        rank = (onehot.cumsum(0) - 1).gather(1, owner[:, None])[:, 0]
+        want_ok = (idp >= 0) & (rank < SHARD_FETCH_CAP)
+        overflowed += int((onehot[:, :P].sum(0) > SHARD_FETCH_CAP).sum())
+        if not torch.equal(ok[p], want_ok):
+            raise AssertionError(f"fetch: shard {p}'s ok mask is wrong")
+        if not same_bits(rows[p][want_ok], x[idp[want_ok]]) \
+                or rows[p][~want_ok].any():
+            raise AssertionError(f"fetch: shard {p}'s rows are wrong")
+    if not 0 < overflowed < P * P:
+        raise AssertionError(f"fetch: {overflowed} of {P * P} buckets "
+                             "overflowed; the lane needs some, not all")
+    return {"ids_per_shard": SHARD_FETCH_M, "cap": SHARD_FETCH_CAP,
+            "fetched": int(sum(int(o.sum()) for o in ok)),
+            "overflowed_buckets": overflowed, "seconds": seconds}
+
+
+def chaos_shape_check(dev) -> dict:
+    """The JAX chaos bench's sharded phase (benchmarks/bench_chaos.py:64-
+    110) on the card: 4 shards of one tight cluster each (1024 x 16),
+    per-shard graphs, a 16-centroid router, 128 queries, routed dispatch
+    (route_p 2, route_cap 256) with shard 1 dead under a FaultPlan: the
+    degraded recall against the attainable truth (brute force over the
+    surviving rows) must reach CHAOS_FLOOR, with 0 dropped queries."""
+    import torch
+    from repro_torch.core import (DescentConfig, FaultPlan, FaultSpec,
+                                  RouterConfig, SearchConfig, ShardMesh,
+                                  brute_force_knn, build_knn_graph,
+                                  build_router, graph_search_sharded,
+                                  recall_at_k)
+    P, n, d, dead = 4, 1024, 16, 1
+    n_local = n // P
+    g = torch.Generator(device=dev).manual_seed(SEED + 32)
+    cent = torch.randn(P, d, generator=g, device=dev) * 8.0
+    noise = torch.randn(P, n_local, d, generator=g, device=dev) * 0.5
+    x = (cent[:, None, :] + noise).reshape(n, d)
+    cfg = DescentConfig(k=10, rho=1.0, max_iters=10, reorder=False)
+    gidx = torch.cat([build_knn_graph(
+        x[s * n_local:(s + 1) * n_local], 10, cfg=cfg,
+        generator=torch.Generator(device=dev).manual_seed(s))[1]
+        for s in range(P)])
+    router = build_router(x, cfg=RouterConfig(n_centroids=16, sample=1024),
+                          generator=torch.Generator(
+                              device=dev).manual_seed(SEED + 33))
+    q = x[::8] + 0.01
+    mesh = ShardMesh(["cuda:0"] * P)
+
+    def dispatch():
+        return graph_search_sharded(
+            mesh, x, gidx, q, k_out=10,
+            cfg=SearchConfig(beam=16, rounds=24, expand=4), router=router,
+            route_p=2, route_cap=256, with_stats=True)
+    _, ti_full = brute_force_knn(x, q, 10, exclude_self=False)
+    _, gi_live, st_live = dispatch()
+    with FaultPlan(specs=(FaultSpec(site="shard.dead", arg=dead),)).active():
+        _, gi_dead, st_dead = dispatch()
+    live_ids = torch.cat([torch.arange(s * n_local, (s + 1) * n_local,
+                                       device=dev)
+                          for s in range(P) if s != dead])
+    _, tl = brute_force_knn(x[live_ids], q, 10, exclude_self=False)
+    out = {"baseline_recall": recall_at_k(gi_live, ti_full),
+           "degraded_recall": recall_at_k(gi_dead, live_ids[tl.long()]),
+           "degraded_recall_full": recall_at_k(gi_dead, ti_full),
+           "dropped_queries": st_dead["dropped_queries"],
+           "degraded_shards": st_dead["degraded_shards"],
+           "cover_frac": st_dead["cover_frac"], "floor": CHAOS_FLOOR}
+    if out["degraded_recall"] < CHAOS_FLOOR or out["dropped_queries"] \
+            or st_live["dropped_queries"] or st_dead["degraded_shards"] \
+            != [dead] or (gi_dead.long() // n_local == dead).any():
+        raise AssertionError(f"sharded chaos shape failed: {out}")
+    return out
+
+
+def sharded_run(x, graph, q, qt, truth, path_out, search_wall_s, scfg,
+                dev):
+    """Path 13: graph_search_sharded over ShardMesh(["cuda:0"] * SHARDS),
+    each shard a subgraph of its own rows; exact_knn_sharded; the lanes
+    p1, replicated, routed, dead, breaker, exact and fetch. ``graph`` is
+    path 1's graph, ``truth`` path 2's (dist, idx), ``path_out`` path 3's
+    (dist, idx) and ``qt`` its truth. Returns (lanes, kernel-line
+    entries)."""
+    import torch
+    from repro_torch.core import (BreakerConfig, DescentConfig, FaultPlan,
+                                  FaultSpec, RouterConfig, ShardBreaker,
+                                  ShardMesh, build_knn_graph, build_router,
+                                  exact_knn_sharded, graph_search_sharded,
+                                  recall_at_k)
+    from repro_torch.kernels import _lib
+    P, n = SHARDS, x.shape[0]
+    n_local = n // P
+    lanes = {"device_count": torch.cuda.device_count()}
+
+    # -- p1: one shard over path 1's graph draws path 3's entries (shard
+    # 0's seed is the batch key) and returns its answer bit for bit
+    (d1, i1), p1_s = timed(lambda: graph_search_sharded(
+        ShardMesh(["cuda:0"]), x, graph, q, k_out=10, cfg=scfg))
+    if not (same_bits(d1, path_out[0]) and same_bits(i1, path_out[1])):
+        raise AssertionError("sharded p1: one shard differs from path 3")
+    lanes["p1"] = {"wall_s": p1_s, "path3_wall_s": search_wall_s,
+                   "bitwise": True}
+
+    # -- the shards' subgraphs and the router over the global corpus
+    dcfg = DescentConfig(k=20)
+    (parts, build_s) = timed(lambda: [build_knn_graph(
+        x[p * n_local:(p + 1) * n_local], 20, cfg=dcfg,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 40 + p))[1]
+        for p in range(P)])
+    gidx = torch.cat(parts)
+    router, router_s = timed(lambda: build_router(
+        x, cfg=RouterConfig(), generator=torch.Generator(
+            device=dev).manual_seed(SEED + 45)))
+    g = torch.Generator(device=dev).manual_seed(SEED + 46)
+    ents = torch.stack([torch.randperm(n_local, generator=g, device=dev)[
+        :scfg.beam] for _ in range(P)]).to(torch.int32)
+    mesh = ShardMesh(["cuda:0"] * P)
+    lanes["setup"] = {"shards": P, "n_local": n_local,
+                      "devices": [str(d) for d in mesh.devices],
+                      "subgraph_build_s": build_s, "router_s": router_s,
+                      "centroids": int(router.centroids.shape[0])}
+
+    # -- the main path: replicated, routed, exact; the pairwise launches
+    # of the routed tile and the ring counted apart
+    def main_path():
+        out = {}
+        for name, fn in (
+                ("replicated", lambda: graph_search_sharded(
+                    mesh, x, gidx, q, k_out=10, cfg=scfg, entries=ents,
+                    with_stats=True)),
+                ("routed", lambda: graph_search_sharded(
+                    mesh, x, gidx, q, k_out=10, cfg=scfg, entries=ents,
+                    router=router, route_p=2, with_stats=True)),
+                ("exact", lambda: exact_knn_sharded(mesh, x, 20))):
+            before = _lib.LAUNCHES["pairwise_sq_l2"]
+            res, sec = timed(fn)
+            out[name] = (res, sec, _lib.LAUNCHES["pairwise_sq_l2"] - before)
+        return out
+    res, wall, launches, peak, _ = drive("sharded", main_path)
+    require_launched("sharded", launches, ("knn_search_dists",
+                                           "knn_join_select", "knn_merge",
+                                           "pairwise_sq_l2"))
+    lanes.update(wall_s=wall, launches=launches, max_memory_allocated=peak)
+
+    # -- replicated: the stable merge of four direct searches, bitwise
+    (rd, ri, rst), rep_s, _ = res["replicated"]
+    check_search(rd, ri, n, 10)
+    parts_d, parts_i = shard_searches(x, gidx, q, ents, scfg, range(P))
+    md, mi = stable_merge(parts_d, parts_i, 10)
+    if not (same_bits(rd, md) and same_bits(ri, mi)):
+        raise AssertionError("sharded replicated: not the stable merge of "
+                             "the four direct searches")
+    int8_cfg = dataclasses.replace(scfg, precision="int8")
+    (qd8, qi8), int8_s = timed(lambda: graph_search_sharded(
+        mesh, x, gidx, q, k_out=10, cfg=int8_cfg, entries=ents))
+    md8, mi8 = stable_merge(*shard_searches(x, gidx, q, ents, int8_cfg,
+                                            range(P)), 10)
+    if not (same_bits(qd8, md8) and same_bits(qi8, mi8)):
+        raise AssertionError("sharded int8: not the stable merge of the "
+                             "four direct int8 searches")
+    prof = profile_run(lambda: graph_search_sharded(
+        mesh, x, gidx, q, k_out=10, cfg=scfg, entries=ents))
+    lanes["replicated"] = {
+        "wall_s": rep_s, "queries_per_s": q.shape[0] / rep_s,
+        "path3_queries_per_s": q.shape[0] / search_wall_s,
+        "recall_at_10": recall_at_k(ri, qt),
+        "path3_recall_at_10": recall_at_k(path_out[1], qt), "stats": rst,
+        "bitwise_to_direct_merge": True, "int8_wall_s": int8_s,
+        "int8_recall_at_10": recall_at_k(qi8, qt),
+        "int8_bitwise_to_direct_merge": True,
+        "device_idle_share": prof["device_idle_share"],
+        "profiled_wall_s": prof["profiled_wall_s"]}
+
+    # -- routed: fan-out 2, nothing dropped; recall and the overlap with
+    # the replicated answer (no floor: the shards are not cluster-aligned)
+    (od, oi, ost), routed_s, route_tiles = res["routed"]
+    check_search(od, oi, n, 10)
+    if ost["fanout"] != 2 or ost["dropped_queries"] != 0 \
+            or ost["searched_queries"] != ost["routed_queries"]:
+        raise AssertionError(f"sharded routed: stats {ost}")
+    lanes["routed"] = {
+        "wall_s": routed_s, "queries_per_s": q.shape[0] / routed_s,
+        "recall_at_10": recall_at_k(oi, qt), "stats": ost,
+        "overlap_with_replicated": recall_at_k(oi, ri),
+        "chaos_shape": chaos_shape_check(dev)}
+
+    # -- dead: shard 1 dead under a FaultPlan, replicated and routed
+    plan = FaultPlan(specs=(FaultSpec(site="shard.dead", arg=1),))
+    with plan.active():
+        (dd, di, dst), dead_s = timed(lambda: graph_search_sharded(
+            mesh, x, gidx, q, k_out=10, cfg=scfg, entries=ents,
+            with_stats=True))
+    with plan.active():
+        (_, dri, drst), dead_routed_s = timed(lambda: graph_search_sharded(
+            mesh, x, gidx, q, k_out=10, cfg=scfg, entries=ents,
+            router=router, route_p=2, with_stats=True))
+    sd, si = stable_merge([parts_d[p] for p in (0, 2, 3)],
+                          [parts_i[p] for p in (0, 2, 3)], 10)
+    if (di.long() // n_local == 1).any() \
+            or (dri.long() // n_local == 1).any() \
+            or dst["cover_frac"] != 0.75 or dst["degraded_shards"] != [1] \
+            or not (same_bits(dd, sd) and same_bits(di, si)):
+        raise AssertionError(f"sharded dead: {dst}, {drst}")
+    lanes["dead"] = {"replicated_wall_s": dead_s,
+                     "replicated_recall_at_10": recall_at_k(di, qt),
+                     "replicated_stats": dst, "routed_wall_s": dead_routed_s,
+                     "routed_recall_at_10": recall_at_k(dri, qt),
+                     "routed_stats": drst, "bitwise_to_survivors": True}
+
+    # -- breaker: shard.degrade (2, 40.0) trips shard 2 within
+    # BREAKER_DISPATCHES dispatches of BREAKER_QUERIES queries
+    br = ShardBreaker(P, BreakerConfig(min_samples=3, probe_every=50))
+    qb = q[:BREAKER_QUERIES]
+    seconds = []
+    slow = FaultPlan(seed=0, specs=(FaultSpec(site="shard.degrade",
+                                              arg=(2, 40.0)),))
+    with slow.active():
+        for _ in range(BREAKER_DISPATCHES):
+            _, sec = timed(lambda: graph_search_sharded(
+                mesh, x, gidx, qb, k_out=10, cfg=scfg, breaker=br))
+            seconds.append(sec)
+            if br.open[2]:
+                break
+    tripped_after = len(seconds)
+    (bd, bi, bst), sec = timed(lambda: graph_search_sharded(
+        mesh, x, gidx, qb, k_out=10, cfg=scfg, with_stats=True, breaker=br))
+    seconds.append(sec)
+    if not br.open[2] or 2 not in bst["degraded_shards"] \
+            or bst["cover_frac"] != 0.75 or (bi < 0).any() \
+            or (bi.long() // n_local == 2).any():
+        raise AssertionError(f"sharded breaker: {br.stats()}, {bst}")
+    lanes["breaker"] = {"queries": BREAKER_QUERIES,
+                        "tripped_after_dispatches": tripped_after,
+                        "dispatch_s": seconds, "stats": bst}
+
+    # -- exact: the ring against path 2's brute force
+    (ed, ei), exact_s, ring_tiles = res["exact"]
+    lanes["exact"] = {"wall_s": exact_s, "slots": ei.numel(),
+                      **ids_up_to_ties(x, x, ed, ei, *truth)}
+    lanes["fetch"] = fetch_check(mesh, x)
+
+    # -- the kernels line's rows of this path: the ring tile and the
+    # routed query-centroid tile, on the inputs the path gave them
+    rows = []
+    for call, args, launched in (
+            ("ring", (x[:n_local].contiguous(),
+                      x[n_local:2 * n_local].contiguous()), ring_tiles),
+            ("route", (q.contiguous(), router.centroids.contiguous()),
+             route_tiles)):
+        e = check_kernel("pairwise_sq_l2", args, reps=10)
+        e.update(route="cuda", source=SOURCES["pairwise_sq_l2"],
+                 replaces=REPLACES["pairwise_sq_l2"], launches=launched,
+                 path="sharded", call=f"sharded:pairwise_sq_l2:{call}")
+        emit("kernels", **e)
+        rows.append(e)
+    return lanes, rows
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run it from a checkout of the repository "
@@ -2573,7 +2951,7 @@ def main() -> int:
     require_launched("truth", launches_t, ("pairwise_sq_l2",))
     if agree < 0.999:
         raise AssertionError(f"truth: recall {agree} against exact_knn")
-    del td, ti, exact
+    del exact
 
     # -- search: path 3, the query path on the 70000-point graph
     q = noisy_queries(x, N_QUERIES, SEED + 4)
@@ -2625,7 +3003,13 @@ def main() -> int:
              recall_at_10=recall_at_k(qi, qt), f32=f32_search,
              fp32_distances=exact_d)
         del qd, qi
-    del sd, si, qt
+
+    # -- sharded: path 13, the sharded search and its breaker
+    sharded, sharded_rows = sharded_run(
+        x, idx, q, qt, (td, ti), (sd, si), f32_search["wall_s"], scfg, dev)
+    emit("sharded", n=N, d=784, queries=N_QUERIES, k_out=10,
+         cfg=dataclasses.asdict(scfg), **sharded)
+    del sd, si, qt, td, ti
 
     # -- online: path 8, the online store at MNIST's split sizes
     ocfg = OnlineConfig(router=RouterConfig())
@@ -2908,6 +3292,8 @@ def main() -> int:
                     line.append(
                         {**e, "launches": e["launches_at_this_key"]})
         line.extend(further[k] for k in FURTHER_ROWS.get(n, ()))
+        if n == "pairwise_sq_l2":
+            line.extend(sharded_rows)
         if n in late:
             line.append(late[n])
         if n == "knn_merge_rows":

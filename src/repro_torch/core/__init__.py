@@ -1,6 +1,14 @@
 """The paper's contribution, ported slice by slice: fast K-NN-graph
 construction (NN-Descent with turbosampling selection, greedy memory
 reordering and blocked distance evaluation) on PyTorch and CUDA."""
+from repro_torch.core.distributed import (
+    BreakerConfig,
+    ShardBreaker,
+    ShardMesh,
+    exact_knn_sharded,
+    fetch_rows_a2a,
+    graph_search_sharded,
+)
 from repro_torch.core.faults import (
     FaultPlan,
     FaultSpec,
@@ -61,6 +69,7 @@ from repro_torch.core.router import (
 )
 
 __all__ = [
+    "BreakerConfig",
     "BuildDraws",
     "DescentConfig",
     "DescentStats",
@@ -74,6 +83,8 @@ __all__ = [
     "Router",
     "RouterConfig",
     "SearchConfig",
+    "ShardBreaker",
+    "ShardMesh",
     "SnapshotError",
     "SnapshotWriter",
     "apply_permutation",
@@ -83,8 +94,11 @@ __all__ = [
     "dequantize",
     "distance_recall",
     "ensure_router",
+    "exact_knn_sharded",
     "expand_frontier",
+    "fetch_rows_a2a",
     "graph_search",
+    "graph_search_sharded",
     "greedy_reorder",
     "knn_delete",
     "knn_insert",

@@ -1,0 +1,629 @@
+"""Sharded serving: the corpus's rows split over P shards, each with a
+K-NN subgraph over its own rows, answered as one global top-k.
+
+Single controller, as in the JAX package: one host call drives every
+shard. A ``ShardMesh`` names the P torch devices the shards live on
+(repeats allowed: ``["cuda:0"] * 4`` is four logical shards on one card;
+on a machine with P cards, shard p can sit on ``cuda:p``). Its small
+collectives (``all_gather``, the ring ``ppermute``, ``all_to_all``,
+``psum``) are ``.to(device)`` moves between shards: a view or a copy on
+one device, a peer copy between cards. No ``torch.distributed`` process
+group is involved. Global ids are ``shard * n_local + row``.
+
+  * ``graph_search_sharded`` — every shard runs ``graph_search`` on its
+    block and the per-shard lists are merged into the global top-k:
+    replicated (every query searches every shard), or routed (a router
+    over the global corpus picks ``route_p`` shards per query). Dead
+    shards (``dead_shards``, a ``FaultPlan``, a ``ShardBreaker``) drop
+    out of the merge instead of failing the dispatch.
+  * ``exact_knn_sharded`` — blocked brute force: each block passes every
+    shard once around the ring; each step scores one (n_local, n_local)
+    tile (``ops.pairwise_sq_l2``) and folds its top-k into the running
+    lists (``ops.knn_merge``).
+  * ``fetch_rows_a2a`` — request-routed row fetch: ids bucketed by owner,
+    one all_to_all of ids and one of rows.
+
+Randomness: torch cannot reproduce ``jax.random.fold_in(key, p)``, so the
+per-shard draws are injectable (``entries=``, ``route_fill=``); without
+them shard p draws from a generator seeded ``_shard_seed(key, p)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.core import faults
+from repro_torch.core import metric as metric_mod
+from repro_torch.core.device import resolve_device
+from repro_torch.core.graph_search import (
+    SearchConfig,
+    _admit_queries,
+    _batch_key,
+    _draw_entries,
+    _mask_bad_rows,
+    graph_search,
+)
+from repro_torch.kernels import ops
+
+_MASK64 = (1 << 64) - 1
+_GOLDEN = 0x9E3779B97F4A7C15
+
+
+class ShardMesh:
+    """A 1-D mesh of P shards over the axis ``axis``: ``devices[p]`` holds
+    shard p's rows. Outputs of the sharded entry points land on
+    ``devices[0]``."""
+
+    def __init__(self, devices, axis: str = "data"):
+        devices = tuple(torch.device(d) for d in devices)
+        if not devices:
+            raise ValueError("a ShardMesh needs at least one device")
+        if any(d.type == "cuda" for d in devices) \
+                and not torch.cuda.is_available():
+            raise RuntimeError("ShardMesh names a CUDA device and none is "
+                               "available")
+        self.devices = devices
+        self.axis = axis
+
+    @classmethod
+    def on(cls, n_shards: int, device=None, axis: str = "data"):
+        """``n_shards`` logical shards on one device: the card unless the
+        caller names another device; with no card present that raises."""
+        if n_shards < 1:
+            raise ValueError("n_shards must be >= 1")
+        return cls([resolve_device(device, "ShardMesh.on")] * n_shards, axis)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def shape(self) -> dict:
+        return {self.axis: self.size}
+
+    def split(self, x, dtype=None) -> list:
+        """Row blocks of the global ``x`` (n, ...), block p on devices[p];
+        n must divide by P."""
+        x = torch.as_tensor(x, dtype=dtype)
+        n = x.shape[0]
+        if n % self.size:
+            raise ValueError(f"{n} rows do not split over {self.size} "
+                             "shards")
+        n_local = n // self.size
+        return [x[p * n_local:(p + 1) * n_local].to(d)
+                for p, d in enumerate(self.devices)]
+
+    def all_gather(self, parts) -> torch.Tensor:
+        """(P, ...) stack of the per-shard tensors, on devices[0]."""
+        return torch.stack([t.to(self.devices[0]) for t in parts])
+
+    def ppermute(self, blocks) -> list:
+        """The ring step: shard p receives shard p-1's block."""
+        return [blocks[p - 1].to(d) for p, d in enumerate(self.devices)]
+
+    def all_to_all(self, buckets) -> list:
+        """buckets[p] (P, ...): row q goes to shard q. Returns got with
+        got[q][p] = buckets[p][q], on devices[q]."""
+        return [torch.stack([b[q].to(d) for b in buckets])
+                for q, d in enumerate(self.devices)]
+
+    def psum(self, parts) -> torch.Tensor:
+        """Sum of the per-shard tensors, on devices[0]."""
+        return self.all_gather(parts).sum(dim=0)
+
+
+def _shard_seed(key: int, p: int) -> int:
+    """Shard p's generator seed: ``key`` itself for shard 0 (so one shard
+    draws what ``graph_search`` draws from the same key), a Weyl step of
+    the golden ratio further for each next shard."""
+    return (key + p * _GOLDEN) & _MASK64
+
+
+def _shard_generator(key: int, p: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(_shard_seed(key, p))
+
+
+def _lowest(d: torch.Tensor, i: torch.Tensor, k: int, backend: str):
+    """The k smallest of (q, W) lists, ties to the lowest position (as
+    ``jax.lax.top_k`` keeps them); id -1 and +inf entries come back as
+    (+inf, -1). The select kernel with no prefilter."""
+    kth = torch.full((d.shape[0],), torch.inf, device=d.device)
+    return ops.knn_join_select(d.contiguous(), i.contiguous(), kth, k,
+                               backend=backend)
+
+
+def exact_knn_sharded(mesh: ShardMesh, x, k: int, *, axis: str = "data"):
+    """Exact k-NN over the rows of ``x`` (n, d) split over the mesh's P
+    shards (self excluded by id). Each of P ring steps scores every
+    shard's block against the block passing it (``ops.pairwise_sq_l2``),
+    masks the shard's own ids, takes the tile's k smallest (``topk``, then
+    a stable order by distance and position: ids equal the JAX package's
+    but where a tie straddles the k-th place) and folds them into the
+    running lists (``ops.knn_merge``). Returns (dist (n, k), idx (n, k) i32
+    global ids) on devices[0]."""
+    P = mesh.shape[axis]
+    blocks = mesh.split(x, torch.float32)
+    n_local = blocks[0].shape[0]
+    if not 0 < k < n_local:
+        raise ValueError(f"k={k} needs 0 < k < n_local={n_local}")
+    blocks = [b.contiguous() for b in blocks]
+    nl_d = [torch.full((n_local, k), torch.inf, device=b.device)
+            for b in blocks]
+    nl_i = [torch.full((n_local, k), -1, dtype=torch.int32, device=b.device)
+            for b in blocks]
+    passing = list(blocks)
+    for s in range(P):
+        for p, mine in enumerate(blocks):
+            owner = (p - s) % P
+            dist = ops.pairwise_sq_l2(mine, passing[p])
+            if owner == p:
+                dist.fill_diagonal_(torch.inf)
+            val, col = torch.topk(dist, k, dim=1, largest=False)
+            col, o = torch.sort(col, dim=1)
+            val = torch.gather(val, 1, o)
+            val, o = torch.sort(val, dim=1, stable=True)
+            cand_i = (owner * n_local + torch.gather(col, 1, o)).to(
+                torch.int32)
+            nl_d[p], nl_i[p], _ = ops.knn_merge(
+                nl_d[p], nl_i[p], val.contiguous(), cand_i.contiguous())
+            del dist
+        passing = mesh.ppermute(passing)
+    return (torch.cat([t.to(mesh.devices[0]) for t in nl_d]),
+            torch.cat([t.to(mesh.devices[0]) for t in nl_i]))
+
+
+def fetch_rows_a2a(mesh: ShardMesh, x_local, ids, *, cap: int):
+    """Request-routed row fetch. ``x_local[p]`` (n_local, d) is shard p's
+    block and ``ids[p]`` (m,) the global ids it needs (-1 = none). Each
+    shard buckets its ids by owner (stable by position, ``cap`` per
+    owner), one all_to_all sends the ids, the owners gather the rows, one
+    all_to_all returns them to the same bucket slots. An id past its
+    bucket's ``cap`` is dropped. Returns (rows, ok): per shard (m, d) rows
+    (zero where not fetched) and an (m,) mask, false for overflow and id
+    -1, each on its shard's device."""
+    P = mesh.size
+    n_local = x_local[0].shape[0]
+    reqs, sort_state = [], []
+    for p, dev in enumerate(mesh.devices):
+        idp = torch.as_tensor(ids[p], dtype=torch.int32, device=dev)
+        m = idp.shape[0]
+        dest = torch.where(idp >= 0, (idp // n_local).clamp(0, P - 1), P)
+        dest_s, order = torch.sort(dest, stable=True)
+        first = torch.searchsorted(
+            dest_s, torch.arange(P + 1, dtype=dest_s.dtype, device=dev))
+        pos = torch.arange(m, device=dev) - first[dest_s.clamp(0, P)]
+        in_bucket = (dest_s < P) & (pos < cap)
+        # out-of-bucket writes land in one spare slot (JAX's mode="drop")
+        flat = torch.where(in_bucket, dest_s * cap + pos, P * cap)
+        req = torch.full((P * cap + 1,), -1, dtype=torch.int32, device=dev)
+        req.scatter_(0, flat, idp[order])
+        reqs.append(req[:P * cap].view(P, cap))
+        sort_state.append((idp, order, dest_s, pos, in_bucket))
+    rows = []
+    for p, got in enumerate(mesh.all_to_all(reqs)):
+        loc = got - p * n_local                       # requested from p
+        here = (loc >= 0) & (loc < n_local)
+        r = x_local[p][loc.clamp(0, n_local - 1).long()]
+        rows.append(torch.where(here[..., None], r, torch.zeros_like(r)))
+    out_rows, out_ok = [], []
+    for p, back in enumerate(mesh.all_to_all(rows)):
+        idp, order, dest_s, pos, in_bucket = sort_state[p]
+        fetched = back[dest_s.clamp(0, P - 1).long(),
+                       pos.clamp(0, cap - 1).long()]
+        fetched = torch.where(in_bucket[:, None], fetched,
+                              torch.zeros_like(fetched))
+        out = torch.empty_like(fetched)
+        out[order] = fetched
+        ok = torch.empty_like(in_bucket)
+        ok[order] = in_bucket
+        out_rows.append(out)
+        out_ok.append(ok & (idp >= 0))
+    return out_rows, out_ok
+
+
+@dataclasses.dataclass(frozen=True)
+class BreakerConfig:
+    """Knobs for the per-shard latency circuit breaker."""
+    alpha: float = 0.3        # EWMA weight of the newest latency sample
+    trip_ratio: float = 3.0   # open when ewma > ratio * median(others)
+    min_samples: int = 3      # samples before a shard is allowed to trip
+    probe_every: int = 4      # while open, probe every N dispatches
+    recover_ratio: float = 1.5
+    #                         # a half-open probe closes the breaker when
+    #                         # its sample <= ratio * median(others)
+
+
+class ShardBreaker:
+    """Per-shard latency circuit breaker for ``graph_search_sharded``.
+
+    A chronically slow shard drags every dispatch's tail while adding
+    nothing a survivor could not. The breaker keeps a latency EWMA per
+    shard; when a shard's EWMA exceeds ``trip_ratio`` x the median of the
+    other closed shards' EWMAs (a scale-free trip), the breaker OPENS and
+    the shard joins the dead shards' degraded merge. While open, every
+    ``probe_every``-th dispatch is a HALF-OPEN probe: the shard is let
+    through once, and a healthy sample (<= ``recover_ratio`` x the
+    others' median) closes the breaker and restarts its EWMA.
+
+    Clock-free: it folds the samples handed to :meth:`observe` and never
+    reads the time itself, so tests drive it with synthetic numbers and
+    the ``shard.degrade`` fault site inflates real samples. One
+    :meth:`excluded` and one :meth:`observe` per dispatch;
+    ``graph_search_sharded(breaker=...)`` does both. It never excludes
+    every shard: with all breakers open the lowest-EWMA shard serves.
+    """
+
+    def __init__(self, n_shards: int, cfg: BreakerConfig | None = None):
+        if n_shards < 1:
+            raise ValueError("n_shards must be >= 1")
+        self.n_shards = n_shards
+        self.cfg = cfg or BreakerConfig()
+        self.ewma: list = [None] * n_shards
+        self.samples = [0] * n_shards
+        self.open = [False] * n_shards
+        self._opened_at = [0] * n_shards    # dispatch counter at open
+        self._probing: set = set()          # half-open this dispatch
+        self.dispatches = 0
+        self.trips = 0
+        self.probes = 0
+        self.recoveries = 0
+
+    def _median_others(self, shard: int):
+        vals = sorted(
+            e for s, e in enumerate(self.ewma)
+            if s != shard and e is not None and not self.open[s]
+        )
+        if not vals:
+            return None
+        return vals[len(vals) // 2]
+
+    def excluded(self) -> list:
+        """Shards to treat as dead for the NEXT dispatch (advances the
+        dispatch counter; open shards due for their half-open probe are
+        let through and remembered as probing)."""
+        self.dispatches += 1
+        self._probing = set()
+        out = []
+        for s in range(self.n_shards):
+            if not self.open[s]:
+                continue
+            age = self.dispatches - self._opened_at[s]
+            if age > 0 and age % max(1, self.cfg.probe_every) == 0:
+                self._probing.add(s)        # half-open: let one through
+                self.probes += 1
+            else:
+                out.append(s)
+        if len(out) == self.n_shards:       # never exclude every shard
+            best = min(out, key=lambda s: self.ewma[s] or 0.0)
+            out.remove(best)
+        return out
+
+    def observe(self, latencies) -> None:
+        """Fold per-shard latency samples (seconds) of the dispatch that
+        :meth:`excluded` opened: ``latencies`` {shard: seconds}, excluded
+        shards absent. Closed shards update their EWMA and may trip;
+        probing shards close on a healthy sample and re-arm the probe
+        timer otherwise."""
+        a = self.cfg.alpha
+        for s, lat in dict(latencies).items():
+            s = int(s)
+            if not 0 <= s < self.n_shards:
+                continue
+            lat = float(lat)
+            prev = self.ewma[s]
+            self.ewma[s] = lat if prev is None else (1 - a) * prev + a * lat
+            self.samples[s] += 1
+            med = self._median_others(s)
+            if self.open[s]:
+                if s in self._probing and med is not None \
+                        and lat <= self.cfg.recover_ratio * med:
+                    self.open[s] = False
+                    self.recoveries += 1
+                    # forget the degraded EWMA: the shard comes back on
+                    # probation with its healthy probe sample
+                    self.ewma[s] = lat
+                    self.samples[s] = 1
+                else:
+                    self._opened_at[s] = self.dispatches
+            elif (self.samples[s] >= self.cfg.min_samples
+                  and med is not None
+                  and self.ewma[s] > self.cfg.trip_ratio * med):
+                self.open[s] = True
+                self._opened_at[s] = self.dispatches
+                self.trips += 1
+        self._probing = set()
+
+    def stats(self) -> dict:
+        return {
+            "dispatches": self.dispatches,
+            "open_shards": [s for s in range(self.n_shards)
+                            if self.open[s]],
+            "ewma": [None if e is None else float(e) for e in self.ewma],
+            "trips": self.trips,
+            "probes": self.probes,
+            "recoveries": self.recoveries,
+        }
+
+
+def _breaker_feed(breaker: ShardBreaker, dt: float, P: int, dead) -> None:
+    """Charge one dispatch's wall time to every live shard (a one-call
+    dispatch has no per-shard clock; uniform samples move every EWMA
+    alike), scale it by the active plan's ``shard.degrade`` factors, and
+    fold the samples into the breaker. Deployments with per-shard RPC
+    timings call ``breaker.observe`` with those instead."""
+    dead = set(dead)
+    lat = {s: dt for s in range(P) if s not in dead}
+    for s, f in faults.degrade_factors(P).items():
+        if s in lat:
+            lat[s] *= f
+    breaker.observe(lat)
+
+
+def graph_search_sharded(
+    mesh: ShardMesh,
+    x,                      # (n, d) corpus, split by rows over the mesh
+    graph_idx,              # (n, k) per-shard subgraph, LOCAL neighbor ids
+    queries,                # (q, d) query batch, seen by every shard
+    *,
+    k_out: int = 10,
+    cfg: SearchConfig | None = None,
+    key: int | None = None,
+    axis: str = "data",
+    router=None,            # core.router.Router over the GLOBAL corpus
+    route_p: int = 0,       # shards searched per query (0 = all)
+    route_cap: int = 0,     # per-shard routed-query buffer (0 = auto)
+    with_stats: bool = False,
+    dead_shards=None,       # shard indices known unavailable; merged with
+    #                         the active FaultPlan's shard.dead / .slow
+    breaker: ShardBreaker | None = None,
+    entries=None,           # (P, e) or (P, q, e) replicated entry ids
+    route_fill=None,        # (P, e_w) routed hole fill, local ids
+):
+    """Sharded search. Rows of ``x`` are split over the mesh's P shards;
+    shard p's subgraph (rows p*n_local onward of ``graph_idx``) holds
+    LOCAL ids. Each shard runs ``graph_search`` on its block; its hits
+    are lifted to global ids (``p * n_local + i``).
+
+    **Replicated** (``route_p=0`` or no ``router``): every query searches
+    every live shard; the (q, P*k_out) shard-major lists are merged into
+    the k_out best, ties to the lowest position.
+
+    **Routed** (``router`` over the global corpus and 0 < route_p < P):
+    a centroid's shard is the majority shard of its member rows (first on
+    ties); a query's affinity for a shard is its least distance to one of
+    the shard's centroids (+inf for a shard with none); its top
+    ``route_p`` shards search it, each from a compacted buffer of at most
+    ``route_cap`` queries (default ~4x the balanced load), seeded with the
+    router's member rows on that shard (holes from a shard-local draw).
+    Each query merges only its ``route_p`` lists; a query past a shard's
+    buffer loses that shard's list (counted in ``dropped_queries``).
+
+    **Degraded**: shards in ``dead_shards``, marked by the active
+    ``FaultPlan`` or excluded by ``breaker`` drop out: replicated, their
+    lists are masked before the merge; routed, their affinity goes to
+    +inf before the top-``route_p`` pick. The port does not search a dead
+    shard at all (its lists are masked either way). All shards dead
+    answers every query (+inf, -1).
+
+    ``cfg.precision`` rides into each shard's search (each quantizes its
+    own rows; the re-ranked distances are fp32). ``cfg.metric``: the
+    corpus must be transformed already; the queries are transformed here.
+    Admission (NaN / Inf rows, ``cfg.strict``) runs here once.
+
+    Draws: ``entries`` replaces each shard's replicated entry draw,
+    ``route_fill`` the routed hole fill. Without them shard p draws
+    ``_draw_entries`` (beam, or min(beam, n_local) for the fill) from a
+    generator on its device seeded ``_shard_seed(key, p)``, where ``key``
+    is a 64-bit seed and defaults to ``_batch_key`` of the admitted
+    queries; one shard therefore draws what ``graph_search`` draws.
+
+    ``breaker``: its open shards join the dead ones for this dispatch,
+    and the dispatch's wall time (``time.monotonic``, ended by a
+    synchronise of the output's device) is charged to every live shard
+    (``_breaker_feed``).
+
+    Returns (dist (q, k_out), idx (q, k_out) global ids) on devices[0],
+    plus a stats dict (fanout, shards, routed / searched / dropped
+    queries, degraded_shards, cover_frac, breaker) with ``with_stats``."""
+    cfg = cfg or SearchConfig()
+    P = mesh.shape[axis]
+    dev0 = mesh.devices[0]
+    x = torch.as_tensor(x, dtype=torch.float32)
+    graph_idx = torch.as_tensor(graph_idx, dtype=torch.int32)
+    queries = torch.as_tensor(queries, dtype=torch.float32, device=dev0)
+    # the query-side metric transform runs once here; each shard's search
+    # repeats it, as the JAX package's does (normalizing twice, padding
+    # a mips batch already at the corpus width never)
+    if cfg.metric == "cosine":
+        queries = metric_mod.normalize_rows(queries)
+    elif cfg.metric == "mips" and queries.dim() == 2 \
+            and queries.shape[1] < x.shape[1]:
+        queries = torch.nn.functional.pad(
+            queries, (0, x.shape[1] - queries.shape[1]))
+    else:
+        metric_mod.check_metric(cfg.metric)
+    queries, bad_rows = _admit_queries(queries, x.shape[1], cfg.strict)
+    queries = queries.contiguous()
+    key = _batch_key(queries) if key is None else int(key)
+    n = x.shape[0]
+    if n % P:
+        raise ValueError(f"{n} rows do not split over {P} shards")
+    n_local = n // P
+    dead_set = {int(s) for s in (dead_shards or ())
+                if 0 <= int(s) < P} | set(faults.dead_shards(P))
+    if breaker is not None:
+        # one excluded()/observe() pair per dispatch: open shards join
+        # the degraded merge exactly like dead ones
+        dead_set |= set(breaker.excluded())
+    dead = sorted(dead_set)
+    live = [p not in dead_set for p in range(P)]
+    # shard-LOCAL ids are the contract: global ids would be clipped into
+    # garbage adjacency inside a shard's search
+    if int(graph_idx.max()) >= n_local:
+        raise ValueError(
+            f"graph_idx holds ids >= n_local ({n_local}): "
+            "graph_search_sharded expects shard-LOCAL neighbor ids (each "
+            "shard's subgraph over its own rows), not global ids — "
+            "subtract each shard's base (shard * n_local) and drop "
+            "cross-shard edges first")
+    backend = "ref" if cfg.backend in ("plain", "ref") else "auto"
+    xs, gs = mesh.split(x), mesh.split(graph_idx)
+    q_n = queries.shape[0]
+
+    def search(p, q, ent):
+        d, i = graph_search(xs[p], gs[p], q, k_out=k_out, entry=ent,
+                            cfg=cfg, device=mesh.devices[p])
+        return d, torch.where(i >= 0, p * n_local + i, -1)
+
+    routed = router is not None and 0 < route_p < P
+    if not routed:
+        t0 = time.monotonic()
+        ds, is_ = [], []
+        for p, dev in enumerate(mesh.devices):
+            if not live[p]:
+                ds.append(torch.full((q_n, k_out), torch.inf, device=dev0))
+                is_.append(torch.full((q_n, k_out), -1, dtype=torch.int32,
+                                      device=dev0))
+                continue
+            if entries is not None:
+                ent = torch.as_tensor(entries[p], dtype=torch.int32,
+                                      device=dev)
+            else:
+                ent = _draw_entries(_shard_generator(key, p, dev), n_local,
+                                    cfg.beam, None)
+            d, i = search(p, queries.to(dev), ent)
+            ds.append(d)
+            is_.append(i)
+        alld = mesh.all_gather(ds).transpose(0, 1).reshape(q_n, -1)
+        alli = mesh.all_gather(is_).transpose(0, 1).reshape(q_n, -1)
+        out_d, out_i = _lowest(alld, alli, k_out, backend)
+        if breaker is not None:
+            if out_d.is_cuda:
+                torch.cuda.synchronize(out_d.device)
+            _breaker_feed(breaker, time.monotonic() - t0, P, dead)
+        out_d, out_i = _mask_bad_rows(out_d, out_i, bad_rows)
+        if with_stats:
+            n_live = P - len(dead)
+            stats = {
+                "fanout": P, "shards": P,
+                "routed_queries": q_n * n_live,
+                "searched_queries": q_n * n_live, "dropped_queries": 0,
+                "degraded_shards": dead,
+                "cover_frac": n_live / P,
+            }
+            if breaker is not None:
+                stats["breaker"] = breaker.stats()
+            return out_d, out_i, stats
+        return out_d, out_i
+
+    # ---- routed: the routing tile on devices[0], then a compacted
+    # per-shard search and each query's partial merge
+    live_mask = torch.tensor(live, device=dev0)
+    dqc = ops.pairwise_sq_l2(queries, router.centroids.to(dev0).contiguous(),
+                             backend=backend)                    # (q, c)
+    mem = router.members.idx.to(dev0)                            # (c, m)
+    ms = torch.where(mem >= 0, mem // n_local, -1)
+    votes = (ms[:, :, None] == torch.arange(P, device=dev0)).sum(1)
+    shard_of = torch.argmax(votes, dim=1)          # first on ties, (c,)
+    aff = torch.full((q_n, P), torch.inf, device=dev0).scatter_reduce_(
+        1, shard_of[None, :].expand(q_n, -1), dqc, "amin")      # (q, P)
+    # cover_frac reads the PRE-reroute set (the shards a query wanted);
+    # dead shards' +inf affinity then moves them out of the picked set
+    want_shards = torch.sort(aff, dim=1, stable=True)[1][:, :route_p]
+    aff = torch.where(live_mask[None, :], aff, torch.inf)
+    top_shards = torch.sort(aff, dim=1, stable=True)[1][:, :route_p]
+    t = min(cfg.router_t, router.centroids.shape[0])
+    top_cent = torch.sort(dqc, dim=1, stable=True)[1][:, :t]     # (q, t)
+    # per-query entry candidates, nearest-member-major (global ids)
+    entg = mem[top_cent].transpose(1, 2).reshape(q_n, -1)        # (q, t*m)
+    e_w = min(cfg.beam, n_local)
+    cap_q = route_cap or min(q_n, max(32, -((-4 * q_n * route_p) // P)))
+    cap_q = min(cap_q, q_n)
+    w = entg.shape[1]
+
+    t0 = time.monotonic()
+    ds, is_, gp, searched, routed_q = [], [], [], [], []
+    for p, dev in enumerate(mesh.devices):
+        base = p * n_local
+        if not live[p]:
+            # a dead shard searches nothing; its buffer never merges
+            ds.append(torch.full((cap_q, k_out), torch.inf, device=dev0))
+            is_.append(torch.full((cap_q, k_out), -1, dtype=torch.int32,
+                                  device=dev0))
+            gp.append(torch.full((q_n,), -1, dtype=torch.int64, device=dev0))
+            continue
+        tsh, eg, q = top_shards.to(dev), entg.to(dev), queries.to(dev)
+        mine = (tsh == p).any(dim=1)                             # (q,)
+        # the first cap_q routed queries in order, -1 fill (JAX's
+        # nonzero(size=cap_q, fill_value=-1)); unique keys, no host sync
+        ar_q = torch.arange(q_n, device=dev)
+        first = torch.sort(torch.where(mine, ar_q, q_n + ar_q))[1][:cap_q]
+        qids = torch.where(mine[first], first, -1)
+        ok_q = qids >= 0
+        safe_q = torch.where(ok_q, qids, 0)
+        # this shard's slice of the routed entries, local ids, the valid
+        # ones moved to the front in order
+        egs = eg[safe_q]
+        egl = egs - base
+        ve = ok_q[:, None] & (egs >= 0) & (egl >= 0) & (egl < n_local)
+        ar = torch.arange(w, device=dev)[None, :]
+        order = torch.sort(torch.where(ve, ar, w + ar), dim=1)[1]
+        ent = torch.gather(torch.where(ve, egl, -1), 1, order)
+        if w >= e_w:
+            ent = ent[:, :e_w]
+        else:
+            ent = torch.nn.functional.pad(ent, (0, e_w - w), value=-1)
+        # holes take a shard-local draw without replacement
+        if route_fill is not None:
+            rnd = torch.as_tensor(route_fill[p], dtype=torch.int32,
+                                  device=dev)
+        else:
+            rnd = _draw_entries(_shard_generator(key, p, dev), n_local, e_w,
+                                None)
+        ent = torch.where(ent >= 0, ent, rnd[None, :]).to(torch.int32)
+        d, gi = search(p, q[safe_q], ent)
+        gi = torch.where(ok_q[:, None], gi, -1)
+        d = torch.where(gi >= 0, d, torch.inf)
+        # query id -> its slot in this shard's buffer (one spare slot
+        # takes the writes JAX drops)
+        gpos = torch.full((q_n + 1,), -1, dtype=torch.int64, device=dev)
+        gpos[torch.where(ok_q, qids, q_n)] = torch.arange(cap_q, device=dev)
+        ds.append(d)
+        is_.append(gi)
+        gp.append(gpos[:q_n])
+        searched.append(ok_q.sum())
+        routed_q.append(mine.sum())
+    ds, is_, gp = mesh.all_gather(ds), mesh.all_gather(is_), \
+        mesh.all_gather(gp)
+    # partial merge: each query folds only its route_p shard lists
+    pp = gp[top_shards, torch.arange(q_n, device=dev0)[:, None]]  # (q, p)
+    ppc = pp.clamp(0, cap_q - 1)
+    cd = ds[top_shards, ppc]                               # (q, p, k_out)
+    ci = is_[top_shards, ppc]
+    hit = (pp >= 0)[:, :, None] & (ci >= 0) \
+        & live_mask[top_shards][:, :, None]
+    cd = torch.where(hit, cd, torch.inf).reshape(q_n, -1)
+    ci = torch.where(hit, ci, -1).reshape(q_n, -1)
+    out_d, out_i = _lowest(cd, ci, k_out, backend)
+    if breaker is not None:
+        if out_d.is_cuda:
+            torch.cuda.synchronize(out_d.device)
+        _breaker_feed(breaker, time.monotonic() - t0, P, dead)
+    out_d, out_i = _mask_bad_rows(out_d, out_i, bad_rows)
+    if with_stats:
+        n_routed = int(mesh.psum(routed_q)) if routed_q else 0
+        n_searched = int(mesh.psum(searched)) if searched else 0
+        stats = {
+            "fanout": route_p, "shards": P,
+            "routed_queries": n_routed,
+            "searched_queries": n_searched,
+            "dropped_queries": n_routed - n_searched,
+            "degraded_shards": dead,
+            "cover_frac": float(live_mask[want_shards].float().mean()),
+        }
+        if breaker is not None:
+            stats["breaker"] = breaker.stats()
+        return out_d, out_i, stats
+    return out_d, out_i

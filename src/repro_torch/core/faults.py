@@ -24,7 +24,7 @@ Sites the port consults so far:
     seconds (default 0.05) at the next ``pump``;
   * ``shard.dead`` / ``shard.slow`` (``dead_shards``) and
     ``shard.degrade`` (``degrade_factors``) — read by the sharded search
-    once it is ported; nothing calls them yet.
+    (``core/distributed.graph_search_sharded``).
 
 ``poison_batch`` manufactures the adversarial query batches (NaN, Inf,
 a wrong feature dim) that the search's admission checks must catch.

@@ -37,13 +37,20 @@ from repro_torch import (
     SearchConfig,
     brute_force_knn,
     build_knn_graph,
+    build_router,
     graph_search,
     knn_delete,
     knn_insert,
     recall_at_k,
 )
 from repro_torch.configs import get_smoke_config
-from repro_torch.core import datasets
+from repro_torch.core import (
+    ShardMesh,
+    datasets,
+    exact_knn_sharded,
+    fetch_rows_a2a,
+    graph_search_sharded,
+)
 from repro_torch.core.quantize import quantize_corpus
 from repro_torch.kernels import _lib, ops
 from repro_torch.models import cast_matrices, init_tree, model_schema
@@ -346,6 +353,76 @@ def test_search_through_kernels_matches_plain(dev):
             _lib.LAUNCHES
     assert recalls["auto"] > 0.9, recalls
     assert abs(recalls["auto"] - recalls["plain"]) <= 0.01, recalls
+
+
+# ---------------------------------------------------------------------------
+# the sharded search (core/distributed.py): logical shards on one card
+# ---------------------------------------------------------------------------
+
+def test_sharded_search_on_one_card_is_the_direct_merge(dev):
+    """P = 4 logical shards on cuda:0: the replicated dispatch equals the
+    stable merge of four direct searches with the same entries, bitwise,
+    through the kernels; the routed dispatch drops nothing; the ring's
+    exact k-NN matches brute_force_knn up to ties; fetched rows are the
+    rows."""
+    P, n_local = 4, 512
+    x = datasets.gaussian(P * n_local, 16, seed=4, device=dev)
+    parts = [build_knn_graph(
+        x[p * n_local:(p + 1) * n_local], k=10,
+        cfg=DescentConfig(k=10, rho=1.0, max_iters=10),
+        generator=torch.Generator(device=dev).manual_seed(p))[1]
+        for p in range(P)]
+    gidx = torch.cat(parts)
+    q = x[::16] + 0.01
+    g = torch.Generator(device=dev).manual_seed(5)
+    ents = torch.stack([torch.randperm(n_local, generator=g, device=dev)[
+        :32] for _ in range(P)]).to(torch.int32)
+    cfg = SearchConfig(beam=32, rounds=24, expand=4, q_block=64)
+    mesh = ShardMesh(["cuda:0"] * P)
+    _lib.reset_launches()
+    d, i = graph_search_sharded(mesh, x, gidx, q, k_out=10, cfg=cfg,
+                                entries=ents)
+    torch.cuda.synchronize()
+    assert all(_lib.LAUNCHES[k] > 0 for k in
+               ("knn_search_dists", "knn_join_select", "knn_merge"))
+    pd, pi = [], []
+    for p in range(P):
+        sl = slice(p * n_local, (p + 1) * n_local)
+        dd, ii = graph_search(x[sl], gidx[sl], q, k_out=10, entry=ents[p],
+                              cfg=cfg)
+        pd.append(dd)
+        pi.append(torch.where(ii >= 0, ii + p * n_local, -1))
+    md, order = torch.sort(torch.cat(pd, 1), dim=1, stable=True)
+    mi = torch.gather(torch.cat(pi, 1), 1, order)
+    assert torch.equal(d.view(torch.int32), md[:, :10].view(torch.int32))
+    assert torch.equal(i, mi[:, :10])
+    router = build_router(x, cfg=RouterConfig(n_centroids=16),
+                          generator=torch.Generator(device=dev).manual_seed(6))
+    _, ri, st = graph_search_sharded(mesh, x, gidx, q, k_out=10, cfg=cfg,
+                                     router=router, route_p=2,
+                                     with_stats=True)
+    assert st["dropped_queries"] == 0 and bool((ri >= 0).all())
+    ed, ei = exact_knn_sharded(mesh, x, 10)
+    td, ti = brute_force_knn(x, x, 10)
+    x2 = (x * x).sum(1)
+    assert ((ed - td).abs() <= 1e-4 + 1e-5 * (x2[:, None] + x2[ti.long()])
+            ).all()
+    assert recall_at_k(ei, ti) > 0.999
+    ids = [torch.randint(-1, P * n_local, (256,), device=dev,
+                         dtype=torch.int32, generator=g) for _ in range(P)]
+    rows, ok = fetch_rows_a2a(mesh, mesh.split(x), ids, cap=48)
+    for p in range(P):
+        assert torch.equal(rows[p][ok[p]], x[ids[p][ok[p]].long()])
+        assert not rows[p][~ok[p]].any()
+
+
+def test_shard_mesh_on_defaults_to_the_card(dev):
+    """ShardMesh.on(P) puts every shard on the card; it never falls back
+    to the CPU (tests/test_torch_distributed.py holds that it raises
+    where there is no card)."""
+    mesh = ShardMesh.on(4)
+    assert [d.type for d in mesh.devices] == ["cuda"] * 4
+    assert all(t.is_cuda for t in mesh.split(torch.zeros(8, 2)))
 
 
 # ---------------------------------------------------------------------------
