@@ -2,7 +2,8 @@
 """Drive the port (repro_torch) on one CUDA card and check it: the build
 (build_knn_graph), its exact truth (brute_force_knn), the query path
 (graph_search), the two-stage int8 / bf16 build and search, the sharded
-search and its circuit breaker (core/distributed.py), the online store
+search and its circuit breaker and the sharded build
+(core/distributed.py), the online store
 (insert, delete, the router), its snapshots and cold starts
 (core/persist.py), the retrieval scheduler in front of the online
 store, and the LM serving path (yi-6b prefill, decode, continuous
@@ -107,6 +108,26 @@ script started (phases with several lanes print one line a lane):
                fetch, fetch_rows_a2a on seeded ids with a cap some buckets
                overflow: rows bit-equal to x[ids] where ok, ok exactly the
                in-bucket non-negative ids;
+  sharded_build
+               path 14: build_knn_graph_sharded over
+               ShardMesh(["cuda:0"] * 4) on path 1's corpus (four shards
+               of 17500 rows), DescentConfig(k=20, reorder=False), one
+               int key (torch.cuda.device_count() printed beside). Lane
+               main: the build through the select kernel (the receiver
+               select at 17500 x 480, c 60, and the polish select at
+               17500 x 400, c 120): wall time beside path 1's,
+               iterations, dist_evals, polish updates, peak memory, the
+               graph's distances (check_graph), recall@20 against path
+               2's truth beside path 1's, one profile's idle share; plain:
+               the same build and key through the select's plain version
+               (backend "plain", no launch), its lists and stats bit-equal
+               to main's; fetch: the polish's fetch without padded
+               buckets (_plan_fetch, _fetch_chunk in chunks of 100000
+               ids) against fetch_rows_a2a on 1M seeded ids with a cap
+               some buckets overflow, bitwise;
+               step: make_sharded_iteration at main's shapes (rho 0.5),
+               one iteration from main's init lists: its seconds and
+               model_flops / seconds;
   online_check mnist_like(16000, 784): a store built on 14400 rows with
                OnlineConfig(router=RouterConfig()), 1600 rows inserted and
                1600 seeded rows deleted in batches of 400, through the
@@ -243,8 +264,10 @@ script started (phases with several lanes print one line a lane):
                online path recorded; pairwise_sq_l2 also on the online
                path's centroid_assign tile, on the router's graph tile and
                on the sharded path's ring tile (two 17500-row blocks) and
-               routed query-centroid tile; knn_join_dists also on the kNN-LM's and the online store's
-               builds; knn_merge also on the search's pool; the fp32,
+               routed query-centroid tile; knn_join_select also at the
+               sharded build's two widths; knn_join_dists also on the
+               kNN-LM's and the online store's builds; knn_merge also on
+               the search's pool; the fp32,
                bf16 and int8 search tiles also at round 6 of the first
                block (LATE_ROUND; round 2 is the second call), where the
                queries share fewer rows, each search tile with its valid
@@ -271,7 +294,9 @@ store's, knn_merge once more on the search path, pairwise_sq_l2 once more
 on the online path's centroid_assign tile and once on the router's graph
 tile (``launches``: the calls at that key; FURTHER_ROWS), then once on
 the sharded path's ring tile and once on its routed tile (``launches``:
-that tile's calls in the path's main run), the fp32,
+that tile's calls in the path's main run), knn_join_select once at each
+of the sharded build's two widths (``launches``: that width's calls in
+the build's main run; they add up to the path's count), the fp32,
 bf16 and int8 search tiles once more at round 6 (``launches``: 0, a second
 reading of the launches the round-2 entry counts; ``call`` ends in
 ``:round=6``) and
@@ -385,6 +410,14 @@ RETR_OVERLOAD, RETR_PUMP_EVERY = 3000, 48
 # --chaos-floor)
 SHARDS, SHARD_FETCH_M, SHARD_FETCH_CAP = 4, 4096, 1024
 BREAKER_QUERIES, BREAKER_DISPATCHES, CHAOS_FLOOR = 512, 4, 0.80
+# path 14: the sharded build's key, the fetch lane's ids a shard (1M in
+# all), bucket cap (the mean load, so some buckets overflow) and chunk
+# (three a shard, the last shorter), and the two select widths its main
+# path must launch: the receiver select (8 * merge_k incidences, c
+# merge_k) and the polish select (k^2, c 6k)
+SB_KEY, SB_FETCH_M, SB_FETCH_CAP = SEED + 50, 250_000, 62_500
+SB_FETCH_SPAN = 100_000
+SB_WIDTHS = ((480, 60), (400, 120))
 ATTN_F32_TOL = (2e-3, 2e-3)     # (rtol, atol): tests/test_kernels.py:122-137
 ATTN_BF16_TOL = (1e-2, 2e-3)    # + one bf16 rounding of the output (2^-7)
 # (Lq, Lk, H, Hkv, Dq, Dv, keyword arguments of ops.attention)
@@ -2679,6 +2712,139 @@ def sharded_run(x, graph, q, qt, truth, path_out, search_wall_s, scfg,
     return lanes, rows
 
 
+def lean_fetch_check(mesh, x) -> dict:
+    """The polish's fetch without padded buckets (_plan_fetch, then
+    _fetch_chunk for each chunk of SB_FETCH_SPAN ids) against
+    fetch_rows_a2a on SB_FETCH_M seeded ids a shard (-1 included) with a
+    cap at the mean load: rows and masks bit-equal, some buckets
+    overflowing and some not."""
+    import torch
+    from repro_torch.core.distributed import (_fetch_chunk, _plan_fetch,
+                                              fetch_rows_a2a)
+    P, n = mesh.size, x.shape[0]
+    g = torch.Generator(device=x.device).manual_seed(SEED + 51)
+    ids = [torch.randint(-1, n, (SB_FETCH_M,), generator=g,
+                         device=x.device, dtype=torch.int32)
+           for _ in range(P)]
+    blocks = mesh.split(x)
+
+    def lean():
+        plans = _plan_fetch(mesh, n // P, ids, cap=SB_FETCH_CAP,
+                            span=SB_FETCH_SPAN)
+        return ([torch.cat([_fetch_chunk(mesh, blocks, plans, p, c)
+                            for c in range(len(plans[p].bounds) - 1)])
+                 for p in range(P)], [f.ok for f in plans])
+
+    (want_rows, want_ok), a2a_s = timed(lambda: fetch_rows_a2a(
+        mesh, blocks, ids, cap=SB_FETCH_CAP))
+    (rows, ok), lean_s = timed(lean)
+    overflowed = 0
+    for p in range(P):
+        if not (torch.equal(ok[p], want_ok[p])
+                and same_bits(rows[p], want_rows[p])):
+            raise AssertionError(f"sharded_build fetch: shard {p} differs "
+                                 "from fetch_rows_a2a")
+        owner = torch.where(ids[p] >= 0, ids[p].long() // (n // P), P)
+        overflowed += int((torch.bincount(owner, minlength=P + 1)[:P]
+                           > SB_FETCH_CAP).sum())
+    if not 0 < overflowed < P * P:
+        raise AssertionError(f"sharded_build fetch: {overflowed} of "
+                             f"{P * P} buckets overflowed")
+    return {"ids": P * SB_FETCH_M, "cap": SB_FETCH_CAP,
+            "span": SB_FETCH_SPAN, "fetched": int(sum(int(o.sum()) for o in ok)),
+            "overflowed_buckets": overflowed, "bitwise": True,
+            "a2a_s": a2a_s, "lean_s": lean_s}
+
+
+def sharded_build_run(x, truth_i, path1_wall_s, path1_recall, dev):
+    """Path 14: build_knn_graph_sharded over ShardMesh(["cuda:0"] *
+    SHARDS) on path 1's corpus, DescentConfig(k=20, reorder=False), key
+    SB_KEY; lanes main, plain, fetch and step. ``truth_i`` is path 2's
+    ids. Returns (lanes, kernel-line entries: the select at SB_WIDTHS)."""
+    import torch
+    from repro_torch.core import (DescentConfig, NeighborLists, ShardMesh,
+                                  build_knn_graph_sharded,
+                                  make_sharded_iteration, recall_at_k)
+    from repro_torch.kernels import _lib
+    n, d = x.shape
+    mesh = ShardMesh(["cuda:0"] * SHARDS)
+    cfg = DescentConfig(k=20, reorder=False)
+    lanes = {"device_count": torch.cuda.device_count(), "shards": SHARDS,
+             "n_local": n // SHARDS,
+             "devices": [str(dv) for dv in mesh.devices],
+             "cfg": dataclasses.asdict(cfg), "key": SB_KEY}
+
+    def build(c=cfg, key=SB_KEY):
+        return build_knn_graph_sharded(mesh, x, 20, cfg=c, key=key)
+
+    # -- main: the build through the select kernel
+    (dist, idx, st), wall, launches, peak, rec = drive("sharded_build",
+                                                       build)
+    require_launched("sharded_build", launches, ("knn_join_select",))
+    graph_err = check_graph(x, dist, idx, repeats_ok=True)
+    prof = profile_run(build)
+    lanes["main"] = {
+        "wall_s": wall, "path1_wall_s": path1_wall_s, **st,
+        "max_memory_allocated": peak, "launches": launches,
+        "recall_at_20": recall_at_k(idx, truth_i),
+        "path1_recall_at_20": path1_recall, "dist_err_over_tol": graph_err,
+        "device_idle_share": prof["device_idle_share"],
+        "profiled_wall_s": prof["profiled_wall_s"], "top": prof["top"][:6]}
+
+    # -- plain: the same build and draws through the select's plain
+    # version, bit for bit
+    _lib.reset_launches()
+    (pd, pi, pst), plain_s = timed(lambda: build(
+        dataclasses.replace(cfg, backend="plain")))
+    if any(_lib.LAUNCHES.values()):
+        raise AssertionError(f"sharded_build plain: launched "
+                             f"{dict(_lib.LAUNCHES)}")
+    if not (same_bits(pd, dist) and same_bits(pi, idx) and pst == st):
+        raise AssertionError(f"sharded_build plain: differs from main "
+                             f"({pst} against {st})")
+    lanes["plain"] = {"wall_s": plain_s, "bitwise": True}
+    del pd, pi
+
+    # -- fetch: the polish's lean fetch against fetch_rows_a2a
+    lanes["fetch"] = lean_fetch_check(mesh, x)
+
+    # -- step: one iteration of main at its shapes, from its init lists
+    step, flops = make_sharded_iteration(mesh, n=n, d=d, k=20, rho=cfg.rho)
+    d0, i0, st0 = build(dataclasses.replace(cfg, max_iters=0, polish=0))
+    nl0 = NeighborLists(d0, i0, torch.ones_like(i0, dtype=torch.bool))
+    (_, upd, ev), first_s = timed(lambda: step(x, nl0, key=SB_KEY))
+    (_, upd2, ev2), step_s = timed(lambda: step(x, nl0, key=SB_KEY))
+    if (int(upd), int(ev)) != (int(upd2), int(ev2)) or st0["iters"]:
+        raise AssertionError("sharded_build step: two calls differ")
+    lanes["step"] = {"seconds": step_s, "first_call_s": first_s,
+                     "model_flops": flops,
+                     "model_flops_per_s": flops / step_s,
+                     "updates": int(upd), "evals": int(ev)}
+
+    # -- the kernels line: the select at both widths, on the inputs the
+    # main path gave it; the widths' launches add up to the path's count
+    keys = {k: c for k, c in rec.calls.items()
+            if k.startswith("sharded_build:knn_join_select:")}
+    widths = sorted(tuple(int(v.split("=")[1]) for v in k.split(":")[2:])
+                    for k in keys)
+    per_width = sum(c for k, c in rec.launched.items()
+                    if k.startswith("sharded_build:knn_join_select:"))
+    if widths != sorted(SB_WIDTHS) \
+            or per_width != launches["knn_join_select"]:
+        raise AssertionError(f"sharded_build: select widths {widths}, "
+                             f"{per_width} of {launches['knn_join_select']} "
+                             "launches")
+    rows = []
+    for key in sorted(keys):
+        e = check_kernel("knn_join_select", keys[key], reps=20)
+        e.update(route="cuda", source=SOURCES["knn_join_select"],
+                 replaces=REPLACES["knn_join_select"],
+                 launches=rec.launched[key], path="sharded_build", call=key)
+        emit("kernels", **e)
+        rows.append(e)
+    return lanes, rows
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run it from a checkout of the repository "
@@ -3009,6 +3175,11 @@ def main() -> int:
         x, idx, q, qt, (td, ti), (sd, si), f32_search["wall_s"], scfg, dev)
     emit("sharded", n=N, d=784, queries=N_QUERIES, k_out=10,
          cfg=dataclasses.asdict(scfg), **sharded)
+
+    # -- sharded_build: path 14, the sharded NN-Descent build
+    sharded_build, sharded_build_rows = sharded_build_run(
+        x, ti, st_wall, recall_at_k(idx, ti), dev)
+    emit("sharded_build", n=N, d=784, k=20, **sharded_build)
     del sd, si, qt, td, ti
 
     # -- online: path 8, the online store at MNIST's split sizes
@@ -3291,6 +3462,7 @@ def main() -> int:
                 if e is not entries[n]:
                     line.append(
                         {**e, "launches": e["launches_at_this_key"]})
+            line.extend(sharded_build_rows)
         line.extend(further[k] for k in FURTHER_ROWS.get(n, ()))
         if n == "pairwise_sq_l2":
             line.extend(sharded_rows)

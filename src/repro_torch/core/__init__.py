@@ -4,10 +4,15 @@ reordering and blocked distance evaluation) on PyTorch and CUDA."""
 from repro_torch.core.distributed import (
     BreakerConfig,
     ShardBreaker,
+    ShardedBuildDraws,
     ShardMesh,
+    build_knn_graph_sharded,
     exact_knn_sharded,
     fetch_rows_a2a,
     graph_search_sharded,
+    make_sharded_iteration,
+    nn_descent_sharded_iteration,
+    polish_sharded_round,
 )
 from repro_torch.core.faults import (
     FaultPlan,
@@ -85,11 +90,13 @@ __all__ = [
     "SearchConfig",
     "ShardBreaker",
     "ShardMesh",
+    "ShardedBuildDraws",
     "SnapshotError",
     "SnapshotWriter",
     "apply_permutation",
     "brute_force_knn",
     "build_knn_graph",
+    "build_knn_graph_sharded",
     "build_router",
     "dequantize",
     "distance_recall",
@@ -104,9 +111,12 @@ __all__ = [
     "knn_insert",
     "latest_snapshot",
     "locality_stats",
+    "make_sharded_iteration",
     "neighbor_lists_from_numpy",
     "nn_descent_iteration",
+    "nn_descent_sharded_iteration",
     "poison_batch",
+    "polish_sharded_round",
     "quantize_corpus",
     "quantize_sym_int8",
     "recall_at_k",

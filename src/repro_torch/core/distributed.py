@@ -1,5 +1,6 @@
-"""Sharded serving: the corpus's rows split over P shards, each with a
-K-NN subgraph over its own rows, answered as one global top-k.
+"""Sharded serving and the sharded build: the corpus's rows split over P
+shards, each with a K-NN subgraph over its own rows answered as one
+global top-k, or one global K-NN graph built by NN-Descent over them.
 
 Single controller, as in the JAX package: one host call drives every
 shard. A ``ShardMesh`` names the P torch devices the shards live on
@@ -21,20 +22,31 @@ group is involved. Global ids are ``shard * n_local + row``.
     tile (``ops.pairwise_sq_l2``) and folds its top-k into the running
     lists (``ops.knn_merge``).
   * ``fetch_rows_a2a`` — request-routed row fetch: ids bucketed by owner,
-    one all_to_all of ids and one of rows.
+    one all_to_all of ids and one of rows; ``_plan_fetch`` and
+    ``_fetch_chunk``, the same rows and mask gathered from the owners
+    without the padded buckets, a chunk of ids at a time.
+  * ``build_knn_graph_sharded`` — NN-Descent over the row blocks: random
+    lists by the feature ring (``ppermute``), sampled iterations
+    (``nn_descent_sharded_iteration``: incidences and pair updates routed
+    to their receivers' owners by ``_all_to_all_route``, candidate rows
+    by ``fetch_rows_a2a`` or the ring, each receiver's best merge_k by
+    the select kernel), then exhaustive polish rounds
+    (``polish_sharded_round``).
 
 Randomness: torch cannot reproduce ``jax.random.fold_in(key, p)``, so the
-per-shard draws are injectable (``entries=``, ``route_fill=``); without
-them shard p draws from a generator seeded ``_shard_seed(key, p)``.
+per-shard draws are injectable (``entries=``, ``route_fill=``,
+``draws=``); without them shard p draws from a generator seeded
+``_shard_seed(key, p)`` (the build folds its stage into ``key`` first).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import NamedTuple, Sequence
 
 import torch
 
-from repro_torch.core import faults
+from repro_torch.core import faults, heap, selection
 from repro_torch.core import metric as metric_mod
 from repro_torch.core.device import resolve_device
 from repro_torch.core.graph_search import (
@@ -44,6 +56,13 @@ from repro_torch.core.graph_search import (
     _draw_entries,
     _mask_bad_rows,
     graph_search,
+)
+from repro_torch.core.heap import NeighborLists
+from repro_torch.core.nn_descent import (
+    DescentConfig,
+    _ops_backend,
+    invert_candidates,
+    join_pairs,
 )
 from repro_torch.kernels import ops
 
@@ -174,6 +193,24 @@ def exact_knn_sharded(mesh: ShardMesh, x, k: int, *, axis: str = "data"):
             torch.cat([t.to(mesh.devices[0]) for t in nl_i]))
 
 
+def _bucket_slots(ids: torch.Tensor, P: int, n_local: int, cap: int):
+    """Where ``fetch_rows_a2a`` puts each of one shard's global ``ids``
+    (m,): its owner (P for id -1), its slot in the owner's bucket (its
+    rank among the ids of that owner, by position) and whether that slot
+    is below ``cap``, each (m,) in the ids' order; then the ids' order by
+    owner (stable) and each owner's first place in it, (P + 1,). Integers
+    only, so a caller can gather the rows without the buckets."""
+    m = ids.shape[0]
+    dev = ids.device
+    owner = torch.where(ids >= 0, (ids // n_local).clamp(0, P - 1), P)
+    owner_s, order = torch.sort(owner, stable=True)
+    first = torch.searchsorted(
+        owner_s, torch.arange(P + 1, dtype=owner_s.dtype, device=dev))
+    slot = torch.empty(m, dtype=torch.int64, device=dev)
+    slot[order] = torch.arange(m, device=dev) - first[owner_s.long()]
+    return owner, slot, (owner < P) & (slot < cap), order, first
+
+
 def fetch_rows_a2a(mesh: ShardMesh, x_local, ids, *, cap: int):
     """Request-routed row fetch. ``x_local[p]`` (n_local, d) is shard p's
     block and ``ids[p]`` (m,) the global ids it needs (-1 = none). Each
@@ -185,22 +222,16 @@ def fetch_rows_a2a(mesh: ShardMesh, x_local, ids, *, cap: int):
     -1, each on its shard's device."""
     P = mesh.size
     n_local = x_local[0].shape[0]
-    reqs, sort_state = [], []
+    reqs, slots = [], []
     for p, dev in enumerate(mesh.devices):
         idp = torch.as_tensor(ids[p], dtype=torch.int32, device=dev)
-        m = idp.shape[0]
-        dest = torch.where(idp >= 0, (idp // n_local).clamp(0, P - 1), P)
-        dest_s, order = torch.sort(dest, stable=True)
-        first = torch.searchsorted(
-            dest_s, torch.arange(P + 1, dtype=dest_s.dtype, device=dev))
-        pos = torch.arange(m, device=dev) - first[dest_s.clamp(0, P)]
-        in_bucket = (dest_s < P) & (pos < cap)
+        owner, slot, in_bucket, _, _ = _bucket_slots(idp, P, n_local, cap)
         # out-of-bucket writes land in one spare slot (JAX's mode="drop")
-        flat = torch.where(in_bucket, dest_s * cap + pos, P * cap)
+        flat = torch.where(in_bucket, owner.long() * cap + slot, P * cap)
         req = torch.full((P * cap + 1,), -1, dtype=torch.int32, device=dev)
-        req.scatter_(0, flat, idp[order])
+        req.scatter_(0, flat, idp)
         reqs.append(req[:P * cap].view(P, cap))
-        sort_state.append((idp, order, dest_s, pos, in_bucket))
+        slots.append((owner, slot, in_bucket))
     rows = []
     for p, got in enumerate(mesh.all_to_all(reqs)):
         loc = got - p * n_local                       # requested from p
@@ -209,18 +240,128 @@ def fetch_rows_a2a(mesh: ShardMesh, x_local, ids, *, cap: int):
         rows.append(torch.where(here[..., None], r, torch.zeros_like(r)))
     out_rows, out_ok = [], []
     for p, back in enumerate(mesh.all_to_all(rows)):
-        idp, order, dest_s, pos, in_bucket = sort_state[p]
-        fetched = back[dest_s.clamp(0, P - 1).long(),
-                       pos.clamp(0, cap - 1).long()]
-        fetched = torch.where(in_bucket[:, None], fetched,
-                              torch.zeros_like(fetched))
-        out = torch.empty_like(fetched)
-        out[order] = fetched
-        ok = torch.empty_like(in_bucket)
-        ok[order] = in_bucket
-        out_rows.append(out)
-        out_ok.append(ok & (idp >= 0))
+        owner, slot, in_bucket = slots[p]
+        fetched = back[owner.clamp(0, P - 1).long(), slot.clamp(0, cap - 1)]
+        out_rows.append(torch.where(in_bucket[:, None], fetched,
+                                    torch.zeros_like(fetched)))
+        out_ok.append(in_bucket)
     return out_rows, out_ok
+
+
+class _FetchPlan(NamedTuple):
+    """One shard's share of ``_plan_fetch``: ``ok`` (m,) is
+    ``fetch_rows_a2a``'s mask; ``loc`` and ``order`` (m,) are the ids'
+    rows on their owners and the ids' positions, both in the owner order;
+    owner q's in-bucket ids of chunk c are
+    ``order[bounds[c][q]:bounds[c + 1][q]]``."""
+    ok: torch.Tensor
+    loc: torch.Tensor
+    order: torch.Tensor
+    bounds: list
+    span: int
+
+
+def _plan_fetch(mesh: ShardMesh, n_local: int, ids, *, cap: int,
+               span: int) -> list:
+    """``fetch_rows_a2a`` without its padded buckets, for each shard's
+    global ``ids[p]`` (m,) in [-1, P * n_local) taken ``span`` at a time.
+    The ids get the same bucket slots (``_bucket_slots``): the in-bucket
+    ids of owner q are the first ``cap`` of q's run in the owner order,
+    and each chunk of ``span`` ids holds one contiguous piece of every
+    run. One host read of the pieces' bounds, for all shards; then
+    ``_fetch_chunk`` gathers a chunk's rows, each owner's piece in one
+    gather. Returns one ``_FetchPlan`` a shard."""
+    P = mesh.size
+    plans, tables = [], []
+    for p, dev in enumerate(mesh.devices):
+        idp = torch.as_tensor(ids[p], dtype=torch.int32, device=dev)
+        m = idp.shape[0]
+        chunks = max(-(-m // span), 1)
+        owner, _, ok, order, first = _bucket_slots(idp, P, n_local, cap)
+        # each owner's ids a chunk, then before each chunk (P, chunks + 1)
+        hist = torch.bincount(
+            owner.long() * chunks + torch.arange(m, device=dev) // span,
+            minlength=(P + 1) * chunks)[:P * chunks].view(P, chunks)
+        before = torch.cat([torch.zeros_like(hist[:, :1]),
+                            hist.cumsum(1)], dim=1)
+        tables.append((first[:P, None] + before.clamp_max(cap)).T
+                      .reshape(-1).to(mesh.devices[0]))
+        plans.append((ok, (idp - owner * n_local)[order].long(), order,
+                      chunks))
+    flat = torch.cat(tables).tolist()
+    out, at = [], 0
+    for ok, loc, order, chunks in plans:
+        out.append(_FetchPlan(ok, loc, order, [
+            flat[at + r * P:at + (r + 1) * P] for r in range(chunks + 1)],
+            span))
+        at += (chunks + 1) * P
+    return out
+
+
+def _fetch_chunk(mesh: ShardMesh, x_local, plans, p: int, c: int):
+    """Rows of chunk c of shard p's planned ids (``_plan_fetch``), (span,
+    d) (the last chunk shorter) on devices[p]: ``x_local[owner][row]``
+    where the id is in its bucket, 0 elsewhere; equal to those rows of
+    ``fetch_rows_a2a``'s result, bit for bit."""
+    f = plans[p]
+    dev = mesh.devices[p]
+    s = c * f.span
+    out = torch.zeros((min(f.span, f.ok.shape[0] - s), x_local[0].shape[1]),
+                      dtype=x_local[0].dtype, device=dev)
+    for q, dq in enumerate(mesh.devices):
+        a, b = f.bounds[c][q], f.bounds[c + 1][q]
+        if a < b:
+            rows = x_local[q].index_select(0, f.loc[a:b].to(dq))
+            out.index_copy_(0, f.order[a:b] - s, rows.to(dev))
+    return out
+
+
+def _fetch_features_ring(mesh: ShardMesh, x_local, ids) -> list:
+    """Rows of global ``ids[p]`` (m,) (clipped to [0, n)) for every shard
+    by the feature ring: each block passes every shard once, and a shard
+    keeps the rows of its ids that the passing block owns."""
+    P = mesh.size
+    n_local = x_local[0].shape[0]
+    out = [torch.zeros((i.shape[0], b.shape[1]), dtype=b.dtype,
+                       device=b.device) for i, b in zip(ids, x_local)]
+    passing = list(x_local)
+    for s in range(P):
+        for p in range(P):
+            local = ids[p] - ((p - s) % P) * n_local
+            hit = (local >= 0) & (local < n_local)
+            rows = passing[p][local.clamp(0, n_local - 1).long()]
+            out[p] = torch.where(hit[:, None], rows, out[p])
+        if s < P - 1:
+            passing = mesh.ppermute(passing)
+    return out
+
+
+def _all_to_all_route(mesh: ShardMesh, payload, mask, dest, cap: int,
+                      rnd) -> list:
+    """Route the rows of each shard's ``payload[p]`` (m, w) int32 to shard
+    ``dest[p]`` (m,) where ``mask[p]``. A shard sorts its rows by (dest,
+    ``rnd[p]``) (ties by position, ``jnp.lexsort``'s order) and fills one
+    bucket of ``cap`` rows per destination; rows past ``cap`` are dropped.
+    Returns per shard the (P*cap, w) rows it received, sender-major, with
+    -1 in every column of an empty row."""
+    P = mesh.size
+    buckets = []
+    for p, dev in enumerate(mesh.devices):
+        m, w = payload[p].shape
+        dst = torch.where(mask[p], dest[p], P)
+        order = selection.lexsort_order(rnd[p], dst)
+        dest_s = dst[order]
+        first = torch.searchsorted(
+            dest_s, torch.arange(P + 1, dtype=dest_s.dtype, device=dev))
+        pos = torch.arange(m, device=dev) - first[dest_s.long()]
+        keep = (dest_s < P) & (pos < cap)
+        # dropped rows land in one spare row (JAX's mode="drop")
+        flat = torch.where(keep, dest_s.long() * cap + pos, P * cap)
+        b = torch.full((P * cap + 1, w), -1, dtype=payload[p].dtype,
+                       device=dev)
+        b[flat] = payload[p][order]
+        buckets.append(b[:P * cap].view(P, cap, w))
+    return [g.reshape(P * cap, -1) for g in mesh.all_to_all(buckets)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -627,3 +768,371 @@ def graph_search_sharded(
             stats["breaker"] = breaker.stats()
         return out_d, out_i, stats
     return out_d, out_i
+
+
+# ---------------------------------------------------------------------------
+# the sharded build: NN-Descent over the mesh's row blocks
+# ---------------------------------------------------------------------------
+
+FETCHES = ("a2a", "ring")
+# the candidate rows the polish gathers at once, a shard
+_POLISH_CHUNK_BYTES = 1 << 30
+_STAGE = 0xD1B54A32D192ED03
+
+
+def _stage_key(key: int, stage: int) -> int:
+    """The key of one stage of a sharded build: stage 0 (the init) is
+    ``key`` itself, sampled iteration t is stage t + 1, each an odd Weyl
+    step further (mod 2^64)."""
+    return (key + stage * _STAGE) & _MASK64
+
+
+class ShardedBuildDraws(NamedTuple):
+    """Injected randomness of a sharded build. ``init``: (P, n_local, k)
+    raw ids in [0, n), shard p's initial lists before self-loops are
+    bumped. ``iters[t][p]``: shard p's uniforms in [0, 1) for sampled
+    iteration t, in the order it draws them: ``u`` (2*n_local*k,), the
+    accept test; the new and the old incidence routes' sort keys, each
+    (2*n_local*k,); the compaction's sort key (P*cap,), shared by both
+    pools; the update route's sort key, one per pair (n_local * pairs a
+    row,)."""
+    init: torch.Tensor
+    iters: Sequence[Sequence[tuple]]
+
+
+def _lists_on(mesh: ShardMesh, nl) -> NeighborLists:
+    """Per-shard lists as one (n, k) ``NeighborLists`` on devices[0]."""
+    dev0 = mesh.devices[0]
+    return NeighborLists(*(torch.cat([t[f].to(dev0) for t in nl])
+                           for f in range(3)))
+
+
+def _init_lists(mesh: ShardMesh, xs, x2s, k: int, key: int, init) -> list:
+    """Each shard's random initial lists: k ids drawn in [0, n) (a self
+    id bumped to the next, mod n), their rows by the feature ring,
+    distances by the norm expansion clamped at 0, each row stably sorted;
+    every slot new."""
+    P = mesh.size
+    n_local = xs[0].shape[0]
+    n = P * n_local
+    ids = []
+    for p, dev in enumerate(mesh.devices):
+        if init is None:
+            raw = torch.randint(0, n, (n_local, k), dtype=torch.int32,
+                                generator=_shard_generator(key, p, dev),
+                                device=dev)
+        else:
+            raw = torch.as_tensor(init[p], dtype=torch.int32, device=dev)
+        my = p * n_local + torch.arange(n_local, dtype=torch.int32,
+                                        device=dev)[:, None]
+        ids.append(torch.where(raw == my, (raw + 1) % n, raw))
+    feats = _fetch_features_ring(mesh, xs, [i.reshape(-1) for i in ids])
+    out = []
+    for p in range(P):
+        f = feats[p].view(n_local, k, -1)
+        dist = (x2s[p][:, None] + (f * f).sum(-1)
+                - 2.0 * torch.bmm(f, xs[p][:, :, None])[:, :, 0])
+        dist, order = torch.sort(dist.clamp_min(0.0), dim=1, stable=True)
+        out.append(NeighborLists(dist, torch.gather(ids[p], 1, order),
+                                 torch.ones_like(order, dtype=torch.bool)))
+    return out
+
+
+def nn_descent_sharded_iteration(
+    mesh: ShardMesh,
+    x_local,                # [P] (n_local, d) f32 blocks
+    x2_local,               # [P] (n_local,) squared norms
+    nl,                     # [P] NeighborLists: local rows, GLOBAL ids
+    cfg: DescentConfig,
+    *,
+    fetch: str = "a2a",     # a2a (request-routed) | ring (the baseline)
+    key: int = 0,
+    draws=None,             # [P] tuples of ShardedBuildDraws.iters[t]
+):
+    """One sharded NN-Descent iteration, one host call over the mesh.
+
+    Each shard samples the incidences of its lists (forward: its rows
+    receive their neighbors; reverse: the neighbors receive its rows),
+    accepting each with probability rho_k / |N|, where |N| is k plus the
+    count of this shard's new incidences that a local receiver receives,
+    and 2k for a remote receiver. Accepted incidences go to their receiver's owner
+    (``_all_to_all_route``, ``cap`` a destination), and each shard
+    compacts what it received into (n_local, rho_k) new and old buffers
+    (one sort key for both). The accepted forward slots lose their new
+    flag. The candidates' rows come by ``fetch_rows_a2a`` (candidates it
+    drops become -1) or by the ring; every new x new and new x old pair
+    of a row is scored (``join_pairs``) and routed, both directions, to
+    the receiver's owner; each shard inverts what it received into
+    per-receiver buffers of ``cfg.join_src or 8 * merge_k`` (the nearest
+    kept on overflow), reduces each to its best merge_k
+    (``ops.knn_join_select``: the kernel on a card) and merges them with
+    ``heap.merge``. Returns (lists, updates, evals), the counts summed
+    over the shards as 0-d tensors on devices[0], not read back here.
+
+    Draws: ``draws[p]`` replaces shard p's five uniforms
+    (``ShardedBuildDraws``); without it shard p draws them from a
+    generator on its device seeded ``_shard_seed(key, p)``."""
+    if fetch not in FETCHES:
+        raise ValueError(f"unknown fetch {fetch!r}; expected {FETCHES}")
+    backend = _ops_backend(cfg)
+    P = mesh.size
+    devs = mesh.devices
+    n_local, k = nl[0].idx.shape
+    rho_k, half = cfg.rho_k, n_local * k
+    gens = None if draws is not None else [
+        _shard_generator(key, p, d) for p, d in enumerate(devs)]
+
+    def uniform(p, i, size):
+        if draws is not None:
+            return torch.as_tensor(draws[p][i], dtype=torch.float32,
+                                   device=devs[p])
+        return torch.rand(size, generator=gens[p], device=devs[p])
+
+    # -- selection on the local receivers; remote ones are routed
+    cap = max(2 * rho_k * max(n_local // P, 1), 8)
+    pay, dest, acc_new, acc_old, keys_new, keys_old, lists = \
+        [], [], [], [], [], [], []
+    for p, dev in enumerate(devs):
+        base = p * n_local
+        recv, cand, is_new, valid, _ = selection._incidences(nl[p])
+        recv = torch.cat([base + recv[:half], recv[half:]])   # global ids
+        cand = torch.cat([cand[:half], base + cand[half:]])
+        own = recv - base
+        local = (own >= 0) & (own < n_local)
+        deg_new = k + torch.zeros(n_local + 1, dtype=torch.int32,
+                                  device=dev).index_add_(
+            0, torch.where(local, own, n_local).long(),
+            (valid & is_new).to(torch.int32))[:n_local]
+        p_new = torch.clamp(rho_k / deg_new.clamp_min(1), max=1.0)
+        p_edge = torch.where(local, p_new[own.clamp(0, n_local - 1).long()],
+                             rho_k / (2.0 * k))
+        hit = valid & (uniform(p, 0, recv.shape) < p_edge)
+        acc_new.append(hit & is_new)
+        acc_old.append(hit & ~is_new)
+        # the forward slots sampled this round are joined: not new now
+        lists.append(heap.mark_sampled_old(
+            nl[p], acc_new[p][:half].reshape(n_local, k)))
+        pay.append(torch.stack([recv, cand], dim=1))
+        dest.append(recv // n_local)
+        keys_new.append(uniform(p, 1, recv.shape))
+        keys_old.append(uniform(p, 2, recv.shape))
+    got_new = _all_to_all_route(mesh, pay, acc_new, dest, cap, keys_new)
+    got_old = _all_to_all_route(mesh, pay, acc_old, dest, cap, keys_old)
+
+    cands = []
+    for p in range(P):
+        rnd = uniform(p, 3, (P * cap,))
+
+        def compact(got):
+            r = got[:, 0]
+            ok = r >= 0
+            return selection._compact(torch.where(ok, r - p * n_local, -1),
+                                      got[:, 1], ok, rnd, n_local, rho_k)
+        cands.append((compact(got_new[p]), compact(got_old[p])))
+
+    # -- the candidates' rows, and every pair of each row scored
+    flat = [torch.cat([cn.reshape(-1), co.reshape(-1)]) for cn, co in cands]
+    if fetch == "a2a":
+        feats, fok = fetch_rows_a2a(
+            mesh, x_local, flat, cap=max(2 * flat[0].shape[0] // P, 16))
+        cands = [(torch.where(ok[:cn.numel()].view_as(cn), cn, -1),
+                  torch.where(ok[cn.numel():].view_as(co), co, -1))
+                 for (cn, co), ok in zip(cands, fok)]
+    else:
+        feats = _fetch_features_ring(
+            mesh, x_local, [f.clamp(0, P * n_local - 1) for f in flat])
+    pay, ok_pairs, dest, keys, evals = [], [], [], [], []
+    for p in range(P):
+        cn, co = cands[p]
+        xg_n = feats[p][:cn.numel()].view(n_local, cn.shape[1], -1)
+        xg_o = feats[p][cn.numel():].view(n_local, co.shape[1], -1)
+        a, b, dd, ok, ev = join_pairs(cn, co, xg_n, (xg_n * xg_n).sum(-1),
+                                      xg_o, (xg_o * xg_o).sum(-1))
+        # the distance rides in the int32 payload as its bits
+        pay.append(torch.stack([a, b, dd.view(torch.int32)], dim=1))
+        ok_pairs.append(ok)
+        dest.append(a // n_local)
+        keys.append(uniform(p, 4, a.shape))
+        evals.append(ev)
+    del feats, xg_n, xg_o
+
+    # -- updates to the receivers' owners: invert, select, merge
+    cap_u = max(4 * cfg.merge_k * max(n_local // P, 1), 8)
+    s_cap = cfg.join_src or 8 * cfg.merge_k
+    got = _all_to_all_route(mesh, pay, ok_pairs, dest, cap_u, keys)
+    del pay
+    out, upds = [], []
+    for p, dev in enumerate(devs):
+        r = got[p][:, 0]
+        ok = r >= 0
+        dd = torch.where(ok, got[p][:, 2].contiguous().view(torch.float32),
+                         torch.inf)
+        rows_of, _ = invert_candidates(
+            torch.where(ok, r - p * n_local, -1)[:, None], n_local, s_cap,
+            prio=dd[:, None])
+        ok_r = rows_of >= 0
+        safe = torch.where(ok_r, rows_of, 0).long()
+        gd = torch.where(ok_r, dd[safe], torch.inf)
+        gi = torch.where(ok_r, got[p][:, 1][safe], -1)
+        cd, ci = ops.knn_join_select(
+            gd, gi, torch.full((n_local,), torch.inf, device=dev),
+            cfg.merge_k, backend=backend)
+        merged, upd = heap.merge(lists[p], cd, ci, cand_new=True)
+        out.append(merged)
+        upds.append(upd.sum())
+    return out, mesh.psum(upds), mesh.psum(evals)
+
+
+def polish_sharded_round(
+    mesh: ShardMesh,
+    x_local,                # [P] (n_local, d) f32 blocks
+    x2_local,               # [P] (n_local,) squared norms
+    nl,                     # [P] NeighborLists: local rows, GLOBAL ids
+    *,
+    merge_c: int,           # select width before the merge (<= k*k)
+    backend: str = "auto",  # ops backend (auto | ref)
+):
+    """One sharded exhaustive polish round: every row joins all k*k of its
+    neighbors-of-neighbors. The neighbors' lists come by
+    ``fetch_rows_a2a`` (a list it drops masks its k candidates); the
+    candidates' rows are given ``fetch_rows_a2a``'s bucket slots (``cap``
+    4*n_local*k*k / P; a candidate past its bucket is dropped) but come
+    without the padded buckets (``_plan_fetch``), the rows of at most
+    ``_POLISH_CHUNK_BYTES`` of candidates at a time: at 17500 rows a
+    shard, k 20 and d 784 the buckets would hold 88 GB an owner, where
+    the rows a shard needs are 22 GB. Each k*k row is reduced by
+    ``ops.knn_join_select`` (k-th prefilter, best ``merge_c``) and merged
+    by ``heap.merge``. Returns (lists, updates, evals), the counts summed
+    over the shards as 0-d tensors on devices[0]."""
+    P = mesh.size
+    n_local, k = nl[0].idx.shape
+    kk = k * k
+    ni = [t.idx for t in nl]
+    lists, ok_l = fetch_rows_a2a(mesh, ni, [i.reshape(-1) for i in ni],
+                                 cap=max(4 * n_local * k // P, 16))
+    rows = max(_POLISH_CHUNK_BYTES // (kk * x_local[0].shape[1]
+                                       * x_local[0].element_size()), 1)
+    plans = _plan_fetch(mesh, n_local, [t.reshape(-1) for t in lists],
+                        cap=max(4 * n_local * kk // P, 16), span=rows * kk)
+    out, upds, evals = [], [], []
+    for p, dev in enumerate(mesh.devices):
+        nb = lists[p].view(n_local, kk)
+        src_ok = ((ni[p] >= 0) & ok_l[p].view(n_local, k))[:, :, None] \
+            .expand(n_local, k, k).reshape(n_local, kk)
+        my = p * n_local + torch.arange(n_local, dtype=torch.int32,
+                                        device=dev)
+        ok = src_ok & (nb >= 0) & plans[p].ok.view(n_local, kk) \
+            & (nb != my[:, None])
+        dd = torch.empty((n_local, kk), dtype=torch.float32, device=dev)
+        for c, s in enumerate(range(0, n_local, rows)):
+            e = min(s + rows, n_local)
+            f = _fetch_chunk(mesh, x_local, plans, p, c).view(e - s, kk, -1)
+            ab = torch.bmm(f, x_local[p][s:e, :, None])[:, :, 0]
+            dd[s:e] = x2_local[p][s:e, None] + (f * f).sum(-1) - 2.0 * ab
+            del f
+        dd = torch.where(ok, dd.clamp_min(0.0), torch.inf)
+        cd, ci = ops.knn_join_select(
+            dd, torch.where(ok, nb, -1), nl[p].dist[:, -1].contiguous(),
+            merge_c, backend=backend)
+        merged, upd = heap.merge(nl[p], cd, ci)
+        out.append(merged)
+        upds.append(upd.sum())
+        evals.append(ok.sum())
+    return out, mesh.psum(upds), mesh.psum(evals)
+
+
+def make_sharded_iteration(mesh: ShardMesh, *, n: int, d: int, k: int,
+                           rho: float = 1.0, fetch: str = "a2a"):
+    """One sharded iteration at fixed shapes, and the paper's cost model
+    of its distance evaluations. Returns (step, model_flops):
+    ``step(x, nl, draws=None, key=0)`` runs ``nn_descent_sharded_iteration``
+    with ``DescentConfig(k=k, rho=rho, reorder=False)`` on x (n, d) and
+    global lists nl (n, k), returning (lists on devices[0], updates,
+    evals); ``model_flops = n * (rho_k (rho_k - 1) / 2 + rho_k^2) * 2d``
+    (every new x new and new x old pair of a row, 2d operations each in
+    the norm expansion's product)."""
+    P = mesh.size
+    if n % P:
+        raise ValueError(f"{n} rows do not split over {P} shards")
+    cfg = DescentConfig(k=k, rho=rho, reorder=False)
+
+    def step(x, nl, draws=None, key: int = 0):
+        x = torch.as_tensor(x, dtype=torch.float32)
+        if tuple(x.shape) != (n, d) or tuple(nl.idx.shape) != (n, k):
+            raise ValueError(f"step runs at x ({n}, {d}) and lists ({n}, "
+                             f"{k}); got {tuple(x.shape)}, "
+                             f"{tuple(nl.idx.shape)}")
+        xs = [b.contiguous() for b in mesh.split(x)]
+        cols = [mesh.split(t) for t in nl]
+        parts = [NeighborLists(*(c[p] for c in cols)) for p in range(P)]
+        out, upd, ev = nn_descent_sharded_iteration(
+            mesh, xs, [(b * b).sum(1) for b in xs], parts, cfg,
+            fetch=fetch, key=key, draws=draws)
+        return _lists_on(mesh, out), upd, ev
+
+    rho_k = cfg.rho_k
+    return step, n * (rho_k * (rho_k - 1) / 2 + rho_k * rho_k) * 2.0 * d
+
+
+def build_knn_graph_sharded(
+    mesh: ShardMesh,
+    x,                      # (n, d) corpus, split by rows over the mesh
+    k: int = 20,
+    *,
+    cfg: DescentConfig | None = None,
+    key: int | None = None,
+    axis: str = "data",
+    draws: ShardedBuildDraws | None = None,
+):
+    """Sharded NN-Descent over the rows of ``x`` split over the mesh's P
+    shards: random initial lists (``_init_lists``), up to
+    ``cfg.max_iters`` sampled iterations (``nn_descent_sharded_iteration``
+    with ``cfg.fetch``), stopping once an iteration's updates are at most
+    ``cfg.delta * n * k``, then ``cfg.polish`` exhaustive rounds
+    (``polish_sharded_round``, merge_c = min(6k, k^2)). As in the JAX
+    package, ``cfg.reorder``, ``selection``, ``metric`` and ``precision``
+    are not read: the build is turbosampling, l2, fp32. ``cfg.backend``
+    picks the select's kernel (auto) or its plain version (plain, ref).
+    Every block lives on its shard's device; nothing moves to the CPU
+    unless the mesh names it. The counts are read back once an iteration
+    (the convergence test) and once a polish round.
+
+    Draws: ``draws`` (``ShardedBuildDraws``) replaces every random draw.
+    Without it, with ``key`` a 64-bit int seed (default 0), shard p draws
+    its initial ids from a generator on its device seeded
+    ``_shard_seed(key, p)``, and sampled iteration t from one seeded
+    ``_shard_seed((key + (t + 1) * 0xD1B54A32D192ED03) mod 2^64, p)``.
+
+    Returns (dist (n, k) f32 ascending, idx (n, k) i32 global ids, stats
+    {"iters", "dist_evals", "polish_updates"}) on devices[0];
+    ``dist_evals`` counts the iterations' and polish rounds' pairs."""
+    cfg = cfg or DescentConfig(k=k, reorder=False)
+    backend = _ops_backend(cfg)
+    key = 0 if key is None else int(key)
+    P = mesh.shape[axis]
+    xs = [b.contiguous() for b in mesh.split(x, torch.float32)]
+    n = P * xs[0].shape[0]
+    x2s = [(b * b).sum(1) for b in xs]
+    nl = _init_lists(mesh, xs, x2s, k, key,
+                     None if draws is None else draws.init)
+    total_ev, iters = 0, 0
+    for it in range(cfg.max_iters):
+        nl, upd, ev = nn_descent_sharded_iteration(
+            mesh, xs, x2s, nl, cfg, fetch=cfg.fetch,
+            key=_stage_key(key, it + 1),
+            draws=None if draws is None else draws.iters[it])
+        upd, ev = torch.stack([upd, ev]).tolist()
+        total_ev += ev
+        iters = it + 1
+        if upd <= cfg.delta * n * k:
+            break
+    polish_updates = []
+    for _ in range(cfg.polish):
+        nl, upd, ev = polish_sharded_round(
+            mesh, xs, x2s, nl, merge_c=min(6 * k, k * k), backend=backend)
+        upd, ev = torch.stack([upd, ev]).tolist()
+        total_ev += ev
+        polish_updates.append(upd)
+    out = _lists_on(mesh, nl)
+    return out.dist, out.idx, {"iters": iters, "dist_evals": total_ev,
+                               "polish_updates": tuple(polish_updates)}

@@ -71,7 +71,8 @@ class DescentConfig:
                                # anywhere; ref: the lexsort compact_pairs
                                # oracle path, no kernel
     block_k: int = 512         # kept for parity with the JAX config
-    fetch: str = "a2a"         # kept for parity (distributed build)
+    fetch: str = "a2a"         # a2a | ring: the sharded build's
+                               # feature fetch (core/distributed.py)
     join_chunk: int = 2048     # fused join: receiver rows per chunk
     join_src: int = 0          # per-receiver incidence buffer (0 = 2*C)
     metric: str = "l2"         # l2 | cosine | mips (core/metric.py)
@@ -273,16 +274,38 @@ def local_join_ref(
     rest grouped by ``compact_pairs`` at merge_k and merged by
     ``heap.merge``. Returns (nl, accepted, evals)."""
     n = nl.idx.shape[0]
+    sn = torch.where(cn >= 0, cn, 0).long()
+    so = torch.where(co >= 0, co, 0).long()
+    a, b, dd, ok, evals = join_pairs(
+        cn, co, x[sn], torch.where(cn >= 0, x2[sn], 0.0), x[so],
+        torch.where(co >= 0, x2[so], 0.0))
+    # receiver-side prefilter: only pairs beating the receiver's k-th
+    # distance can change the graph
+    kth = nl.dist[:, -1]
+    ok &= dd < kth[torch.where(ok, a, 0).long()]
+    cand_d, cand_i = compact_pairs(torch.where(ok, a, -1), b, dd, n,
+                                   cfg.merge_k)
+    nl, upd = heap.merge(nl, cand_d, cand_i, cand_new=True)
+    return nl, int(upd.sum()), int(evals)
+
+
+def join_pairs(
+    cn: torch.Tensor,      # (n, Cn) new candidates, -1 = empty
+    co: torch.Tensor,      # (n, Co) old candidates
+    xg_n: torch.Tensor,    # (n, Cn, d) their rows
+    x2_n: torch.Tensor,    # (n, Cn) their squared norms
+    xg_o: torch.Tensor,    # (n, Co, d)
+    x2_o: torch.Tensor,    # (n, Co)
+) -> tuple[torch.Tensor, ...]:
+    """The pairs of a row's candidate buffers, scored by ``pair_block``:
+    every unordered new x new pair (i < j) and every new x old pair, each
+    in both directions, flattened row by row as [a_nn, b_nn, a_no, b_no].
+    Returns (a, b, dd, ok, evals): receivers, candidates, distances, the
+    pairs of two valid distinct ids, and their count in one direction."""
+    n = cn.shape[0]
     vn, vo = cn >= 0, co >= 0
-    sn = torch.where(vn, cn, 0).long()
-    so = torch.where(vo, co, 0).long()
-    xg_n, xg_o = x[sn], x[so]
-    x2_n = torch.where(vn, x2[sn], 0.0)
-    x2_o = torch.where(vo, x2[so], 0.0)
     d_nn = pair_block(xg_n, x2_n, xg_n, x2_n)        # (n, Cn, Cn)
     d_no = pair_block(xg_n, x2_n, xg_o, x2_o)        # (n, Cn, Co)
-    del xg_n, xg_o
-
     cn_b, co_b = cn.shape[1], co.shape[1]
     iu0, iu1 = torch.triu_indices(cn_b, cn_b, offset=1, device=cn.device)
     # new x new: unordered pairs i < j, both directions
@@ -299,14 +322,7 @@ def local_join_ref(
     b = torch.cat([b_nn, a_nn, b_no, a_no], dim=1).reshape(-1)
     dd = torch.cat([dd_nn, dd_nn, dd_no, dd_no], dim=1).reshape(-1)
     ok = torch.cat([ok_nn, ok_nn, ok_no, ok_no], dim=1).reshape(-1)
-    # receiver-side prefilter: only pairs beating the receiver's k-th
-    # distance can change the graph
-    kth = nl.dist[:, -1]
-    ok &= dd < kth[torch.where(ok, a, 0).long()]
-    cand_d, cand_i = compact_pairs(torch.where(ok, a, -1), b, dd, n,
-                                   cfg.merge_k)
-    nl, upd = heap.merge(nl, cand_d, cand_i, cand_new=True)
-    return nl, int(upd.sum()), int(ok_nn.sum()) + int(ok_no.sum())
+    return a, b, dd, ok, ok_nn.sum() + ok_no.sum()
 
 
 def nn_descent_iteration(

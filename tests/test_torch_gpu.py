@@ -46,6 +46,7 @@ from repro_torch import (
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import (
     ShardMesh,
+    build_knn_graph_sharded,
     datasets,
     exact_knn_sharded,
     fetch_rows_a2a,
@@ -423,6 +424,39 @@ def test_shard_mesh_on_defaults_to_the_card(dev):
     mesh = ShardMesh.on(4)
     assert [d.type for d in mesh.devices] == ["cuda"] * 4
     assert all(t.is_cuda for t in mesh.split(torch.zeros(8, 2)))
+
+
+def test_sharded_build_on_one_card_is_its_plain_version(dev):
+    """4096 x 64 as four logical shards on cuda:0: the build through the
+    select kernel and through its plain version (backend "plain"), with
+    the same key, gives the same bits and stats; the kernel launched."""
+    x = datasets.clustered(4096, 64, 16, seed=7, device=dev)
+    mesh = ShardMesh(["cuda:0"] * 4)
+    cfg = DescentConfig(k=20, reorder=False)
+    _lib.reset_launches()
+    d, i, st = build_knn_graph_sharded(mesh, x, 20, cfg=cfg, key=5)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["knn_join_select"] > 0
+    before = dict(_lib.LAUNCHES)
+    pd, pi, pst = build_knn_graph_sharded(
+        mesh, x, 20, cfg=DescentConfig(k=20, reorder=False, backend="plain"),
+        key=5)
+    torch.cuda.synchronize()
+    assert dict(_lib.LAUNCHES) == before
+    assert torch.equal(d.view(torch.int32), pd.view(torch.int32))
+    assert torch.equal(i, pi) and st == pst
+    _, ti = brute_force_knn(x, x, 20)
+    assert recall_at_k(i, ti) > 0.9
+
+
+def test_sharded_build_defaults_to_the_card(dev):
+    """ShardMesh.on(4) builds on the card and returns CUDA tensors; it
+    never falls back to the CPU (tests/test_torch_sharded_build.py holds
+    that it raises where there is no card)."""
+    x = datasets.clustered(1024, 16, 8, seed=3)
+    d, i, st = build_knn_graph_sharded(
+        ShardMesh.on(4), x, 10, cfg=DescentConfig(k=10, reorder=False))
+    assert d.is_cuda and i.is_cuda and st["iters"] > 0
 
 
 # ---------------------------------------------------------------------------
