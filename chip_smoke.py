@@ -8,8 +8,9 @@ search and its circuit breaker and the sharded build
 (core/persist.py), the retrieval scheduler in front of the online
 store, and the LM serving path (yi-6b prefill, decode, continuous
 batching, kNN-LM retrieval and its datastore's restore, and the datastore
-grown while the LM decodes). Run from the root of a checkout, on a
-machine with an H100:
+grown while the LM decodes; gemma2-27b's local / global stack with its
+mixed ring and linear cache; starcoder2-3b and codeqwen1.5-7b). Run from
+the root of a checkout, on a machine with an H100:
 
     python3 chip_smoke.py
 
@@ -210,7 +211,9 @@ script started (phases with several lanes print one line a lane):
                the plain chunked attention, within 2e-2 of the logit scale
                of each other (tests/test_serve.py:53's bf16 limit), and the
                decode steps within 3e-2 of a forward over the longer
-               prompt; flash_attention launched once per layer;
+               prompt (its logits at the last 4 positions); every
+               layer's kpos tags as ring_kpos says; flash_attention
+               launched once per layer;
   lm_serve     path 9: repro_torch.launch.serve.serve_requests on that
                model: 4 slots, max_len 4096, 8 requests with prompt lengths
                drawn from the seed in [1000, 2048], 32 new tokens each:
@@ -249,10 +252,34 @@ script started (phases with several lanes print one line a lane):
                datastores: decode tokens/s beside lm_serve's, seconds per
                insert chunk, snapshot bytes, write and restore seconds
                (the host disk's), peak memory;
+  dense_check  starcoder2-3b (LayerNorm, biased MLP, q/k/v and output
+               biases, a 4096 window on every layer) and codeqwen1.5-7b
+               (q/k/v biases, MHA 32/32) at full width, each cut to 2
+               layers (``reduced``) and loaded after the model before it
+               is freed: lm_check's two checks on a 4500-token prompt
+               (past starcoder2's window), and every layer's kpos tags
+               (ring_kpos);
+  gemma2_check gemma2-27b at full width (d 4608, 32/16 heads, Dh 128,
+               d_ff 36864, vocab 256000, window 4096, softcaps 50 / 30,
+               tied embeddings), its depth cut from 46 to 8 layers (4
+               local / global pairs; the full model's fp32 draw, 108.9
+               GB, does not fit the card), weights from the seed,
+               matrices in bf16: lm_check on a ragged 5001-token prompt
+               (max_len 8192), the forward's logits taken at the last 4
+               positions only; the kpos tags of every local ring (the
+               last 4096 positions at pos % 4096) and global cache
+               (0..L-1, then -1);
+  lm_gemma2    path 15: serve_requests on that model: 4 slots, max_len
+               8192, 8 requests with prompt lengths drawn from the seed
+               in [4500, 6000] (every local ring wraps at prefill), 32
+               new tokens each: the lm_serve figures;
+               flash_attention launched exactly 8 x 8 times, 32 a layer
+               kind (local, with the window; global);
   profile      every path but truth once more under torch.profiler (and
-               a window of lm_serve: its first 4 requests, 8 new tokens
-               each): device time by kernel name and the device's idle
-               share;
+               a window of lm_serve and of lm_gemma2: the first 4
+               requests, 8 new tokens each; and lm_gemma2's decode steps
+               alone, 16 over 4 prefilled slots): device time by kernel
+               name and the device's idle share;
   kernels      each kernel on the inputs a path gave it (recorded during
                that run), against its plain version: max error, kernel /
                plain / library times, the card's lower bound (and, for the
@@ -277,12 +304,16 @@ script started (phases with several lanes print one line a lane):
                row bytes / time); the bf16
                tiles' library row torch.baddbmm(out_dtype=float32), beside
                it the same with a bf16 output; flash_attention at
-               bf16 on the inputs the lm_serve prefill gave it and at f32
+               bf16 on the inputs the lm_serve prefill gave it, on the
+               inputs of lm_gemma2's second local and second global
+               prefill layers (window 4096, softcap 50, H 32/16, scale
+               144^-0.5; their library row compiled flex_attention, the
+               cap as its score_mod, the window as a block mask), and at f32
                on attention_check's causal_gqa_32_4 inputs, with
                scaled_dot_product_attention as its library row.
 Every path is driven with all launch counts set to 0 just before it and
-read just after; each kernel of the path must have launched. The 24 GB
-model is freed before the kernels phase. Then the line
+read just after; each kernel of the path must have launched. Each model
+is freed before the next is loaded and before the kernels phase. Then the line
 {"kernels": [...]}: one entry per kernel, plus knn_join_select once per
 further (W, c) that build, search or online recorded (``launches``: what
 that width's calls added to the kernel's count in its path; these add up
@@ -301,7 +332,9 @@ bf16 and int8 search tiles once more at round 6 (``launches``: 0, a second
 reading of the launches the round-2 entry counts; ``call`` ends in
 ``:round=6``) and
 flash_attention once more at f32 (``launches``: its calls in
-attention_check; no main path runs attention at f32); ``call`` tells the
+attention_check; no main path runs attention at f32) and twice for
+lm_gemma2 (``call`` ``lm_gemma2:flash_attention:local`` and ``:global``,
+``launches``: that layer kind's calls in path 15); ``call`` tells the
 entries apart. Last, {"ok": true, "device": ...}. Any failure
 raises, and the script exits non-zero. With no CUDA card, or without the
 repository's src/ beside it, it exits 2 and prints no result.
@@ -309,6 +342,7 @@ repository's src/ beside it, it exits 2 and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -374,7 +408,8 @@ OWNED = {path: name for name, path in QUANT_OWNER.items()}
 CHECKED = {**{path: {name, "knn_join_select"} for path, name in OWNED.items()},
            "online": {*ONLINE_KERNELS, "knn_join_select", "pairwise_sq_l2",
                       "knn_join_dists"},
-           "lm_serve": {"flash_attention"}, "knn_lm": {"knn_join_dists"}}
+           "lm_serve": {"flash_attention"}, "knn_lm": {"knn_join_dists"},
+           "lm_gemma2": {"flash_attention"}}
 CENTROID_KEY = "online:pairwise_sq_l2:centroid_assign"
 # recorded calls that join the kernels line after their kernel's own entry,
 # each with its own launches: the fp32 join of the kNN-LM's build (row 1a)
@@ -398,6 +433,20 @@ LM_LIMIT, LM_DECODE_LIMIT = 2e-2, 3e-2      # tests/test_serve.py:53, :84
 LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_MAX_NEW = 4, 4096, 8, 32
 LM_PROMPT_LENS = (1000, 2048)               # drawn from the seed, inclusive
 LM_PROFILE_NEW = 8                          # the profiled window: one wave
+# path 15 and its lanes: gemma2-27b at full width, its depth cut to 4
+# (local, global) pairs (the full 46 layers' fp32 draw, 108.9 GB, does not
+# fit the card); prompts past the 4096 window, so every local ring wraps
+# at prefill; the other dense configs at full width, cut to 2 layers
+GEMMA_ARCH, GEMMA_LAYERS, GEMMA_MAX_LEN = "gemma2-27b", 8, 8192
+GEMMA_CHECK_LEN, GEMMA_PROMPT_LENS = 5001, (4500, 6000)
+GEMMA_DECODE_PROFILE = 16                   # decode steps, profiled alone
+DENSE_ARCHS, DENSE_LAYERS, DENSE_CHECK_LEN = (
+    ("starcoder2-3b", "codeqwen1.5-7b"), 2, 4500)
+# paths whose attention calls are recorded by layer kind (":local" with a
+# window, ":global" without)
+LAYER_KIND_TAGS = ("lm_gemma2",)
+GEMMA_KEYS = ("lm_gemma2:flash_attention:local",
+              "lm_gemma2:flash_attention:global")
 KNN_SEQS, KNN_SEQ_LEN, KNN_K, KNN_BATCH = 16, 2048, 16, 4
 KNN_CHUNK, KNN_SNAPSHOT_EVERY = 64, 128     # knn_grow: insert, snapshot
 # retrieval: the interactive lane's queries and burst sizes, the deadline
@@ -564,7 +613,9 @@ class Recorder:
     LATE_ROUND of it too, under the key plus ``:round=6``; the script
     fails if that call is not the first block's), for attention (kept as
     ``flash_attention``, keyword arguments too) the second layer of the
-    first prefill — and the host time of the greedy reorder. It wraps the
+    first prefill (in LAYER_KIND_TAGS' paths, the second of each kind:
+    ``:local`` with a window, ``:global`` without) — and the host time of
+    the greedy reorder. It wraps the
     module attributes the path calls and restores them on exit; the
     wrapped functions are the ones the path would call, so each kernel
     launches as it would. Keys carry the path's tag.
@@ -623,6 +674,8 @@ class Recorder:
                 key += f":c={args[3].shape[1]}"
             elif name == "centroid_assign":
                 key += ":centroid_assign"
+            elif name == "attention" and self.tag in LAYER_KIND_TAGS:
+                key += ":global" if kw.get("window") is None else ":local"
             self.seen[key] = self.seen.get(key, 0) + 1
             if key in LATE_KEYS:
                 # a block's queries are one slice of the padded batch
@@ -1662,7 +1715,9 @@ def check_attention_kernel(args, kw, reps) -> dict:
     operations: 2 (Dq + Dv) per visible (q, k) pair and head, over the
     peak of the inputs' type); scaled_dot_product_attention on the same
     tensors as the library row, where it computes the same function (a
-    causal or full mask from position 0)."""
+    causal or full mask from position 0), else flex_attention
+    (``flex_attention_call``), with its error against the plain version
+    beside."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -1699,8 +1754,16 @@ def check_attention_kernel(args, kw, reps) -> dict:
         entry["library_call"] = "F.scaled_dot_product_attention(is_causal, " \
             "enable_gqa=True) on (B, H, L, D) copies of the same tensors"
     else:
-        entry["library_ms"] = None
-        entry["library_call"] = "none for this mask"
+        library = flex_attention_call(args, kw)
+        lib_out = library().transpose(1, 2)
+        entry["library_max_abs_err"] = float(
+            (lib_out.float() - want.float()).abs().nan_to_num(0.0).max())
+        del lib_out
+        entry["library_ms"] = time_ms(library, reps)
+        entry["library_call"] = "torch.compile(flex_attention)(score_mod " \
+            "softcap * tanh(s / softcap), a causal / window block mask " \
+            "built once, scale, enable_gqa=True) on (B, H, L, D) copies of " \
+            "the same tensors"
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     entry["bound_ms"] = max(t_bytes, t_ops)
@@ -1710,22 +1773,78 @@ def check_attention_kernel(args, kw, reps) -> dict:
     return entry
 
 
+def flex_attention_call(args, kw):
+    """One PyTorch call that computes ``ops.attention(*args, **kw)`` where
+    scaled_dot_product_attention cannot (a softcap, a window, a query
+    offset): flex_attention, compiled as torch documents it, the cap as
+    its score_mod, the causal / window mask from positions (q[0] at
+    q_offset) as a block mask built here, out of any timed region. Takes
+    and gives (B, H, L, D); a library yardstick only, never the port's."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    # inductor's and triton's caches stay inside the checkout
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+    q, k, v = (t.transpose(1, 2).contiguous() for t in args)
+    causal, window = kw.get("causal", True), kw.get("window")
+    cap, off = kw.get("softcap"), kw.get("q_offset", 0)
+
+    def mask_mod(b, h, qi, ki):
+        qp = qi + off
+        seen = ki >= 0
+        if causal:
+            seen = seen & (ki <= qp)
+        if window is not None:
+            seen = seen & (ki > qp - window)
+        return seen
+
+    def score_mod(s, b, h, qi, ki):
+        return cap * torch.tanh(s / cap)
+
+    mask = create_block_mask(mask_mod, None, None, q.shape[2], k.shape[2],
+                             device=q.device)
+    fn = torch.compile(flex_attention, dynamic=False)
+    return lambda: fn(q, k, v, score_mod=None if cap is None else score_mod,
+                      block_mask=mask, scale=kw.get("scale"),
+                      enable_gqa=True)
+
+
 def rel_err(got, want) -> float:
     """max |got - want| over the scale max |want|."""
     return float((got - want).abs().max() / want.abs().max())
 
 
-def lm_check(params, cfg, dev) -> dict:
-    """The full-width model's prefill logits of a ragged prompt and 4
+def ring_kpos(slots: int, length: int):
+    """The kpos tags a cache of ``slots`` slots holds after ``length``
+    tokens: position p at slot p % slots, the newest kept, -1 where no
+    token landed (a linear cache: 0..length-1, then -1)."""
+    import torch
+    j = torch.arange(slots)
+    pos = length - 1 - (length - 1 - j) % slots
+    return torch.where(pos >= 0, pos, -1)
+
+
+def lm_check(params, cfg, dev, n=LM_CHECK_LEN, seed=SEED + 9,
+             max_len=None) -> dict:
+    """The model's prefill logits of a ragged ``n``-token prompt and 4
     teacher-forced decode steps, through the kernel and through the plain
     chunked attention, held against each other; the kernel run's decode
-    steps against a forward over the longer prompt."""
+    steps against a forward over the longer prompt (its logits at the
+    last 4 positions only); the kernel run's kpos tags, every layer's,
+    against ``ring_kpos`` (local rings wrapped, linear caches filled to
+    n + 4, then -1)."""
     import numpy as np
     import torch
     from repro_torch.kernels import _lib
+    from repro_torch.models.model import embed_inputs, output_logits
+    from repro_torch.models.params import tree_paths
+    from repro_torch.models.transformer import run_stack
     from repro_torch.serve import prefill, serve_step
-    n, t = LM_CHECK_LEN, LM_CHECK_STEPS
-    toks = torch.from_numpy(np.random.RandomState(SEED + 9).randint(
+    t = LM_CHECK_STEPS
+    max_len = max_len or n + t
+    toks = torch.from_numpy(np.random.RandomState(seed).randint(
         0, cfg.vocab, size=(1, n + t))).to(dev)
     runs = {}
     for backend in ("auto", "ref"):
@@ -1733,7 +1852,7 @@ def lm_check(params, cfg, dev) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache, lengths = prefill(params, {"tokens": toks[:, :n]}, cfg,
-                                         n + t, backend=backend)
+                                         max_len, backend=backend)
         steps = []
         for i in range(t):
             lg, cache = serve_step(params, cache, toks[:, n + i:n + i + 1],
@@ -1745,14 +1864,21 @@ def lm_check(params, cfg, dev) -> dict:
             "prefill": logits, "decode": torch.stack(steps, dim=1),
             "seconds": time.perf_counter() - t0,
             "launches": _lib.LAUNCHES["flash_attention"] - before}
+        if backend == "auto":
+            kpos = {path: leaf.cpu() for path, leaf in
+                    tree_paths(cache).items() if path.endswith("kpos")}
         del cache
-    full, _, _ = prefill(params, {"tokens": toks}, cfg, n + t)
+    x = run_stack(params["stack"], embed_inputs(params, {"tokens": toks},
+                                                cfg), cfg)
+    full = output_logits(params, x[:, -t:], cfg)
+    del x
     kern, plain = runs["auto"], runs["ref"]
+    kpos_ok = {path: bool((tags == ring_kpos(tags.shape[-1], n + t)).all())
+               for path, tags in kpos.items()}
     out = {
         "prefill_rel_err": rel_err(kern["prefill"], plain["prefill"]),
         "decode_rel_err": rel_err(kern["decode"], plain["decode"]),
-        "decode_vs_forward_rel_err": rel_err(kern["decode"],
-                                             full[:, n:n + t]),
+        "decode_vs_forward_rel_err": rel_err(kern["decode"], full),
         "logit_scale": float(plain["prefill"].abs().max()),
         "argmax_agree": float((kern["prefill"].argmax(-1)
                                == plain["prefill"].argmax(-1))
@@ -1761,6 +1887,9 @@ def lm_check(params, cfg, dev) -> dict:
         "launches": {"kernel": kern["launches"], "plain": plain["launches"]},
         "limits": {"kernel_vs_plain": LM_LIMIT,
                    "decode_vs_forward": LM_DECODE_LIMIT},
+        "max_len": max_len,
+        "kpos": {path: {"slots": int(tags.shape[-1]), "ok": kpos_ok[path]}
+                 for path, tags in kpos.items()},
     }
     finite = all(torch.isfinite(r[x]).all() for r in runs.values()
                  for x in ("prefill", "decode"))
@@ -1768,30 +1897,148 @@ def lm_check(params, cfg, dev) -> dict:
             or out["decode_rel_err"] > LM_LIMIT
             or out["decode_vs_forward_rel_err"] > LM_DECODE_LIMIT
             or kern["launches"] != cfg.n_layers or plain["launches"] != 0
+            or not kpos or not all(kpos_ok.values())
             or tuple(kern["prefill"].shape) != (1, n, cfg.vocab)):
-        raise AssertionError(f"lm_check failed: {out}")
+        raise AssertionError(f"lm_check ({cfg.arch}) failed: {out}")
     return out
 
 
-def lm_prompts(cfg) -> list:
+def lm_prompts(cfg, lens=LM_PROMPT_LENS, seed=SEED + 11) -> list:
+    """LM_REQUESTS prompts with lengths drawn from the seed in ``lens``
+    (inclusive)."""
     import numpy as np
-    rng = np.random.RandomState(SEED + 11)
-    lens = rng.randint(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1,
-                       size=LM_REQUESTS)
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(lens[0], lens[1] + 1, size=LM_REQUESTS)
     return [rng.randint(0, cfg.vocab, size=int(n)).astype(np.int32)
             for n in lens]
 
 
-def check_served(reqs, stats, launches, cfg) -> None:
+def check_served(reqs, stats, launches, cfg, tag="lm_serve") -> None:
     if not all(r.done and len(r.out) == LM_MAX_NEW for r in reqs):
-        raise AssertionError("lm_serve: a request was not served in full")
+        raise AssertionError(f"{tag}: a request was not served in full")
     if not all(0 <= t < cfg.vocab for r in reqs for t in r.out):
-        raise AssertionError("lm_serve: a token outside the vocabulary")
+        raise AssertionError(f"{tag}: a token outside the vocabulary")
     want = cfg.n_layers * LM_REQUESTS
     if launches["flash_attention"] != want:
-        raise AssertionError(f"lm_serve: flash_attention launched "
+        raise AssertionError(f"{tag}: flash_attention launched "
                              f"{launches['flash_attention']} times, not "
                              f"{want} (one per layer per prefill)")
+
+
+def served_fields(prompts, stats, wall: float) -> dict:
+    """A server run's figures for its phase line: ``serve_requests``'
+    stats, with ``wall`` the driven run's wall time."""
+    return dict(
+        prompt_lens=[len(p) for p in prompts], wall_s=wall,
+        prefill_s=stats["prefill_s"],
+        prefill_s_mean=statistics.mean(stats["prefill_s"]),
+        ttft_s=stats["ttft_s"],
+        ttft_s_median=statistics.median(stats["ttft_s"]),
+        decode_steps=stats["decode_steps"], decode_s=stats["decode_s"],
+        decode_tokens=stats["decode_tokens"],
+        decode_tokens_per_s=stats["decode_tokens_per_s"],
+        step_ms_mean=1e3 * stats["decode_s"] / stats["decode_steps"],
+        tokens=stats["tokens"])
+
+
+def load_cut(arch: str, n_layers: int, dev):
+    """A registered config at full width with its depth cut to
+    ``n_layers``, its weights drawn from the seed (``load_params``), and
+    the phase fields that say so."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import load_params
+    from repro_torch.models import param_count
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = load_params(cfg, dev)
+    torch.cuda.synchronize()
+    return cfg, params, {
+        "arch": arch, "reduced": {"n_layers": [full.n_layers, n_layers]},
+        "params": param_count(cfg), "init_s": time.perf_counter() - t0}
+
+
+def dense_family_run(dev):
+    """The rest of the dense family at full width, each model loaded
+    after the one before is freed: dense_check (starcoder2-3b, then
+    codeqwen1.5-7b), then gemma2-27b's gemma2_check and path 15
+    (lm_gemma2, driven, then profiled). Returns path 15's launches and
+    recorder."""
+    import torch
+    from repro_torch.launch.serve import serve_requests
+    # dense_check: starcoder2-3b (LayerNorm, biases, a 4096 window on every
+    # layer) and codeqwen1.5-7b (q/k/v biases, MHA 32/32)
+    for arch in DENSE_ARCHS:
+        d_cfg, params, fields = load_cut(arch, DENSE_LAYERS, dev)
+        emit("dense_check", **fields, prompt=DENSE_CHECK_LEN,
+             steps=LM_CHECK_STEPS, **lm_check(
+                 params, d_cfg, dev, n=DENSE_CHECK_LEN, seed=SEED + 60))
+        del params
+        torch.cuda.empty_cache()
+
+    # gemma2-27b, cut to GEMMA_LAYERS (4 local / global pairs)
+    g_cfg, params, fields = load_cut(GEMMA_ARCH, GEMMA_LAYERS, dev)
+    emit("lm_model", **fields,
+         memory_allocated=torch.cuda.memory_allocated(),
+         cfg={k: str(v) for k, v in dataclasses.asdict(g_cfg).items()})
+    emit("gemma2_check", **fields, prompt=GEMMA_CHECK_LEN,
+         steps=LM_CHECK_STEPS, **lm_check(
+             params, g_cfg, dev, n=GEMMA_CHECK_LEN, seed=SEED + 61,
+             max_len=GEMMA_MAX_LEN))
+    g_prompts = lm_prompts(g_cfg, GEMMA_PROMPT_LENS, SEED + 62)
+    (reqs, stats), wall, launches, peak, rec = drive(
+        "lm_gemma2", lambda: serve_requests(
+            params, g_cfg, g_prompts, slots=LM_SLOTS,
+            max_len=GEMMA_MAX_LEN, max_new=LM_MAX_NEW))
+    check_served(reqs, stats, launches, g_cfg, "lm_gemma2")
+    by_kind = {k.rsplit(":", 1)[1]: rec.launched.get(k, 0)
+               for k in GEMMA_KEYS}
+    if set(by_kind.values()) != {GEMMA_LAYERS // 2 * LM_REQUESTS}:
+        raise AssertionError(f"lm_gemma2: flash_attention launches by "
+                             f"layer kind {by_kind}")
+    emit("lm_gemma2", arch=GEMMA_ARCH, reduced=fields["reduced"],
+         slots=LM_SLOTS, max_len=GEMMA_MAX_LEN, requests=LM_REQUESTS,
+         max_new=LM_MAX_NEW, window=g_cfg.window,
+         **served_fields(g_prompts, stats, wall),
+         max_memory_allocated=peak, launches=launches,
+         flash_attention_by_kind=by_kind)
+    emit("profile", path="lm_gemma2",
+         window=f"{LM_SLOTS} requests, {LM_PROFILE_NEW} new tokens",
+         **profile_run(lambda: serve_requests(
+             params, g_cfg, g_prompts[:LM_SLOTS], slots=LM_SLOTS,
+             max_len=GEMMA_MAX_LEN, max_new=LM_PROFILE_NEW)))
+    # that window is mostly prefill: the decode steps alone, too
+    emit("profile", path="lm_gemma2:decode",
+         window=f"{LM_SLOTS} slots at {GEMMA_PROMPT_LENS[0]} tokens, "
+                f"{GEMMA_DECODE_PROFILE} decode steps",
+         **profile_run(decode_steps(params, g_cfg, dev, SEED + 63)))
+    del reqs, stats, params
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def decode_steps(params, cfg, dev, seed):
+    """Prefill LM_SLOTS seeded prompts of GEMMA_PROMPT_LENS[0] tokens in
+    one batch; return a closure that runs GEMMA_DECODE_PROFILE greedy
+    serve_steps on that cache, the served path's decode steps alone."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import prefill, serve_step
+    toks = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab, size=(LM_SLOTS, GEMMA_PROMPT_LENS[0]))).to(dev)
+    logits, cache, lengths = prefill(params, {"tokens": toks}, cfg,
+                                     GEMMA_MAX_LEN, last_only=True)
+
+    def run():
+        nonlocal logits, cache, lengths
+        for _ in range(GEMMA_DECODE_PROFILE):
+            logits, cache = serve_step(params, cache,
+                                       logits.argmax(-1)[:, None], lengths,
+                                       cfg)
+            lengths = lengths + 1
+    return run
 
 
 def knn_lm_run(params, cfg, dev, entry_seed: int):
@@ -3317,17 +3564,8 @@ def main() -> int:
     served_tps = stats["decode_tokens_per_s"]
     emit("lm_serve", arch=LM_ARCH, slots=LM_SLOTS, max_len=LM_MAX_LEN,
          requests=LM_REQUESTS, max_new=LM_MAX_NEW,
-         prompt_lens=[len(p) for p in prompts], wall_s=wall,
-         prefill_s=stats["prefill_s"],
-         prefill_s_mean=statistics.mean(stats["prefill_s"]),
-         ttft_s=stats["ttft_s"],
-         ttft_s_median=statistics.median(stats["ttft_s"]),
-         decode_steps=stats["decode_steps"], decode_s=stats["decode_s"],
-         decode_tokens=stats["decode_tokens"],
-         decode_tokens_per_s=stats["decode_tokens_per_s"],
-         step_ms_mean=1e3 * stats["decode_s"] / stats["decode_steps"],
-         tokens=stats["tokens"], max_memory_allocated=peak,
-         launches=launches["lm_serve"])
+         **served_fields(prompts, stats, wall),
+         max_memory_allocated=peak, launches=launches["lm_serve"])
     # a short window of the same server: processing the whole run's
     # profile (about 100k events) took 150 s of host time
     emit("profile", path="lm_serve",
@@ -3366,7 +3604,13 @@ def main() -> int:
              a == b for a, b in zip(outs, served_outs)),
          max_memory_allocated=peak, launches=launches["knn_grow"], **gres)
     del res, params
+    # knn_grow's batcher and its step function hold each other (a cycle
+    # through the step's closure), and with them yi-6b's weights: collect
+    # them before the next model loads
+    gc.collect()
     torch.cuda.empty_cache()
+
+    launches["lm_gemma2"], recs["lm_gemma2"] = dense_family_run(dev)
 
     # -- kernels: each against its plain version on the recorded inputs
     owner = {"pairwise_sq_l2": "truth", "knn_search_dists": "search",
@@ -3425,6 +3669,8 @@ def main() -> int:
                 **e, "launches": e["launches_at_this_key"]}
         if key in FURTHER_ROWS.get(name, ()):
             further[key] = {**e, "launches": e["launches_at_this_key"]}
+        if key in GEMMA_KEYS:
+            further[key] = {**e, "launches": e["launches_at_this_key"]}
         # the line keeps one entry per kernel, from the path that owns
         # it; the build's widest select (the receiver select) and the
         # online path's widest row merge stand for their kernels
@@ -3434,8 +3680,8 @@ def main() -> int:
             e = merges[int(key.split(":c=")[1])]
         if name not in entries or width_of(e) > width_of(entries[name]):
             entries[name] = e
-    missing = [k for keys in FURTHER_ROWS.values() for k in keys
-               if k not in further]
+    missing = [k for keys in (*FURTHER_ROWS.values(), GEMMA_KEYS)
+               for k in keys if k not in further]
     missing += [k for k in LATE_KEYS if k.split(":")[1] not in late]
     if missing:
         raise AssertionError(f"no second call recorded at {missing}")
@@ -3455,6 +3701,7 @@ def main() -> int:
         line.append(entries[n])
         if n == "flash_attention":
             line.append(f32)
+            line.extend(further[k] for k in GEMMA_KEYS)
         if n == "knn_join_select":
             # every other recorded (W, c), with that width's launches
             for wc, e in sorted(selects.items(),

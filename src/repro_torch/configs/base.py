@@ -8,9 +8,10 @@ Shapes (LM family: seq_len x global_batch):
     decode_32k   32_768 x 128  -> serve_step (1 token, 32k KV cache)
     long_500k    524_288 x 1   -> serve_step; sub-quadratic attention only
 
-Only the architectures the port serves register (yi-6b so far); the
-dry-run's ``input_specs`` / ``batch_specs`` wait with ``launch/``
-(ROADMAP.md, Queue 1, item 9).
+Only the architectures the port serves register (the dense family:
+yi-6b, gemma2-27b, starcoder2-3b, codeqwen1.5-7b); the dry-run's
+``input_specs`` / ``batch_specs`` wait with ``launch/`` (ROADMAP.md,
+Queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -150,8 +151,8 @@ class ModelConfig:
 _REGISTRY: dict[str, ModelConfig] = {}
 _SMOKE: dict[str, ModelConfig] = {}
 # the architectures the port serves; the others wait for their families
-# (ROADMAP.md, Queue 1, item 8)
-_PORTED = ("yi_6b",)
+# (ROADMAP.md, Queue 1, item 7)
+_PORTED = ("yi_6b", "gemma2_27b", "starcoder2_3b", "codeqwen15_7b")
 
 
 def register(cfg: ModelConfig, smoke: ModelConfig) -> ModelConfig:

@@ -5,6 +5,11 @@ with an optional kNN-LM datastore built over the port's graph
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
         --smoke --device cpu --requests 8 --max-new 16 --knn
 
+``--arch`` is any registered architecture of the dense family: yi-6b,
+gemma2-27b (local / global layer pairs: a ring cache of ``window`` slots
+on each local layer, a linear one of ``--max-len`` on each global one),
+starcoder2-3b (a ring cache on every layer) or codeqwen1.5-7b.
+
 Runs on the CUDA card unless ``--device`` names another. There are no
 published weights in the repository, so the parameters are drawn from
 seed 0 (as the JAX CLI's ``key(0)``) through the schema and their

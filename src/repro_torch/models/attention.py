@@ -12,7 +12,7 @@ the plain chunked online softmax with JAX's ``cq`` / ``ckv`` chunking,
 padding, triangle and banding. Decode attention is plain torch on every
 device, as JAX computes it with einsums outside any Pallas kernel.
 
-MLA (deepseek-v2) waits for its family (ROADMAP.md, Queue 1, item 8;
+MLA (deepseek-v2) waits for its family (ROADMAP.md, Queue 1, item 7;
 ``models.transformer.check_dense`` refuses it).
 """
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Top-level LM: embedding, layer stack, final norm, output head
 (src/repro/models/model.py), for the dense token-input family. The audio
 and vision front ends and ``loss_fn`` (training) wait for their slices:
-ROADMAP.md, Queue 1, item 8.
+ROADMAP.md, Queue 1, item 7.
 """
 from __future__ import annotations
 
@@ -65,7 +65,7 @@ def forward(params: dict, batch: dict, cfg) -> torch.Tensor:
 
 def loss_fn(params: dict, batch: dict, cfg):
     raise NotImplementedError("loss_fn (training) is not ported yet: "
-                              "ROADMAP.md, Queue 1, item 8")
+                              "ROADMAP.md, Queue 1, item 7")
 
 
 def param_count(cfg) -> int:

@@ -1,14 +1,19 @@
-"""Block composition and the layer stack (src/repro/models/transformer.py),
-for the dense uniform stack: every layer one attention block, global or
-all-``local`` (sliding window). Parameters keep JAX's leading ``stack``
-axis; a Python loop over the layers takes the place of ``lax.scan`` (the
-port runs eagerly, so there is nothing to keep small).
+"""Block composition and the layer stacks (src/repro/models/transformer.py),
+for the dense family: the uniform stack (every layer one attention block,
+global or all-``local`` sliding window, under ``{"layers": ...}``) and
+gemma2's local/global alternation (``{"pairs": {"local", "global"}}``, a
+local layer of ``cfg.window`` then a global one). Parameters keep JAX's
+leading ``stack`` axis and tree paths; a Python loop over the layers
+(``stack_layers``) takes the place of ``lax.scan`` (the port runs
+eagerly, so there is nothing to keep small).
 
-The heterogeneous stacks (gemma2's local/global pairs, deepseek's
-first-k-dense + MoE, zamba2's mamba segments with a shared block, mamba2)
-wait for their families: ROADMAP.md, Queue 1, item 8.
+The other heterogeneous stacks (deepseek's first-k-dense + MoE, zamba2's
+mamba segments with a shared block, mamba2) wait for their families:
+ROADMAP.md, Queue 1, item 7.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
@@ -23,8 +28,9 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.params import ParamDef, tree_map
 
-_FAMILIES = "the port serves the dense uniform stack (global or local " \
-            "layers); {what} is not ported yet: ROADMAP.md, Queue 1, item 8"
+_FAMILIES = "the port serves the dense family (global, local or " \
+            "local_global layers); {what} is not ported yet: ROADMAP.md, " \
+            "Queue 1, item 7"
 
 
 def check_dense(cfg) -> None:
@@ -36,8 +42,6 @@ def check_dense(cfg) -> None:
         what = "the MoE family"
     elif cfg.use_mla:
         what = "MLA attention"
-    elif cfg.layer_pattern == "local_global":
-        what = "the local_global layer pattern"
     elif cfg.frontend != "none":
         what = f"the {cfg.frontend} front end"
     if what is not None:
@@ -125,16 +129,74 @@ def attn_block(p, x, cfg, *, window=None, encoder=False, positions=None):
 # the stack
 # ---------------------------------------------------------------------------
 
-def stack_schema_for(cfg) -> dict:
+def _kinds(cfg) -> tuple[list, int]:
+    """The kinds of layer the stack repeats, as (tree path, window) in the
+    order one repeat runs them, and the number of repeats: the uniform
+    stack ``{"layers": ...}``, or gemma2's ``{"pairs": {"local",
+    "global"}}`` (a local layer of ``cfg.window``, then a global one)."""
+    if cfg.layer_pattern == "local_global":
+        assert cfg.n_layers % 2 == 0
+        return ([(("pairs", "local"), cfg.window),
+                 (("pairs", "global"), None)], cfg.n_layers // 2)
+    window = cfg.window if cfg.layer_pattern == "local" else None
+    return [(("layers",), window)], cfg.n_layers
+
+
+def _nest(items) -> dict:
+    """{path: subtree} pairs -> one nested dict."""
+    out: dict = {}
+    for path, subtree in items:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = subtree
+    return out
+
+
+def _at(tree: dict, path: tuple) -> dict:
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def stacked(cfg, block) -> dict:
+    """The layer-stacked tree of ``block(window)``, one per layer, in
+    ``_kinds``' layout. Parameters and decode caches share it."""
     check_dense(cfg)
-    return {"layers": stack_schema(attn_block_schema(cfg), cfg.n_layers)}
+    kinds, n = _kinds(cfg)
+    return _nest((path, stack_schema(block(window), n))
+                 for path, window in kinds)
+
+
+def stack_layers(stack: dict, cfg, cache: dict | None = None):
+    """Yield (params, cache, window) of each layer in stack order, views
+    of the stacked trees (``cache`` None: None for each)."""
+    check_dense(cfg)
+    kinds, n = _kinds(cfg)
+    for i in range(n):
+        for path, window in kinds:
+            yield (layer(_at(stack, path), i),
+                   None if cache is None else layer(_at(cache, path), i),
+                   window)
+
+
+def stack_trees(per_layer: list, cfg) -> dict:
+    """Per-layer trees in stack order -> the stacked tree of ``stacked``'s
+    layout (a new stack axis in front of every leaf)."""
+    kinds, n = _kinds(cfg)
+    assert len(per_layer) == n * len(kinds)
+    return _nest((path, tree_map(lambda *ts: torch.stack(ts),
+                                 *per_layer[j::len(kinds)]))
+                 for j, (path, _) in enumerate(kinds))
+
+
+def stack_schema_for(cfg) -> dict:
+    return stacked(cfg, lambda window: attn_block_schema(cfg))
 
 
 def run_stack(params: dict, x, cfg, *, positions=None):
     """Full-sequence forward through the layer stack (train/prefill)."""
-    check_dense(cfg)
-    window = cfg.window if cfg.layer_pattern == "local" else None
-    for i in range(cfg.n_layers):
-        x = attn_block(layer(params["layers"], i), x, cfg, window=window,
-                       encoder=cfg.encoder_only, positions=positions)
+    for p, _, window in stack_layers(params, cfg):
+        x = attn_block(p, x, cfg, window=window, encoder=cfg.encoder_only,
+                       positions=positions)
     return x

@@ -1,17 +1,20 @@
 """Serving: prefill and single-token decode with batched KV caches
 (src/repro/serve/decode.py), for the dense GQA family.
 
-The cache tree mirrors the parameter stack: {"layers": {"k", "v",
-"kpos"}} with the layer axis in front and batch at axis 1, as in JAX:
+The cache tree mirrors the parameter stack (``transformer.stacked``):
+{"layers": {"k", "v", "kpos"}}, or gemma2's {"pairs": {"local": {...},
+"global": {...}}}, with the stack axis in front and batch at axis 1, as
+in JAX:
 
-  * GQA linear cache  (n_layers, B, max_len, Hkv, Dh) + kpos tags
-  * GQA ring cache    (n_layers, B, window,  Hkv, Dh) — all-local layers
-    store only ``window`` entries, placed at position % window.
+  * GQA linear cache  (n, B, max_len, Hkv, Dh) + kpos tags
+  * GQA ring cache    (n, B, window,  Hkv, Dh) — local-window layers
+    (all-local stacks, gemma2's local half) store only ``window``
+    entries, placed at position % window.
 
 ``serve_step`` updates the cache IN PLACE and returns it (JAX returns an
-updated copy); per-layer loops over the stacked layers take the place of
-``lax.scan``. The MLA latent and SSM caches wait for their families
-(ROADMAP.md, Queue 1, item 8).
+updated copy); per-layer loops (``transformer.stack_layers``) take the
+place of ``lax.scan``. The MLA latent and SSM caches wait for their
+families (ROADMAP.md, Queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -24,21 +27,15 @@ from repro_torch.models.params import init_tree, tree_map
 from repro_torch.models.transformer import (
     apply_ffn,
     apply_norm,
-    check_dense,
-    layer,
-    stack_schema,
+    stack_layers,
+    stack_trees,
+    stacked,
 )
 
 
-def _window(cfg) -> int | None:
-    return cfg.window if cfg.layer_pattern == "local" else None
-
-
 def cache_schema(cfg, batch: int, max_len: int) -> dict:
-    check_dense(cfg)
-    return {"layers": stack_schema(
-        attn.gqa_cache_schema(cfg, batch, max_len, window=_window(cfg)),
-        cfg.n_layers)}
+    return stacked(cfg, lambda window: attn.gqa_cache_schema(
+        cfg, batch, max_len, window=window))
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
@@ -72,15 +69,11 @@ def decode_hidden(params, cache, tokens, lengths, cfg):
     cache), the cache updated in place. The kNN-LM's keys live in this
     space (``run_stack``'s output); ``output_logits`` of it is the step's
     logits."""
-    check_dense(cfg)
     dev = params["embed"]["table"].device
     lengths = torch.as_tensor(lengths, device=dev)
     x = embed_inputs(params, {"tokens": tokens}, cfg)
-    stack, layers = params["stack"]["layers"], cache["layers"]
-    window = _window(cfg)
-    for i in range(cfg.n_layers):
-        x, _ = _attn_block_decode(layer(stack, i), x, layer(layers, i),
-                                  lengths, cfg, window=window)
+    for p, c, window in stack_layers(params["stack"], cfg, cache):
+        x, _ = _attn_block_decode(p, x, c, lengths, cfg, window=window)
     return x, cache
 
 
@@ -141,17 +134,14 @@ def prefill(params, batch, cfg, max_len: int, *, last_only: bool = False,
     (B, L, V), or (B, V) for the new-token sampling position when
     ``last_only`` (serving never makes the (B, L, V) tensor). ``backend``
     "ref" runs the plain attention on a card (the kernel's yardstick)."""
-    check_dense(cfg)
     x = embed_inputs(params, batch, cfg)
     b, seq = x.shape[0], x.shape[1]
-    stack = params["stack"]["layers"]
-    window = _window(cfg)
     caches = []
-    for i in range(cfg.n_layers):
-        x, c = _attn_block_prefill(layer(stack, i), x, cfg, max_len,
-                                   window=window, backend=backend)
+    for p, _, window in stack_layers(params["stack"], cfg):
+        x, c = _attn_block_prefill(p, x, cfg, max_len, window=window,
+                                   backend=backend)
         caches.append(c)
-    cache = {"layers": tree_map(lambda *ts: torch.stack(ts), *caches)}
+    cache = stack_trees(caches, cfg)
     if last_only:
         logits = output_logits(params, x[:, -1:], cfg)[:, 0]
     else:
@@ -162,7 +152,7 @@ def prefill(params, batch, cfg, max_len: int, *, last_only: bool = False,
 
 def write_slot(cache: dict, i: int, one_cache: dict, length: int) -> dict:
     """Copy a one-request cache (batch 1, from ``prefill``) into slot ``i``
-    of the batched cache, in place; every leaf has the layer axis in front
-    and batch at axis 1. Returns the cache."""
+    of the batched cache, in place; every leaf of either stack's tree has
+    the stack axis in front and batch at axis 1. Returns the cache."""
     tree_map(lambda big, one: big[:, i].copy_(one[:, 0]), cache, one_cache)
     return cache

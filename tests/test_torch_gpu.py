@@ -55,7 +55,8 @@ from repro_torch.core import (
 from repro_torch.core.quantize import quantize_corpus
 from repro_torch.kernels import _lib, ops
 from repro_torch.models import cast_matrices, init_tree, model_schema
-from repro_torch.serve import prefill
+from repro_torch.models.params import tree_map, tree_paths
+from repro_torch.serve import prefill, serve_step
 
 pytestmark = pytest.mark.gpu
 
@@ -1218,6 +1219,12 @@ ATTN_BF16_SHAPES = {
     "b2_q_offset": (2, 200, 712, 8, 2, 64, 64,
                     dict(causal=True, q_offset=512)),
     "bh_65544": (2, 3, 5, 32772, 4, 16, 16, dict(causal=True)),
+    # gemma2's head layout: H 32/16, Dh 128, softcap 50, the query scale
+    # 1/sqrt(144); its local layers' window, and its global layers
+    "gemma2_local": (1, 1100, 1100, 32, 16, 128, 128, dict(
+        causal=True, window=1024, softcap=50.0, scale=144.0 ** -0.5)),
+    "gemma2_global": (1, 1100, 1100, 32, 16, 128, 128, dict(
+        causal=True, softcap=50.0, scale=144.0 ** -0.5)),
 }
 
 
@@ -1225,8 +1232,9 @@ ATTN_BF16_SHAPES = {
 def test_attention_kernel_bf16_shapes(dev, case):
     """The bf16 (wgmma) kernel at the recorded prefill, at Dh 256 and 80
     and at Dq 48 / Dv 32 (TMA zero-fills the panels past D), with a kv ring
-    much longer than its stages, at B 2 with q_offset, and at B*H past
-    65535: against the plain version, at the bf16 limit."""
+    much longer than its stages, at B 2 with q_offset, at B*H past 65535,
+    and at gemma2's head layout with and without its window: against the
+    plain version, at the bf16 limit."""
     b, lq, lk, h, hkv, dq, dv, kw = ATTN_BF16_SHAPES[case]
     g = torch.Generator(device=dev).manual_seed(lq + lk)
     q = torch.randn(b, lq, h, dq, generator=g, device=dev).bfloat16()
@@ -1325,3 +1333,34 @@ def test_smoke_prefill_through_kernel_matches_plain(dev):
     scale = want.abs().max()
     assert float((got - want).abs().max() / scale) < 2e-2
     assert torch.equal(gc["layers"]["kpos"], wc["layers"]["kpos"])
+
+
+def test_gemma2_smoke_step_on_card_matches_cpu(dev):
+    """The gemma2-27b smoke config (local / global pairs, window 64) at its
+    bf16 activations, seeded weights: a 100-token prefill (every local ring
+    wrapped; on the card through the kernel, one launch per layer) and one
+    serve_step on the card against the same on the CPU, within 2e-2 of
+    the logit scale; kpos tags equal."""
+    cfg = get_smoke_config("gemma2-27b")
+    schema = model_schema(cfg)
+    cpu = cast_matrices(init_tree(torch.Generator().manual_seed(0), schema),
+                        schema, cfg.act_dtype)
+    toks = torch.randint(0, cfg.vocab, (2, 101),
+                         generator=torch.Generator().manual_seed(1))
+    card = tree_map(lambda t: t.to(dev), cpu)
+    out = {}
+    for where, params in (("cpu", cpu), ("cuda", card)):
+        t = toks.to(params["embed"]["table"].device)
+        before = _lib.LAUNCHES["flash_attention"]
+        _, cache, lengths = prefill(params, {"tokens": t[:, :-1]}, cfg, 160)
+        logits, cache = serve_step(params, cache, t[:, -1:], lengths, cfg)
+        launched = _lib.LAUNCHES["flash_attention"] - before
+        out[where] = (logits.cpu(), {k: v.cpu() for k, v in
+                                      tree_paths(cache).items()}, launched)
+    assert out["cpu"][2] == 0 and out["cuda"][2] == cfg.n_layers
+    want, got = out["cpu"][0], out["cuda"][0]
+    assert float((got - want).abs().max() / want.abs().max()) < 2e-2
+    assert sorted(out["cuda"][1]) == sorted(out["cpu"][1])
+    for path, leaf in out["cpu"][1].items():
+        if path.endswith("kpos"):
+            assert torch.equal(out["cuda"][1][path], leaf)
