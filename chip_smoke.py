@@ -9,8 +9,10 @@ search and its circuit breaker and the sharded build
 store, and the LM serving path (yi-6b prefill, decode, continuous
 batching, kNN-LM retrieval and its datastore's restore, and the datastore
 grown while the LM decodes; gemma2-27b's local / global stack with its
-mixed ring and linear cache; starcoder2-3b and codeqwen1.5-7b). Run from
-the root of a checkout, on a machine with an H100:
+mixed ring and linear cache; starcoder2-3b and codeqwen1.5-7b; the MoE
+family: granite-moe-3b-a800m, and deepseek-v2-lite-16b's MLA latent
+cache and weight-absorbed decode, served). Run from the root of a
+checkout, on a machine with an H100:
 
     python3 chip_smoke.py
 
@@ -275,11 +277,32 @@ script started (phases with several lanes print one line a lane):
                new tokens each: the lm_serve figures;
                flash_attention launched exactly 8 x 8 times, 32 a layer
                kind (local, with the window; global);
+  moe_check    granite-moe-3b-a800m (GQA 24/8 at Dh 64, scale 1/128, 40
+               experts top-8 with renormalised gates, the granite
+               multipliers, tied embeddings) at full width cut to 2
+               layers, then deepseek-v2-lite-16b (MLA: 16 heads, Dq 192,
+               Dv 128, a 512 + 64 latent cache; one dense layer of 10944,
+               then 64 routed experts top-6 with 2 shared) at full width
+               cut from 27 to 8 layers (``reduced``; 27 layers' fp32 draw
+               would not fit the card beside its bf16 copy), each loaded
+               after the model before it is freed: lm_check's two checks
+               on a 1537-token prompt, every layer's kpos tags
+               (ring_kpos), and repeat_check: the same prefill and decode
+               step twice, bit-equal logits and cache leaves, and for
+               deepseek the cache's bytes per token, 8 x (512 + 64) x 2;
+  lm_deepseek  path 16: serve_requests on that deepseek model: lm_serve's
+               slots, max_len, requests, prompt lengths and new tokens;
+               the lm_serve figures; flash_attention launched exactly 8 x
+               8 times; beside them the expert bytes a decode step reads
+               (the dense-form MoE runs every expert: C = T = 4 <= 128)
+               and the step's bound (every weight and the latent cache
+               read once over 3.35 TB/s);
   profile      every path but truth once more under torch.profiler (and
-               a window of lm_serve and of lm_gemma2: the first 4
-               requests, 8 new tokens each; and lm_gemma2's decode steps
-               alone, 16 over 4 prefilled slots): device time by kernel
-               name and the device's idle share;
+               a window of lm_serve, lm_gemma2 and lm_deepseek: the first
+               4 requests, 8 new tokens each; and lm_gemma2's and
+               lm_deepseek's decode steps alone, 16 over 4 prefilled
+               slots): device time by kernel name and the device's idle
+               share;
   kernels      each kernel on the inputs a path gave it (recorded during
                that run), against its plain version: max error, kernel /
                plain / library times, the card's lower bound (and, for the
@@ -308,7 +331,13 @@ script started (phases with several lanes print one line a lane):
                inputs of lm_gemma2's second local and second global
                prefill layers (window 4096, softcap 50, H 32/16, scale
                144^-0.5; their library row compiled flex_attention, the
-               cap as its score_mod, the window as a block mask), and at f32
+               cap as its score_mod, the window as a block mask), on the
+               inputs of lm_deepseek's second MLA prefill layer (H 16/16,
+               Dq 192, Dv 128, scale 192^-0.5) and of moe_check's
+               granite second prefill layer (H 24/8, Dh 64, scale 1/128),
+               both with scaled_dot_product_attention as their library
+               row and the backend PyTorch's dispatcher picks for it named
+               (torch._fused_sdp_choice), and at f32
                on attention_check's causal_gqa_32_4 inputs, with
                scaled_dot_product_attention as its library row.
 Every path is driven with all launch counts set to 0 just before it and
@@ -334,8 +363,11 @@ reading of the launches the round-2 entry counts; ``call`` ends in
 flash_attention once more at f32 (``launches``: its calls in
 attention_check; no main path runs attention at f32) and twice for
 lm_gemma2 (``call`` ``lm_gemma2:flash_attention:local`` and ``:global``,
-``launches``: that layer kind's calls in path 15); ``call`` tells the
-entries apart. Last, {"ok": true, "device": ...}. Any failure
+``launches``: that layer kind's calls in path 15), once for lm_deepseek
+(``call`` ``lm_deepseek:flash_attention:mla``, ``launches``: its calls in
+path 16) and once for granite (``call`` ``moe_check:flash_attention``,
+``launches``: its calls in moe_check's granite lm_check); ``call`` tells
+the entries apart. Last, {"ok": true, "device": ...}. Any failure
 raises, and the script exits non-zero. With no CUDA card, or without the
 repository's src/ beside it, it exits 2 and prints no result.
 """
@@ -409,7 +441,9 @@ CHECKED = {**{path: {name, "knn_join_select"} for path, name in OWNED.items()},
            "online": {*ONLINE_KERNELS, "knn_join_select", "pairwise_sq_l2",
                       "knn_join_dists"},
            "lm_serve": {"flash_attention"}, "knn_lm": {"knn_join_dists"},
-           "lm_gemma2": {"flash_attention"}}
+           "lm_gemma2": {"flash_attention"},
+           "moe_check": {"flash_attention"},
+           "lm_deepseek": {"flash_attention"}}
 CENTROID_KEY = "online:pairwise_sq_l2:centroid_assign"
 # recorded calls that join the kernels line after their kernel's own entry,
 # each with its own launches: the fp32 join of the kNN-LM's build (row 1a)
@@ -447,6 +481,18 @@ DENSE_ARCHS, DENSE_LAYERS, DENSE_CHECK_LEN = (
 LAYER_KIND_TAGS = ("lm_gemma2",)
 GEMMA_KEYS = ("lm_gemma2:flash_attention:local",
               "lm_gemma2:flash_attention:global")
+# moe_check and path 16: granite-moe-3b-a800m at full width cut to 2
+# layers (as dense_check), deepseek-v2-lite-16b at full width cut from 27
+# to 8 layers (1 dense + 7 MoE: load_params draws fp32, then casts, so 27
+# layers would need about 63 GB fp32 + 31 GB bf16 on the 80 GB card; 8
+# need about 18 + 9); path 16 serves LM_REQUESTS prompts of
+# LM_PROMPT_LENS as lm_serve does; the decode-only profile as lm_gemma2's
+MOE_GRANITE, MOE_GRANITE_LAYERS = "granite-moe-3b-a800m", DENSE_LAYERS
+DEEPSEEK_ARCH, DEEPSEEK_LAYERS = "deepseek-v2-lite-16b", 8
+# the recorder's suffix for a path's attention calls where one layer kind
+# runs them all (deepseek's MLA prefill)
+ATTN_KIND_SUFFIX = {"lm_deepseek": ":mla"}
+MOE_KEYS = ("lm_deepseek:flash_attention:mla", "moe_check:flash_attention")
 KNN_SEQS, KNN_SEQ_LEN, KNN_K, KNN_BATCH = 16, 2048, 16, 4
 KNN_CHUNK, KNN_SNAPSHOT_EVERY = 64, 128     # knn_grow: insert, snapshot
 # retrieval: the interactive lane's queries and burst sizes, the deadline
@@ -614,7 +660,8 @@ class Recorder:
     fails if that call is not the first block's), for attention (kept as
     ``flash_attention``, keyword arguments too) the second layer of the
     first prefill (in LAYER_KIND_TAGS' paths, the second of each kind:
-    ``:local`` with a window, ``:global`` without) — and the host time of
+    ``:local`` with a window, ``:global`` without; in ATTN_KIND_SUFFIX'
+    paths, the key carries that suffix) — and the host time of
     the greedy reorder. It wraps the
     module attributes the path calls and restores them on exit; the
     wrapped functions are the ones the path would call, so each kernel
@@ -676,6 +723,8 @@ class Recorder:
                 key += ":centroid_assign"
             elif name == "attention" and self.tag in LAYER_KIND_TAGS:
                 key += ":global" if kw.get("window") is None else ":local"
+            elif name == "attention" and self.tag in ATTN_KIND_SUFFIX:
+                key += ATTN_KIND_SUFFIX[self.tag]
             self.seen[key] = self.seen.get(key, 0) + 1
             if key in LATE_KEYS:
                 # a block's queries are one slice of the padded batch
@@ -716,7 +765,8 @@ class Recorder:
 
 def profile_run(run, top: int = 12) -> dict:
     """One more run of a path under ``torch.profiler``: device time by
-    kernel name, and the device's busy share of the (profiled) wall time.
+    kernel name, the device kernels launched, and the device's busy share
+    of the (profiled) wall time.
     The profiler's own cost lengthens the wall time, so the idle share is
     an upper bound."""
     import torch
@@ -744,6 +794,7 @@ def profile_run(run, top: int = 12) -> dict:
     return {
         "profiled_wall_s": wall, "device_busy_s": busy_s,
         "device_idle_share": idle, "our_kernels_s": ours,
+        "device_kernel_calls": sum(r[1] for r in rows),
         "top": [{"name": k[:90], "calls": c, "device_s": t * 1e-6}
                 for t, c, k in rows[:top]],
     }
@@ -1745,14 +1796,29 @@ def check_attention_kernel(args, kw, reps) -> dict:
     plain_mask = kw.get("window") is None and kw.get("softcap") is None \
         and kw.get("q_offset", 0) == 0 and (lq == lk or not
                                             kw.get("causal", True))
+    sdpa = None
     if plain_mask:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in args)
-        entry["library_ms"] = time_ms(
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=kw.get("causal", True),
-                scale=kw.get("scale"), enable_gqa=True), reps)
+        sdpa_kw = dict(is_causal=kw.get("causal", True),
+                       scale=kw.get("scale"), enable_gqa=h != k.shape[2])
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+        try:
+            sdpa()
+        except RuntimeError as err:      # no backend takes these widths
+            entry["library_refused"] = str(err)[:200]
+            sdpa = None
+    if sdpa is not None:
+        entry["library_ms"] = time_ms(sdpa, reps)
         entry["library_call"] = "F.scaled_dot_product_attention(is_causal, " \
-            "enable_gqa=True) on (B, H, L, D) copies of the same tensors"
+            f"enable_gqa={sdpa_kw['enable_gqa']}) on (B, H, L, D) copies " \
+            "of the same tensors"
+        entry["library_backend"] = sdpa_backend(qt, kt, vt, **sdpa_kw)
+        seen = seen_rows(lq, lk, **kw)[0].to(want.device)
+        entry["library_max_abs_err"] = float(
+            (sdpa().transpose(1, 2)[:, seen].float()
+             - want[:, seen].float()).abs().max())
     else:
         library = flex_attention_call(args, kw)
         lib_out = library().transpose(1, 2)
@@ -1771,6 +1837,21 @@ def check_attention_kernel(args, kw, reps) -> dict:
     entry["bytes"] = nbytes
     entry["operations"] = flops
     return entry
+
+
+def sdpa_backend(q, k, v, **kw) -> str:
+    """Which scaled_dot_product_attention backend PyTorch's dispatcher
+    picks for these (B, H, L, D) inputs: flash, efficient (the CUTLASS
+    memory-efficient kernels), cudnn or math (plain GEMMs and a
+    softmax)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    choice = torch._fused_sdp_choice(q, k, v, **kw)
+    return {int(SDPBackend.MATH): "math",
+            int(SDPBackend.FLASH_ATTENTION): "flash",
+            int(SDPBackend.EFFICIENT_ATTENTION): "efficient",
+            int(SDPBackend.CUDNN_ATTENTION): "cudnn"}.get(choice,
+                                                          str(choice))
 
 
 def flex_attention_call(args, kw):
@@ -2013,23 +2094,25 @@ def dense_family_run(dev):
     emit("profile", path="lm_gemma2:decode",
          window=f"{LM_SLOTS} slots at {GEMMA_PROMPT_LENS[0]} tokens, "
                 f"{GEMMA_DECODE_PROFILE} decode steps",
-         **profile_run(decode_steps(params, g_cfg, dev, SEED + 63)))
+         **profile_run(decode_steps(params, g_cfg, dev, SEED + 63,
+                                    GEMMA_PROMPT_LENS[0], GEMMA_MAX_LEN)))
     del reqs, stats, params
     torch.cuda.empty_cache()
     return launches, rec
 
 
-def decode_steps(params, cfg, dev, seed):
-    """Prefill LM_SLOTS seeded prompts of GEMMA_PROMPT_LENS[0] tokens in
-    one batch; return a closure that runs GEMMA_DECODE_PROFILE greedy
-    serve_steps on that cache, the served path's decode steps alone."""
+def decode_steps(params, cfg, dev, seed, prompt_len, max_len):
+    """Prefill LM_SLOTS seeded prompts of ``prompt_len`` tokens in one
+    batch (a ``max_len`` cache); return a closure that runs
+    GEMMA_DECODE_PROFILE greedy serve_steps on that cache, the served
+    path's decode steps alone."""
     import numpy as np
     import torch
     from repro_torch.serve import prefill, serve_step
     toks = torch.from_numpy(np.random.RandomState(seed).randint(
-        0, cfg.vocab, size=(LM_SLOTS, GEMMA_PROMPT_LENS[0]))).to(dev)
+        0, cfg.vocab, size=(LM_SLOTS, prompt_len))).to(dev)
     logits, cache, lengths = prefill(params, {"tokens": toks}, cfg,
-                                     GEMMA_MAX_LEN, last_only=True)
+                                     max_len, last_only=True)
 
     def run():
         nonlocal logits, cache, lengths
@@ -2039,6 +2122,121 @@ def decode_steps(params, cfg, dev, seed):
                                        cfg)
             lengths = lengths + 1
     return run
+
+
+def repeat_check(params, cfg, dev, seed, n=LM_CHECK_LEN) -> dict:
+    """The same prefill of a seeded ``n``-token prompt and one decode step
+    on its cache, twice: bit-equal logits and cache leaves (the MoE
+    combine adds in a fixed order, no atomics). For an MLA model, also
+    the cache's bytes per token: the latent and the rope key (without the
+    int32 kpos tags) must be n_layers x (kv_lora_rank + qk_rope_dim) x
+    2 B."""
+    import numpy as np
+    import torch
+    from repro_torch.models.params import tree_paths
+    from repro_torch.serve import prefill, serve_step
+    toks = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab, size=(1, n + 1))).to(dev)
+    runs = []
+    for _ in range(2):
+        logits, cache, lengths = prefill(params, {"tokens": toks[:, :n]},
+                                         cfg, n + 1)
+        step, cache = serve_step(params, cache, toks[:, n:], lengths, cfg)
+        torch.cuda.synchronize()
+        runs.append((logits, step, tree_paths(cache)))
+    (l0, s0, c0), (l1, s1, c1) = runs
+    out = {"prefill_bit_equal": bool(torch.equal(l0, l1)),
+           "step_bit_equal": bool(torch.equal(s0, s1)),
+           "cache_bit_equal": all(torch.equal(c0[p], c1[p]) for p in c0)}
+    if cfg.use_mla:
+        per_tok = sum(leaf.numel() * leaf.element_size()
+                      for path, leaf in c0.items()
+                      if not path.endswith("kpos")) / (n + 1)
+        want = cfg.n_layers * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
+        out["cache_bytes_per_token"] = per_tok
+        out["cache_bytes_per_token_want"] = want
+        if per_tok != want:
+            raise AssertionError(f"repeat_check ({cfg.arch}): the MLA cache "
+                                 f"holds {per_tok} B a token, not {want}")
+    if not all(v for k, v in out.items() if k.endswith("bit_equal")):
+        raise AssertionError(f"repeat_check ({cfg.arch}) failed: {out}")
+    return out
+
+
+def moe_family_run(dev):
+    """The MoE family at full width, each model loaded after the one
+    before is freed: moe_check (granite-moe-3b-a800m cut to 2 layers,
+    then deepseek-v2-lite-16b cut to 8: lm_check through the recorder,
+    repeat_check), then path 16 (lm_deepseek: served, profiled, its decode
+    steps profiled alone). Returns {tag: launches} and {tag: recorder}
+    for moe_check (granite's lm_check) and lm_deepseek."""
+    import torch
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import active_param_count
+    from repro_torch.models.moe import moe_capacity
+    from repro_torch.models.params import tree_leaves
+    launches, recs = {}, {}
+    # granite-moe-3b: GQA 24/8 at Dh 64, scale 1/128, 40 experts top-8
+    # with renormalised gates, the granite multipliers, tied embeddings
+    gr_cfg, params, fields = load_cut(MOE_GRANITE, MOE_GRANITE_LAYERS, dev)
+    res, _, launches["moe_check"], _, recs["moe_check"] = drive(
+        "moe_check", lambda: lm_check(params, gr_cfg, dev, seed=SEED + 70))
+    emit("moe_check", **fields, active_params=active_param_count(gr_cfg),
+         prompt=LM_CHECK_LEN, steps=LM_CHECK_STEPS, **res,
+         repeat=repeat_check(params, gr_cfg, dev, SEED + 71))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # deepseek-v2-lite-16b: MLA (Dq 192, Dv 128), one dense layer, then
+    # 64 routed experts top-6 with 2 shared ones
+    ds_cfg, params, fields = load_cut(DEEPSEEK_ARCH, DEEPSEEK_LAYERS, dev)
+    emit("lm_model", **fields, memory_allocated=torch.cuda.memory_allocated(),
+         cfg={k: str(v) for k, v in dataclasses.asdict(ds_cfg).items()})
+    emit("moe_check", **fields, active_params=active_param_count(ds_cfg),
+         prompt=LM_CHECK_LEN, steps=LM_CHECK_STEPS,
+         **lm_check(params, ds_cfg, dev, seed=SEED + 72),
+         repeat=repeat_check(params, ds_cfg, dev, SEED + 73))
+
+    # -- lm_deepseek: path 16, the server on that model
+    d_prompts = lm_prompts(ds_cfg, LM_PROMPT_LENS, SEED + 74)
+    (reqs, stats), wall, launches["lm_deepseek"], peak, \
+        recs["lm_deepseek"] = drive("lm_deepseek", lambda: serve_requests(
+            params, ds_cfg, d_prompts, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+            max_new=LM_MAX_NEW))
+    check_served(reqs, stats, launches["lm_deepseek"], ds_cfg, "lm_deepseek")
+    # a decode step's least time: every weight read once (the dense-form
+    # MoE runs every expert at C = T = slots <= 128) and the latent cache
+    # read once, over the card's memory rate
+    n_moe = ds_cfg.n_layers - ds_cfg.first_k_dense
+    expert_bytes = n_moe * ds_cfg.n_experts * 3 * ds_cfg.d_model \
+        * ds_cfg.moe_d_ff * 2
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    step_bytes = param_bytes + ds_cfg.n_layers * LM_SLOTS \
+        * LM_MAX_LEN * (ds_cfg.kv_lora_rank + ds_cfg.qk_rope_dim) * 2
+    emit("lm_deepseek", arch=DEEPSEEK_ARCH, reduced=fields["reduced"],
+         slots=LM_SLOTS, max_len=LM_MAX_LEN, requests=LM_REQUESTS,
+         max_new=LM_MAX_NEW, **served_fields(d_prompts, stats, wall),
+         max_memory_allocated=peak, launches=launches["lm_deepseek"],
+         decode_capacity=moe_capacity(ds_cfg, LM_SLOTS),
+         expert_bytes_per_step=expert_bytes, param_bytes=param_bytes,
+         step_bytes=step_bytes,
+         step_bound_ms=step_bytes / PEAK_BYTES_PER_S * 1e3)
+    emit("profile", path="lm_deepseek",
+         window=f"{LM_SLOTS} requests, {LM_PROFILE_NEW} new tokens",
+         **profile_run(lambda: serve_requests(
+             params, ds_cfg, d_prompts[:LM_SLOTS], slots=LM_SLOTS,
+             max_len=LM_MAX_LEN, max_new=LM_PROFILE_NEW)))
+    emit("profile", path="lm_deepseek:decode",
+         window=f"{LM_SLOTS} slots at {LM_PROMPT_LENS[0]} tokens, "
+                f"{GEMMA_DECODE_PROFILE} decode steps",
+         **profile_run(decode_steps(params, ds_cfg, dev, SEED + 75,
+                                    LM_PROMPT_LENS[0], LM_MAX_LEN)))
+    del reqs, stats, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, recs
 
 
 def knn_lm_run(params, cfg, dev, entry_seed: int):
@@ -3611,6 +3809,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches["lm_gemma2"], recs["lm_gemma2"] = dense_family_run(dev)
+    moe_launches, moe_recs = moe_family_run(dev)
+    launches.update(moe_launches)
+    recs.update(moe_recs)
 
     # -- kernels: each against its plain version on the recorded inputs
     owner = {"pairwise_sq_l2": "truth", "knn_search_dists": "search",
@@ -3669,7 +3870,7 @@ def main() -> int:
                 **e, "launches": e["launches_at_this_key"]}
         if key in FURTHER_ROWS.get(name, ()):
             further[key] = {**e, "launches": e["launches_at_this_key"]}
-        if key in GEMMA_KEYS:
+        if key in GEMMA_KEYS or key in MOE_KEYS:
             further[key] = {**e, "launches": e["launches_at_this_key"]}
         # the line keeps one entry per kernel, from the path that owns
         # it; the build's widest select (the receiver select) and the
@@ -3680,7 +3881,7 @@ def main() -> int:
             e = merges[int(key.split(":c=")[1])]
         if name not in entries or width_of(e) > width_of(entries[name]):
             entries[name] = e
-    missing = [k for keys in (*FURTHER_ROWS.values(), GEMMA_KEYS)
+    missing = [k for keys in (*FURTHER_ROWS.values(), GEMMA_KEYS, MOE_KEYS)
                for k in keys if k not in further]
     missing += [k for k in LATE_KEYS if k.split(":")[1] not in late]
     if missing:
@@ -3701,7 +3902,7 @@ def main() -> int:
         line.append(entries[n])
         if n == "flash_attention":
             line.append(f32)
-            line.extend(further[k] for k in GEMMA_KEYS)
+            line.extend(further[k] for k in (*GEMMA_KEYS, *MOE_KEYS))
         if n == "knn_join_select":
             # every other recorded (W, c), with that width's launches
             for wc, e in sorted(selects.items(),

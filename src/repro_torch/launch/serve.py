@@ -5,10 +5,14 @@ with an optional kNN-LM datastore built over the port's graph
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
         --smoke --device cpu --requests 8 --max-new 16 --knn
 
-``--arch`` is any registered architecture of the dense family: yi-6b,
+``--arch`` is any registered architecture: of the dense family yi-6b,
 gemma2-27b (local / global layer pairs: a ring cache of ``window`` slots
 on each local layer, a linear one of ``--max-len`` on each global one),
-starcoder2-3b (a ring cache on every layer) or codeqwen1.5-7b.
+starcoder2-3b (a ring cache on every layer) or codeqwen1.5-7b; of the
+MoE family deepseek-v2-lite-16b (MLA: a latent cache of 512 + 64 values
+a token and layer, read by the weight-absorbed decode; one dense layer,
+then 64 routed experts top-6 with 2 shared ones) or granite-moe-3b-a800m
+(GQA, 40 experts top-8, renormalised gates).
 
 Runs on the CUDA card unless ``--device`` names another. There are no
 published weights in the repository, so the parameters are drawn from

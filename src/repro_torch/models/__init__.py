@@ -1,7 +1,8 @@
-"""The LM stack of the port (src/repro/models): the dense GQA family that
-serving runs; the attention core reaches the hand-written kernel on a
-card."""
+"""The LM stack of the port (src/repro/models): the dense GQA family and
+the MoE family (deepseek-v2's MLA, granite's GQA) that serving runs; the
+attention core reaches the hand-written kernel on a card."""
 from repro_torch.models.model import (
+    active_param_count,
     embed_inputs,
     forward,
     model_schema,
@@ -20,6 +21,7 @@ from repro_torch.models.transformer import run_stack
 
 __all__ = [
     "ParamDef",
+    "active_param_count",
     "bytes_params",
     "cast_matrices",
     "count_params",

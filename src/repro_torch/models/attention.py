@@ -1,6 +1,7 @@
-"""Attention for the dense GQA family (yi, and the layouts codeqwen /
-starcoder2 / gemma2 share), with decode against batched, position-tagged
-KV caches (src/repro/models/attention.py).
+"""Attention (src/repro/models/attention.py): GQA for the dense family
+and granite (yi, and the layouts codeqwen / starcoder2 / gemma2 /
+granite share), and deepseek-v2's MLA (multi-head latent attention), with
+decode against batched, position-tagged caches.
 
 Train/prefill attention is ``chunked_attention``. On a card it runs the
 hand-written kernel (``kernels.ops.attention``, csrc/attention_kernels.cu):
@@ -12,8 +13,10 @@ the plain chunked online softmax with JAX's ``cq`` / ``ckv`` chunking,
 padding, triangle and banding. Decode attention is plain torch on every
 device, as JAX computes it with einsums outside any Pallas kernel.
 
-MLA (deepseek-v2) waits for its family (ROADMAP.md, Queue 1, item 7;
-``models.transformer.check_dense`` refuses it).
+MLA's prefill expands the latent to per-head keys and values and runs
+the same ``chunked_attention`` (Dq = nope + rope = 192, Dv = 128 at
+deepseek's width); its decode is the weight-absorbed form over a cache of
+the latent and the shared rope key only, plain torch as in JAX.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_schema
 from repro_torch.models.params import ParamDef
 
 _NEG = -2.0e30
@@ -304,3 +307,134 @@ def gqa_cache_schema(cfg, batch: int, max_len: int,
             "kpos": ParamDef((batch, s), ("batch", "kv_seq"), "neg",
                              dtype=torch.int32)}
 
+
+# ---------------------------------------------------------------------------
+# MLA — deepseek-v2 multi-head latent attention
+# ---------------------------------------------------------------------------
+
+def mla_schema(cfg) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
+    dt = cfg.param_dtype
+    return {
+        # q: full-rank projection (v2-lite has q_lora_rank = None)
+        "wq": ParamDef((d, h, dn + dr), ("d_model", "heads", None), dtype=dt),
+        # kv: joint down-projection to latent + shared rope key
+        "wkv_a": ParamDef((d, r + dr), ("d_model", None), dtype=dt),
+        "kv_norm": rmsnorm_schema(r, dt)["scale"],
+        # up-projection latent -> per-head nope-key and value
+        "wkv_b": ParamDef((r, h, dn + dv), (None, "heads", None), dtype=dt),
+        "wo": ParamDef((h, dv, d), ("heads", None, "d_model"), dtype=dt),
+    }
+
+
+def _latent(p, x, cfg, pos):
+    """(B, L, d) -> the normalised latent c_kv (B, L, r) and the
+    rope-applied shared key (B, L, 1, dr). ``kv_norm`` is rmsnorm at its
+    own defaults (eps 1e-6, no +1), as JAX applies it."""
+    r = cfg.kv_lora_rank
+    kv = x @ p["wkv_a"].to(x.dtype)                     # (B, L, r + dr)
+    c_kv = rmsnorm({"scale": p["kv_norm"]}, kv[..., :r])
+    k_rope = apply_rope(kv[..., r:][:, :, None, :], pos,
+                        theta=cfg.rope_theta)
+    return c_kv, k_rope
+
+
+def _mla_q(p, x, cfg, pos):
+    """(q_nope, rope-applied q_rope), each (B, L, H, .)."""
+    dn = cfg.qk_nope_dim
+    q = _proj(x, p["wq"])
+    return q[..., :dn], apply_rope(q[..., dn:], pos, theta=cfg.rope_theta)
+
+
+def _mla_qkv(p, x, cfg, pos):
+    """Expanded (train/prefill) form: per-head K/V materialised; k is
+    [k_nope, k_rope broadcast over heads], contiguous (B, L, H, dn + dr)."""
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q_nope, q_rope = _mla_q(p, x, cfg, pos)
+    c_kv, k_rope = _latent(p, x, cfg, pos)
+    kvu = _proj(c_kv, p["wkv_b"])                       # (B, L, H, dn + dv)
+    k_nope, v = kvu[..., :dn], kvu[..., dn:]
+    k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3], dr)], dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    return qf, k, v, c_kv, k_rope[:, :, 0]
+
+
+def mla_attention(p: dict, x: torch.Tensor, cfg, *,
+                  positions: torch.Tensor | None = None,
+                  triangle: bool = False, return_latent: bool = False,
+                  backend: str = "auto"):
+    """Train/prefill MLA over the full sequence, causal, at scale
+    1/sqrt(dn + dr). ``return_latent`` also gives (c_kv (B, L, r), the
+    rope-applied shared key (B, L, dr)) to seed the decode cache."""
+    _, seq, _ = x.shape
+    pos = positions if positions is not None \
+        else torch.arange(seq, device=x.device)
+    q, k, v, c_kv, k_rope = _mla_qkv(p, x, cfg, pos)
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    o = chunked_attention(
+        q, k, v, causal=True, scale=scale, cq=cfg.attn_chunk_q,
+        ckv=cfg.attn_chunk_kv, triangle=triangle, backend=backend)
+    out = _out(p, o, x.dtype)
+    if return_latent:
+        return out, (c_kv, k_rope)
+    return out
+
+
+def mla_decode(
+    p: dict,
+    x: torch.Tensor,           # (B, 1, d)
+    cache: dict,               # {"ckv": (B,S,r), "krope": (B,S,dr), "kpos"}
+    lengths: torch.Tensor,     # (B,) length BEFORE this token (= its pos)
+    cfg,
+) -> tuple[torch.Tensor, dict]:
+    """Weight-absorbed decode: the cache stores only the latent (r) and
+    the shared rope key (dr) per token.
+
+    score(h) = q_nope(h) @ W_UK(h)^T @ c_kv^T  +  q_rope(h) @ k_rope^T
+    out(h)   = softmax @ c_kv @ W_UV(h)
+
+    As JAX: q_lat and the probabilities cast to the cache dtype, their
+    products with the cache summed in fp32. Writes the latent, the rope
+    key and the position in place at ``lengths`` (a linear cache) and
+    returns (output, cache)."""
+    b = x.shape[0]
+    dn = cfg.qk_nope_dim
+    lengths = lengths.long()
+    pos = lengths[:, None]
+    q_nope, q_rope = _mla_q(p, x, cfg, pos)
+    c_kv, k_rope = _latent(p, x, cfg, pos)
+    bidx = torch.arange(b, device=x.device)
+    ckv, kr, kp = cache["ckv"], cache["krope"], cache["kpos"]
+    ckv[bidx, lengths] = c_kv[:, 0].to(ckv.dtype)
+    kr[bidx, lengths] = k_rope[:, 0, 0].to(kr.dtype)
+    kp[bidx, lengths] = lengths.to(kp.dtype)
+
+    wkv_b = p["wkv_b"].to(x.dtype)
+    # absorb: q' = q_nope @ W_UK^T -> latent space, (B, H, r)
+    q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], wkv_b[..., :dn])
+    ckv_f = ckv.float()
+    s_lat = torch.bmm(q_lat.to(ckv.dtype).float(), ckv_f.transpose(1, 2))
+    s_rope = torch.bmm(q_rope[:, 0].to(kr.dtype).float(),
+                       kr.float().transpose(1, 2))       # (B, H, S)
+    scale = 1.0 / math.sqrt(dn + cfg.qk_rope_dim)
+    logits = (s_lat + s_rope) * scale
+    mask = (kp >= 0) & (kp <= lengths[:, None])
+    logits = torch.where(mask[:, None, :], logits, _NEG)
+    pr = torch.softmax(logits, dim=-1)
+    o_lat = torch.bmm(pr.to(ckv.dtype).float(), ckv_f).to(x.dtype)
+    o = torch.einsum("bhr,rhv->bhv", o_lat, wkv_b[..., dn:])  # (B, H, dv)
+    return _out(p, o[:, None], x.dtype), cache
+
+
+def mla_cache_schema(cfg, batch: int, max_len: int) -> dict:
+    dt = cfg.cache_dtype
+    return {
+        "ckv": ParamDef((batch, max_len, cfg.kv_lora_rank),
+                        ("batch", "kv_seq", None), "zeros", dtype=dt),
+        "krope": ParamDef((batch, max_len, cfg.qk_rope_dim),
+                          ("batch", "kv_seq", None), "zeros", dtype=dt),
+        "kpos": ParamDef((batch, max_len), ("batch", "kv_seq"), "neg",
+                         dtype=torch.int32),
+    }

@@ -1,7 +1,8 @@
 """Top-level LM: embedding, layer stack, final norm, output head
-(src/repro/models/model.py), for the dense token-input family. The audio
-and vision front ends and ``loss_fn`` (training) wait for their slices:
-ROADMAP.md, Queue 1, item 7.
+(src/repro/models/model.py), for the token-input dense and MoE families,
+and the parameter counts (``active_param_count``: the MoE's per-token
+share). The audio and vision front ends and ``loss_fn`` (training) wait
+for their slices: ROADMAP.md, Queue 1, item 7.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from repro_torch.models.transformer import apply_norm, norm_schema
 
 
 def model_schema(cfg) -> dict:
-    transformer.check_dense(cfg)
+    transformer.check_ported(cfg)
     dt = cfg.param_dtype
     s: dict = {
         "embed": embed_schema(cfg.vocab, cfg.d_model, dt),
@@ -70,3 +71,15 @@ def loss_fn(params: dict, batch: dict, cfg):
 
 def param_count(cfg) -> int:
     return count_params(model_schema(cfg))
+
+
+def active_param_count(cfg) -> int:
+    """Active-per-token params (MoE: shared + top_k routed only) — the
+    N_active of the roofline MODEL_FLOPS = 6*N_active*D."""
+    if not cfg.n_experts:
+        return param_count(cfg)
+    total = param_count(cfg)
+    expert_p = 3 * cfg.d_model * cfg.moe_d_ff
+    inactive = (cfg.n_experts - cfg.moe_top_k) * expert_p * (
+        cfg.n_layers - cfg.first_k_dense)
+    return total - inactive

@@ -1,21 +1,25 @@
-"""Block composition and the layer stacks (src/repro/models/transformer.py),
-for the dense family: the uniform stack (every layer one attention block,
-global or all-``local`` sliding window, under ``{"layers": ...}``) and
-gemma2's local/global alternation (``{"pairs": {"local", "global"}}``, a
-local layer of ``cfg.window`` then a global one). Parameters keep JAX's
-leading ``stack`` axis and tree paths; a Python loop over the layers
+"""Block composition and the layer stacks (src/repro/models/transformer.py):
+the uniform stack (every layer one attention block, global or
+all-``local`` sliding window, under ``{"layers": ...}``), gemma2's
+local/global alternation (``{"pairs": {"local", "global"}}``, a local
+layer of ``cfg.window`` then a global one), and the MoE stack
+(``{"dense_layers": ...}``, ``first_k_dense`` layers with a dense FFN of
+``dense_d_ff``, then ``{"layers": ...}`` with the MoE FFN; granite has no
+dense layers, so no ``dense_layers`` key). Attention is MLA where
+``cfg.use_mla`` (deepseek-v2), else GQA. Parameters keep JAX's leading
+``stack`` axis and tree paths; a Python loop over the layers
 (``stack_layers``) takes the place of ``lax.scan`` (the port runs
 eagerly, so there is nothing to keep small).
 
-The other heterogeneous stacks (deepseek's first-k-dense + MoE, zamba2's
-mamba segments with a shared block, mamba2) wait for their families:
-ROADMAP.md, Queue 1, item 7.
+zamba2's mamba segments with a shared block and mamba2's stack wait for
+their family: ROADMAP.md, Queue 1, item 7.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     glu,
     glu_schema,
@@ -28,20 +32,16 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.params import ParamDef, tree_map
 
-_FAMILIES = "the port serves the dense family (global, local or " \
-            "local_global layers); {what} is not ported yet: ROADMAP.md, " \
-            "Queue 1, item 7"
+_FAMILIES = "the port serves the dense and MoE families (global, local, " \
+            "local_global or first-k-dense + MoE layers, GQA or MLA); " \
+            "{what} is not ported yet: ROADMAP.md, Queue 1, item 7"
 
 
-def check_dense(cfg) -> None:
-    """Raise for an architecture outside the ported dense family."""
+def check_ported(cfg) -> None:
+    """Raise for an architecture outside the ported families."""
     what = None
     if cfg.family in ("ssm", "hybrid"):
         what = f"the {cfg.family} family"
-    elif cfg.family == "moe" or cfg.n_experts:
-        what = "the MoE family"
-    elif cfg.use_mla:
-        what = "MLA attention"
     elif cfg.frontend != "none":
         what = f"the {cfg.frontend} front end"
     if what is not None:
@@ -96,50 +96,78 @@ def apply_ffn(p, x, cfg):
     return glu(p, x, act=cfg.act)
 
 
-def attn_block_schema(cfg):
-    check_dense(cfg)
+def attn_block_schema(cfg, *, ffn: str = "dense"):
+    """One attention block: MLA or GQA, and the FFN ``ffn`` ("dense",
+    "dense_first": the first-k-dense width ``dense_d_ff``, or "moe")."""
+    check_ported(cfg)
     s = {
         "norm1": norm_schema(cfg),
-        "attn": attn.gqa_schema(cfg),
+        "attn": attn.mla_schema(cfg) if cfg.use_mla else attn.gqa_schema(cfg),
         "norm2": norm_schema(cfg),
-        "ffn": ffn_schema(cfg),
     }
+    if ffn == "moe":
+        s["ffn"] = moe_mod.moe_schema(cfg)
+    elif ffn == "dense_first":
+        s["ffn"] = ffn_schema(cfg, d_ff=cfg.dense_d_ff)
+    else:
+        s["ffn"] = ffn_schema(cfg)
     if cfg.post_norms:
         s["norm_post_attn"] = norm_schema(cfg)
         s["norm_post_ffn"] = norm_schema(cfg)
     return s
 
 
-def attn_block(p, x, cfg, *, window=None, encoder=False, positions=None):
-    h = apply_norm(p["norm1"], x, cfg)
-    a = attn.gqa_attention(p["attn"], h, cfg, window=window,
-                           positions=positions, encoder=encoder,
-                           triangle=cfg.triangle_schedule)
+def finish_block(p, x, a, cfg, ffn: str = "dense"):
+    """An attention block after its attention output ``a``: the post-norm,
+    the residual, then the FFN half, MoE or dense (the dense ones differ
+    only in their width, which the parameters carry). Prefill and decode
+    share it."""
     if cfg.post_norms:
         a = apply_norm(p["norm_post_attn"], a, cfg)
     x = x + cfg.residual_multiplier * a
     h = apply_norm(p["norm2"], x, cfg)
-    m = apply_ffn(p["ffn"], h, cfg)
+    m = moe_mod.moe_ffn(p["ffn"], h, cfg) if ffn == "moe" \
+        else apply_ffn(p["ffn"], h, cfg)
     if cfg.post_norms:
         m = apply_norm(p["norm_post_ffn"], m, cfg)
     return x + cfg.residual_multiplier * m
+
+
+def attn_block(p, x, cfg, *, window=None, encoder=False, ffn="dense",
+               positions=None):
+    h = apply_norm(p["norm1"], x, cfg)
+    if cfg.use_mla:
+        a = attn.mla_attention(p["attn"], h, cfg, positions=positions,
+                               triangle=cfg.triangle_schedule)
+    else:
+        a = attn.gqa_attention(p["attn"], h, cfg, window=window,
+                               positions=positions, encoder=encoder,
+                               triangle=cfg.triangle_schedule)
+    return finish_block(p, x, a, cfg, ffn)
 
 
 # ---------------------------------------------------------------------------
 # the stack
 # ---------------------------------------------------------------------------
 
-def _kinds(cfg) -> tuple[list, int]:
-    """The kinds of layer the stack repeats, as (tree path, window) in the
-    order one repeat runs them, and the number of repeats: the uniform
-    stack ``{"layers": ...}``, or gemma2's ``{"pairs": {"local",
-    "global"}}`` (a local layer of ``cfg.window``, then a global one)."""
+def _segments(cfg) -> list:
+    """The stack as ordered segments ``(repeats, kinds)``: each repeat
+    runs ``kinds``, a list of (tree path, window, ffn kind), in order.
+    The uniform stack is one segment of one kind (``{"layers": ...}``);
+    gemma2 one segment of (local, global) pairs (``{"pairs": {"local",
+    "global"}}``); the MoE stack ``first_k_dense`` layers of
+    ``dense_layers`` (ffn "dense_first"), then the rest of ``layers``
+    (ffn "moe"), as JAX lays them out."""
+    if cfg.family == "moe" or cfg.n_experts:
+        k = cfg.first_k_dense
+        segs = [(k, [(("dense_layers",), None, "dense_first")])] if k else []
+        return segs + [(cfg.n_layers - k, [(("layers",), None, "moe")])]
     if cfg.layer_pattern == "local_global":
         assert cfg.n_layers % 2 == 0
-        return ([(("pairs", "local"), cfg.window),
-                 (("pairs", "global"), None)], cfg.n_layers // 2)
+        return [(cfg.n_layers // 2, [(("pairs", "local"), cfg.window, "dense"),
+                                     (("pairs", "global"), None, "dense")])]
     window = cfg.window if cfg.layer_pattern == "local" else None
-    return [(("layers",), window)], cfg.n_layers
+    return [(cfg.n_layers, [(("layers",), window, "dense")])]
 
 
 def _nest(items) -> dict:
@@ -160,43 +188,47 @@ def _at(tree: dict, path: tuple) -> dict:
 
 
 def stacked(cfg, block) -> dict:
-    """The layer-stacked tree of ``block(window)``, one per layer, in
-    ``_kinds``' layout. Parameters and decode caches share it."""
-    check_dense(cfg)
-    kinds, n = _kinds(cfg)
-    return _nest((path, stack_schema(block(window), n))
-                 for path, window in kinds)
+    """The layer-stacked tree of ``block(window, ffn)``, one per layer, in
+    ``_segments``' layout. Parameters and decode caches share it."""
+    check_ported(cfg)
+    return _nest((path, stack_schema(block(window, ffn), n))
+                 for n, kinds in _segments(cfg)
+                 for path, window, ffn in kinds)
 
 
 def stack_layers(stack: dict, cfg, cache: dict | None = None):
-    """Yield (params, cache, window) of each layer in stack order, views
-    of the stacked trees (``cache`` None: None for each)."""
-    check_dense(cfg)
-    kinds, n = _kinds(cfg)
-    for i in range(n):
-        for path, window in kinds:
-            yield (layer(_at(stack, path), i),
-                   None if cache is None else layer(_at(cache, path), i),
-                   window)
+    """Yield (params, cache, window, ffn) of each layer in stack order,
+    views of the stacked trees (``cache`` None: None for each)."""
+    check_ported(cfg)
+    for n, kinds in _segments(cfg):
+        for i in range(n):
+            for path, window, ffn in kinds:
+                yield (layer(_at(stack, path), i),
+                       None if cache is None else layer(_at(cache, path), i),
+                       window, ffn)
 
 
 def stack_trees(per_layer: list, cfg) -> dict:
     """Per-layer trees in stack order -> the stacked tree of ``stacked``'s
     layout (a new stack axis in front of every leaf)."""
-    kinds, n = _kinds(cfg)
-    assert len(per_layer) == n * len(kinds)
-    return _nest((path, tree_map(lambda *ts: torch.stack(ts),
-                                 *per_layer[j::len(kinds)]))
-                 for j, (path, _) in enumerate(kinds))
+    items, off = [], 0
+    for n, kinds in _segments(cfg):
+        seg = per_layer[off:off + n * len(kinds)]
+        off += n * len(kinds)
+        items += [(path, tree_map(lambda *ts: torch.stack(ts),
+                                  *seg[j::len(kinds)]))
+                  for j, (path, _, _) in enumerate(kinds)]
+    assert off == len(per_layer)
+    return _nest(items)
 
 
 def stack_schema_for(cfg) -> dict:
-    return stacked(cfg, lambda window: attn_block_schema(cfg))
+    return stacked(cfg, lambda window, ffn: attn_block_schema(cfg, ffn=ffn))
 
 
 def run_stack(params: dict, x, cfg, *, positions=None):
     """Full-sequence forward through the layer stack (train/prefill)."""
-    for p, _, window in stack_layers(params, cfg):
+    for p, _, window, ffn in stack_layers(params, cfg):
         x = attn_block(p, x, cfg, window=window, encoder=cfg.encoder_only,
-                       positions=positions)
+                       ffn=ffn, positions=positions)
     return x

@@ -1,20 +1,23 @@
-"""Serving: prefill and single-token decode with batched KV caches
-(src/repro/serve/decode.py), for the dense GQA family.
+"""Serving: prefill and single-token decode with batched caches
+(src/repro/serve/decode.py), for the dense and MoE families.
 
 The cache tree mirrors the parameter stack (``transformer.stacked``):
-{"layers": {"k", "v", "kpos"}}, or gemma2's {"pairs": {"local": {...},
-"global": {...}}}, with the stack axis in front and batch at axis 1, as
-in JAX:
+{"layers": {"k", "v", "kpos"}}, gemma2's {"pairs": {"local": {...},
+"global": {...}}}, or the MoE stack's {"dense_layers": ..., "layers":
+...}, with the stack axis in front and batch at axis 1, as in JAX:
 
   * GQA linear cache  (n, B, max_len, Hkv, Dh) + kpos tags
   * GQA ring cache    (n, B, window,  Hkv, Dh) — local-window layers
     (all-local stacks, gemma2's local half) store only ``window``
     entries, placed at position % window.
+  * MLA latent cache  (n, B, max_len, kv_lora_rank) + (n, B, max_len,
+    qk_rope_dim) + kpos tags — deepseek-v2's latent and shared rope key
+    only, read by the weight-absorbed decode; always linear.
 
 ``serve_step`` updates the cache IN PLACE and returns it (JAX returns an
 updated copy); per-layer loops (``transformer.stack_layers``) take the
-place of ``lax.scan``. The MLA latent and SSM caches wait for their
-families (ROADMAP.md, Queue 1, item 7).
+place of ``lax.scan``. The SSM caches wait for their family (ROADMAP.md,
+Queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -25,8 +28,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models.model import embed_inputs, output_logits
 from repro_torch.models.params import init_tree, tree_map
 from repro_torch.models.transformer import (
-    apply_ffn,
     apply_norm,
+    finish_block,
     stack_layers,
     stack_trees,
     stacked,
@@ -34,7 +37,10 @@ from repro_torch.models.transformer import (
 
 
 def cache_schema(cfg, batch: int, max_len: int) -> dict:
-    return stacked(cfg, lambda window: attn.gqa_cache_schema(
+    if cfg.use_mla:
+        return stacked(cfg, lambda window, ffn: attn.mla_cache_schema(
+            cfg, batch, max_len))
+    return stacked(cfg, lambda window, ffn: attn.gqa_cache_schema(
         cfg, batch, max_len, window=window))
 
 
@@ -50,17 +56,13 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
 # decode
 # ---------------------------------------------------------------------------
 
-def _attn_block_decode(p, x, c, lengths, cfg, *, window=None):
+def _attn_block_decode(p, x, c, lengths, cfg, *, window=None, ffn="dense"):
     h = apply_norm(p["norm1"], x, cfg)
-    a, c2 = attn.gqa_decode(p["attn"], h, c, lengths, cfg, window=window)
-    if cfg.post_norms:
-        a = apply_norm(p["norm_post_attn"], a, cfg)
-    x = x + cfg.residual_multiplier * a
-    h = apply_norm(p["norm2"], x, cfg)
-    m = apply_ffn(p["ffn"], h, cfg)
-    if cfg.post_norms:
-        m = apply_norm(p["norm_post_ffn"], m, cfg)
-    return x + cfg.residual_multiplier * m, c2
+    if cfg.use_mla:
+        a, c2 = attn.mla_decode(p["attn"], h, c, lengths, cfg)
+    else:
+        a, c2 = attn.gqa_decode(p["attn"], h, c, lengths, cfg, window=window)
+    return finish_block(p, x, a, cfg, ffn), c2
 
 
 def decode_hidden(params, cache, tokens, lengths, cfg):
@@ -72,8 +74,9 @@ def decode_hidden(params, cache, tokens, lengths, cfg):
     dev = params["embed"]["table"].device
     lengths = torch.as_tensor(lengths, device=dev)
     x = embed_inputs(params, {"tokens": tokens}, cfg)
-    for p, c, window in stack_layers(params["stack"], cfg, cache):
-        x, _ = _attn_block_decode(p, x, c, lengths, cfg, window=window)
+    for p, c, window, ffn in stack_layers(params["stack"], cfg, cache):
+        x, _ = _attn_block_decode(p, x, c, lengths, cfg, window=window,
+                                  ffn=ffn)
     return x, cache
 
 
@@ -111,21 +114,35 @@ def _seed_gqa(cfg, k, v, max_len, window):
     return {"k": kc, "v": vc, "kpos": kp}
 
 
-def _attn_block_prefill(p, x, cfg, max_len, *, window=None,
+def _seed_mla(cfg, ckv, krope, max_len):
+    """A linear {ckv, krope, kpos} cache from prefill (B, L, r) and
+    (B, L, dr) tensors."""
+    b, seq = ckv.shape[0], ckv.shape[1]
+    dt = cfg.cache_dtype
+    dev = ckv.device
+    ck = torch.zeros((b, max_len, ckv.shape[2]), dtype=dt, device=dev)
+    kr = torch.zeros((b, max_len, krope.shape[2]), dtype=dt, device=dev)
+    kp = torch.full((b, max_len), -1, dtype=torch.int32, device=dev)
+    ck[:, :seq] = ckv.to(dt)
+    kr[:, :seq] = krope.to(dt)
+    kp[:, :seq] = torch.arange(seq, dtype=torch.int32, device=dev)
+    return {"ckv": ck, "krope": kr, "kpos": kp}
+
+
+def _attn_block_prefill(p, x, cfg, max_len, *, window=None, ffn="dense",
                         backend="auto"):
     h = apply_norm(p["norm1"], x, cfg)
-    a, (k, v) = attn.gqa_attention(p["attn"], h, cfg, window=window,
-                                   triangle=cfg.triangle_schedule,
-                                   return_kv=True, backend=backend)
-    c = _seed_gqa(cfg, k, v, max_len, window)
-    if cfg.post_norms:
-        a = apply_norm(p["norm_post_attn"], a, cfg)
-    x = x + cfg.residual_multiplier * a
-    h = apply_norm(p["norm2"], x, cfg)
-    m = apply_ffn(p["ffn"], h, cfg)
-    if cfg.post_norms:
-        m = apply_norm(p["norm_post_ffn"], m, cfg)
-    return x + cfg.residual_multiplier * m, c
+    if cfg.use_mla:
+        a, (ckv, krope) = attn.mla_attention(
+            p["attn"], h, cfg, triangle=cfg.triangle_schedule,
+            return_latent=True, backend=backend)
+        c = _seed_mla(cfg, ckv, krope, max_len)
+    else:
+        a, (k, v) = attn.gqa_attention(p["attn"], h, cfg, window=window,
+                                       triangle=cfg.triangle_schedule,
+                                       return_kv=True, backend=backend)
+        c = _seed_gqa(cfg, k, v, max_len, window)
+    return finish_block(p, x, a, cfg, ffn), c
 
 
 def prefill(params, batch, cfg, max_len: int, *, last_only: bool = False,
@@ -137,9 +154,9 @@ def prefill(params, batch, cfg, max_len: int, *, last_only: bool = False,
     x = embed_inputs(params, batch, cfg)
     b, seq = x.shape[0], x.shape[1]
     caches = []
-    for p, _, window in stack_layers(params["stack"], cfg):
+    for p, _, window, ffn in stack_layers(params["stack"], cfg):
         x, c = _attn_block_prefill(p, x, cfg, max_len, window=window,
-                                   backend=backend)
+                                   ffn=ffn, backend=backend)
         caches.append(c)
     cache = stack_trees(caches, cfg)
     if last_only:
@@ -152,7 +169,7 @@ def prefill(params, batch, cfg, max_len: int, *, last_only: bool = False,
 
 def write_slot(cache: dict, i: int, one_cache: dict, length: int) -> dict:
     """Copy a one-request cache (batch 1, from ``prefill``) into slot ``i``
-    of the batched cache, in place; every leaf of either stack's tree has
+    of the batched cache, in place; every leaf of every stack's tree has
     the stack axis in front and batch at axis 1. Returns the cache."""
     tree_map(lambda big, one: big[:, i].copy_(one[:, 0]), cache, one_cache)
     return cache

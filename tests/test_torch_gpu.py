@@ -1364,3 +1364,98 @@ def test_gemma2_smoke_step_on_card_matches_cpu(dev):
     for path, leaf in out["cpu"][1].items():
         if path.endswith("kpos"):
             assert torch.equal(out["cuda"][1][path], leaf)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "granite-moe-3b-a800m"])
+def test_moe_smoke_prefill_through_kernel_matches_plain(dev, arch):
+    """The MoE family's smoke configs at their bf16 activations, seeded
+    weights, a ragged 150-token batch: prefill through the kernel (one
+    launch per layer; deepseek's MLA at Dq 48 / Dv 32, scale 48^-0.5,
+    granite's GQA 8/4 at Dh 16, scale 1/16) against the plain chunked scan
+    on the same card, within 2e-2 of the logit scale; kpos tags equal."""
+    cfg = get_smoke_config(arch)
+    schema = model_schema(cfg)
+    params = cast_matrices(
+        init_tree(torch.Generator(device=dev).manual_seed(0), schema),
+        schema, cfg.act_dtype)
+    toks = torch.randint(0, cfg.vocab, (2, 150), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    before = _lib.LAUNCHES["flash_attention"]
+    got, gc, _ = prefill(params, {"tokens": toks}, cfg, 256)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["flash_attention"] - before == cfg.n_layers
+    want, wc, _ = prefill(params, {"tokens": toks}, cfg, 256, backend="ref")
+    assert _lib.LAUNCHES["flash_attention"] - before == cfg.n_layers
+    scale = want.abs().max()
+    assert float((got - want).abs().max() / scale) < 2e-2
+    for path, leaf in tree_paths(wc).items():
+        if path.endswith("kpos"):
+            assert torch.equal(tree_paths(gc)[path], leaf)
+
+
+def _kept_gates(r, t: int, e: int):
+    """(T, E): each token's gate at each expert that kept it, else 0."""
+    _, val, idx, ok = (a.cpu() for a in r)
+    g = torch.zeros(t, e)
+    ev = torch.arange(e)[:, None].expand_as(idx)
+    g[idx[ok], ev[ok]] = val[ok].float()
+    return g
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "granite-moe-3b-a800m"])
+def test_moe_ffn_bf16_on_card_matches_cpu(dev, arch):
+    """moe_ffn at bf16 on the card against the same on the CPU, one MoE
+    layer of the smoke config at T = 512 (an expert over capacity). The
+    router product is a bf16 GEMM whose rounding differs between the two,
+    so a route may flip where two scores are within bf16's resolution:
+    the scores agree within 2^-7, at most 1% of tokens route differently,
+    and on every other token the output is within 2e-2 of its scale."""
+    from repro_torch.models import moe
+    cfg = get_smoke_config(arch)
+    sch = moe.moe_schema(cfg)
+    cpu = cast_matrices(init_tree(torch.Generator().manual_seed(2), sch),
+                        sch, cfg.act_dtype)
+    x = torch.randn(2, 256, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(3))
+    w = cpu["router"][:, 0].float()
+    x = (x + 15.0 * w / w.norm()).to(cfg.act_dtype)
+    card = tree_map(lambda t: t.to(dev), cpu)
+    xf = x.reshape(512, -1)
+    scores = [torch.softmax((a @ p["router"]).float(), -1).cpu()
+              for a, p in ((xf, cpu), (xf.to(dev), card))]
+    assert float((scores[0] - scores[1]).abs().max()) < 2 ** -7
+    rc = moe.route(cpu, xf, cfg)
+    rg = moe.route(card, xf.to(dev), cfg)
+    assert int(rc[3].sum()) < 512 * cfg.moe_top_k      # tokens dropped
+    same = ((_kept_gates(rc, 512, cfg.n_experts) > 0)
+            == (_kept_gates(rg, 512, cfg.n_experts) > 0)).all(1)
+    assert int((~same).sum()) <= 5
+    want = moe.moe_ffn(cpu, x, cfg).float().reshape(512, -1)
+    got = moe.moe_ffn(card, x.to(dev), cfg).float().cpu().reshape(512, -1)
+    err = (got[same] - want[same]).abs().max()
+    assert float(err / want[same].abs().max()) < 2e-2
+
+
+def test_moe_step_repeats_bit_for_bit(dev):
+    """The deepseek-v2-lite smoke config at bf16 on the card: the same
+    prefill and decode step, twice, give the same bits (no atomic adds in
+    the MoE combine), logits and every cache leaf."""
+    cfg = get_smoke_config("deepseek-v2-lite-16b")
+    schema = model_schema(cfg)
+    params = cast_matrices(
+        init_tree(torch.Generator(device=dev).manual_seed(0), schema),
+        schema, cfg.act_dtype)
+    toks = torch.randint(0, cfg.vocab, (4, 200), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    runs = []
+    for _ in range(2):
+        lg, cache, lengths = prefill(params, {"tokens": toks[:, :-1]}, cfg,
+                                     256)
+        st, cache = serve_step(params, cache, toks[:, -1:], lengths, cfg)
+        torch.cuda.synchronize()
+        runs.append((lg, st, tree_paths(cache)))
+    (lg0, st0, c0), (lg1, st1, c1) = runs
+    assert torch.equal(lg0, lg1) and torch.equal(st0, st1)
+    assert all(torch.equal(c0[p], c1[p]) for p in c0)

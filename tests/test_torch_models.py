@@ -140,8 +140,9 @@ def test_rope_and_embed_match_jax(dtype):
 # ---------------------------------------------------------------------------
 
 def test_configs_match_jax_value_for_value():
-    assert list_archs() == ["codeqwen1.5-7b", "gemma2-27b", "starcoder2-3b",
-                            ARCH]
+    assert list_archs() == ["codeqwen1.5-7b", "deepseek-v2-lite-16b",
+                            "gemma2-27b", "granite-moe-3b-a800m",
+                            "starcoder2-3b", ARCH]
     for ours, theirs in ((get_config(ARCH), jget_config(ARCH)),
                          (get_smoke_config(ARCH), jget_smoke(ARCH))):
         a, b = dataclasses.asdict(ours), dataclasses.asdict(theirs)
@@ -259,8 +260,10 @@ def test_cast_matrices_changes_no_number():
 
 
 @pytest.mark.parametrize("change", [
-    dict(frontend="vision"), dict(family="moe"),
-    dict(family="ssm"), dict(use_mla=True), dict(frontend="audio")])
+    dict(frontend="vision"), dict(family="hybrid"),
+    dict(family="ssm"), dict(family="audio", frontend="audio",
+                             encoder_only=True),
+    dict(frontend="audio")])
 def test_unported_families_raise(change):
     cfg = dataclasses.replace(get_smoke_config(ARCH), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, "
