@@ -11,8 +11,10 @@ batching, kNN-LM retrieval and its datastore's restore, and the datastore
 grown while the LM decodes; gemma2-27b's local / global stack with its
 mixed ring and linear cache; starcoder2-3b and codeqwen1.5-7b; the MoE
 family: granite-moe-3b-a800m, and deepseek-v2-lite-16b's MLA latent
-cache and weight-absorbed decode, served). Run from the root of a
-checkout, on a machine with an H100:
+cache and weight-absorbed decode, served; the SSM / hybrid family:
+mamba2-130m's Mamba-2 stack, and zamba2-1.2b's mamba segments with the
+shared attention block, served). Run from the root of a checkout, on a
+machine with an H100:
 
     python3 chip_smoke.py
 
@@ -214,8 +216,9 @@ script started (phases with several lanes print one line a lane):
                of each other (tests/test_serve.py:53's bf16 limit), and the
                decode steps within 3e-2 of a forward over the longer
                prompt (its logits at the last 4 positions); every
-               layer's kpos tags as ring_kpos says; flash_attention
-               launched once per layer;
+               attention cache's kpos tags as ring_kpos says;
+               flash_attention launched once per attention layer
+               (``transformer.attention_layers``);
   lm_serve     path 9: repro_torch.launch.serve.serve_requests on that
                model: 4 slots, max_len 4096, 8 requests with prompt lengths
                drawn from the seed in [1000, 2048], 32 new tokens each:
@@ -297,12 +300,41 @@ script started (phases with several lanes print one line a lane):
                (the dense-form MoE runs every expert: C = T = 4 <= 128)
                and the step's bound (every weight and the latent cache
                read once over 3.35 TB/s);
+  ssm_check    mamba2-130m (24 Mamba-2 layers, d 768, 24 SSD heads of 64,
+               state 128, chunk 256, vocab 50280, tied embeddings), then
+               zamba2-1.2b (38 Mamba-2 layers, d 2048, 64 SSD heads of 64,
+               state 64; one shared attention + GLU block, MHA 32/32 at Dh
+               64, d_ff 8192, after every 6 mamba layers with a rank-128
+               LoRA delta per invocation; vocab 32000), both at full width
+               and full depth (``reduced``: none), weights from the seed,
+               matrices in bf16, each loaded after the model before it is
+               freed: lm_check on a 1537-token prompt (not a multiple of
+               the 256-token chunk: the scan pads), flash_attention
+               launched once per attention layer (0 in mamba2, 6 in
+               zamba2: one per shared-block invocation), the kpos tags of
+               zamba2's shared caches, every state finite after the 4
+               steps and every conv tail bit-equal to the pre-conv inputs
+               of the last 3 steps; repeat_check; mamba2's cache the
+               same bytes a slot at 1537 and 4096 tokens (O(1) in the
+               sequence); then mamba2 served at lm_serve's shape (lane
+               serve: the lm_serve figures, no launch, the step's bound:
+               every weight and the slots' whole cache read once over
+               3.35 TB/s);
+  lm_zamba2    path 17: serve_requests on that zamba2 model at lm_serve's
+               shape: the lm_serve figures and the step's bound (every
+               weight, the slots' f32 states and conv tails and the
+               shared block's KV caches at max_len read once);
+               flash_attention launched exactly 6 x 8 times; a profile of
+               a served window (the first 2 requests, 4 new tokens each)
+               with the SSD scan under a profiler range (its device
+               time), and one of 4 decode steps alone over 4 prefilled
+               slots (launches a step);
   profile      every path but truth once more under torch.profiler (and
                a window of lm_serve, lm_gemma2 and lm_deepseek: the first
                4 requests, 8 new tokens each; and lm_gemma2's and
                lm_deepseek's decode steps alone, 16 over 4 prefilled
-               slots): device time by kernel name and the device's idle
-               share;
+               slots; lm_zamba2's as that phase says): device time by
+               kernel name and the device's idle share;
   kernels      each kernel on the inputs a path gave it (recorded during
                that run), against its plain version: max error, kernel /
                plain / library times, the card's lower bound (and, for the
@@ -333,10 +365,11 @@ script started (phases with several lanes print one line a lane):
                144^-0.5; their library row compiled flex_attention, the
                cap as its score_mod, the window as a block mask), on the
                inputs of lm_deepseek's second MLA prefill layer (H 16/16,
-               Dq 192, Dv 128, scale 192^-0.5) and of moe_check's
-               granite second prefill layer (H 24/8, Dh 64, scale 1/128),
-               both with scaled_dot_product_attention as their library
-               row and the backend PyTorch's dispatcher picks for it named
+               Dq 192, Dv 128, scale 192^-0.5), of moe_check's granite
+               second prefill layer (H 24/8, Dh 64, scale 1/128) and of
+               lm_zamba2's second shared-block invocation (H 32/32, Dh 64,
+               scale 1/8), all three with scaled_dot_product_attention as
+               their library row and the backend PyTorch's dispatcher picks for it named
                (torch._fused_sdp_choice), and at f32
                on attention_check's causal_gqa_32_4 inputs, with
                scaled_dot_product_attention as its library row.
@@ -365,9 +398,10 @@ attention_check; no main path runs attention at f32) and twice for
 lm_gemma2 (``call`` ``lm_gemma2:flash_attention:local`` and ``:global``,
 ``launches``: that layer kind's calls in path 15), once for lm_deepseek
 (``call`` ``lm_deepseek:flash_attention:mla``, ``launches``: its calls in
-path 16) and once for granite (``call`` ``moe_check:flash_attention``,
-``launches``: its calls in moe_check's granite lm_check); ``call`` tells
-the entries apart. Last, {"ok": true, "device": ...}. Any failure
+path 16), once for granite (``call`` ``moe_check:flash_attention``,
+``launches``: its calls in moe_check's granite lm_check) and once for
+zamba2 (``call`` ``lm_zamba2:flash_attention``, ``launches``: its calls
+in path 17); ``call`` tells the entries apart. Last, {"ok": true, "device": ...}. Any failure
 raises, and the script exits non-zero. With no CUDA card, or without the
 repository's src/ beside it, it exits 2 and prints no result.
 """
@@ -443,7 +477,8 @@ CHECKED = {**{path: {name, "knn_join_select"} for path, name in OWNED.items()},
            "lm_serve": {"flash_attention"}, "knn_lm": {"knn_join_dists"},
            "lm_gemma2": {"flash_attention"},
            "moe_check": {"flash_attention"},
-           "lm_deepseek": {"flash_attention"}}
+           "lm_deepseek": {"flash_attention"},
+           "lm_zamba2": {"flash_attention"}}
 CENTROID_KEY = "online:pairwise_sq_l2:centroid_assign"
 # recorded calls that join the kernels line after their kernel's own entry,
 # each with its own launches: the fp32 join of the kNN-LM's build (row 1a)
@@ -493,6 +528,18 @@ DEEPSEEK_ARCH, DEEPSEEK_LAYERS = "deepseek-v2-lite-16b", 8
 # runs them all (deepseek's MLA prefill)
 ATTN_KIND_SUFFIX = {"lm_deepseek": ":mla"}
 MOE_KEYS = ("lm_deepseek:flash_attention:mla", "moe_check:flash_attention")
+# ssm_check and path 17: mamba2-130m and zamba2-1.2b at full width and
+# full depth (reduced: none; zamba2's fp32 draw is about 4.8 GB); path 17
+# serves LM_REQUESTS prompts of LM_PROMPT_LENS as lm_serve does, and its
+# profile reads the SSD scan's device time under a profiler range
+MAMBA_ARCH, ZAMBA_ARCH = "mamba2-130m", "zamba2-1.2b"
+ZAMBA_KEYS = ("lm_zamba2:flash_attention",)
+SSD_RANGE = "ssd_scan"
+# path 17's profiles are cut to keep the profiler's host processing (about
+# 1.3 ms an event) inside the time limit: a zamba2 prefill launches about
+# 12000 kernels and a decode step about 2900, so the window is 2 requests
+# with 4 new tokens each and the decode-only profile 4 steps
+ZAMBA_PROFILE_REQUESTS, ZAMBA_PROFILE_NEW, ZAMBA_DECODE_PROFILE = 2, 4, 4
 KNN_SEQS, KNN_SEQ_LEN, KNN_K, KNN_BATCH = 16, 2048, 16, 4
 KNN_CHUNK, KNN_SNAPSHOT_EVERY = 64, 128     # knn_grow: insert, snapshot
 # retrieval: the interactive lane's queries and burst sizes, the deadline
@@ -763,10 +810,12 @@ class Recorder:
         return out
 
 
-def profile_run(run, top: int = 12) -> dict:
+def profile_run(run, top: int = 12, ranges=()) -> dict:
     """One more run of a path under ``torch.profiler``: device time by
     kernel name, the device kernels launched, and the device's busy share
-    of the (profiled) wall time.
+    of the (profiled) wall time; for each name in ``ranges`` (a
+    ``record_function`` range the run opens, ``ranged``), the device time
+    of the kernels launched inside it.
     The profiler's own cost lengthens the wall time, so the idle share is
     an upper bound."""
     import torch
@@ -781,23 +830,58 @@ def profile_run(run, top: int = 12) -> dict:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side events only: a CPU op's device time is its kernels'
+    events = prof.key_averages()
+    # device-side events only: a CPU op's device time is its kernels'; a
+    # range's own device-side span is not a kernel
     rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
+                   for e in events
                    if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+                   and e.self_device_time_total > 0
+                   and e.key not in ranges), reverse=True)
     busy_s = sum(r[0] for r in rows) * 1e-6
     ours = {name: sum(r[0] for r in rows if f"{name}_kernel" in r[2]) * 1e-6
             for name in _lib.KERNELS}
     # a profiler that saw no device activity measured nothing
     idle = 1.0 - busy_s / wall if busy_s > 0 else "not measured"
-    return {
+    out = {
         "profiled_wall_s": wall, "device_busy_s": busy_s,
         "device_idle_share": idle, "our_kernels_s": ours,
         "device_kernel_calls": sum(r[1] for r in rows),
         "top": [{"name": k[:90], "calls": c, "device_s": t * 1e-6}
                 for t, c, k in rows[:top]],
     }
+    if ranges:
+        out["ranges"] = {name: {
+            "calls": sum(e.count for e in events if e.key == name
+                         and e.device_type == DeviceType.CPU),
+            "device_s": sum(e.device_time_total for e in events
+                            if e.key == name
+                            and e.device_type == DeviceType.CPU) * 1e-6}
+            for name in ranges}
+    return out
+
+
+class ranged:
+    """``module.<name>`` wrapped in a ``record_function(name)`` range while
+    the block runs, so that a profile can read the device time of the
+    kernels launched inside it; the module's own callers look the name up
+    at call time, so they run through the wrapper."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+
+    def __enter__(self):
+        import torch
+        fn = self.fn = getattr(self.module, self.name)
+
+        def wrapped(*args, **kw):
+            with torch.profiler.record_function(self.name):
+                return fn(*args, **kw)
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
 
 
 def close_to_plain(name, got, want, scale) -> dict:
@@ -1913,20 +1997,34 @@ def lm_check(params, cfg, dev, n=LM_CHECK_LEN, seed=SEED + 9,
     teacher-forced decode steps, through the kernel and through the plain
     chunked attention, held against each other; the kernel run's decode
     steps against a forward over the longer prompt (its logits at the
-    last 4 positions only); the kernel run's kpos tags, every layer's,
-    against ``ring_kpos`` (local rings wrapped, linear caches filled to
-    n + 4, then -1)."""
+    last 4 positions only); the kernel run's kpos tags, every attention
+    cache's, against ``ring_kpos`` (local rings wrapped, linear caches
+    filled to n + 4, then -1); flash_attention launched once per
+    attention layer (``attention_layers``: none in mamba2, one per shared
+    block invocation in zamba2). Where the model has mamba layers, every
+    state of the kernel run's cache is finite after the 4 steps and every
+    conv tail equals the last K-1 pre-conv inputs of that layer in the
+    forward (within the decode limit)."""
     import numpy as np
     import torch
     from repro_torch.kernels import _lib
+    from repro_torch.models import ssm, transformer
     from repro_torch.models.model import embed_inputs, output_logits
     from repro_torch.models.params import tree_paths
-    from repro_torch.models.transformer import run_stack
     from repro_torch.serve import prefill, serve_step
     t = LM_CHECK_STEPS
     max_len = max_len or n + t
+    want_launches = transformer.attention_layers(cfg)
     toks = torch.from_numpy(np.random.RandomState(seed).randint(
         0, cfg.vocab, size=(1, n + t))).to(dev)
+    # each decode step's pre-conv inputs, layer by layer (mamba_decode
+    # looks in_proj up at call time)
+    pre_conv, proj = [], ssm.in_proj
+
+    def recorded(p, x, c):
+        out = proj(p, x, c)
+        pre_conv.append(out[1])
+        return out
     runs = {}
     for backend in ("auto", "ref"):
         before = _lib.LAUNCHES["flash_attention"]
@@ -1935,22 +2033,33 @@ def lm_check(params, cfg, dev, n=LM_CHECK_LEN, seed=SEED + 9,
         logits, cache, lengths = prefill(params, {"tokens": toks[:, :n]}, cfg,
                                          max_len, backend=backend)
         steps = []
-        for i in range(t):
-            lg, cache = serve_step(params, cache, toks[:, n + i:n + i + 1],
-                                   lengths, cfg)
-            lengths = lengths + 1
-            steps.append(lg)
+        ssm.in_proj = recorded if backend == "auto" else proj
+        try:
+            for i in range(t):
+                lg, cache = serve_step(params, cache,
+                                       toks[:, n + i:n + i + 1], lengths,
+                                       cfg)
+                lengths = lengths + 1
+                steps.append(lg)
+        finally:
+            ssm.in_proj = proj
         torch.cuda.synchronize()
         runs[backend] = {
             "prefill": logits, "decode": torch.stack(steps, dim=1),
             "seconds": time.perf_counter() - t0,
             "launches": _lib.LAUNCHES["flash_attention"] - before}
         if backend == "auto":
-            kpos = {path: leaf.cpu() for path, leaf in
-                    tree_paths(cache).items() if path.endswith("kpos")}
+            leaves = tree_paths(cache)
+            kpos = {path: leaf.cpu() for path, leaf in leaves.items()
+                    if path.endswith("kpos")}
+            states_finite = all(bool(torch.isfinite(leaf).all())
+                                for path, leaf in leaves.items()
+                                if path.endswith("state"))
+            tails = [c["conv"] for _, c, _, kind in transformer.stack_layers(
+                params["stack"], cfg, cache) if kind == "mamba"]
         del cache
-    x = run_stack(params["stack"], embed_inputs(params, {"tokens": toks},
-                                                cfg), cfg)
+    x = transformer.run_stack(
+        params["stack"], embed_inputs(params, {"tokens": toks}, cfg), cfg)
     full = output_logits(params, x[:, -t:], cfg)
     del x
     kern, plain = runs["auto"], runs["ref"]
@@ -1965,20 +2074,33 @@ def lm_check(params, cfg, dev, n=LM_CHECK_LEN, seed=SEED + 9,
                                == plain["prefill"].argmax(-1))
                               .float().mean()),
         "seconds": {"kernel": kern["seconds"], "plain": plain["seconds"]},
-        "launches": {"kernel": kern["launches"], "plain": plain["launches"]},
+        "launches": {"kernel": kern["launches"], "plain": plain["launches"],
+                     "attention_layers": want_launches},
         "limits": {"kernel_vs_plain": LM_LIMIT,
                    "decode_vs_forward": LM_DECODE_LIMIT},
         "max_len": max_len,
         "kpos": {path: {"slots": int(tags.shape[-1]), "ok": kpos_ok[path]}
                  for path, tags in kpos.items()},
     }
+    ssm_ok = len(pre_conv) == t * len(tails)
+    if tails:
+        # step i's inputs of layer j are pre_conv[i * layers + j]
+        k1 = cfg.ssm_conv_kernel - 1
+        conv_equal = all(torch.equal(tail, torch.cat(
+            pre_conv[j::len(tails)][t - k1:], dim=1).to(tail.dtype))
+            for j, tail in enumerate(tails))
+        out["ssm"] = {"mamba_layers": len(tails),
+                      "states_finite": states_finite,
+                      "conv_tails_equal_last_inputs": conv_equal}
+        ssm_ok = ssm_ok and states_finite and conv_equal
     finite = all(torch.isfinite(r[x]).all() for r in runs.values()
                  for x in ("prefill", "decode"))
-    if (not finite or out["prefill_rel_err"] > LM_LIMIT
+    if (not finite or not ssm_ok or out["prefill_rel_err"] > LM_LIMIT
             or out["decode_rel_err"] > LM_LIMIT
             or out["decode_vs_forward_rel_err"] > LM_DECODE_LIMIT
-            or kern["launches"] != cfg.n_layers or plain["launches"] != 0
-            or not kpos or not all(kpos_ok.values())
+            or kern["launches"] != want_launches or plain["launches"] != 0
+            or bool(kpos) != (want_launches > 0)
+            or not all(kpos_ok.values())
             or tuple(kern["prefill"].shape) != (1, n, cfg.vocab)):
         raise AssertionError(f"lm_check ({cfg.arch}) failed: {out}")
     return out
@@ -1995,15 +2117,17 @@ def lm_prompts(cfg, lens=LM_PROMPT_LENS, seed=SEED + 11) -> list:
 
 
 def check_served(reqs, stats, launches, cfg, tag="lm_serve") -> None:
+    from repro_torch.models.transformer import attention_layers
     if not all(r.done and len(r.out) == LM_MAX_NEW for r in reqs):
         raise AssertionError(f"{tag}: a request was not served in full")
     if not all(0 <= t < cfg.vocab for r in reqs for t in r.out):
         raise AssertionError(f"{tag}: a token outside the vocabulary")
-    want = cfg.n_layers * LM_REQUESTS
+    want = attention_layers(cfg) * LM_REQUESTS
     if launches["flash_attention"] != want:
         raise AssertionError(f"{tag}: flash_attention launched "
                              f"{launches['flash_attention']} times, not "
-                             f"{want} (one per layer per prefill)")
+                             f"{want} (one per attention layer per "
+                             "prefill)")
 
 
 def served_fields(prompts, stats, wall: float) -> dict:
@@ -2022,22 +2146,25 @@ def served_fields(prompts, stats, wall: float) -> dict:
         tokens=stats["tokens"])
 
 
-def load_cut(arch: str, n_layers: int, dev):
+def load_cut(arch: str, n_layers: int | None, dev):
     """A registered config at full width with its depth cut to
-    ``n_layers``, its weights drawn from the seed (``load_params``), and
-    the phase fields that say so."""
+    ``n_layers`` (None: full depth), its weights drawn from the seed
+    (``load_params``), and the phase fields that say so."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import load_params
     from repro_torch.models import param_count
     full = get_config(arch)
-    cfg = dataclasses.replace(full, n_layers=n_layers)
+    cfg = full if n_layers is None \
+        else dataclasses.replace(full, n_layers=n_layers)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = load_params(cfg, dev)
     torch.cuda.synchronize()
     return cfg, params, {
-        "arch": arch, "reduced": {"n_layers": [full.n_layers, n_layers]},
+        "arch": arch,
+        "reduced": "none" if n_layers is None
+        else {"n_layers": [full.n_layers, n_layers]},
         "params": param_count(cfg), "init_s": time.perf_counter() - t0}
 
 
@@ -2101,11 +2228,12 @@ def dense_family_run(dev):
     return launches, rec
 
 
-def decode_steps(params, cfg, dev, seed, prompt_len, max_len):
+def decode_steps(params, cfg, dev, seed, prompt_len, max_len,
+                 steps=GEMMA_DECODE_PROFILE):
     """Prefill LM_SLOTS seeded prompts of ``prompt_len`` tokens in one
-    batch (a ``max_len`` cache); return a closure that runs
-    GEMMA_DECODE_PROFILE greedy serve_steps on that cache, the served
-    path's decode steps alone."""
+    batch (a ``max_len`` cache); return a closure that runs ``steps``
+    greedy serve_steps on that cache, the served path's decode steps
+    alone."""
     import numpy as np
     import torch
     from repro_torch.serve import prefill, serve_step
@@ -2116,7 +2244,7 @@ def decode_steps(params, cfg, dev, seed, prompt_len, max_len):
 
     def run():
         nonlocal logits, cache, lengths
-        for _ in range(GEMMA_DECODE_PROFILE):
+        for _ in range(steps):
             logits, cache = serve_step(params, cache,
                                        logits.argmax(-1)[:, None], lengths,
                                        cfg)
@@ -2237,6 +2365,109 @@ def moe_family_run(dev):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, recs
+
+
+def step_bytes(params, cfg) -> dict:
+    """A decode step's least bytes over the card's memory rate: every
+    weight (matrices in bf16, vectors in f32) and the whole cache of
+    LM_SLOTS slots at LM_MAX_LEN read once: the mamba layers' f32 states
+    and conv tails, and the attention caches."""
+    from repro_torch.models.params import bytes_params, tree_leaves, \
+        tree_paths
+    from repro_torch.serve import cache_schema
+    p_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    cache = tree_paths(cache_schema(cfg, LM_SLOTS, LM_MAX_LEN))
+    ssm_bytes = bytes_params({p: d for p, d in cache.items()
+                              if p.endswith(("conv", "state"))})
+    c_bytes = bytes_params(cache)
+    return {"param_bytes": p_bytes, "ssm_cache_bytes": ssm_bytes,
+            "attention_cache_bytes": c_bytes - ssm_bytes,
+            "step_bytes": p_bytes + c_bytes,
+            "step_bound_ms": (p_bytes + c_bytes) / PEAK_BYTES_PER_S * 1e3}
+
+
+def ssm_family_run(dev):
+    """The SSM / hybrid family at full width and full depth, each model
+    loaded after the one before is freed: ssm_check (mamba2-130m: lm_check,
+    repeat_check, its cache's bytes a slot at two lengths, and the server
+    at lm_serve's shape; zamba2-1.2b: lm_check, repeat_check), then path
+    17 (lm_zamba2: served, profiled with the SSD scan under a range, its
+    decode steps profiled alone). Returns path 17's launches and
+    recorder."""
+    import torch
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import ssm
+    from repro_torch.models.params import bytes_params
+    from repro_torch.serve import cache_schema
+    # mamba2-130m: 24 Mamba-2 layers, attention-free
+    m_cfg, params, fields = load_cut(MAMBA_ARCH, None, dev)
+    emit("lm_model", **fields, memory_allocated=torch.cuda.memory_allocated(),
+         cfg={k: str(v) for k, v in dataclasses.asdict(m_cfg).items()})
+    slot_bytes = {n: bytes_params(cache_schema(m_cfg, 1, n))
+                  for n in (LM_CHECK_LEN, LM_MAX_LEN)}
+    if len(set(slot_bytes.values())) != 1:
+        raise AssertionError(f"ssm_check: mamba2's cache grows with the "
+                             f"sequence: {slot_bytes}")
+    emit("ssm_check", **fields, prompt=LM_CHECK_LEN, steps=LM_CHECK_STEPS,
+         **lm_check(params, m_cfg, dev, seed=SEED + 80),
+         repeat=repeat_check(params, m_cfg, dev, SEED + 81),
+         cache_bytes_per_slot=slot_bytes)
+    m_prompts = lm_prompts(m_cfg, LM_PROMPT_LENS, SEED + 82)
+    (reqs, stats), wall, m_launches, peak, _ = drive(
+        "ssm_check", lambda: serve_requests(
+            params, m_cfg, m_prompts, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+            max_new=LM_MAX_NEW))
+    check_served(reqs, stats, m_launches, m_cfg, "ssm_check")
+    emit("ssm_check", lane="serve", arch=MAMBA_ARCH, reduced="none",
+         slots=LM_SLOTS, max_len=LM_MAX_LEN, requests=LM_REQUESTS,
+         max_new=LM_MAX_NEW, **served_fields(m_prompts, stats, wall),
+         max_memory_allocated=peak, launches=m_launches,
+         **step_bytes(params, m_cfg))
+    del reqs, stats, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # zamba2-1.2b: 6 segments of 6 mamba layers, each followed by the
+    # shared attention + GLU block (MHA 32/32, Dh 64), then 2 mamba layers
+    z_cfg, params, fields = load_cut(ZAMBA_ARCH, None, dev)
+    emit("lm_model", **fields, memory_allocated=torch.cuda.memory_allocated(),
+         cfg={k: str(v) for k, v in dataclasses.asdict(z_cfg).items()})
+    emit("ssm_check", **fields, prompt=LM_CHECK_LEN, steps=LM_CHECK_STEPS,
+         **lm_check(params, z_cfg, dev, seed=SEED + 83),
+         repeat=repeat_check(params, z_cfg, dev, SEED + 84))
+
+    # -- lm_zamba2: path 17, the server on that model
+    z_prompts = lm_prompts(z_cfg, LM_PROMPT_LENS, SEED + 85)
+    (reqs, stats), wall, launches, peak, rec = drive(
+        "lm_zamba2", lambda: serve_requests(
+            params, z_cfg, z_prompts, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+            max_new=LM_MAX_NEW))
+    check_served(reqs, stats, launches, z_cfg, "lm_zamba2")
+    emit("lm_zamba2", arch=ZAMBA_ARCH, reduced="none", slots=LM_SLOTS,
+         max_len=LM_MAX_LEN, requests=LM_REQUESTS, max_new=LM_MAX_NEW,
+         **served_fields(z_prompts, stats, wall),
+         max_memory_allocated=peak, launches=launches,
+         **step_bytes(params, z_cfg))
+    with ranged(ssm, SSD_RANGE):
+        emit("profile", path="lm_zamba2",
+             window=f"{ZAMBA_PROFILE_REQUESTS} requests, "
+                    f"{ZAMBA_PROFILE_NEW} new tokens",
+             **profile_run(lambda: serve_requests(
+                 params, z_cfg, z_prompts[:ZAMBA_PROFILE_REQUESTS],
+                 slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                 max_new=ZAMBA_PROFILE_NEW), ranges=(SSD_RANGE,)))
+    prof = profile_run(decode_steps(params, z_cfg, dev, SEED + 86,
+                                    LM_PROMPT_LENS[0], LM_MAX_LEN,
+                                    ZAMBA_DECODE_PROFILE))
+    emit("profile", path="lm_zamba2:decode",
+         window=f"{LM_SLOTS} slots at {LM_PROMPT_LENS[0]} tokens, "
+                f"{ZAMBA_DECODE_PROFILE} decode steps",
+         launches_per_step=prof["device_kernel_calls"] / ZAMBA_DECODE_PROFILE,
+         **prof)
+    del reqs, stats, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec
 
 
 def knn_lm_run(params, cfg, dev, entry_seed: int):
@@ -3812,6 +4043,7 @@ def main() -> int:
     moe_launches, moe_recs = moe_family_run(dev)
     launches.update(moe_launches)
     recs.update(moe_recs)
+    launches["lm_zamba2"], recs["lm_zamba2"] = ssm_family_run(dev)
 
     # -- kernels: each against its plain version on the recorded inputs
     owner = {"pairwise_sq_l2": "truth", "knn_search_dists": "search",
@@ -3870,7 +4102,7 @@ def main() -> int:
                 **e, "launches": e["launches_at_this_key"]}
         if key in FURTHER_ROWS.get(name, ()):
             further[key] = {**e, "launches": e["launches_at_this_key"]}
-        if key in GEMMA_KEYS or key in MOE_KEYS:
+        if key in (*GEMMA_KEYS, *MOE_KEYS, *ZAMBA_KEYS):
             further[key] = {**e, "launches": e["launches_at_this_key"]}
         # the line keeps one entry per kernel, from the path that owns
         # it; the build's widest select (the receiver select) and the
@@ -3881,7 +4113,8 @@ def main() -> int:
             e = merges[int(key.split(":c=")[1])]
         if name not in entries or width_of(e) > width_of(entries[name]):
             entries[name] = e
-    missing = [k for keys in (*FURTHER_ROWS.values(), GEMMA_KEYS, MOE_KEYS)
+    missing = [k for keys in (*FURTHER_ROWS.values(), GEMMA_KEYS, MOE_KEYS,
+                              ZAMBA_KEYS)
                for k in keys if k not in further]
     missing += [k for k in LATE_KEYS if k.split(":")[1] not in late]
     if missing:
@@ -3902,7 +4135,8 @@ def main() -> int:
         line.append(entries[n])
         if n == "flash_attention":
             line.append(f32)
-            line.extend(further[k] for k in (*GEMMA_KEYS, *MOE_KEYS))
+            line.extend(further[k] for k in (*GEMMA_KEYS, *MOE_KEYS,
+                                             *ZAMBA_KEYS))
         if n == "knn_join_select":
             # every other recorded (W, c), with that width's launches
             for wc, e in sorted(selects.items(),

@@ -10,7 +10,8 @@ Shapes (LM family: seq_len x global_batch):
 
 Only the architectures the port serves register (the dense family:
 yi-6b, gemma2-27b, starcoder2-3b, codeqwen1.5-7b; the MoE family:
-deepseek-v2-lite-16b with MLA, granite-moe-3b-a800m); the dry-run's
+deepseek-v2-lite-16b with MLA, granite-moe-3b-a800m; the SSM / hybrid
+family: mamba2-130m, zamba2-1.2b); the dry-run's
 ``input_specs`` / ``batch_specs`` wait with ``launch/`` (ROADMAP.md,
 Queue 1, item 8).
 """
@@ -154,7 +155,8 @@ _SMOKE: dict[str, ModelConfig] = {}
 # the architectures the port serves; the others wait for their families
 # (ROADMAP.md, Queue 1, item 7)
 _PORTED = ("yi_6b", "gemma2_27b", "starcoder2_3b", "codeqwen15_7b",
-           "deepseek_v2_lite", "granite_moe_3b")
+           "deepseek_v2_lite", "granite_moe_3b", "mamba2_130m",
+           "zamba2_1p2b")
 
 
 def register(cfg: ModelConfig, smoke: ModelConfig) -> ModelConfig:

@@ -12,7 +12,12 @@ starcoder2-3b (a ring cache on every layer) or codeqwen1.5-7b; of the
 MoE family deepseek-v2-lite-16b (MLA: a latent cache of 512 + 64 values
 a token and layer, read by the weight-absorbed decode; one dense layer,
 then 64 routed experts top-6 with 2 shared ones) or granite-moe-3b-a800m
-(GQA, 40 experts top-8, renormalised gates).
+(GQA, 40 experts top-8, renormalised gates); of the SSM / hybrid family
+mamba2-130m (24 Mamba-2 layers, attention-free: a conv tail and an f32
+state a layer, O(1) in the sequence) or zamba2-1.2b (38 Mamba-2 layers in
+segments of 6, each followed by one shared attention + GLU block with a
+per-invocation LoRA delta, whose 6 invocations keep linear KV caches of
+``--max-len``).
 
 Runs on the CUDA card unless ``--device`` names another. There are no
 published weights in the repository, so the parameters are drawn from

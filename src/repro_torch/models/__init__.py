@@ -1,6 +1,7 @@
-"""The LM stack of the port (src/repro/models): the dense GQA family and
-the MoE family (deepseek-v2's MLA, granite's GQA) that serving runs; the
-attention core reaches the hand-written kernel on a card."""
+"""The LM stack of the port (src/repro/models): the dense GQA family, the
+MoE family (deepseek-v2's MLA, granite's GQA), and the SSM / hybrid
+family (Mamba-2's SSD, ``ssm``; zamba2's shared block) that serving runs;
+the attention core reaches the hand-written kernel on a card."""
 from repro_torch.models.model import (
     active_param_count,
     embed_inputs,
@@ -17,6 +18,7 @@ from repro_torch.models.params import (
     init_tree,
     params_from_numpy,
 )
+from repro_torch.models import ssm
 from repro_torch.models.transformer import run_stack
 
 __all__ = [
@@ -33,4 +35,5 @@ __all__ = [
     "param_count",
     "params_from_numpy",
     "run_stack",
+    "ssm",
 ]

@@ -1,8 +1,10 @@
 """Top-level LM: embedding, layer stack, final norm, output head
-(src/repro/models/model.py), for the token-input dense and MoE families,
-and the parameter counts (``active_param_count``: the MoE's per-token
-share). The audio and vision front ends and ``loss_fn`` (training) wait
-for their slices: ROADMAP.md, Queue 1, item 7.
+(src/repro/models/model.py), for the token-input dense, MoE, SSM
+(mamba2) and hybrid (zamba2) families, and the parameter counts
+(``active_param_count``: the MoE's per-token share; every parameter of
+the other families, zamba2's shared block counted once). The audio and
+vision front ends and ``loss_fn`` (training) wait for their slices:
+ROADMAP.md, Queue 1, item 7.
 """
 from __future__ import annotations
 

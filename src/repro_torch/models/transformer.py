@@ -2,24 +2,30 @@
 the uniform stack (every layer one attention block, global or
 all-``local`` sliding window, under ``{"layers": ...}``), gemma2's
 local/global alternation (``{"pairs": {"local", "global"}}``, a local
-layer of ``cfg.window`` then a global one), and the MoE stack
+layer of ``cfg.window`` then a global one), the MoE stack
 (``{"dense_layers": ...}``, ``first_k_dense`` layers with a dense FFN of
 ``dense_d_ff``, then ``{"layers": ...}`` with the MoE FFN; granite has no
-dense layers, so no ``dense_layers`` key). Attention is MLA where
-``cfg.use_mla`` (deepseek-v2), else GQA. Parameters keep JAX's leading
-``stack`` axis and tree paths; a Python loop over the layers
-(``stack_layers``) takes the place of ``lax.scan`` (the port runs
-eagerly, so there is nothing to keep small).
-
-zamba2's mamba segments with a shared block and mamba2's stack wait for
-their family: ROADMAP.md, Queue 1, item 7.
+dense layers, so no ``dense_layers`` key), mamba2's stack of Mamba-2
+blocks (``{"layers": ...}``), and zamba2's hybrid: segments of
+``attn_every`` mamba layers (``{"segments": ...}``, two stack axes), each
+followed by ONE shared attention + GLU block (``{"shared": {"block",
+"lora_a", "lora_b"}}``: the block's weights are the same at every
+invocation, its LoRA delta is indexed by the invocation), then a mamba
+tail (``{"tail": ...}``) when ``attn_every`` does not divide
+``n_layers``. Attention is MLA where ``cfg.use_mla`` (deepseek-v2), else
+GQA. Parameters keep JAX's leading ``stack`` axes and tree paths; a
+Python loop over the layers (``stack_layers``) takes the place of
+``lax.scan`` (the port runs eagerly, so there is nothing to keep small).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     glu,
     glu_schema,
@@ -32,20 +38,17 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.params import ParamDef, tree_map
 
-_FAMILIES = "the port serves the dense and MoE families (global, local, " \
-            "local_global or first-k-dense + MoE layers, GQA or MLA); " \
-            "{what} is not ported yet: ROADMAP.md, Queue 1, item 7"
+_FAMILIES = "the port serves the dense, MoE, SSM and hybrid families " \
+            "(global, local, local_global, first-k-dense + MoE, mamba or " \
+            "mamba + shared-attention layers, GQA or MLA); {what} is not " \
+            "ported yet: ROADMAP.md, Queue 1, item 7"
 
 
 def check_ported(cfg) -> None:
     """Raise for an architecture outside the ported families."""
-    what = None
-    if cfg.family in ("ssm", "hybrid"):
-        what = f"the {cfg.family} family"
-    elif cfg.frontend != "none":
-        what = f"the {cfg.frontend} front end"
-    if what is not None:
-        raise NotImplementedError(_FAMILIES.format(what=what))
+    if cfg.frontend != "none":
+        raise NotImplementedError(_FAMILIES.format(
+            what=f"the {cfg.frontend} front end"))
 
 
 # ---------------------------------------------------------------------------
@@ -146,28 +149,98 @@ def attn_block(p, x, cfg, *, window=None, encoder=False, ffn="dense",
     return finish_block(p, x, a, cfg, ffn)
 
 
+def mamba_block_schema(cfg):
+    return {"norm": norm_schema(cfg), "mixer": ssm_mod.mamba_schema(cfg)}
+
+
+def mamba_block(p, x, cfg):
+    h = apply_norm(p["norm"], x, cfg)
+    return x + cfg.residual_multiplier * ssm_mod.mamba_block(
+        p["mixer"], h, cfg)
+
+
+# --- zamba2's shared block: GQA attention + GLU with per-invocation LoRA
+
+def shared_block_schema(cfg):
+    d, r = cfg.d_model, cfg.shared_lora_rank
+    n_inv = cfg.n_layers // cfg.attn_every
+    dt = cfg.param_dtype
+    return {
+        "block": attn_block_schema(cfg),
+        # per-invocation LoRA deltas on the block's input (stacked over
+        # the invocations)
+        "lora_a": ParamDef((n_inv, d, r), ("stack", "d_model", "lora"),
+                           dtype=dt, scale=0.02),
+        "lora_b": ParamDef((n_inv, r, d), ("stack", "lora", "d_model"),
+                           "zeros", dtype=dt),
+    }
+
+
+def shared_lora(p, x):
+    """The invocation's LoRA delta added to the shared block's input;
+    ``p`` is one invocation's view (``stack_layers``). Prefill, decode and
+    ``run_stack`` apply it before the block."""
+    return x + (x @ p["lora_a"].to(x.dtype)) @ p["lora_b"].to(x.dtype)
+
+
+def shared_block(p, x, cfg):
+    return attn_block(p["block"], shared_lora(p, x), cfg)
+
+
 # ---------------------------------------------------------------------------
 # the stack
 # ---------------------------------------------------------------------------
 
+class Block(NamedTuple):
+    """One kind of layer in a segment: its tree path, attention window,
+    kind ("dense", "dense_first", "moe": an attention block with that
+    FFN; "mamba"; "shared": zamba2's shared block), and ``inner``: the
+    layers of that kind a repeat runs on a second stack axis (zamba2's
+    segments of ``attn_every``), None for one layer."""
+    path: tuple
+    window: int | None = None
+    kind: str = "dense"
+    inner: int | None = None
+
+
 def _segments(cfg) -> list:
-    """The stack as ordered segments ``(repeats, kinds)``: each repeat
-    runs ``kinds``, a list of (tree path, window, ffn kind), in order.
-    The uniform stack is one segment of one kind (``{"layers": ...}``);
-    gemma2 one segment of (local, global) pairs (``{"pairs": {"local",
-    "global"}}``); the MoE stack ``first_k_dense`` layers of
-    ``dense_layers`` (ffn "dense_first"), then the rest of ``layers``
-    (ffn "moe"), as JAX lays them out."""
+    """The stack as ordered segments ``(repeats, blocks)``: each repeat
+    runs ``blocks``, a list of ``Block``, in order. The uniform stack is
+    one segment of one kind (``{"layers": ...}``); gemma2 one segment of
+    (local, global) pairs (``{"pairs": {"local", "global"}}``); the MoE
+    stack ``first_k_dense`` layers of ``dense_layers`` (kind
+    "dense_first"), then the rest of ``layers`` (kind "moe"); mamba2 one
+    segment of mamba layers; zamba2 ``n_layers // attn_every`` repeats of
+    (``attn_every`` mamba layers, the shared block), then the remaining
+    mamba layers of ``tail``; as JAX lays them out."""
+    if cfg.family == "ssm":
+        return [(cfg.n_layers, [Block(("layers",), kind="mamba")])]
+    if cfg.family == "hybrid":
+        n_seg = cfg.n_layers // cfg.attn_every
+        rem = cfg.n_layers - n_seg * cfg.attn_every
+        segs = [(n_seg, [Block(("segments",), kind="mamba",
+                               inner=cfg.attn_every),
+                         Block(("shared",), kind="shared")])]
+        return segs + ([(rem, [Block(("tail",), kind="mamba")])] if rem
+                       else [])
     if cfg.family == "moe" or cfg.n_experts:
         k = cfg.first_k_dense
-        segs = [(k, [(("dense_layers",), None, "dense_first")])] if k else []
-        return segs + [(cfg.n_layers - k, [(("layers",), None, "moe")])]
+        segs = [(k, [Block(("dense_layers",), kind="dense_first")])] if k \
+            else []
+        return segs + [(cfg.n_layers - k, [Block(("layers",), kind="moe")])]
     if cfg.layer_pattern == "local_global":
         assert cfg.n_layers % 2 == 0
-        return [(cfg.n_layers // 2, [(("pairs", "local"), cfg.window, "dense"),
-                                     (("pairs", "global"), None, "dense")])]
+        return [(cfg.n_layers // 2, [Block(("pairs", "local"), cfg.window),
+                                     Block(("pairs", "global"))])]
     window = cfg.window if cfg.layer_pattern == "local" else None
-    return [(cfg.n_layers, [(("layers",), window, "dense")])]
+    return [(cfg.n_layers, [Block(("layers",), window)])]
+
+
+def attention_layers(cfg) -> int:
+    """The attention blocks a forward runs: every layer of the attention
+    families, each shared-block invocation of the hybrid, none in mamba2."""
+    return sum(n * (b.inner or 1) for n, blocks in _segments(cfg)
+               for b in blocks if b.kind != "mamba")
 
 
 def _nest(items) -> dict:
@@ -188,47 +261,96 @@ def _at(tree: dict, path: tuple) -> dict:
 
 
 def stacked(cfg, block) -> dict:
-    """The layer-stacked tree of ``block(window, ffn)``, one per layer, in
-    ``_segments``' layout. Parameters and decode caches share it."""
+    """The layer-stacked tree of ``block(window, kind)``, one per layer,
+    in ``_segments``' layout (an inner stack axis where the kind has one,
+    then the repeats'). Parameters and decode caches share it; the shared
+    block's parameters are the one exception (``stack_schema_for``)."""
     check_ported(cfg)
-    return _nest((path, stack_schema(block(window, ffn), n))
-                 for n, kinds in _segments(cfg)
-                 for path, window, ffn in kinds)
+    items = []
+    for n, blocks in _segments(cfg):
+        for b in blocks:
+            tree = block(b.window, b.kind)
+            if b.inner is not None:
+                tree = stack_schema(tree, b.inner)
+            items.append((b.path, stack_schema(tree, n)))
+    return _nest(items)
+
+
+def _views(tree, i: int, inner: int | None) -> list:
+    """Repeat ``i``'s layers of a stacked tree (views, no copy)."""
+    t = layer(tree, i)
+    return [t] if inner is None else [layer(t, j) for j in range(inner)]
 
 
 def stack_layers(stack: dict, cfg, cache: dict | None = None):
-    """Yield (params, cache, window, ffn) of each layer in stack order,
-    views of the stacked trees (``cache`` None: None for each)."""
+    """Yield (params, cache, window, kind) of each layer in stack order,
+    views of the stacked trees (``cache`` None: None for each). The
+    shared block's params are invocation i's: the one block with the
+    i-th LoRA delta."""
     check_ported(cfg)
-    for n, kinds in _segments(cfg):
+    for n, blocks in _segments(cfg):
         for i in range(n):
-            for path, window, ffn in kinds:
-                yield (layer(_at(stack, path), i),
-                       None if cache is None else layer(_at(cache, path), i),
-                       window, ffn)
+            for b in blocks:
+                p = _at(stack, b.path)
+                if b.kind == "shared":
+                    ps = [{"block": p["block"], "lora_a": p["lora_a"][i],
+                           "lora_b": p["lora_b"][i]}]
+                else:
+                    ps = _views(p, i, b.inner)
+                cs = [None] * len(ps) if cache is None \
+                    else _views(_at(cache, b.path), i, b.inner)
+                for pl, cl in zip(ps, cs):
+                    yield pl, cl, b.window, b.kind
 
 
 def stack_trees(per_layer: list, cfg) -> dict:
     """Per-layer trees in stack order -> the stacked tree of ``stacked``'s
-    layout (a new stack axis in front of every leaf)."""
+    layout (new stack axes in front of every leaf)."""
+    def stack(trees):
+        return tree_map(lambda *ts: torch.stack(ts), *trees)
+
     items, off = [], 0
-    for n, kinds in _segments(cfg):
-        seg = per_layer[off:off + n * len(kinds)]
-        off += n * len(kinds)
-        items += [(path, tree_map(lambda *ts: torch.stack(ts),
-                                  *seg[j::len(kinds)]))
-                  for j, (path, _, _) in enumerate(kinds)]
+    for n, blocks in _segments(cfg):
+        widths = [b.inner or 1 for b in blocks]
+        per_repeat = sum(widths)
+        seg = per_layer[off:off + n * per_repeat]
+        off += n * per_repeat
+        start = 0
+        for b, w in zip(blocks, widths):
+            reps = [seg[r * per_repeat + start:r * per_repeat + start + w]
+                    for r in range(n)]
+            start += w
+            items.append((b.path, stack([t[0] if b.inner is None
+                                         else stack(t) for t in reps])))
     assert off == len(per_layer)
     return _nest(items)
 
 
+def block_schema(cfg, kind: str):
+    """One layer's parameters: a mamba block, or an attention block with
+    the FFN ``kind`` names (the shared block's: dense)."""
+    if kind == "mamba":
+        return mamba_block_schema(cfg)
+    return attn_block_schema(cfg, ffn="dense" if kind == "shared" else kind)
+
+
 def stack_schema_for(cfg) -> dict:
-    return stacked(cfg, lambda window, ffn: attn_block_schema(cfg, ffn=ffn))
+    s = stacked(cfg, lambda window, kind: block_schema(cfg, kind))
+    if cfg.family == "hybrid":
+        # one block for every invocation, a LoRA delta per invocation
+        s["shared"] = shared_block_schema(cfg)
+    return s
 
 
 def run_stack(params: dict, x, cfg, *, positions=None):
     """Full-sequence forward through the layer stack (train/prefill)."""
-    for p, _, window, ffn in stack_layers(params, cfg):
-        x = attn_block(p, x, cfg, window=window, encoder=cfg.encoder_only,
-                       ffn=ffn, positions=positions)
+    for p, _, window, kind in stack_layers(params, cfg):
+        if kind == "mamba":
+            x = mamba_block(p, x, cfg)
+        elif kind == "shared":
+            x = shared_block(p, x, cfg)
+        else:
+            x = attn_block(p, x, cfg, window=window,
+                           encoder=cfg.encoder_only, ffn=kind,
+                           positions=positions)
     return x

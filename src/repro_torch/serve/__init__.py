@@ -1,7 +1,7 @@
-"""Serving (src/repro/serve): prefill and decode over batched KV caches,
-the continuous batcher with lane admission and decode-time datastore
-growth, the retrieval scheduler, and kNN-LM retrieval over the port's
-graph. ``abstract_cache`` and ``cache_shardings`` wait for the mesh
+"""Serving (src/repro/serve): prefill and decode over batched KV, latent
+and SSM caches, the continuous batcher with lane admission and
+decode-time datastore growth, the retrieval scheduler, and kNN-LM
+retrieval over the port's graph. ``abstract_cache`` and ``cache_shardings`` wait for the mesh
 (ROADMAP.md, Queue 1, item 6)."""
 from repro_torch.serve.decode import (
     cache_schema,

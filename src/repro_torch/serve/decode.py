@@ -1,10 +1,14 @@
 """Serving: prefill and single-token decode with batched caches
-(src/repro/serve/decode.py), for the dense and MoE families.
+(src/repro/serve/decode.py), for the dense, MoE, SSM and hybrid families.
 
 The cache tree mirrors the parameter stack (``transformer.stacked``):
 {"layers": {"k", "v", "kpos"}}, gemma2's {"pairs": {"local": {...},
-"global": {...}}}, or the MoE stack's {"dense_layers": ..., "layers":
-...}, with the stack axis in front and batch at axis 1, as in JAX:
+"global": {...}}}, the MoE stack's {"dense_layers": ..., "layers": ...},
+mamba2's {"layers": {"conv", "state"}}, or zamba2's {"segments": {"conv",
+"state"}, "shared": {"k", "v", "kpos"}, "tail": {"conv", "state"}}, with
+the stack axis in front and batch at axis 1, as in JAX (zamba2's
+``segments`` carry two stack axes, (n_seg, attn_every), so batch is at
+axis 2; its ``shared`` cache is stacked over the invocations):
 
   * GQA linear cache  (n, B, max_len, Hkv, Dh) + kpos tags
   * GQA ring cache    (n, B, window,  Hkv, Dh) — local-window layers
@@ -13,11 +17,12 @@ The cache tree mirrors the parameter stack (``transformer.stacked``):
   * MLA latent cache  (n, B, max_len, kv_lora_rank) + (n, B, max_len,
     qk_rope_dim) + kpos tags — deepseek-v2's latent and shared rope key
     only, read by the weight-absorbed decode; always linear.
+  * SSM cache         conv tail (n, B, K-1, conv_dim) + state (n, B, H,
+    P, N) f32: O(1) in the sequence.
 
 ``serve_step`` updates the cache IN PLACE and returns it (JAX returns an
 updated copy); per-layer loops (``transformer.stack_layers``) take the
-place of ``lax.scan``. The SSM caches wait for their family (ROADMAP.md,
-Queue 1, item 7).
+place of ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -25,11 +30,13 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.model import embed_inputs, output_logits
 from repro_torch.models.params import init_tree, tree_map
 from repro_torch.models.transformer import (
     apply_norm,
     finish_block,
+    shared_lora,
     stack_layers,
     stack_trees,
     stacked,
@@ -37,11 +44,13 @@ from repro_torch.models.transformer import (
 
 
 def cache_schema(cfg, batch: int, max_len: int) -> dict:
-    if cfg.use_mla:
-        return stacked(cfg, lambda window, ffn: attn.mla_cache_schema(
-            cfg, batch, max_len))
-    return stacked(cfg, lambda window, ffn: attn.gqa_cache_schema(
-        cfg, batch, max_len, window=window))
+    def block(window, kind):
+        if kind == "mamba":
+            return ssm_mod.mamba_cache_schema(cfg, batch)
+        if cfg.use_mla:
+            return attn.mla_cache_schema(cfg, batch, max_len)
+        return attn.gqa_cache_schema(cfg, batch, max_len, window=window)
+    return stacked(cfg, block)
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
@@ -65,6 +74,21 @@ def _attn_block_decode(p, x, c, lengths, cfg, *, window=None, ffn="dense"):
     return finish_block(p, x, a, cfg, ffn), c2
 
 
+def _mamba_block_decode(p, x, c, cfg):
+    h = apply_norm(p["norm"], x, cfg)
+    y, c2 = ssm_mod.mamba_decode(p["mixer"], h, c, cfg)
+    return x + cfg.residual_multiplier * y, c2
+
+
+def _block_decode(p, x, c, lengths, cfg, window, kind):
+    if kind == "mamba":
+        return _mamba_block_decode(p, x, c, cfg)
+    if kind == "shared":
+        return _attn_block_decode(p["block"], shared_lora(p, x), c, lengths,
+                                  cfg)
+    return _attn_block_decode(p, x, c, lengths, cfg, window=window, ffn=kind)
+
+
 def decode_hidden(params, cache, tokens, lengths, cfg):
     """``serve_step`` up to the output head: (B, 1) tokens at positions
     ``lengths`` (B,) -> (the last layer's hidden state (B, 1, d_model),
@@ -74,9 +98,8 @@ def decode_hidden(params, cache, tokens, lengths, cfg):
     dev = params["embed"]["table"].device
     lengths = torch.as_tensor(lengths, device=dev)
     x = embed_inputs(params, {"tokens": tokens}, cfg)
-    for p, c, window, ffn in stack_layers(params["stack"], cfg, cache):
-        x, _ = _attn_block_decode(p, x, c, lengths, cfg, window=window,
-                                  ffn=ffn)
+    for p, c, window, kind in stack_layers(params["stack"], cfg, cache):
+        x, _ = _block_decode(p, x, c, lengths, cfg, window, kind)
     return x, cache
 
 
@@ -145,6 +168,22 @@ def _attn_block_prefill(p, x, cfg, max_len, *, window=None, ffn="dense",
     return finish_block(p, x, a, cfg, ffn), c
 
 
+def _mamba_block_prefill(p, x, cfg):
+    h = apply_norm(p["norm"], x, cfg)
+    y, c = ssm_mod.mamba_block(p["mixer"], h, cfg, return_cache=True)
+    return x + cfg.residual_multiplier * y, c
+
+
+def _block_prefill(p, x, cfg, max_len, window, kind, backend):
+    if kind == "mamba":
+        return _mamba_block_prefill(p, x, cfg)
+    if kind == "shared":
+        return _attn_block_prefill(p["block"], shared_lora(p, x), cfg,
+                                   max_len, backend=backend)
+    return _attn_block_prefill(p, x, cfg, max_len, window=window, ffn=kind,
+                               backend=backend)
+
+
 def prefill(params, batch, cfg, max_len: int, *, last_only: bool = False,
             backend: str = "auto"):
     """Full-sequence prefill. Returns (logits, cache, lengths); logits are
@@ -154,9 +193,8 @@ def prefill(params, batch, cfg, max_len: int, *, last_only: bool = False,
     x = embed_inputs(params, batch, cfg)
     b, seq = x.shape[0], x.shape[1]
     caches = []
-    for p, _, window, ffn in stack_layers(params["stack"], cfg):
-        x, c = _attn_block_prefill(p, x, cfg, max_len, window=window,
-                                   ffn=ffn, backend=backend)
+    for p, _, window, kind in stack_layers(params["stack"], cfg):
+        x, c = _block_prefill(p, x, cfg, max_len, window, kind, backend)
         caches.append(c)
     cache = stack_trees(caches, cfg)
     if last_only:
@@ -169,7 +207,11 @@ def prefill(params, batch, cfg, max_len: int, *, last_only: bool = False,
 
 def write_slot(cache: dict, i: int, one_cache: dict, length: int) -> dict:
     """Copy a one-request cache (batch 1, from ``prefill``) into slot ``i``
-    of the batched cache, in place; every leaf of every stack's tree has
-    the stack axis in front and batch at axis 1. Returns the cache."""
-    tree_map(lambda big, one: big[:, i].copy_(one[:, 0]), cache, one_cache)
+    of the batched cache, in place, leaving every other slot as it was.
+    Batch is at axis 2 of zamba2's ``segments`` leaves (two stack axes in
+    front) and at axis 1 of every other leaf. Returns the cache."""
+    for key in cache:
+        axis = 2 if key == "segments" else 1
+        tree_map(lambda big, one: big.select(axis, i).copy_(
+            one.select(axis, 0)), cache[key], one_cache[key])
     return cache

@@ -22,7 +22,9 @@ kernels bitwise (they only move values). Attention at f32 rtol/atol 2e-3
 atol 2e-3 (one bf16 rounding of the output, 2^-7 relative, on top), on
 the rows that see a key; rows that see none exactly 0. A smoke-config
 prefill through the kernel against the plain chunked scan within 2e-2 of
-the logit scale (tests/test_serve.py:53's bf16 limit).
+the logit scale (tests/test_serve.py:53's bf16 limit); the SSM / hybrid
+family's prefill and decode steps bit-equal when repeated, and a slot
+written into its batch axis bitwise.
 """
 
 import numpy as np
@@ -56,7 +58,7 @@ from repro_torch.core.quantize import quantize_corpus
 from repro_torch.kernels import _lib, ops
 from repro_torch.models import cast_matrices, init_tree, model_schema
 from repro_torch.models.params import tree_map, tree_paths
-from repro_torch.serve import prefill, serve_step
+from repro_torch.serve import init_cache, prefill, serve_step, write_slot
 
 pytestmark = pytest.mark.gpu
 
@@ -1459,3 +1461,85 @@ def test_moe_step_repeats_bit_for_bit(dev):
     (lg0, st0, c0), (lg1, st1, c1) = runs
     assert torch.equal(lg0, lg1) and torch.equal(st0, st1)
     assert all(torch.equal(c0[p], c1[p]) for p in c0)
+
+
+def _smoke_params(arch, dev):
+    cfg = get_smoke_config(arch)
+    schema = model_schema(cfg)
+    return cfg, cast_matrices(
+        init_tree(torch.Generator(device=dev).manual_seed(0), schema),
+        schema, cfg.act_dtype)
+
+
+def test_zamba2_smoke_prefill_through_kernel_matches_plain(dev):
+    """The zamba2-1.2b smoke config at its bf16 activations, seeded
+    weights, a ragged 150-token batch: prefill through the kernel (one
+    launch per shared-block invocation: MHA 8/8 at Dh 16) against the
+    plain chunked scan on the same card, within 2e-2 of the logit scale;
+    kpos tags equal."""
+    cfg, params = _smoke_params("zamba2-1.2b", dev)
+    toks = torch.randint(0, cfg.vocab, (2, 150), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    n_seg = cfg.n_layers // cfg.attn_every
+    before = _lib.LAUNCHES["flash_attention"]
+    got, gc, _ = prefill(params, {"tokens": toks}, cfg, 256)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["flash_attention"] - before == n_seg
+    want, wc, _ = prefill(params, {"tokens": toks}, cfg, 256, backend="ref")
+    assert _lib.LAUNCHES["flash_attention"] - before == n_seg
+    scale = want.abs().max()
+    assert float((got - want).abs().max() / scale) < 2e-2
+    assert torch.equal(gc["shared"]["kpos"], wc["shared"]["kpos"])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+def test_ssm_family_steps_repeat_bit_for_bit(dev, arch):
+    """The SSM / hybrid smoke configs at bf16 on the card: the same
+    prefill (77 tokens: a padded chunk) and 4 decode steps, twice, give
+    the same bits, logits and every cache leaf; every state finite."""
+    cfg, params = _smoke_params(arch, dev)
+    toks = torch.randint(0, cfg.vocab, (4, 81), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    runs = []
+    for _ in range(2):
+        lg, cache, lengths = prefill(params, {"tokens": toks[:, :77]}, cfg,
+                                     128)
+        steps = []
+        for i in range(77, 81):
+            st, cache = serve_step(params, cache, toks[:, i:i + 1], lengths,
+                                   cfg)
+            lengths = lengths + 1
+            steps.append(st)
+        torch.cuda.synchronize()
+        runs.append((lg, torch.stack(steps), tree_paths(cache)))
+    (lg0, st0, c0), (lg1, st1, c1) = runs
+    assert torch.equal(lg0, lg1) and torch.equal(st0, st1)
+    assert all(torch.equal(c0[p], c1[p]) for p in c0)
+    assert all(torch.isfinite(c0[p]).all() for p in c0
+               if p.endswith("state"))
+
+
+def test_write_slot_on_card_hybrid(dev):
+    """A zamba2 smoke request prefilled on the card and written into slot
+    3 of a 4-slot CUDA cache (3 is not below attn_every): each leaf lands
+    at its batch axis (2 for segments, 1 elsewhere), bitwise, and every
+    other slot keeps its bits."""
+    cfg, params = _smoke_params("zamba2-1.2b", dev)
+    big = init_cache(cfg, 4, 64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for leaf in tree_paths(big).values():
+        leaf.copy_(torch.randint(-9, 9, leaf.shape, device=dev,
+                                 generator=gen).to(leaf.dtype))
+    before = {p: t.clone() for p, t in tree_paths(big).items()}
+    toks = torch.randint(0, cfg.vocab, (1, 20), device=dev, generator=gen)
+    _, one, _ = prefill(params, {"tokens": toks}, cfg, 64)
+    write_slot(big, 3, one, 20)
+    torch.cuda.synchronize()
+    ones = tree_paths(one)
+    for path, leaf in tree_paths(big).items():
+        axis = 2 if path.startswith("segments/") else 1
+        assert leaf.is_cuda
+        assert torch.equal(leaf.select(axis, 3),
+                           ones[path].select(axis, 0).to(leaf.dtype))
+        assert torch.equal(leaf.narrow(axis, 0, 3),
+                           before[path].narrow(axis, 0, 3))

@@ -142,7 +142,8 @@ def test_rope_and_embed_match_jax(dtype):
 def test_configs_match_jax_value_for_value():
     assert list_archs() == ["codeqwen1.5-7b", "deepseek-v2-lite-16b",
                             "gemma2-27b", "granite-moe-3b-a800m",
-                            "starcoder2-3b", ARCH]
+                            "mamba2-130m", "starcoder2-3b", ARCH,
+                            "zamba2-1.2b"]
     for ours, theirs in ((get_config(ARCH), jget_config(ARCH)),
                          (get_smoke_config(ARCH), jget_smoke(ARCH))):
         a, b = dataclasses.asdict(ours), dataclasses.asdict(theirs)
@@ -260,10 +261,9 @@ def test_cast_matrices_changes_no_number():
 
 
 @pytest.mark.parametrize("change", [
-    dict(frontend="vision"), dict(family="hybrid"),
-    dict(family="ssm"), dict(family="audio", frontend="audio",
-                             encoder_only=True),
-    dict(frontend="audio")])
+    dict(frontend="vision"), dict(family="audio", frontend="audio",
+                                  encoder_only=True),
+    dict(frontend="audio")], ids=["change0", "change3", "change4"])
 def test_unported_families_raise(change):
     cfg = dataclasses.replace(get_smoke_config(ARCH), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, "
