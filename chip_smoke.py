@@ -13,8 +13,10 @@ mixed ring and linear cache; starcoder2-3b and codeqwen1.5-7b; the MoE
 family: granite-moe-3b-a800m, and deepseek-v2-lite-16b's MLA latent
 cache and weight-absorbed decode, served; the SSM / hybrid family:
 mamba2-130m's Mamba-2 stack, and zamba2-1.2b's mamba segments with the
-shared attention block, served). Run from the root of a checkout, on a
-machine with an H100:
+shared attention block, served; the audio and vision front ends:
+hubert-xlarge's bidirectional encoder over frames, and internvl2-1b's
+patch projector in front of its Qwen2 stack, served). Run from the root
+of a checkout, on a machine with an H100:
 
     python3 chip_smoke.py
 
@@ -329,12 +331,51 @@ script started (phases with several lanes print one line a lane):
                with the SSD scan under a profiler range (its device
                time), and one of 4 decode steps alone over 4 prefilled
                slots (launches a step);
+  frontend_check
+               hubert-xlarge (48 layers, d 1280, MHA 16/16 at Dh 80, no
+               rope, LayerNorm, GELU MLP, biases everywhere, vocab 504,
+               encoder-only; frames of 512 through one biased dense) and
+               internvl2-1b (the Qwen2-0.5B stack: 24 layers, d 896, GQA
+               14/2 at Dh 64, QKV biases, rope 1e6, tied vocab 151655;
+               256 patches of 1024 through fc1, tanh-GELU, fc2, ahead of
+               the tokens) at full width, each cut to 2 layers and loaded
+               after the model before it is freed, frames and patches
+               seeded on the card: hubert's forward over a 1237-frame
+               clip through the kernel and the plain attention within
+               2e-2 of the logit scale, a launch a layer, repeated
+               bit-equal, and bidirectional (the last frame redrawn
+               changes the first position's logits; the same weights as a
+               causal stack keep them bit for bit); internvl2's lm_check
+               on 256 patches + 1537 tokens (its decode steps against the
+               forward offset by the patches, kpos over the 1797
+               positions) and repeat_check with the patches;
+  audio_encode path 18: hubert-xlarge at full width and depth (reduced:
+               none), bf16: 8 clips of 500-1500 frames drawn from the
+               seed (10-30 s of 16 kHz speech at a 20 ms stride), each its
+               own forward at B = 1, then one batch of 4 clips of 1000:
+               seconds a clip beside its bound (operations: 2 a product
+               weight and frame, 2 (Dq + Dv) a pair and head over 989
+               TFLOP/s; or bytes), frames/s, peak memory; flash_attention
+               launched exactly 48 x 9 times; one clip's forward profiled
+               (launches a forward, idle share);
+  lm_vlm       path 19: internvl2-1b at full width and depth (reduced:
+               none), bf16: a ContinuousBatcher of 4 slots (max_len 2048)
+               whose prefill_fn (this script's own) prefills each of 8
+               requests' 64-1024 text tokens behind its own 256 seeded
+               patches and returns the length counting them, 32 new
+               tokens each: the lm_serve figures, the prefill lengths
+               (patches + tokens), the step's bound; flash_attention
+               launched exactly 24 x 8 times; then 4 text-only requests
+               through serve_requests (lane text_only); a window of 2
+               requests with 4 new tokens profiled, and 4 decode steps
+               alone over 4 prefilled slots (launches a step);
   profile      every path but truth once more under torch.profiler (and
                a window of lm_serve, lm_gemma2 and lm_deepseek: the first
                4 requests, 8 new tokens each; and lm_gemma2's and
                lm_deepseek's decode steps alone, 16 over 4 prefilled
-               slots; lm_zamba2's as that phase says): device time by
-               kernel name and the device's idle share;
+               slots; lm_zamba2's, audio_encode's and lm_vlm's as those
+               phases say): device time by kernel name and the device's
+               idle share;
   kernels      each kernel on the inputs a path gave it (recorded during
                that run), against its plain version: max error, kernel /
                plain / library times, the card's lower bound (and, for the
@@ -368,7 +409,11 @@ script started (phases with several lanes print one line a lane):
                Dq 192, Dv 128, scale 192^-0.5), of moe_check's granite
                second prefill layer (H 24/8, Dh 64, scale 1/128) and of
                lm_zamba2's second shared-block invocation (H 32/32, Dh 64,
-               scale 1/8), all three with scaled_dot_product_attention as
+               scale 1/8), of audio_encode's second layer of its first
+               (longest) clip (H 16/16, Dh 80, non-causal, scale 80^-0.5)
+               and of lm_vlm's second layer of its first request (H 14/2,
+               Dh 64, causal over 256 patches + text), all five with
+               scaled_dot_product_attention as
                their library row and the backend PyTorch's dispatcher picks for it named
                (torch._fused_sdp_choice), and at f32
                on attention_check's causal_gqa_32_4 inputs, with
@@ -401,7 +446,10 @@ lm_gemma2 (``call`` ``lm_gemma2:flash_attention:local`` and ``:global``,
 path 16), once for granite (``call`` ``moe_check:flash_attention``,
 ``launches``: its calls in moe_check's granite lm_check) and once for
 zamba2 (``call`` ``lm_zamba2:flash_attention``, ``launches``: its calls
-in path 17); ``call`` tells the entries apart. Last, {"ok": true, "device": ...}. Any failure
+in path 17), once for hubert (``call`` ``audio_encode:flash_attention``,
+``launches``: its calls in path 18) and once for internvl2 (``call``
+``lm_vlm:flash_attention``, ``launches``: its calls in path 19 with
+patches); ``call`` tells the entries apart. Last, {"ok": true, "device": ...}. Any failure
 raises, and the script exits non-zero. With no CUDA card, or without the
 repository's src/ beside it, it exits 2 and prints no result.
 """
@@ -478,7 +526,9 @@ CHECKED = {**{path: {name, "knn_join_select"} for path, name in OWNED.items()},
            "lm_gemma2": {"flash_attention"},
            "moe_check": {"flash_attention"},
            "lm_deepseek": {"flash_attention"},
-           "lm_zamba2": {"flash_attention"}}
+           "lm_zamba2": {"flash_attention"},
+           "audio_encode": {"flash_attention"},
+           "lm_vlm": {"flash_attention"}}
 CENTROID_KEY = "online:pairwise_sq_l2:centroid_assign"
 # recorded calls that join the kernels line after their kernel's own entry,
 # each with its own launches: the fp32 join of the kNN-LM's build (row 1a)
@@ -540,6 +590,25 @@ SSD_RANGE = "ssd_scan"
 # 12000 kernels and a decode step about 2900, so the window is 2 requests
 # with 4 new tokens each and the decode-only profile 4 steps
 ZAMBA_PROFILE_REQUESTS, ZAMBA_PROFILE_NEW, ZAMBA_DECODE_PROFILE = 2, 4, 4
+# frontend_check and paths 18-19: hubert-xlarge (precomputed audio frames,
+# encoder only: forward is its entry point) and internvl2-1b (256 vision
+# patches ahead of its Qwen2 stack), both at full width; the check cut to
+# 2 layers, the paths at full depth (reduced: none; the fp32 draws are
+# about 3.8 and 2.0 GB). Path 18: AUDIO_CLIPS clips of AUDIO_FRAMES frames
+# (10-30 s of 16 kHz speech at HuBERT's 20 ms stride), each its own
+# forward at B = 1, then one batch of AUDIO_BATCH clips of
+# AUDIO_BATCH_FRAMES. Path 19: LM_REQUESTS requests of 256 seeded patches
+# and VLM_TEXT_LENS text tokens, LM_MAX_NEW new tokens on LM_SLOTS slots,
+# then VLM_TEXT_REQUESTS text-only requests through serve_requests
+HUBERT_ARCH, VLM_ARCH, FRONTEND_LAYERS = "hubert-xlarge", "internvl2-1b", 2
+AUDIO_CHECK_FRAMES = 1237                   # ragged: no multiple of 64
+AUDIO_CLIPS, AUDIO_FRAMES = 8, (500, 1500)  # drawn from the seed, inclusive
+AUDIO_BATCH, AUDIO_BATCH_FRAMES = 4, 1000
+VLM_TEXT_LENS, VLM_MAX_LEN, VLM_TEXT_REQUESTS = (64, 1024), 2048, 4
+# path 19's profiles, cut as path 17's: a window of 2 requests with 4 new
+# tokens, and 4 decode steps alone
+VLM_PROFILE_REQUESTS, VLM_PROFILE_NEW, VLM_DECODE_PROFILE = 2, 4, 4
+FRONTEND_KEYS = ("audio_encode:flash_attention", "lm_vlm:flash_attention")
 KNN_SEQS, KNN_SEQ_LEN, KNN_K, KNN_BATCH = 16, 2048, 16, 4
 KNN_CHUNK, KNN_SNAPSHOT_EVERY = 64, 128     # knn_grow: insert, snapshot
 # retrieval: the interactive lane's queries and burst sizes, the deadline
@@ -1992,7 +2061,7 @@ def ring_kpos(slots: int, length: int):
 
 
 def lm_check(params, cfg, dev, n=LM_CHECK_LEN, seed=SEED + 9,
-             max_len=None) -> dict:
+             max_len=None, patches=None) -> dict:
     """The model's prefill logits of a ragged ``n``-token prompt and 4
     teacher-forced decode steps, through the kernel and through the plain
     chunked attention, held against each other; the kernel run's decode
@@ -2003,8 +2072,11 @@ def lm_check(params, cfg, dev, n=LM_CHECK_LEN, seed=SEED + 9,
     attention layer (``attention_layers``: none in mamba2, one per shared
     block invocation in zamba2). Where the model has mamba layers, every
     state of the kernel run's cache is finite after the 4 steps and every
-    conv tail equals the last K-1 pre-conv inputs of that layer in the
-    forward (within the decode limit)."""
+    conv tail equals the decode steps' own last K-1 pre-conv inputs of
+    that layer. With ``patches`` (1, P, frontend_dim), a vision model's
+    prefill and forward take them ahead of the tokens: the prefill's
+    logits and cache hold P + n positions, and the decode steps are held
+    against the forward's last 4 positions, offset by P."""
     import numpy as np
     import torch
     from repro_torch.kernels import _lib
@@ -2013,7 +2085,9 @@ def lm_check(params, cfg, dev, n=LM_CHECK_LEN, seed=SEED + 9,
     from repro_torch.models.params import tree_paths
     from repro_torch.serve import prefill, serve_step
     t = LM_CHECK_STEPS
-    max_len = max_len or n + t
+    extra = {} if patches is None else {"patches": patches}
+    n_pre = 0 if patches is None else patches.shape[1]
+    max_len = max_len or n_pre + n + t
     want_launches = transformer.attention_layers(cfg)
     toks = torch.from_numpy(np.random.RandomState(seed).randint(
         0, cfg.vocab, size=(1, n + t))).to(dev)
@@ -2030,8 +2104,9 @@ def lm_check(params, cfg, dev, n=LM_CHECK_LEN, seed=SEED + 9,
         before = _lib.LAUNCHES["flash_attention"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache, lengths = prefill(params, {"tokens": toks[:, :n]}, cfg,
-                                         max_len, backend=backend)
+        logits, cache, lengths = prefill(
+            params, {"tokens": toks[:, :n], **extra}, cfg, max_len,
+            backend=backend)
         steps = []
         ssm.in_proj = recorded if backend == "auto" else proj
         try:
@@ -2059,11 +2134,13 @@ def lm_check(params, cfg, dev, n=LM_CHECK_LEN, seed=SEED + 9,
                 params["stack"], cfg, cache) if kind == "mamba"]
         del cache
     x = transformer.run_stack(
-        params["stack"], embed_inputs(params, {"tokens": toks}, cfg), cfg)
+        params["stack"], embed_inputs(params, {"tokens": toks, **extra},
+                                      cfg), cfg)
     full = output_logits(params, x[:, -t:], cfg)
     del x
     kern, plain = runs["auto"], runs["ref"]
-    kpos_ok = {path: bool((tags == ring_kpos(tags.shape[-1], n + t)).all())
+    kpos_ok = {path: bool((tags == ring_kpos(tags.shape[-1],
+                                             n_pre + n + t)).all())
                for path, tags in kpos.items()}
     out = {
         "prefill_rel_err": rel_err(kern["prefill"], plain["prefill"]),
@@ -2101,7 +2178,8 @@ def lm_check(params, cfg, dev, n=LM_CHECK_LEN, seed=SEED + 9,
             or kern["launches"] != want_launches or plain["launches"] != 0
             or bool(kpos) != (want_launches > 0)
             or not all(kpos_ok.values())
-            or tuple(kern["prefill"].shape) != (1, n, cfg.vocab)):
+            or tuple(kern["prefill"].shape) != (1, n_pre + n, cfg.vocab)
+            or int(lengths[0]) != n_pre + n + t):
         raise AssertionError(f"lm_check ({cfg.arch}) failed: {out}")
     return out
 
@@ -2122,7 +2200,7 @@ def check_served(reqs, stats, launches, cfg, tag="lm_serve") -> None:
         raise AssertionError(f"{tag}: a request was not served in full")
     if not all(0 <= t < cfg.vocab for r in reqs for t in r.out):
         raise AssertionError(f"{tag}: a token outside the vocabulary")
-    want = attention_layers(cfg) * LM_REQUESTS
+    want = attention_layers(cfg) * len(reqs)
     if launches["flash_attention"] != want:
         raise AssertionError(f"{tag}: flash_attention launched "
                              f"{launches['flash_attention']} times, not "
@@ -2252,23 +2330,26 @@ def decode_steps(params, cfg, dev, seed, prompt_len, max_len,
     return run
 
 
-def repeat_check(params, cfg, dev, seed, n=LM_CHECK_LEN) -> dict:
-    """The same prefill of a seeded ``n``-token prompt and one decode step
-    on its cache, twice: bit-equal logits and cache leaves (the MoE
-    combine adds in a fixed order, no atomics). For an MLA model, also
-    the cache's bytes per token: the latent and the rope key (without the
-    int32 kpos tags) must be n_layers x (kv_lora_rank + qk_rope_dim) x
-    2 B."""
+def repeat_check(params, cfg, dev, seed, n=LM_CHECK_LEN,
+                 patches=None) -> dict:
+    """The same prefill of a seeded ``n``-token prompt (behind
+    ``patches``, where given) and one decode step on its cache, twice:
+    bit-equal logits and cache leaves (the MoE combine adds in a fixed
+    order, no atomics). For an MLA model, also the cache's bytes per
+    token: the latent and the rope key (without the int32 kpos tags) must
+    be n_layers x (kv_lora_rank + qk_rope_dim) x 2 B."""
     import numpy as np
     import torch
     from repro_torch.models.params import tree_paths
     from repro_torch.serve import prefill, serve_step
     toks = torch.from_numpy(np.random.RandomState(seed).randint(
         0, cfg.vocab, size=(1, n + 1))).to(dev)
+    extra = {} if patches is None else {"patches": patches}
+    n_pre = 0 if patches is None else patches.shape[1]
     runs = []
     for _ in range(2):
-        logits, cache, lengths = prefill(params, {"tokens": toks[:, :n]},
-                                         cfg, n + 1)
+        logits, cache, lengths = prefill(
+            params, {"tokens": toks[:, :n], **extra}, cfg, n_pre + n + 1)
         step, cache = serve_step(params, cache, toks[:, n:], lengths, cfg)
         torch.cuda.synchronize()
         runs.append((logits, step, tree_paths(cache)))
@@ -2367,16 +2448,16 @@ def moe_family_run(dev):
     return launches, recs
 
 
-def step_bytes(params, cfg) -> dict:
+def step_bytes(params, cfg, max_len=LM_MAX_LEN) -> dict:
     """A decode step's least bytes over the card's memory rate: every
     weight (matrices in bf16, vectors in f32) and the whole cache of
-    LM_SLOTS slots at LM_MAX_LEN read once: the mamba layers' f32 states
+    LM_SLOTS slots at ``max_len`` read once: the mamba layers' f32 states
     and conv tails, and the attention caches."""
     from repro_torch.models.params import bytes_params, tree_leaves, \
         tree_paths
     from repro_torch.serve import cache_schema
     p_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    cache = tree_paths(cache_schema(cfg, LM_SLOTS, LM_MAX_LEN))
+    cache = tree_paths(cache_schema(cfg, LM_SLOTS, max_len))
     ssm_bytes = bytes_params({p: d for p, d in cache.items()
                               if p.endswith(("conv", "state"))})
     c_bytes = bytes_params(cache)
@@ -2468,6 +2549,321 @@ def ssm_family_run(dev):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, rec
+
+
+def seeded_inputs(cfg, shape, seed: int, dev):
+    """Seeded N(0, 1) frames or patches, ``shape`` + (frontend_dim,), f32,
+    drawn on the card (the reference's front ends are stubs that take
+    precomputed embeddings; no checkpoint is in the repository)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(*shape, cfg.frontend_dim, generator=g, device=dev)
+
+
+def clip_lengths(seed: int = SEED + 90) -> list:
+    """AUDIO_CLIPS clip lengths in frames, drawn from the seed in
+    AUDIO_FRAMES (inclusive), the longest first: the recorder keeps the
+    second attention call, layer 1 of the first clip (row 11h)."""
+    import numpy as np
+    lens = np.random.RandomState(seed).randint(
+        AUDIO_FRAMES[0], AUDIO_FRAMES[1] + 1, size=AUDIO_CLIPS)
+    return sorted((int(n) for n in lens), reverse=True)
+
+
+def forward_bound(params, cfg, b: int, t: int) -> dict:
+    """The least time of an encoder forward over ``b`` clips of ``t``
+    frames, the larger of: its operations over the bf16 peak (2 a weight
+    of every product matrix and frame: the front end, q / k / v / o, the
+    MLP and the head; the token table is never read; and 2 (Dq + Dv) a
+    (q, k) pair and head, every pair seen: bidirectional), and its bytes
+    (every weight read once but the token table, the f32 frames read and
+    the f32 logits written once) over the memory rate."""
+    from repro_torch.models.params import tree_paths
+    leaves = tree_paths(params)
+    mat = sum(leaf.numel() for path, leaf in leaves.items()
+              if path.split("/")[-1] in ("w", "wq", "wk", "wv", "wo"))
+    attn = 2 * 2 * cfg.d_head * t * t * cfg.n_heads * cfg.n_layers
+    flops = b * (2 * t * mat + attn)
+    nbytes = sum(leaf.numel() * leaf.element_size()
+                 for path, leaf in leaves.items() if path != "embed/table") \
+        + b * t * 4 * (cfg.frontend_dim + cfg.vocab)
+    t_ops = flops / PEAK_BF16_PER_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"operations": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def encoder_check(params, cfg, dev, t=AUDIO_CHECK_FRAMES,
+                  seed=SEED + 91) -> dict:
+    """hubert's forward over one seeded clip of ``t`` frames through the
+    kernel and through the plain chunked attention (``backend="ref"``),
+    within LM_LIMIT of the logit scale of each other; flash_attention
+    launched once a layer by the kernel run, never by the plain one; the
+    kernel run again, bit-equal; bidirectional: the last frame replaced by
+    a fresh draw changes the first position's logits, while the same
+    weights run as a causal stack (``encoder_only`` off, the kernel's
+    causal mask) keep them bit for bit."""
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.models import forward
+    frames = seeded_inputs(cfg, (1, t), seed, dev)
+    other = frames.clone()
+    other[:, -1] = seeded_inputs(cfg, (1, 1), seed + 1, dev)[:, 0]
+    causal = dataclasses.replace(cfg, encoder_only=False)
+    runs = {}
+    for lane, c, backend, x in (
+            ("kernel", cfg, "auto", frames), ("plain", cfg, "ref", frames),
+            ("repeat", cfg, "auto", frames),
+            ("last_frame_changed", cfg, "auto", other),
+            ("causal", causal, "auto", frames),
+            ("causal_last_frame_changed", causal, "auto", other)):
+        before = _lib.LAUNCHES["flash_attention"]
+        logits, sec = timed(lambda: forward(params, {"frames": x}, c,
+                                            backend=backend))
+        runs[lane] = {"logits": logits, "seconds": sec,
+                      "launches": _lib.LAUNCHES["flash_attention"] - before}
+    kern, plain = runs["kernel"]["logits"], runs["plain"]["logits"]
+    scale = float(plain.abs().max())
+
+    def first_change(a, b):
+        return float((runs[a]["logits"][:, 0]
+                      - runs[b]["logits"][:, 0]).abs().max()) / scale
+    out = {
+        "rel_err": rel_err(kern, plain), "logit_scale": scale,
+        "argmax_agree": float((kern.argmax(-1) == plain.argmax(-1))
+                              .float().mean()),
+        "repeat_bit_equal": bool(torch.equal(kern,
+                                             runs["repeat"]["logits"])),
+        "first_position_change": first_change("last_frame_changed",
+                                              "kernel"),
+        "causal_first_position_change": first_change(
+            "causal_last_frame_changed", "causal"),
+        "seconds": {k: v["seconds"] for k, v in runs.items()},
+        "launches": {k: v["launches"] for k, v in runs.items()},
+        "limit": LM_LIMIT}
+    if (not torch.isfinite(kern).all() or out["rel_err"] > LM_LIMIT
+            or tuple(kern.shape) != (1, t, cfg.vocab)
+            or not out["repeat_bit_equal"]
+            or not out["first_position_change"] > 0
+            or out["causal_first_position_change"] != 0
+            or runs["plain"]["launches"] != 0
+            or any(v["launches"] != cfg.n_layers
+                   for k, v in runs.items() if k != "plain")):
+        raise AssertionError(f"frontend_check ({cfg.arch}) failed: {out}")
+    return out
+
+
+def audio_encode_run(params, cfg, clips, batch) -> dict:
+    """Path 18's traffic: each clip of ``clips`` (1, T, frontend_dim) its
+    own forward, then ``batch`` (AUDIO_BATCH, T, frontend_dim) in one;
+    each forward's seconds (host clock ended by a synchronize), and
+    whether every output is finite logits of its shape."""
+    import torch
+    from repro_torch.models import forward
+    clip_s, ok = [], True
+    for x in clips + [batch]:
+        logits, sec = timed(lambda: forward(params, {"frames": x}, cfg))
+        clip_s.append(sec)
+        ok = ok and bool(torch.isfinite(logits).all()) and tuple(
+            logits.shape) == (*x.shape[:2], cfg.vocab)
+    return {"clip_s": clip_s[:-1], "batch_s": clip_s[-1], "ok": ok}
+
+
+def vlm_serve(params, cfg, prompts, patches, *, max_new=LM_MAX_NEW,
+              max_len=VLM_MAX_LEN) -> tuple:
+    """serve_requests' run with a prefill of this script's own: a
+    ContinuousBatcher of LM_SLOTS slots over a ``max_len`` cache whose
+    prefill_fn prefills a request's tokens behind that request's
+    ``patches`` (n_patches, frontend_dim) and returns the length counting
+    them (the batcher's contract: last logits, one cache, length); decode
+    runs on tokens. The batcher admits in submission order (nothing is
+    shed), so the i-th prefill is the i-th prompt, which is checked.
+    Returns (requests, stats): serve_requests' stats, and each prefill's
+    ``lengths`` as prefill returned them."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import (ContinuousBatcher, Request, init_cache,
+                                   prefill, serve_step, write_slot)
+    dev = params["embed"]["table"].device
+    prefill_s, first_at, step_s, lengths = [], [], [], []
+    order = iter(range(len(prompts)))
+
+    def prefill_fn(prompt):
+        i = next(order)
+        if not np.array_equal(prompt[0], prompts[i]):
+            raise AssertionError("lm_vlm: a prefill out of submission order")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, one, n = prefill(
+            params, {"tokens": torch.from_numpy(prompt).to(dev),
+                     "patches": patches[i][None]}, cfg, max_len,
+            last_only=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill_s.append(t1 - t0)
+        first_at.append(t1)
+        lengths.append(n)
+        return logits, one, prompt.shape[1] + patches[i].shape[0]
+
+    def step_fn(cache, tokens, lengths_):
+        t0 = time.perf_counter()
+        logits, cache = serve_step(params, cache, tokens.to(dev),
+                                   lengths_.to(dev), cfg)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return logits, cache
+
+    reqs = [Request(rid=i, prompt=np.asarray(p, np.int32), max_new=max_new)
+            for i, p in enumerate(prompts)]
+    bat = ContinuousBatcher(LM_SLOTS, step_fn, prefill_fn, write_slot)
+    for r in reqs:
+        bat.submit(r)
+    cache = init_cache(cfg, LM_SLOTS, max_len, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bat.run(cache)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    decode_tokens = sum(len(r.out) - 1 for r in reqs)
+    decode_s = sum(step_s)
+    return reqs, {
+        "requests": len(reqs), "tokens": sum(len(r.out) for r in reqs),
+        "wall_s": wall, "prefill_s": prefill_s,
+        "ttft_s": [t - t0 for t in first_at], "decode_steps": bat.steps,
+        "decode_s": decode_s, "decode_tokens": decode_tokens,
+        "decode_tokens_per_s": decode_tokens / decode_s if decode_s
+        else None,
+        "lengths": [int(n[0]) for n in lengths]}
+
+
+def frontend_family_run(dev):
+    """The audio and vision front ends at full width, each model loaded
+    after the one before is freed: frontend_check (hubert-xlarge, then
+    internvl2-1b, each cut to 2 layers), then path 18 (audio_encode:
+    hubert-xlarge at full depth, driven, then one clip's forward
+    profiled) and path 19 (lm_vlm: internvl2-1b at full depth, served
+    with patches, then text-only through serve_requests; a window and its
+    decode steps profiled). Returns {tag: launches} and {tag: recorder}
+    for paths 18 and 19."""
+    import torch
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import forward
+    launches, recs = {}, {}
+    # frontend_check: hubert's encoder (bidirectional, MHA 16/16 at Dh 80)
+    h_cfg, params, fields = load_cut(HUBERT_ARCH, FRONTEND_LAYERS, dev)
+    emit("frontend_check", **fields, frames=AUDIO_CHECK_FRAMES,
+         **encoder_check(params, h_cfg, dev))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # internvl2's patch prefix (GQA 14/2 at Dh 64, causal over L')
+    v_cfg, params, fields = load_cut(VLM_ARCH, FRONTEND_LAYERS, dev)
+    patches = seeded_inputs(v_cfg, (1, v_cfg.n_patches), SEED + 93, dev)
+    emit("frontend_check", **fields, patches=v_cfg.n_patches,
+         prompt=LM_CHECK_LEN, steps=LM_CHECK_STEPS,
+         **lm_check(params, v_cfg, dev, seed=SEED + 94, patches=patches),
+         repeat=repeat_check(params, v_cfg, dev, SEED + 95,
+                             patches=patches))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- audio_encode: path 18, hubert-xlarge at full depth
+    h_cfg, params, fields = load_cut(HUBERT_ARCH, None, dev)
+    emit("lm_model", **fields, memory_allocated=torch.cuda.memory_allocated(),
+         cfg={k: str(v) for k, v in dataclasses.asdict(h_cfg).items()})
+    lens = clip_lengths()
+    clips = [seeded_inputs(h_cfg, (1, n), SEED + 100 + i, dev)
+             for i, n in enumerate(lens)]
+    batch = seeded_inputs(h_cfg, (AUDIO_BATCH, AUDIO_BATCH_FRAMES),
+                          SEED + 99, dev)
+    res, wall, launches["audio_encode"], peak, recs["audio_encode"] = drive(
+        "audio_encode", lambda: audio_encode_run(params, h_cfg, clips, batch))
+    require_launched("audio_encode", launches["audio_encode"],
+                     {"flash_attention"})
+    want = h_cfg.n_layers * (AUDIO_CLIPS + 1)
+    if not res["ok"] or launches["audio_encode"]["flash_attention"] != want:
+        raise AssertionError(f"audio_encode: outputs ok {res['ok']}, "
+                             f"flash_attention launched "
+                             f"{launches['audio_encode']['flash_attention']}"
+                             f" times, not {want}")
+    prof = profile_run(lambda: forward(params, {"frames": clips[0]}, h_cfg))
+    emit("profile", path="audio_encode",
+         window=f"one forward of {lens[0]} frames", **prof)
+    clip_bounds = [forward_bound(params, h_cfg, 1, n)["bound_ms"]
+                   for n in lens]
+    emit("audio_encode", arch=HUBERT_ARCH, reduced="none",
+         clip_frames=lens, clip_s=res["clip_s"],
+         seconds_per_clip=statistics.mean(res["clip_s"]),
+         frames_per_s=sum(lens) / sum(res["clip_s"]),
+         clip_bound_ms=clip_bounds,
+         clip_s_over_bound=[s * 1e3 / b for s, b in
+                            zip(res["clip_s"], clip_bounds)],
+         batch=[AUDIO_BATCH, AUDIO_BATCH_FRAMES], batch_s=res["batch_s"],
+         batch_frames_per_s=AUDIO_BATCH * AUDIO_BATCH_FRAMES / res["batch_s"],
+         batch_bound=forward_bound(params, h_cfg, AUDIO_BATCH,
+                                   AUDIO_BATCH_FRAMES),
+         forward_bound_t1000=forward_bound(params, h_cfg, 1,
+                                           AUDIO_BATCH_FRAMES),
+         wall_s=wall, max_memory_allocated=peak,
+         launches=launches["audio_encode"],
+         launches_per_forward=prof["device_kernel_calls"],
+         device_idle_share=prof["device_idle_share"])
+    del params, clips, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- lm_vlm: path 19, internvl2-1b at full depth, served with patches
+    v_cfg, params, fields = load_cut(VLM_ARCH, None, dev)
+    emit("lm_model", **fields, memory_allocated=torch.cuda.memory_allocated(),
+         cfg={k: str(v) for k, v in dataclasses.asdict(v_cfg).items()})
+    prompts = lm_prompts(v_cfg, VLM_TEXT_LENS, SEED + 96)
+    pts = [seeded_inputs(v_cfg, (v_cfg.n_patches,), SEED + 110 + i, dev)
+           for i in range(len(prompts))]
+    (reqs, stats), wall, launches["lm_vlm"], peak, recs["lm_vlm"] = drive(
+        "lm_vlm", lambda: vlm_serve(params, v_cfg, prompts, pts))
+    check_served(reqs, stats, launches["lm_vlm"], v_cfg, "lm_vlm")
+    want = [v_cfg.n_patches + len(p) for p in prompts]
+    if stats["lengths"] != want:
+        raise AssertionError(f"lm_vlm: prefill lengths {stats['lengths']}, "
+                             f"not {want} (patches + tokens)")
+    emit("lm_vlm", arch=VLM_ARCH, reduced="none", slots=LM_SLOTS,
+         max_len=VLM_MAX_LEN, requests=LM_REQUESTS, max_new=LM_MAX_NEW,
+         patches=v_cfg.n_patches, prefill_lengths=stats["lengths"],
+         **served_fields(prompts, stats, wall),
+         max_memory_allocated=peak, launches=launches["lm_vlm"],
+         **step_bytes(params, v_cfg, VLM_MAX_LEN))
+    # text-only requests through the server's own path (no patches)
+    t_prompts = lm_prompts(v_cfg, VLM_TEXT_LENS,
+                           SEED + 97)[:VLM_TEXT_REQUESTS]
+    (treqs, tstats), twall, tlaunches, tpeak, _ = drive(
+        "lm_vlm_text", lambda: serve_requests(
+            params, v_cfg, t_prompts, slots=LM_SLOTS, max_len=VLM_MAX_LEN,
+            max_new=LM_MAX_NEW))
+    check_served(treqs, tstats, tlaunches, v_cfg, "lm_vlm text_only")
+    emit("lm_vlm", lane="text_only", arch=VLM_ARCH, slots=LM_SLOTS,
+         max_len=VLM_MAX_LEN, requests=VLM_TEXT_REQUESTS,
+         max_new=LM_MAX_NEW, **served_fields(t_prompts, tstats, twall),
+         max_memory_allocated=tpeak, launches=tlaunches)
+    emit("profile", path="lm_vlm",
+         window=f"{VLM_PROFILE_REQUESTS} requests, {VLM_PROFILE_NEW} new "
+                "tokens",
+         **profile_run(lambda: vlm_serve(
+             params, v_cfg, prompts[:VLM_PROFILE_REQUESTS], pts,
+             max_new=VLM_PROFILE_NEW)))
+    prof = profile_run(decode_steps(params, v_cfg, dev, SEED + 98,
+                                    v_cfg.n_patches + VLM_TEXT_LENS[1],
+                                    VLM_MAX_LEN, VLM_DECODE_PROFILE))
+    emit("profile", path="lm_vlm:decode",
+         window=f"{LM_SLOTS} slots at {v_cfg.n_patches + VLM_TEXT_LENS[1]} "
+                f"tokens, {VLM_DECODE_PROFILE} decode steps",
+         launches_per_step=prof["device_kernel_calls"] / VLM_DECODE_PROFILE,
+         **prof)
+    del reqs, stats, treqs, tstats, params, pts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, recs
 
 
 def knn_lm_run(params, cfg, dev, entry_seed: int):
@@ -4044,6 +4440,9 @@ def main() -> int:
     launches.update(moe_launches)
     recs.update(moe_recs)
     launches["lm_zamba2"], recs["lm_zamba2"] = ssm_family_run(dev)
+    fe_launches, fe_recs = frontend_family_run(dev)
+    launches.update(fe_launches)
+    recs.update(fe_recs)
 
     # -- kernels: each against its plain version on the recorded inputs
     owner = {"pairwise_sq_l2": "truth", "knn_search_dists": "search",
@@ -4102,7 +4501,7 @@ def main() -> int:
                 **e, "launches": e["launches_at_this_key"]}
         if key in FURTHER_ROWS.get(name, ()):
             further[key] = {**e, "launches": e["launches_at_this_key"]}
-        if key in (*GEMMA_KEYS, *MOE_KEYS, *ZAMBA_KEYS):
+        if key in (*GEMMA_KEYS, *MOE_KEYS, *ZAMBA_KEYS, *FRONTEND_KEYS):
             further[key] = {**e, "launches": e["launches_at_this_key"]}
         # the line keeps one entry per kernel, from the path that owns
         # it; the build's widest select (the receiver select) and the
@@ -4114,7 +4513,7 @@ def main() -> int:
         if name not in entries or width_of(e) > width_of(entries[name]):
             entries[name] = e
     missing = [k for keys in (*FURTHER_ROWS.values(), GEMMA_KEYS, MOE_KEYS,
-                              ZAMBA_KEYS)
+                              ZAMBA_KEYS, FRONTEND_KEYS)
                for k in keys if k not in further]
     missing += [k for k in LATE_KEYS if k.split(":")[1] not in late]
     if missing:
@@ -4136,7 +4535,7 @@ def main() -> int:
         if n == "flash_attention":
             line.append(f32)
             line.extend(further[k] for k in (*GEMMA_KEYS, *MOE_KEYS,
-                                             *ZAMBA_KEYS))
+                                             *ZAMBA_KEYS, *FRONTEND_KEYS))
         if n == "knn_join_select":
             # every other recorded (W, c), with that width's launches
             for wc, e in sorted(selects.items(),

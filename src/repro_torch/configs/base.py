@@ -8,12 +8,14 @@ Shapes (LM family: seq_len x global_batch):
     decode_32k   32_768 x 128  -> serve_step (1 token, 32k KV cache)
     long_500k    524_288 x 1   -> serve_step; sub-quadratic attention only
 
-Only the architectures the port serves register (the dense family:
+All ten architectures of the JAX package register (the dense family:
 yi-6b, gemma2-27b, starcoder2-3b, codeqwen1.5-7b; the MoE family:
 deepseek-v2-lite-16b with MLA, granite-moe-3b-a800m; the SSM / hybrid
-family: mamba2-130m, zamba2-1.2b); the dry-run's
-``input_specs`` / ``batch_specs`` wait with ``launch/`` (ROADMAP.md,
-Queue 1, item 8).
+family: mamba2-130m, zamba2-1.2b; the front ends: hubert-xlarge's audio
+frames, internvl2-1b's vision patches). The dry-run's ``input_specs`` /
+``batch_specs`` (the frames' and patches' shapes among them) are not
+here: they come with ``launch/``'s dry-run (ROADMAP.md, Queue 1,
+item 8).
 """
 from __future__ import annotations
 
@@ -152,11 +154,10 @@ class ModelConfig:
 
 _REGISTRY: dict[str, ModelConfig] = {}
 _SMOKE: dict[str, ModelConfig] = {}
-# the architectures the port serves; the others wait for their families
-# (ROADMAP.md, Queue 1, item 7)
+# the config modules, one per architecture
 _PORTED = ("yi_6b", "gemma2_27b", "starcoder2_3b", "codeqwen15_7b",
            "deepseek_v2_lite", "granite_moe_3b", "mamba2_130m",
-           "zamba2_1p2b")
+           "zamba2_1p2b", "hubert_xlarge", "internvl2_1b")
 
 
 def register(cfg: ModelConfig, smoke: ModelConfig) -> ModelConfig:

@@ -17,7 +17,10 @@ mamba2-130m (24 Mamba-2 layers, attention-free: a conv tail and an f32
 state a layer, O(1) in the sequence) or zamba2-1.2b (38 Mamba-2 layers in
 segments of 6, each followed by one shared attention + GLU block with a
 per-invocation LoRA delta, whose 6 invocations keep linear KV caches of
-``--max-len``).
+``--max-len``); of the vision front end internvl2-1b, on text-only
+prompts (a ``Request`` carries no patches, as in the JAX CLI; a prefill
+with patches is ``serve.decode.prefill``'s). The encoder-only
+hubert-xlarge has no decode and is refused, as the JAX CLI refuses it.
 
 Runs on the CUDA card unless ``--device`` names another. There are no
 published weights in the repository, so the parameters are drawn from

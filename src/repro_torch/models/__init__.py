@@ -1,7 +1,10 @@
 """The LM stack of the port (src/repro/models): the dense GQA family, the
-MoE family (deepseek-v2's MLA, granite's GQA), and the SSM / hybrid
-family (Mamba-2's SSD, ``ssm``; zamba2's shared block) that serving runs;
-the attention core reaches the hand-written kernel on a card."""
+MoE family (deepseek-v2's MLA, granite's GQA), the SSM / hybrid family
+(Mamba-2's SSD, ``ssm``; zamba2's shared block) that serving runs, and
+the audio and vision front ends (hubert-xlarge's bidirectional encoder
+over frames, ``forward`` only; internvl2-1b's patch projector in front of
+its Qwen2 stack, served); the attention core reaches the hand-written
+kernel on a card."""
 from repro_torch.models.model import (
     active_param_count,
     embed_inputs,

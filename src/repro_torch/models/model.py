@@ -1,23 +1,32 @@
-"""Top-level LM: embedding, layer stack, final norm, output head
-(src/repro/models/model.py), for the token-input dense, MoE, SSM
-(mamba2) and hybrid (zamba2) families, and the parameter counts
-(``active_param_count``: the MoE's per-token share; every parameter of
-the other families, zamba2's shared block counted once). The audio and
-vision front ends and ``loss_fn`` (training) wait for their slices:
-ROADMAP.md, Queue 1, item 7.
+"""Top-level LM: embedding and the modality front ends, layer stack,
+final norm, output head (src/repro/models/model.py), for every family
+of the JAX package: the token-input dense, MoE, SSM (mamba2) and hybrid
+(zamba2) families, hubert's audio encoder (precomputed frames through
+one biased dense, no token table read) and internvl2's vision prefix
+(patches through a two-layer projector, prefixed to the tokens), and
+the parameter counts (``active_param_count``: the MoE's per-token
+share; every parameter of the other families, zamba2's shared block
+counted once). ``loss_fn`` (training) waits for its slice: ROADMAP.md,
+Queue 1, item 7.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import transformer
-from repro_torch.models.layers import embed_schema, matmul_f32, softcap
+from repro_torch.models.layers import (
+    dense,
+    dense_schema,
+    embed_schema,
+    matmul_f32,
+    softcap,
+)
 from repro_torch.models.params import ParamDef, count_params
 from repro_torch.models.transformer import apply_norm, norm_schema
 
 
 def model_schema(cfg) -> dict:
-    transformer.check_ported(cfg)
     dt = cfg.param_dtype
     s: dict = {
         "embed": embed_schema(cfg.vocab, cfg.d_model, dt),
@@ -29,19 +38,48 @@ def model_schema(cfg) -> dict:
             "w": ParamDef((cfg.vocab, cfg.d_model), ("vocab", "d_model"),
                           dtype=dt)
         }
+    if cfg.frontend == "audio":
+        s["frontend"] = dense_schema(
+            cfg.frontend_dim, cfg.d_model, ("frontend", "d_model"),
+            bias=True, dtype=dt)
+    elif cfg.frontend == "vision":
+        # 2-layer MLP projector (internvl's mlp1)
+        s["frontend"] = {
+            "fc1": dense_schema(cfg.frontend_dim, cfg.d_model,
+                                ("frontend", "d_model"), bias=True, dtype=dt),
+            "fc2": dense_schema(cfg.d_model, cfg.d_model,
+                                ("d_model", None), bias=True, dtype=dt),
+        }
     return s
 
 
 def embed_inputs(params: dict, batch: dict, cfg) -> torch.Tensor:
-    """Token embedding -> (B, L, d) activations in ``cfg.act_dtype``."""
+    """Token / frame / patch embedding -> (B, L', d) activations in
+    ``cfg.act_dtype``. Audio: ``batch["frames"]`` (B, T, frontend_dim)
+    through the front end's dense, in place of the tokens. Vision: where
+    the batch has ``patches`` (B, n_patches, frontend_dim), fc1, tanh-GELU
+    in f32, fc2, prefixed to the tokens' embeddings (patch 0 is position
+    0); a text-only batch is embedded as tokens alone. Frames and patches
+    are moved to the parameters' device and cast to the activation
+    dtype."""
     dt = cfg.act_dtype
     table = params["embed"]["table"]
+    if cfg.frontend == "audio":
+        frames = torch.as_tensor(batch["frames"], device=table.device)
+        return dense(params["frontend"], frames.to(dt))
     tokens = torch.as_tensor(batch["tokens"], device=table.device).long()
     x = table.to(dt)[tokens]
     if cfg.embed_scale is not None:
         x = x * torch.tensor(cfg.embed_scale, dtype=dt)
     if cfg.embedding_multiplier != 1.0:
         x = x * torch.tensor(cfg.embedding_multiplier, dtype=dt)
+    if cfg.frontend == "vision" and "patches" in batch:
+        fe = params["frontend"]
+        p = torch.as_tensor(batch["patches"], device=table.device).to(dt)
+        p = dense(fe["fc1"], p)
+        p = F.gelu(p.float(), approximate="tanh").to(dt)
+        p = dense(fe["fc2"], p)
+        x = torch.cat([p, x], dim=1)             # patches prefix the text
     return x
 
 
@@ -59,10 +97,13 @@ def output_logits(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     return softcap(logits, cfg.final_softcap)
 
 
-def forward(params: dict, batch: dict, cfg) -> torch.Tensor:
-    """Full-sequence forward -> fp32 logits (B, L, vocab)."""
+def forward(params: dict, batch: dict, cfg, *,
+            backend: str = "auto") -> torch.Tensor:
+    """Full-sequence forward -> fp32 logits (B, L', vocab); the encoder's
+    only entry point. ``backend`` "ref" runs the plain attention on a
+    card (the kernel's yardstick), as ``serve.decode.prefill`` takes it."""
     x = embed_inputs(params, batch, cfg)
-    x = transformer.run_stack(params["stack"], x, cfg)
+    x = transformer.run_stack(params["stack"], x, cfg, backend=backend)
     return output_logits(params, x, cfg)
 
 

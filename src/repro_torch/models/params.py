@@ -15,8 +15,9 @@ logical axes, initializer). From that schema come:
                             the numbers are the same)
 
 The layer stack keeps JAX's leading ``stack`` axis; the port's per-layer
-loops index it (a view, no copy). The sharding trees wait for a mesh
-(ROADMAP.md, Queue 1, item 7).
+loops index it (a view, no copy). The front ends' ``frontend`` subtree
+is carried like any other (its matrices cast, its biases kept fp32). The
+sharding trees wait for a mesh (ROADMAP.md, Queue 1, item 7d).
 """
 from __future__ import annotations
 

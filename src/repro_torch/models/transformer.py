@@ -13,9 +13,12 @@ followed by ONE shared attention + GLU block (``{"shared": {"block",
 invocation, its LoRA delta is indexed by the invocation), then a mamba
 tail (``{"tail": ...}``) when ``attn_every`` does not divide
 ``n_layers``. Attention is MLA where ``cfg.use_mla`` (deepseek-v2), else
-GQA. Parameters keep JAX's leading ``stack`` axes and tree paths; a
-Python loop over the layers (``stack_layers``) takes the place of
-``lax.scan`` (the port runs eagerly, so there is nothing to keep small).
+GQA, bidirectional in the encoder (hubert: ``cfg.encoder_only``); the
+audio and vision front ends run the uniform stack behind their
+embeddings (``model.embed_inputs``). Parameters keep JAX's leading
+``stack`` axes and tree paths; a Python loop over the layers
+(``stack_layers``) takes the place of ``lax.scan`` (the port runs
+eagerly, so there is nothing to keep small).
 """
 from __future__ import annotations
 
@@ -37,19 +40,6 @@ from repro_torch.models.layers import (
     rmsnorm_schema,
 )
 from repro_torch.models.params import ParamDef, tree_map
-
-_FAMILIES = "the port serves the dense, MoE, SSM and hybrid families " \
-            "(global, local, local_global, first-k-dense + MoE, mamba or " \
-            "mamba + shared-attention layers, GQA or MLA); {what} is not " \
-            "ported yet: ROADMAP.md, Queue 1, item 7"
-
-
-def check_ported(cfg) -> None:
-    """Raise for an architecture outside the ported families."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(_FAMILIES.format(
-            what=f"the {cfg.frontend} front end"))
-
 
 # ---------------------------------------------------------------------------
 # schema utilities
@@ -102,7 +92,6 @@ def apply_ffn(p, x, cfg):
 def attn_block_schema(cfg, *, ffn: str = "dense"):
     """One attention block: MLA or GQA, and the FFN ``ffn`` ("dense",
     "dense_first": the first-k-dense width ``dense_d_ff``, or "moe")."""
-    check_ported(cfg)
     s = {
         "norm1": norm_schema(cfg),
         "attn": attn.mla_schema(cfg) if cfg.use_mla else attn.gqa_schema(cfg),
@@ -137,15 +126,17 @@ def finish_block(p, x, a, cfg, ffn: str = "dense"):
 
 
 def attn_block(p, x, cfg, *, window=None, encoder=False, ffn="dense",
-               positions=None):
+               positions=None, backend="auto"):
     h = apply_norm(p["norm1"], x, cfg)
     if cfg.use_mla:
         a = attn.mla_attention(p["attn"], h, cfg, positions=positions,
-                               triangle=cfg.triangle_schedule)
+                               triangle=cfg.triangle_schedule,
+                               backend=backend)
     else:
         a = attn.gqa_attention(p["attn"], h, cfg, window=window,
                                positions=positions, encoder=encoder,
-                               triangle=cfg.triangle_schedule)
+                               triangle=cfg.triangle_schedule,
+                               backend=backend)
     return finish_block(p, x, a, cfg, ffn)
 
 
@@ -183,8 +174,8 @@ def shared_lora(p, x):
     return x + (x @ p["lora_a"].to(x.dtype)) @ p["lora_b"].to(x.dtype)
 
 
-def shared_block(p, x, cfg):
-    return attn_block(p["block"], shared_lora(p, x), cfg)
+def shared_block(p, x, cfg, backend="auto"):
+    return attn_block(p["block"], shared_lora(p, x), cfg, backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +256,6 @@ def stacked(cfg, block) -> dict:
     in ``_segments``' layout (an inner stack axis where the kind has one,
     then the repeats'). Parameters and decode caches share it; the shared
     block's parameters are the one exception (``stack_schema_for``)."""
-    check_ported(cfg)
     items = []
     for n, blocks in _segments(cfg):
         for b in blocks:
@@ -287,7 +277,6 @@ def stack_layers(stack: dict, cfg, cache: dict | None = None):
     views of the stacked trees (``cache`` None: None for each). The
     shared block's params are invocation i's: the one block with the
     i-th LoRA delta."""
-    check_ported(cfg)
     for n, blocks in _segments(cfg):
         for i in range(n):
             for b in blocks:
@@ -342,15 +331,17 @@ def stack_schema_for(cfg) -> dict:
     return s
 
 
-def run_stack(params: dict, x, cfg, *, positions=None):
-    """Full-sequence forward through the layer stack (train/prefill)."""
+def run_stack(params: dict, x, cfg, *, positions=None, backend="auto"):
+    """Full-sequence forward through the layer stack (train/prefill);
+    bidirectional attention where ``cfg.encoder_only``. ``backend`` "ref"
+    runs the plain attention on a card (the kernel's yardstick)."""
     for p, _, window, kind in stack_layers(params, cfg):
         if kind == "mamba":
             x = mamba_block(p, x, cfg)
         elif kind == "shared":
-            x = shared_block(p, x, cfg)
+            x = shared_block(p, x, cfg, backend)
         else:
             x = attn_block(p, x, cfg, window=window,
                            encoder=cfg.encoder_only, ffn=kind,
-                           positions=positions)
+                           positions=positions, backend=backend)
     return x

@@ -1,5 +1,9 @@
 """Serving: prefill and single-token decode with batched caches
-(src/repro/serve/decode.py), for the dense, MoE, SSM and hybrid families.
+(src/repro/serve/decode.py), for the dense, MoE, SSM and hybrid families
+and internvl2's vision prefix: a prefill of ``{"tokens", "patches"}``
+caches the patch positions first (patch 0 at position 0), its
+``lengths`` count them, and decode runs on tokens. The encoder (hubert)
+has no decode: ``model.forward`` is its entry point.
 
 The cache tree mirrors the parameter stack (``transformer.stacked``):
 {"layers": {"k", "v", "kpos"}}, gemma2's {"pairs": {"local": {...},

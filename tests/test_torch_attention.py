@@ -230,6 +230,12 @@ SM90_MODES = {
     "dh_80": (1, 257, 257, 8, 2, 80, 80, dict(causal=True)),
     "no_key_rows": (2, 70, 40, 4, 2, 32, 32,
                     dict(causal=True, window=16, q_offset=20)),
+    # hubert-xlarge's encoder (MHA 16/16, Dh 80: a second, zero-filled
+    # 64-column panel; non-causal, a ragged L: only the tail tile masks)
+    # and internvl2-1b's 7:1 head group (14 / 2 at Dh 64, causal)
+    "hubert_noncausal_dh80": (1, 203, 203, 16, 16, 80, 80,
+                              dict(causal=False)),
+    "internvl2_gqa_14_2": (1, 300, 300, 14, 2, 64, 64, dict(causal=True)),
 }
 
 

@@ -22,9 +22,10 @@ kernels bitwise (they only move values). Attention at f32 rtol/atol 2e-3
 atol 2e-3 (one bf16 rounding of the output, 2^-7 relative, on top), on
 the rows that see a key; rows that see none exactly 0. A smoke-config
 prefill through the kernel against the plain chunked scan within 2e-2 of
-the logit scale (tests/test_serve.py:53's bf16 limit); the SSM / hybrid
-family's prefill and decode steps bit-equal when repeated, and a slot
-written into its batch axis bitwise.
+the logit scale (tests/test_serve.py:53's bf16 limit), the front ends'
+too (hubert's forward, internvl2's prefill with patches); the SSM /
+hybrid family's prefill and decode steps bit-equal when repeated, and a
+slot written into its batch axis bitwise.
 """
 
 import numpy as np
@@ -56,7 +57,12 @@ from repro_torch.core import (
 )
 from repro_torch.core.quantize import quantize_corpus
 from repro_torch.kernels import _lib, ops
-from repro_torch.models import cast_matrices, init_tree, model_schema
+from repro_torch.models import (
+    cast_matrices,
+    forward,
+    init_tree,
+    model_schema,
+)
 from repro_torch.models.params import tree_map, tree_paths
 from repro_torch.serve import init_cache, prefill, serve_step, write_slot
 
@@ -1227,6 +1233,11 @@ ATTN_BF16_SHAPES = {
         causal=True, window=1024, softcap=50.0, scale=144.0 ** -0.5)),
     "gemma2_global": (1, 1100, 1100, 32, 16, 128, 128, dict(
         causal=True, softcap=50.0, scale=144.0 ** -0.5)),
+    # hubert-xlarge's encoder: MHA 16/16 at Dh 80 (two 64-column panels),
+    # non-causal over a ragged clip; internvl2-1b's 7:1 head group (14 / 2
+    # at Dh 64) over 256 patches + text, causal
+    "hubert_encoder": (1, 1203, 1203, 16, 16, 80, 80, dict(causal=False)),
+    "internvl2_prefill": (1, 1291, 1291, 14, 2, 64, 64, dict(causal=True)),
 }
 
 
@@ -1235,8 +1246,8 @@ def test_attention_kernel_bf16_shapes(dev, case):
     """The bf16 (wgmma) kernel at the recorded prefill, at Dh 256 and 80
     and at Dq 48 / Dv 32 (TMA zero-fills the panels past D), with a kv ring
     much longer than its stages, at B 2 with q_offset, at B*H past 65535,
-    and at gemma2's head layout with and without its window: against the
-    plain version, at the bf16 limit."""
+    at gemma2's head layout with and without its window, and at hubert's
+    and internvl2's: against the plain version, at the bf16 limit."""
     b, lq, lk, h, hkv, dq, dv, kw = ATTN_BF16_SHAPES[case]
     g = torch.Generator(device=dev).manual_seed(lq + lk)
     q = torch.randn(b, lq, h, dq, generator=g, device=dev).bfloat16()
@@ -1543,3 +1554,38 @@ def test_write_slot_on_card_hybrid(dev):
                            ones[path].select(axis, 0).to(leaf.dtype))
         assert torch.equal(leaf.narrow(axis, 0, 3),
                            before[path].narrow(axis, 0, 3))
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "internvl2-1b"])
+def test_frontend_smoke_through_kernel_matches_plain(dev, arch):
+    """The front ends' smoke configs at their bf16 activations, seeded
+    weights: hubert's forward over 150 seeded frames (bidirectional, MHA
+    8/8 at Dh 16) and internvl2's prefill of 150 tokens behind 16 seeded
+    patches (GQA 7/1), through the kernel (one launch per layer) against
+    the plain chunked scan on the same card, within 2e-2 of the logit
+    scale; the VLM's lengths count the patches and its kpos tags are
+    equal."""
+    cfg, params = _smoke_params(arch, dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    before = _lib.LAUNCHES["flash_attention"]
+    if arch == "hubert-xlarge":
+        batch = {"frames": torch.randn(2, 150, cfg.frontend_dim, device=dev,
+                                       generator=g)}
+        got = forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        assert _lib.LAUNCHES["flash_attention"] - before == cfg.n_layers
+        want = forward(params, batch, cfg, backend="ref")
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 150), device=dev,
+                                         generator=g),
+                 "patches": torch.randn(2, cfg.n_patches, cfg.frontend_dim,
+                                        device=dev, generator=g)}
+        got, gc, lengths = prefill(params, batch, cfg, 256)
+        torch.cuda.synchronize()
+        assert _lib.LAUNCHES["flash_attention"] - before == cfg.n_layers
+        want, wc, _ = prefill(params, batch, cfg, 256, backend="ref")
+        assert lengths.tolist() == [cfg.n_patches + 150] * 2
+        assert torch.equal(gc["layers"]["kpos"], wc["layers"]["kpos"])
+    assert _lib.LAUNCHES["flash_attention"] - before == cfg.n_layers
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max() / want.abs().max()) < 2e-2

@@ -19,6 +19,7 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.configs import get_smoke_config as jget_smoke
+from repro.configs import list_archs as jlist_archs
 from repro.models import forward as jforward
 from repro.models import init_tree as jinit_tree
 from repro.models import layers as jl
@@ -140,10 +141,11 @@ def test_rope_and_embed_match_jax(dtype):
 # ---------------------------------------------------------------------------
 
 def test_configs_match_jax_value_for_value():
-    assert list_archs() == ["codeqwen1.5-7b", "deepseek-v2-lite-16b",
-                            "gemma2-27b", "granite-moe-3b-a800m",
-                            "mamba2-130m", "starcoder2-3b", ARCH,
-                            "zamba2-1.2b"]
+    # every architecture of the JAX package is registered
+    assert list_archs() == jlist_archs() == [
+        "codeqwen1.5-7b", "deepseek-v2-lite-16b", "gemma2-27b",
+        "granite-moe-3b-a800m", "hubert-xlarge", "internvl2-1b",
+        "mamba2-130m", "starcoder2-3b", ARCH, "zamba2-1.2b"]
     for ours, theirs in ((get_config(ARCH), jget_config(ARCH)),
                          (get_smoke_config(ARCH), jget_smoke(ARCH))):
         a, b = dataclasses.asdict(ours), dataclasses.asdict(theirs)
@@ -258,14 +260,3 @@ def test_cast_matrices_changes_no_number():
     toks = torch.from_numpy(_tokens(cfg))
     assert torch.equal(forward(p, {"tokens": toks}, cfg),
                        forward(c, {"tokens": toks}, cfg))
-
-
-@pytest.mark.parametrize("change", [
-    dict(frontend="vision"), dict(family="audio", frontend="audio",
-                                  encoder_only=True),
-    dict(frontend="audio")], ids=["change0", "change3", "change4"])
-def test_unported_families_raise(change):
-    cfg = dataclasses.replace(get_smoke_config(ARCH), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, "
-                       "item 7"):
-        model_schema(cfg)
