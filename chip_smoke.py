@@ -15,8 +15,11 @@ cache and weight-absorbed decode, served; the SSM / hybrid family:
 mamba2-130m's Mamba-2 stack, and zamba2-1.2b's mamba segments with the
 shared attention block, served; the audio and vision front ends:
 hubert-xlarge's bidirectional encoder over frames, and internvl2-1b's
-patch projector in front of its Qwen2 stack, served). Run from the root
-of a checkout, on a machine with an H100:
+patch projector in front of its Qwen2 stack, served), and the training
+path (the synthetic token pipeline ordered by the paper's greedy reorder
+over a k-NN graph of the documents, loss_fn, AdamW, the guarded step and
+loop, checkpoints and the fault policy; yi-6b). Run from the root of a
+checkout, on a machine with an H100:
 
     python3 chip_smoke.py
 
@@ -369,6 +372,46 @@ script started (phases with several lanes print one line a lane):
                through serve_requests (lane text_only); a window of 2
                requests with 4 new tokens profiled, and 4 decode steps
                alone over 4 prefilled slots (launches a step);
+  train_check  yi-6b at full width cut to 1 layer (about 0.70 G fp32
+               parameters), weights from seed 0 as the train CLI draws
+               them. Lane grads: one step's loss and gradients on the
+               card against the same step on the CPU (1 x 256 tokens, f32
+               activations, TF32 off), each leaf's error over its scale
+               within 1e-4. Lane semantic_order: over the first 16384
+               documents of path 20's corpus, through the kernels and
+               through their plain versions on the same draws: the
+               permutations (where they differ, the graphs must agree in
+               0.99 of their slots), and one sampled iteration from the
+               same init and draws, its lists held as compare_lists holds
+               them. Lane checkpoint: TrainLoop with an async
+               Checkpointer (every 2) over batches of 2 x 512; the
+               step-2 checkpoint (about 8.4 GB, under build/, removed
+               after) loads bit-equal to the state kept on the card; two
+               steps from it give the first run's losses within 1e-4
+               (bitwise or not, printed); a corrupted batch (its
+               embeddings NaN) is skipped with params and state
+               bit-equal; three in a row through FaultPolicy roll back to
+               the step-2 checkpoint bit-equal; bytes, host copy, commit
+               and load seconds. Lane attention_under_grad: the f32 and
+               bf16 attention kernels raise under autograd (naming the
+               plain path) and launch nothing, and launch under no_grad;
+  train        path 20: 65536 documents of the synthetic source (vocab
+               64000), each embedded by mean_pool_embeddings (d_proj 64)
+               from its first 64 tokens (a shorter document repeated from
+               its start), drawn by 8 worker processes; semantic_order
+               (k 10) on the card through the build's kernels: build
+               seconds, iterations, dist_evals, in-block fraction before
+               and after; a TokenPipeline in that order at seq 4096 x
+               batch 4 (loss_chunk 2048: two CE chunks) feeding 6 AdamW
+               steps of 2 microbatches through TrainLoop on yi-6b at full
+               width cut from 32 to 8 layers, fp32 parameters, bf16
+               activations, the plain attention: the losses (finite, the
+               last below the first, none skipped), seconds a step,
+               tokens/s, model FLOPs (6 x tokens x the multiplying
+               weights) over 989 TFLOP/s and the attention's fp32 FLOPs
+               over 67 beside the step, peak memory; flash_attention
+               never launched; one more step profiled (device only:
+               launches a step, idle share);
   profile      every path but truth once more under torch.profiler (and
                a window of lm_serve, lm_gemma2 and lm_deepseek: the first
                4 requests, 8 new tokens each; and lm_gemma2's and
@@ -449,7 +492,9 @@ zamba2 (``call`` ``lm_zamba2:flash_attention``, ``launches``: its calls
 in path 17), once for hubert (``call`` ``audio_encode:flash_attention``,
 ``launches``: its calls in path 18) and once for internvl2 (``call``
 ``lm_vlm:flash_attention``, ``launches``: its calls in path 19 with
-patches); ``call`` tells the entries apart. Last, {"ok": true, "device": ...}. Any failure
+patches), and knn_join_dists, knn_join_select (each width) and knn_merge
+once more each on path 20's semantic_order build (``launches``: that
+key's calls in path 20); ``call`` tells the entries apart. Last, {"ok": true, "device": ...}. Any failure
 raises, and the script exits non-zero. With no CUDA card, or without the
 repository's src/ beside it, it exits 2 and prints no result.
 """
@@ -458,6 +503,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -528,7 +574,8 @@ CHECKED = {**{path: {name, "knn_join_select"} for path, name in OWNED.items()},
            "lm_deepseek": {"flash_attention"},
            "lm_zamba2": {"flash_attention"},
            "audio_encode": {"flash_attention"},
-           "lm_vlm": {"flash_attention"}}
+           "lm_vlm": {"flash_attention"},
+           "train": {"knn_join_dists", "knn_join_select", "knn_merge"}}
 CENTROID_KEY = "online:pairwise_sq_l2:centroid_assign"
 # recorded calls that join the kernels line after their kernel's own entry,
 # each with its own launches: the fp32 join of the kNN-LM's build (row 1a)
@@ -609,6 +656,31 @@ VLM_TEXT_LENS, VLM_MAX_LEN, VLM_TEXT_REQUESTS = (64, 1024), 2048, 4
 # tokens, and 4 decode steps alone
 VLM_PROFILE_REQUESTS, VLM_PROFILE_NEW, VLM_DECODE_PROFILE = 2, 4, 4
 FRONTEND_KEYS = ("audio_encode:flash_attention", "lm_vlm:flash_attention")
+# train_check and path 20: the training path on yi-6b at full width, its
+# depth cut from 32 to 8 layers (as lm_gemma2's and lm_deepseek's; the
+# fp32 params, grads, microbatch accumulator and AdamW moments of 8 layers
+# are about 38 GB beside the activations), train_check's to 1 (a
+# checkpoint of about 8.4 GB). The corpus: TRAIN_DOCS documents of the
+# synthetic source, each embedded by mean_pool_embeddings from its first
+# TRAIN_DOC_TOKENS tokens (a shorter document repeated from its start to
+# fill them), ordered by semantic_order (k TRAIN_K) on the card, then fed
+# by a TokenPipeline at TRAIN_SEQ x TRAIN_BATCH (loss_chunk 2048 splits
+# the CE in two) to TRAIN_STEPS AdamW steps of TRAIN_MICRO microbatches
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_CHECK_LAYERS = "yi-6b", 8, 1
+TRAIN_DOCS, TRAIN_DOC_TOKENS, TRAIN_D_PROJ, TRAIN_K = 65536, 64, 64, 10
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4096, 4, 2, 6
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 1
+# train_check: the card's gradients against the CPU's at f32 activations
+# (1 x TRAIN_GRAD_SEQ tokens) within TRAIN_GRAD_LIMIT of each leaf's scale
+# (the CPU tests' bar against JAX); semantic_order through the kernels
+# against its plain versions on the same draws over the first
+# TRAIN_ORDER_DOCS documents; the checkpoint, resume, guard and rollback
+# lanes at TRAIN_CKPT_BATCH x TRAIN_CKPT_SEQ, resumed losses within
+# TRAIN_RESUME_LIMIT relative
+TRAIN_GRAD_SEQ, TRAIN_GRAD_LIMIT = 256, 1e-4
+TRAIN_ORDER_DOCS = 16384
+TRAIN_CKPT_BATCH, TRAIN_CKPT_SEQ, TRAIN_RESUME_LIMIT = 2, 512, 1e-4
+TRAIN_KERNELS = ("knn_join_dists", "knn_join_select", "knn_merge")
 KNN_SEQS, KNN_SEQ_LEN, KNN_K, KNN_BATCH = 16, 2048, 16, 4
 KNN_CHUNK, KNN_SNAPSHOT_EVERY = 64, 128     # knn_grow: insert, snapshot
 # retrieval: the interactive lane's queries and burst sizes, the deadline
@@ -879,12 +951,13 @@ class Recorder:
         return out
 
 
-def profile_run(run, top: int = 12, ranges=()) -> dict:
+def profile_run(run, top: int = 12, ranges=(), host_ops: bool = True) -> dict:
     """One more run of a path under ``torch.profiler``: device time by
     kernel name, the device kernels launched, and the device's busy share
     of the (profiled) wall time; for each name in ``ranges`` (a
     ``record_function`` range the run opens, ``ranged``), the device time
-    of the kernels launched inside it.
+    of the kernels launched inside it. ``host_ops`` False traces the
+    device alone (about half the events to process, no ranges).
     The profiler's own cost lengthens the wall time, so the idle share is
     an upper bound."""
     import torch
@@ -893,8 +966,10 @@ def profile_run(run, top: int = 12, ranges=()) -> dict:
 
     from repro_torch.kernels import _lib
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -2866,6 +2941,496 @@ def frontend_family_run(dev):
     return launches, recs
 
 
+def doc_heads(span):
+    """Documents [start, stop) of the synthetic source (vocabulary
+    ``vocab``, seed SEED), each cut to its first TRAIN_DOC_TOKENS tokens;
+    a shorter document is repeated from its start to fill them
+    (``np.resize``). Runs in a worker process."""
+    start, stop, vocab = span
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    from repro_torch.data import SyntheticLMSource
+    src = SyntheticLMSource(vocab, SEED)
+    return np.stack([np.resize(src.doc(i), TRAIN_DOC_TOKENS)
+                     for i in range(start, stop)])
+
+
+def corpus_embeddings(vocab: int):
+    """(TRAIN_DOCS, TRAIN_D_PROJ) float32 embeddings of the corpus's
+    documents (``mean_pool_embeddings`` of ``doc_heads``) and the seconds
+    they took. The documents are drawn by a pool of worker processes
+    (one numpy RandomState a document, about 0.4 ms each on one core),
+    closed before this returns."""
+    import multiprocessing
+
+    import numpy as np
+    from repro_torch.data import mean_pool_embeddings
+    t0 = time.perf_counter()
+    spans = [(s, min(s + 4096, TRAIN_DOCS), vocab)
+             for s in range(0, TRAIN_DOCS, 4096)]
+    with multiprocessing.get_context("spawn").Pool(
+            min(os.cpu_count() or 1, 8)) as pool:
+        heads = np.concatenate(pool.map(doc_heads, spans))
+    emb = mean_pool_embeddings(heads, d_proj=TRAIN_D_PROJ, vocab=vocab,
+                               seed=SEED)
+    return emb, time.perf_counter() - t0
+
+
+def train_params(n_layers: int, dev):
+    """TRAIN_ARCH at full width cut to ``n_layers``, its fp32 parameters
+    drawn from seed 0 as the train CLI draws them (no bf16 cast: the
+    optimizer updates fp32 masters), and the phase fields."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_tree, model_schema, param_count
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    (params), init_s = timed(lambda: init_tree(
+        torch.Generator(device=dev).manual_seed(0), model_schema(cfg)))
+    return cfg, params, {
+        "arch": TRAIN_ARCH,
+        "reduced": {"n_layers": [full.n_layers, n_layers]},
+        "params": param_count(cfg), "init_s": init_s}
+
+
+def train_config(steps: int = TRAIN_STEPS, microbatches: int = TRAIN_MICRO):
+    from repro_torch.train import OptimizerConfig, TrainConfig
+    return TrainConfig(microbatches=microbatches, opt=OptimizerConfig(
+        lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=steps))
+
+
+def token_batches(cfg, n: int, seq: int, batch: int, order=None) -> list:
+    """The first ``n`` batches of a TokenPipeline over the corpus."""
+    from repro_torch.data import DataConfig, TokenPipeline
+    it = iter(TokenPipeline(
+        DataConfig(seq_len=seq, global_batch=batch, vocab=cfg.vocab,
+                   seed=SEED, prefetch=0),
+        process_index=0, process_count=1, order=order))
+    return [next(it) for _ in range(n)]
+
+
+def train_flops(cfg, batch: int, seq: int) -> dict:
+    """A train step's work, the function's and the plain scan's own.
+    Model FLOPs: 6 x tokens x the weights that multiply (every matrix but
+    the embedding table, which is gathered). Of them the layers' run
+    bf16 on the tensor cores and the head's fp32 (``matmul_f32``, TF32
+    off). The attention's: 2 (Dq + Dv) a visible (q, k) pair and head,
+    three times (the forward, the backward's two products of each kind),
+    over the causal pairs. The bound: the layers' over 989 TFLOP/s plus
+    the head's and the attention's over 67. Beside it, what the plain
+    step runs on top: its chunked scan visits every (q, kv) block of the
+    rectangle (yi-6b sets no triangle schedule and no window) and runs
+    each forward twice (once more under the block checkpoints), and each
+    CE chunk's head product runs again under its checkpoint."""
+    import numpy as np
+    from repro_torch.models import model_schema
+    from repro_torch.models.params import is_matrix, tree_paths
+    assert not cfg.triangle_schedule and cfg.window is None
+    mats = {path: int(np.prod(d.shape)) for path, d in
+            tree_paths(model_schema(cfg)).items()
+            if is_matrix(d) and path != "embed/table"}
+    head = mats.pop("lm_head/w")
+    tokens = batch * seq
+    layers = 6 * tokens * sum(mats.values())
+    head_flops = 6 * tokens * head
+    pair = 2 * (2 * cfg.d_head) * batch * cfg.n_heads * cfg.n_layers
+    attn = 3 * pair * seq * (seq + 1) // 2
+    chunked = seq > cfg.loss_chunk and seq % cfg.loss_chunk == 0
+    return {"layer_weights": sum(mats.values()), "head_weights": head,
+            "model_flops": layers + head_flops,
+            "layer_flops_bf16": layers, "head_flops_fp32": head_flops,
+            "attention_flops_fp32": attn,
+            "plain_scan_attention_flops_fp32": 4 * pair * seq * seq,
+            "plain_head_recompute_flops_fp32":
+                2 * tokens * head if chunked else 0,
+            "bound_s": layers / PEAK_BF16_PER_S
+            + (head_flops + attn) / PEAK_FP32_PER_S}
+
+
+def leaves_of(tree) -> list:
+    from repro_torch.train.checkpoint import _leaf_paths
+    return [t for _, t in _leaf_paths(tree)]
+
+
+def same_leaves(got, want) -> bool:
+    import torch
+    a, b = leaves_of(got), leaves_of(want)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+class poisoned_batches:
+    """While open, every batch's embeddings come out NaN (a corrupted
+    batch injected into ``models.model.loss_fn``, which looks
+    ``embed_inputs`` up at call time)."""
+
+    def __enter__(self):
+        from repro_torch.models import model as model_mod
+        self.mod, self.fn = model_mod, model_mod.embed_inputs
+        model_mod.embed_inputs = lambda *a, **kw: \
+            self.fn(*a, **kw) * float("nan")
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.embed_inputs = self.fn
+
+
+def train_grad_check(params, cfg) -> dict:
+    """One step's loss and gradients on the card against the same step on
+    the CPU: 1 x TRAIN_GRAD_SEQ tokens at f32 activations (TF32 off on the
+    card), each leaf's max error over its max |grad| on the CPU."""
+    import torch
+    from repro_torch.models import loss_fn
+    from repro_torch.models.params import tree_map, tree_paths
+    f32 = dataclasses.replace(cfg, act_dtype=torch.float32)
+    (batch,) = token_batches(cfg, 1, TRAIN_GRAD_SEQ, 1)
+    got = {}
+    for where, p in (("cuda", params),
+                     ("cpu", tree_map(lambda t: t.cpu(), params))):
+        leaves = list(tree_paths(p).values())
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            t0 = time.perf_counter()
+            loss, _ = loss_fn(p, batch, f32)
+            grads = torch.autograd.grad(loss, leaves)
+            seconds = time.perf_counter() - t0
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+        got[where] = (float(loss), [g.cpu() for g in grads], seconds)
+        del p, leaves, grads
+    names = list(tree_paths(params))
+    errs = {n: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for n, a, b in zip(names, got["cuda"][1], got["cpu"][1])}
+    loss_err = abs(got["cuda"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    out = {"tokens": TRAIN_GRAD_SEQ, "loss": {"cuda": got["cuda"][0],
+                                              "cpu": got["cpu"][0]},
+           "loss_rel_err": loss_err, "grad_rel_err": errs,
+           "worst_grad_rel_err": max(errs.values()),
+           "limit": TRAIN_GRAD_LIMIT,
+           "seconds": {"cuda": got["cuda"][2], "cpu": got["cpu"][2]}}
+    if loss_err > TRAIN_GRAD_LIMIT or out["worst_grad_rel_err"] > \
+            TRAIN_GRAD_LIMIT:
+        raise AssertionError(f"train_check grads: {out}")
+    return out
+
+
+def train_order_check(emb, dev) -> dict:
+    """semantic_order's build and reorder over the first TRAIN_ORDER_DOCS
+    documents through the kernels and through their plain versions on
+    the same draws, one build each: the permutations, equal or not
+    (NN-Descent is chaotic: a near-tie that two orders of summation break
+    apart in one iteration changes the candidates of the next, so whole
+    builds part in a few percent of their slots); the two graphs' slot
+    agreement and recall against an exact k-NN, within 0.01 of each
+    other (build_check's bar); and one sampled iteration of the same
+    build from the same init and draws both ways, the lists held as
+    ``compare_lists`` holds them (ids exact but where entries of equal
+    distance are ordered differently)."""
+    import torch
+    from repro_torch import recall_at_k
+    from repro_torch.core import heap, nn_descent, selection
+    from repro_torch.core.layout import pad_features
+    from repro_torch.core.nn_descent import BuildDraws, DescentConfig
+    from repro_torch.data.ordering import order_from_graph
+    from repro_torch.kernels import _lib
+    x = emb[:TRAIN_ORDER_DOCS].to(dev)
+    n, k = x.shape[0], TRAIN_K
+    g = torch.Generator(device=dev).manual_seed(SEED + 120)
+    draws = BuildDraws(
+        torch.randint(0, n, (n, k), generator=g, device=dev,
+                      dtype=torch.int32),
+        [tuple(torch.rand(2 * n * k, generator=g, device=dev)
+               for _ in range(3)) for _ in range(8)])
+    truth = exact_knn(x, k)
+    out, orders, graphs = {"docs": n, "k": k}, {}, {}
+    for backend in ("auto", "plain"):
+        # semantic_order's build and its reorder, split to keep the graph
+        cfg = DescentConfig(k=k, rho=1.0, max_iters=8, reorder=False,
+                            backend=backend)
+        _lib.reset_launches()
+        (dist, graphs[backend], st), sec = timed(
+            lambda: nn_descent.build_knn_graph(x, k, cfg=cfg, draws=draws,
+                                               device=dev))
+        launches = {kk: v for kk, v in _lib.LAUNCHES.items() if v}
+        orders[backend], locality = order_from_graph(dist, graphs[backend])
+        out[backend] = {"build_s": sec, "build_iters": st.iters,
+                        "dist_evals": st.dist_evals, **locality,
+                        "launches": launches,
+                        "recall": recall_at_k(graphs[backend], truth)}
+    require_launched("train_check order",
+                     {**dict.fromkeys(_lib.KERNELS, 0),
+                      **out["auto"]["launches"]}, TRAIN_KERNELS)
+    if out["plain"]["launches"]:
+        raise AssertionError(f"the plain semantic_order launched: {out}")
+    differ = orders["auto"] != orders["plain"]
+    out["order_equal"] = not differ.any()
+    out["order_positions_differing"] = int(differ.sum())
+    if differ.any():
+        out["first_differing_position"] = int(differ.argmax())
+    out["graph_slots_equal"] = float(
+        (graphs["auto"] == graphs["plain"]).float().mean())
+    out["recall_gap"] = abs(out["auto"]["recall"] - out["plain"]["recall"])
+    if out["recall_gap"] > 0.01:
+        raise AssertionError(f"train_check order: recalls differ: {out}")
+    # one iteration from one init and one set of draws, both ways
+    xp = pad_features(x).contiguous()
+    x2 = (xp * xp).sum(1)
+    nl0 = heap.init_random_with_dists(xp, k, idx=draws.init)
+    cands = selection.selection_turbo(nl0, k, draws=draws.iters[0])
+    ids = torch.cat([cands.new_idx, cands.old_idx], 1)
+    src = int(torch.bincount(ids[ids >= 0].long()).max())
+    lists = {}
+    for backend in ("auto", "plain"):
+        cfg = DescentConfig(k=k, rho=1.0, join_src=src, backend=backend)
+        lists[backend], upd, ev = nn_descent.nn_descent_iteration(
+            xp, x2, nl0, cfg, draws=draws.iters[0])
+        out[f"iteration_{backend}"] = {"updates": upd, "evals": ev}
+    out["iteration_kernels_vs_plain"] = compare_lists(
+        lists["auto"], lists["plain"], x2)
+    return out
+
+
+def train_checkpoint_check(params, cfg, dev) -> dict:
+    """The checkpoint, resume, guard and rollback lanes on TRAIN_CKPT_BATCH
+    x TRAIN_CKPT_SEQ batches: two steps through TrainLoop with an async
+    Checkpointer (every 2), the state at step 2 kept on the card; steps 3-4;
+    the step-2 checkpoint loaded bit-equal to the kept state, and steps 3-4
+    again from it (losses within TRAIN_RESUME_LIMIT of the first run's,
+    bitwise or not); one corrupted batch (its embeddings NaN) skipped with
+    params and optimizer state bit-equal; three in a row through TrainLoop
+    and FaultPolicy (the first two skipped and counted as steps, as JAX's
+    loop counts them) roll back to the step-2 checkpoint, bit-equal. The
+    checkpoint directory (under build/) is removed after."""
+    import shutil
+
+    import torch
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import TrainLoop, make_train_step
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.checkpoint import Checkpointer, config_hash
+    from repro_torch.train.fault import FaultPolicy
+    tc = train_config(steps=8, microbatches=1)
+    step_fn = make_train_step(cfg, tc)
+    batches = token_batches(cfg, 5, TRAIN_CKPT_SEQ, TRAIN_CKPT_BATCH)
+    ck_dir = snapshot_dir()
+    out = {"batch": TRAIN_CKPT_BATCH, "seq": TRAIN_CKPT_SEQ}
+    try:
+        ck = Checkpointer(str(ck_dir), every=2, keep=3, async_write=True,
+                          cfg_hash=config_hash(cfg))
+        saves = []
+        save = ck.save
+
+        def timed_save(*args, **kw):
+            t0 = time.perf_counter()
+            save(*args, **kw)
+            saves.append((t0, time.perf_counter() - t0))
+        ck.save = timed_save
+        state = opt_mod.init(params)
+        params, state, first = TrainLoop(
+            cfg, tc, step_fn, checkpointer=ck, log_every=1).run(
+                params, state, batches[:2])
+        commit = time.perf_counter()     # the loop waits for the write
+        kept = tree_map(torch.clone, {"params": params})
+        kept["opt_state"] = type(state)(*(tree_map(torch.clone, f)
+                                          for f in state))
+        step_dir = ck_dir / "step_00000002"
+        out["checkpoint"] = {
+            "step": ck.latest_step(),
+            "bytes": sum(f.stat().st_size for f in step_dir.iterdir()),
+            "host_copy_s": saves[0][1], "save_to_commit_s":
+                commit - saves[0][0]}
+        params, state, run_a = TrainLoop(cfg, tc, step_fn, log_every=1).run(
+            params, state, batches[2:4], start_step=2)
+        del params, state
+        (step, tree), load_s = timed(lambda: ck.load(like=kept))
+        out["checkpoint"]["load_s"] = load_s
+        if step != 2 or not same_leaves(tree, kept):
+            raise AssertionError(f"train_check: the step-{step} checkpoint "
+                                 "does not load bit-equal")
+        params, state, run_b = TrainLoop(cfg, tc, step_fn, log_every=1).run(
+            tree["params"], tree["opt_state"], batches[2:4], start_step=2)
+        del tree
+        la = [h["loss"] for h in run_a]
+        lb = [h["loss"] for h in run_b]
+        rel = max(abs(a - b) / abs(a) for a, b in zip(la, lb))
+        out["resume"] = {"losses": la, "resumed_losses": lb,
+                         "max_rel_err": rel, "bitwise": la == lb,
+                         "limit": TRAIN_RESUME_LIMIT,
+                         "first_losses": [h["loss"] for h in first]}
+        if rel > TRAIN_RESUME_LIMIT:
+            raise AssertionError(f"train_check resume: {out['resume']}")
+        # one corrupted batch: nothing written
+        before = tree_map(torch.clone, {"params": params})
+        before["opt_state"] = type(state)(*(tree_map(torch.clone, f)
+                                            for f in state))
+        with poisoned_batches():
+            params, state, m = step_fn(params, state, batches[4])
+        out["guard"] = {"skipped": int(m["skipped"]),
+                        "loss_finite": bool(torch.isfinite(m["loss"])),
+                        "unchanged": same_leaves(
+                            {"params": params, "opt_state": state}, before)}
+        del before
+        if out["guard"]["skipped"] != 1 or not out["guard"]["unchanged"]:
+            raise AssertionError(f"train_check guard: {out['guard']}")
+        # three in a row: the fault policy rolls back to the checkpoint
+        # (the loop saves nothing here: a skipped step still counts, as in
+        # JAX's loop, and a save at step 6 would be the rollback's target)
+        fault = FaultPolicy(ck, max_consecutive_skips=3)
+        with poisoned_batches():
+            params, state, hist = TrainLoop(
+                cfg, tc, step_fn, fault=fault, log_every=1).run(
+                    params, state, batches[:3], start_step=4)
+        out["rollback"] = {
+            "restarts": fault._restarts, "last_good_step": fault.last_good_step,
+            "logged_steps": len(hist), "checkpoints": sorted(
+                ck._list_steps()),
+            "bit_equal_to_step_2": same_leaves(
+                {"params": params, "opt_state": state}, kept)}
+        # the two skipped steps before the third are logged, as JAX logs
+        # them
+        if fault._restarts != 1 or fault.last_good_step != 2 or \
+                [h["skipped"] for h in hist] != [1, 1] or \
+                not out["rollback"]["bit_equal_to_step_2"]:
+            raise AssertionError(f"train_check rollback: {out['rollback']}")
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    return out
+
+
+def attention_grad_check(dev) -> dict:
+    """The attention kernels refuse autograd: handed q that requires grad
+    under grad mode, the f32 and the bf16 kernel raise (named the plain
+    path) and launch nothing; under no_grad the same call launches."""
+    import torch
+    from repro_torch.kernels import _lib, ops
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 121)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn((1, 256, 8, 128), generator=g, device=dev,
+                               dtype=dtype) for _ in range(3))
+        qg = q.requires_grad_(True)
+        _lib.reset_launches()
+        try:
+            ops.attention(qg, k, v)
+            raise AssertionError("the attention kernel ran under autograd")
+        except RuntimeError as e:
+            msg = str(e)
+        raised_launches = _lib.LAUNCHES["flash_attention"]
+        with torch.no_grad():
+            ops.attention(qg, k, v)
+        out[str(dtype).split(".")[1]] = {
+            "error": msg, "launches_when_raised": raised_launches,
+            "launches_under_no_grad": _lib.LAUNCHES["flash_attention"]}
+        if raised_launches or _lib.LAUNCHES["flash_attention"] != 1 or \
+                "backend='ref'" not in msg:
+            raise AssertionError(f"attention under grad: {out}")
+    return out
+
+
+def train_run(params, cfg, emb, dev) -> dict:
+    """Path 20: semantic_order over the corpus on the card, then
+    TRAIN_STEPS steps of TrainLoop over a TokenPipeline in that order.
+    Returns the run's figures, its final params and state, the step
+    function and the next batch (for the profile)."""
+    import itertools
+
+    import torch
+    from repro_torch.data import DataConfig, TokenPipeline, semantic_order
+    from repro_torch.train import TrainLoop, make_train_step
+    from repro_torch.train import optimizer as opt_mod
+    (order, ostats), order_s = timed(lambda: semantic_order(
+        emb, k=TRAIN_K, generator=torch.Generator(device=dev).manual_seed(
+            SEED), device=dev))
+    tc = train_config()
+    step_fn = make_train_step(cfg, tc)
+    state = opt_mod.init(params)
+    batches = iter(TokenPipeline(
+        DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                   vocab=cfg.vocab, seed=SEED),
+        process_index=0, process_count=1, order=order))
+    marks = []
+    t0 = time.perf_counter()
+    # the loop logs every step: its float() of the metrics syncs
+    params, state, hist = TrainLoop(cfg, tc, step_fn, log_every=1).run(
+        params, state, itertools.islice(batches, TRAIN_STEPS),
+        callback=lambda m: marks.append(time.perf_counter()))
+    return {"order_s": order_s, "order_stats": ostats,
+            "order_is_permutation": sorted(order.tolist()) == list(
+                range(TRAIN_DOCS)),
+            "hist": hist, "step_s": [b - a for a, b in
+                                     zip([t0] + marks, marks)],
+            "params": params, "state": state, "step_fn": step_fn,
+            "next_batch": next(batches)}
+
+
+def train_family_run(dev):
+    """The corpus's embeddings, train_check (TRAIN_ARCH cut to
+    TRAIN_CHECK_LAYERS), then path 20 (train: TRAIN_LAYERS, driven, then
+    one more step profiled). Returns path 20's launches and recorder."""
+    import torch
+    from repro_torch.configs import get_config
+    emb, emb_s = corpus_embeddings(get_config(TRAIN_ARCH).vocab)
+    cfg, params, fields = train_params(TRAIN_CHECK_LAYERS, dev)
+    emit("train_check", **fields, lane="grads",
+         **train_grad_check(params, cfg))
+    emit("train_check", lane="semantic_order",
+         **train_order_check(emb, dev))
+    emit("train_check", **fields, lane="checkpoint",
+         **train_checkpoint_check(params, cfg, dev))
+    emit("train_check", lane="attention_under_grad",
+         **attention_grad_check(dev))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- train: path 20, yi-6b at full width, TRAIN_LAYERS layers
+    cfg, params, fields = train_params(TRAIN_LAYERS, dev)
+    emit("lm_model", **fields, memory_allocated=torch.cuda.memory_allocated(),
+         cfg={k: str(v) for k, v in dataclasses.asdict(cfg).items()})
+    res, wall, launches, peak, rec = drive(
+        "train", lambda: train_run(params, cfg, emb, dev))
+    del params
+    require_launched("train", launches, TRAIN_KERNELS)
+    hist = res["hist"]
+    losses = [h["loss"] for h in hist]
+    if launches["flash_attention"] or not res["order_is_permutation"] or \
+            len(losses) != TRAIN_STEPS or any(h["skipped"] for h in hist) \
+            or not all(map(math.isfinite, losses)) \
+            or losses[-1] >= losses[0]:
+        raise AssertionError(f"train: launches {launches}, losses {losses}, "
+                             f"skipped {[h['skipped'] for h in hist]}")
+    prof = profile_run(lambda: res["step_fn"](
+        res["params"], res["state"], res["next_batch"]), host_ops=False)
+    emit("profile", path="train", window="one train step (step 7)", **prof)
+    work = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    s_step = statistics.median(res["step_s"][1:])
+    emit("train", **fields, docs=TRAIN_DOCS, doc_tokens=TRAIN_DOC_TOKENS,
+         d_proj=TRAIN_D_PROJ, embed_s=emb_s,
+         semantic_order={"k": TRAIN_K, "build_s": res["order_s"],
+                         **res["order_stats"]},
+         seq=TRAIN_SEQ, batch=TRAIN_BATCH, microbatches=TRAIN_MICRO,
+         loss_chunk=cfg.loss_chunk, steps=TRAIN_STEPS, lr=TRAIN_LR,
+         loss=losses, grad_norm=[h["grad_norm"] for h in hist],
+         step_s=res["step_s"], s_per_step=s_step,
+         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / s_step, **work,
+         layer_share_of_989=work["layer_flops_bf16"] / s_step
+         / PEAK_BF16_PER_S,
+         head_share_of_67=work["head_flops_fp32"] / s_step
+         / PEAK_FP32_PER_S,
+         attention_share_of_67=work["attention_flops_fp32"] / s_step
+         / PEAK_FP32_PER_S,
+         step_over_bound=s_step / work["bound_s"], wall_s=wall,
+         max_memory_allocated=peak, launches=launches,
+         launches_per_step=prof["device_kernel_calls"],
+         device_idle_share=prof["device_idle_share"])
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
 def knn_lm_run(params, cfg, dev, entry_seed: int):
     """examples/knn_serve.py steps 2-4 at full width (no training): keys
     are the hidden states of KNN_SEQS seeded sequences, the datastore's
@@ -4443,6 +5008,7 @@ def main() -> int:
     fe_launches, fe_recs = frontend_family_run(dev)
     launches.update(fe_launches)
     recs.update(fe_recs)
+    launches["train"], recs["train"] = train_family_run(dev)
 
     # -- kernels: each against its plain version on the recorded inputs
     owner = {"pairwise_sq_l2": "truth", "knn_search_dists": "search",
@@ -4459,6 +5025,7 @@ def main() -> int:
     # do the online path's row merges by c and its pairwise tiles (direct
     # calls and centroid_assign's)
     for tag, name in [*((t, "knn_join_select") for t in SELECT_PATHS),
+                      ("train", "knn_join_select"),
                       ("online", "knn_merge_rows"),
                       ("online", "pairwise_sq_l2")]:
         per_key = sum(c for k, c in launched.items()
@@ -4471,6 +5038,7 @@ def main() -> int:
     merges = {}        # c -> entry, the online path's row merges
     further = {}       # key -> entry, the calls of FURTHER_ROWS
     late = {}          # name -> entry, the search tiles at LATE_ROUND
+    train_rows = {}    # key -> entry, path 20's build (semantic_order)
     for key, call in sorted(calls.items()):
         tag, name = key.split(":")[:2]
         if tag in CHECKED and name not in CHECKED[tag]:
@@ -4503,6 +5071,10 @@ def main() -> int:
             further[key] = {**e, "launches": e["launches_at_this_key"]}
         if key in (*GEMMA_KEYS, *MOE_KEYS, *ZAMBA_KEYS, *FRONTEND_KEYS):
             further[key] = {**e, "launches": e["launches_at_this_key"]}
+        if tag == "train":
+            # rows of their own: each key with its own launches
+            train_rows[key] = {**e, "launches": e["launches_at_this_key"]}
+            continue
         # the line keeps one entry per kernel, from the path that owns
         # it; the build's widest select (the receiver select) and the
         # online path's widest row merge stand for their kernels
@@ -4516,6 +5088,8 @@ def main() -> int:
                               ZAMBA_KEYS, FRONTEND_KEYS)
                for k in keys if k not in further]
     missing += [k for k in LATE_KEYS if k.split(":")[1] not in late]
+    missing += [f"train:{n}" for n in TRAIN_KERNELS
+                if not any(k.split(":")[1] == n for k in train_rows)]
     if missing:
         raise AssertionError(f"no second call recorded at {missing}")
     # flash_attention at f32: the SIMT kernel on attention_check's inputs
@@ -4545,6 +5119,8 @@ def main() -> int:
                         {**e, "launches": e["launches_at_this_key"]})
             line.extend(sharded_build_rows)
         line.extend(further[k] for k in FURTHER_ROWS.get(n, ()))
+        line.extend(e for k, e in sorted(train_rows.items())
+                    if k.split(":")[1] == n)
         if n == "pairwise_sq_l2":
             line.extend(sharded_rows)
         if n in late:

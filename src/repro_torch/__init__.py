@@ -34,6 +34,12 @@ LM serving slices):
     growth, the ``RetrievalScheduler``, and kNN-LM retrieval
     (``KNNDatastore``, ``MutableKNNDatastore``, ``knn_logits``,
     ``interpolate``) over the port's graph; ``python -m repro_torch.launch.serve`` — the serving CLI;
+  * ``repro_torch.data`` / ``repro_torch.train`` — the training path: the
+    synthetic token pipeline, the paper's semantic ordering of a corpus,
+    ``models.loss_fn``, AdamW, the guarded step and loop, checkpoints in
+    the JAX package's format, the fault policy, int8 gradient
+    compression; ``python -m repro_torch.launch.train`` — the training
+    CLI;
   all run on a CUDA device unless asked for the CPU.
   * ``repro_torch.kernels`` — the thirteen kernels (join distances, join
     select, merge, pairwise l2, search distances, the int8 and bf16 twins

@@ -1,5 +1,6 @@
 """Where the port's entry points run: on a CUDA card unless the caller
-asks for another device, and never silently on the CPU."""
+asks for another device, and never silently on the CPU; and which host
+of a ``torch.distributed`` job this process is."""
 from __future__ import annotations
 
 import torch
@@ -22,3 +23,12 @@ def resolve_device(device, caller: str) -> torch.device:
                                "to run on the CPU")
         pin_fp32()
     return device
+
+
+def process_grid() -> tuple[int, int]:
+    """(rank, world size) of the default ``torch.distributed`` process
+    group when one exists, else (0, 1)."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1

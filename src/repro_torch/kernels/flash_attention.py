@@ -20,7 +20,12 @@ dispatches by dtype, one kernel each (no fallback from one to the other):
   flight, P rounded to bf16 for the second product; Dq and Dv multiples of
   16 up to 256.
 
-Both skip the kv tiles no row of a query tile can see. The wrapper checks
+Both skip the kv tiles no row of a query tile can see. Neither has a
+backward, so the wrapper raises ``RuntimeError`` when autograd would
+record the call (grad mode on and an input that requires grad) rather
+than return an output that silently cuts the gradient: training runs the
+plain chunked attention (``models.attention.chunked_attention(...,
+backend="ref")``, as ``models.model.loss_fn`` does). The wrapper checks
 device, dtype, shape, contiguity and 16-byte alignment (both kernels copy
 16 bytes at a time), allocates the output with
 ``torch.empty``, launches on the current stream, raises on a non-zero
@@ -52,7 +57,13 @@ def flash_attention_cuda(
     """q (B, Lq, H, Dq), k (B, Lk, Hkv, Dq), v (B, Lk, Hkv, Dv), all f32 or
     all bf16 and contiguous -> (B, Lq, H, Dv) in that dtype; rows that see
     no key are 0. ``window`` None is no window; ``scale`` None is
-    1/sqrt(Dq)."""
+    1/sqrt(Dq). Raises under autograd (see the module docstring)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_cuda has no backward: an input requires grad "
+            "under grad mode. Run the plain attention under autograd: "
+            "chunked_attention(..., backend='ref') or ops.attention(..., "
+            "backend='ref')")
     dev = q.device
     if q.dtype not in DTYPES:
         raise TypeError(f"q must be one of {DTYPES}; got {q.dtype}")

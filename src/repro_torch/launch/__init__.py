@@ -1,3 +1,3 @@
-"""Entry points of the port (src/repro/launch): the serving CLI so far.
-The training CLI, the dry-run and the roofline tooling wait (ROADMAP.md,
+"""Entry points of the port (src/repro/launch): the serving CLI and the
+training CLI. The dry-run and the roofline tooling wait (ROADMAP.md,
 Queue 1, item 8)."""

@@ -3,12 +3,14 @@ MoE family (deepseek-v2's MLA, granite's GQA), the SSM / hybrid family
 (Mamba-2's SSD, ``ssm``; zamba2's shared block) that serving runs, and
 the audio and vision front ends (hubert-xlarge's bidirectional encoder
 over frames, ``forward`` only; internvl2-1b's patch projector in front of
-its Qwen2 stack, served); the attention core reaches the hand-written
+its Qwen2 stack, served), and the training loss (``loss_fn``, through
+the plain attention); the serving attention reaches the hand-written
 kernel on a card."""
 from repro_torch.models.model import (
     active_param_count,
     embed_inputs,
     forward,
+    loss_fn,
     model_schema,
     output_logits,
     param_count,
@@ -33,6 +35,7 @@ __all__ = [
     "embed_inputs",
     "forward",
     "init_tree",
+    "loss_fn",
     "model_schema",
     "output_logits",
     "param_count",

@@ -10,7 +10,12 @@ position and skips the kv tiles no row of a query tile can see, so the
 triangular causal schedule and the banded window slicing become tile
 skips inside the kernel. On the CPU, or with ``backend="ref"``, it runs
 the plain chunked online softmax with JAX's ``cq`` / ``ckv`` chunking,
-padding, triangle and banding. Decode attention is plain torch on every
+padding, triangle and banding. The kernel has no backward (its wrapper
+raises under autograd), so training runs the plain scan; there, as JAX
+wraps each kv step in ``jax.checkpoint``, each (q chunk, kv chunk) update
+runs under ``torch.utils.checkpoint`` when autograd records it: the
+backward recomputes a block's (B, H, cq, ckv) probabilities instead of
+keeping them. Decode attention is plain torch on every
 device, as JAX computes it with einsums outside any Pallas kernel.
 
 MLA's prefill expands the latent to per-head keys and values and runs
@@ -24,6 +29,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_schema
@@ -114,6 +120,11 @@ def chunked_attention(
     kpos_all = torch.where(ar < lk, ar, -1)
     kw = dict(causal=causal, window=window, softcap_v=softcap, scale=scale,
               encoder=encoder)
+    block = _flash_block
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # flash-backward memory model: recompute each block's probabilities
+        def block(*args, **kw):
+            return checkpoint(_flash_block, *args, use_reentrant=False, **kw)
 
     banded = window is not None and not encoder
     if banded:
@@ -136,14 +147,14 @@ def chunked_attention(
             start = min(max(start, 0), max(nk * ckv - band, 0))
             for jk in range(width // ckv):
                 s = start + jk * ckv
-                m, l, acc = _flash_block(
+                m, l, acc = block(
                     qj, k[:, s:s + ckv], v[:, s:s + ckv], m, l, acc, qpos,
                     kpos_all[s:s + ckv], **kw)
         else:
             # triangular schedule: q chunk jq only visits jk <= jq
             for jk in range(jq + 1 if tri else nk):
                 s = jk * ckv
-                m, l, acc = _flash_block(
+                m, l, acc = block(
                     qj, k[:, s:s + ckv], v[:, s:s + ckv], m, l, acc, qpos,
                     kpos_all[s:s + ckv], **kw)
         out = torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)

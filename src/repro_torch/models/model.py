@@ -1,18 +1,20 @@
 """Top-level LM: embedding and the modality front ends, layer stack,
-final norm, output head (src/repro/models/model.py), for every family
+final norm, output head, loss (src/repro/models/model.py), for every family
 of the JAX package: the token-input dense, MoE, SSM (mamba2) and hybrid
 (zamba2) families, hubert's audio encoder (precomputed frames through
 one biased dense, no token table read) and internvl2's vision prefix
 (patches through a two-layer projector, prefixed to the tokens), and
 the parameter counts (``active_param_count``: the MoE's per-token
 share; every parameter of the other families, zamba2's shared block
-counted once). ``loss_fn`` (training) waits for its slice: ROADMAP.md,
-Queue 1, item 7.
+counted once). ``loss_fn`` is the training objective; what stays open
+of training is the mesh (sharded parameters and checkpoints: ROADMAP.md,
+Queue 1, item 7d).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import transformer
 from repro_torch.models.layers import (
@@ -107,9 +109,61 @@ def forward(params: dict, batch: dict, cfg, *,
     return output_logits(params, x, cfg)
 
 
-def loss_fn(params: dict, batch: dict, cfg):
-    raise NotImplementedError("loss_fn (training) is not ported yet: "
-                              "ROADMAP.md, Queue 1, item 7")
+def _xent_terms(params, x, labels, cfg):
+    """CE pieces for (B, Lc, d) states: (nll_sum, n_tokens, n_correct)."""
+    logits = output_logits(params, x, cfg)
+    mask = labels >= 0
+    tgt = labels.clamp(0, cfg.vocab - 1)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    nll = torch.sum((logz - gold) * mask)
+    correct = torch.sum((logits.argmax(-1) == tgt) & mask)
+    return nll, mask.sum(), correct
+
+
+def loss_fn(params: dict, batch: dict, cfg) -> tuple[torch.Tensor, dict]:
+    """Next-token (or masked-unit, for the encoder) cross entropy ->
+    (loss, {"loss", "tokens", "accuracy"}), 0-d tensors on the
+    parameters' device.
+
+    labels < 0 are masked (vlm patch positions, padding); a vision batch
+    with patches scores the text positions only. The stack runs the
+    plain chunked attention (``backend="ref"``) on every device, as the
+    JAX training path runs its jnp attention: the attention kernel has no
+    backward. When the sequence exceeds ``cfg.loss_chunk`` (and divides
+    by it), the CE runs chunk by chunk, each chunk under
+    ``torch.utils.checkpoint`` as JAX's is under ``jax.checkpoint``: the
+    (B, L, vocab) fp32 logits never materialise, and the backward
+    recomputes each chunk's logits from the final hidden states.
+    """
+    x = embed_inputs(params, batch, cfg)
+    x = transformer.run_stack(params["stack"], x, cfg, backend="ref")
+    if cfg.frontend == "vision" and "patches" in batch:
+        x = x[:, cfg.n_patches:, :]              # text positions only
+    labels = torch.as_tensor(batch["labels"], device=x.device).long()
+    _, seq, _ = x.shape
+
+    ck = cfg.loss_chunk
+    if ck and seq > ck and seq % ck == 0:
+        def chunk(xc, lc):
+            return _xent_terms(params, xc, lc, cfg)
+        nll, n_tok, correct = 0.0, 0, 0
+        for s in range(0, seq, ck):
+            terms = checkpoint(chunk, x[:, s:s + ck], labels[:, s:s + ck],
+                               use_reentrant=False)
+            nll, n_tok, correct = (nll + terms[0], n_tok + terms[1],
+                                   correct + terms[2])
+    else:
+        nll, n_tok, correct = _xent_terms(params, x, labels, cfg)
+
+    denom = torch.clamp_min(n_tok, 1)
+    loss = nll / denom
+    metrics = {
+        "loss": loss,
+        "tokens": n_tok,
+        "accuracy": correct / denom,
+    }
+    return loss, metrics
 
 
 def param_count(cfg) -> int:

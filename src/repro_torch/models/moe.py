@@ -23,9 +23,11 @@ Two choices keep the port's answers equal to JAX's and repeatable:
     greedy decoding repeats.
 
 The expert products are plain batched matmuls, as JAX's are plain einsums
-(the JAX package has no Pallas kernel here). ``aux_load_balance_loss``
-is training and waits for the training slice (ROADMAP.md, Queue 1,
-item 7).
+(the JAX package has no Pallas kernel here). The routing stays
+differentiable through the gate values (sorts and a scatter of maxima,
+no detach), so ``models.model.loss_fn`` trains the router as JAX's
+does. ``aux_load_balance_loss`` is the Switch-style auxiliary, standalone
+as in JAX: neither package's ``loss_fn`` calls it.
 """
 from __future__ import annotations
 
@@ -138,3 +140,15 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
         out = out + (F.silu(g.float()).to(x.dtype) * u) \
             @ p["shared"]["down"].to(x.dtype)
     return out.reshape(b, seq, d)
+
+
+def aux_load_balance_loss(logits: torch.Tensor, top_idx: torch.Tensor,
+                          cfg) -> torch.Tensor:
+    """Switch-style load-balance auxiliary (f_i * P_i) of (T, E) router
+    logits and the (T, K) chosen experts; optional in training. The
+    expert counts are exact (``bincount``), so no atomic order shows."""
+    _, e = logits.shape
+    probs = torch.softmax(logits.float(), dim=-1)
+    frac = torch.bincount(top_idx.reshape(-1).long(), minlength=e).float()
+    frac = frac / torch.clamp_min(frac.sum(), 1.0)
+    return e * torch.sum(frac * probs.mean(dim=0))

@@ -120,7 +120,7 @@ def bytes_params(schema) -> int:
 
 def _tensor_from_numpy(a, device: torch.device) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":     # ml_dtypes' bf16: carry the bits
+    if a.dtype.name == "bfloat16":     # a JAX bf16 array: carry the bits
         t = torch.from_numpy(a.view(np.uint16).astype(np.int16))
         return t.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)   # a writable copy

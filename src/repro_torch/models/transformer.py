@@ -18,13 +18,23 @@ audio and vision front ends run the uniform stack behind their
 embeddings (``model.embed_inputs``). Parameters keep JAX's leading
 ``stack`` axes and tree paths; a Python loop over the layers
 (``stack_layers``) takes the place of ``lax.scan`` (the port runs
-eagerly, so there is nothing to keep small).
+eagerly, so there is nothing to keep small). Under autograd,
+``cfg.remat`` rematerialises each layer as JAX's ``_remat`` does each
+scan body: "full" keeps only a layer's inputs (``torch.utils.checkpoint``),
+"dots" also keeps its unbatched matrix products' outputs (selective
+checkpointing, JAX's ``checkpoint_dots_with_no_batch_dims``).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -331,17 +341,47 @@ def stack_schema_for(cfg) -> dict:
     return s
 
 
+# the products "dots" keeps: unbatched matmuls (a 3-D activation times a
+# weight reaches the dispatcher as one mm)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg):
+    """``fn`` (one layer) under ``cfg.remat`` when autograd records it."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False, context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"unknown remat {cfg.remat!r}; expected none, full or "
+                     "dots")
+
+
+def _layer(p, x, cfg, window, kind, positions, backend):
+    """One layer of ``stack_layers`` on the full sequence."""
+    if kind == "mamba":
+        return mamba_block(p, x, cfg)
+    if kind == "shared":
+        return shared_block(p, x, cfg, backend)
+    return attn_block(p, x, cfg, window=window, encoder=cfg.encoder_only,
+                      ffn=kind, positions=positions, backend=backend)
+
+
 def run_stack(params: dict, x, cfg, *, positions=None, backend="auto"):
     """Full-sequence forward through the layer stack (train/prefill);
     bidirectional attention where ``cfg.encoder_only``. ``backend`` "ref"
     runs the plain attention on a card (the kernel's yardstick)."""
     for p, _, window, kind in stack_layers(params, cfg):
-        if kind == "mamba":
-            x = mamba_block(p, x, cfg)
-        elif kind == "shared":
-            x = shared_block(p, x, cfg, backend)
-        else:
-            x = attn_block(p, x, cfg, window=window,
-                           encoder=cfg.encoder_only, ffn=kind,
-                           positions=positions, backend=backend)
+        layer_fn = functools.partial(_layer, p, cfg=cfg, window=window,
+                                     kind=kind, positions=positions,
+                                     backend=backend)
+        x = _remat(layer_fn, cfg)(x)
     return x

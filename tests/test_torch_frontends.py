@@ -54,7 +54,6 @@ from repro_torch.models import (
     param_count,
     params_from_numpy,
 )
-from repro_torch.models.model import loss_fn
 from repro_torch.models.params import tree_paths
 from repro_torch.serve import (
     ContinuousBatcher,
@@ -296,12 +295,6 @@ def test_params_from_numpy_and_cast_carry_the_frontend(arch, jax_side):
     fe = {p: t.dtype for p, t in cast.items() if p.startswith("frontend/")}
     assert fe and all(dt == (torch.float32 if p.endswith("/b")
                              else torch.bfloat16) for p, dt in fe.items())
-
-
-def test_loss_fn_still_waits_for_training():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, "
-                       "item 7"):
-        loss_fn({}, {}, get_smoke_config(VLM))
 
 
 # ---------------------------------------------------------------------------

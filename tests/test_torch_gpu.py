@@ -25,7 +25,15 @@ prefill through the kernel against the plain chunked scan within 2e-2 of
 the logit scale (tests/test_serve.py:53's bf16 limit), the front ends'
 too (hubert's forward, internvl2's prefill with patches); the SSM /
 hybrid family's prefill and decode steps bit-equal when repeated, and a
-slot written into its batch axis bitwise.
+slot written into its batch axis bitwise. Training: the attention
+kernels raise under autograd and launch nothing; a train step of the
+yi-6b smoke config on the card against the CPU's: the gradients within
+1e-4 of each leaf's scale, the loss within 1e-5 relative, the grad norm
+1e-4, each parameter's update within 1e-3 of the learning rate where its
+gradient passes 1e-3 of the leaf's largest. Elsewhere the update is held
+to 2.5 learning rates, which any first Adam step meets (a flipped sign
+is 2): that bound holds only finiteness, and the gradient check carries
+those elements.
 """
 
 import numpy as np
@@ -1589,3 +1597,92 @@ def test_frontend_smoke_through_kernel_matches_plain(dev, arch):
     assert _lib.LAUNCHES["flash_attention"] - before == cfg.n_layers
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max() / want.abs().max()) < 2e-2
+
+
+# ---------------------------------------------------------------------------
+# training: the kernel refuses autograd; a train step on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_raises_under_grad(dev, dtype):
+    """The f32 and bf16 attention kernels have no backward: handed an
+    input that requires grad under grad mode they raise (directly and
+    through chunked_attention's "auto" lane), launch nothing, and name
+    the plain path; without grad mode the same call runs."""
+    from repro_torch.models.attention import chunked_attention
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((1, 64, 4, 64), generator=g, device=dev,
+                           dtype=dtype) for _ in range(3))
+    qg = q.clone().requires_grad_(True)
+    _lib.reset_launches()
+    with pytest.raises(RuntimeError, match="backend='ref'"):
+        ops.attention(qg, k, v)
+    with pytest.raises(RuntimeError, match="backend='ref'"):
+        chunked_attention(qg, k, v, backend="auto")
+    assert _lib.LAUNCHES["flash_attention"] == 0
+    with torch.no_grad():
+        out = ops.attention(qg, k, v)
+    assert _lib.LAUNCHES["flash_attention"] == 1 and not out.requires_grad
+    # the plain path trains
+    o = chunked_attention(qg, k, v, backend="ref")
+    (gq,) = torch.autograd.grad(o.float().sum(), qg)
+    assert torch.isfinite(gq).all()
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One train step of the yi-6b smoke config at f32 activations
+    (TF32 off), two microbatches, on the card against the same step on
+    the CPU: the gradients (autograd at the starting parameters) within
+    1e-4 of each leaf's scale, the step's loss within 1e-5 relative and
+    grad norm 1e-4, and each parameter's update within 1e-3 of the
+    learning rate wherever its gradient passes 1e-3 of the leaf's largest
+    (an early Adam step is about lr * g / (|g| + eps), whose error is
+    about lr * eps * |dg| / g^2: small where g is well above the
+    gradients' rounding, up to 2 lr where the rounding can flip it).
+    Elsewhere the 2.5 lr bound holds only that the update is finite: the
+    gradient check above is what holds those elements."""
+    import dataclasses
+
+    from repro_torch.models import loss_fn
+    from repro_torch.train import OptimizerConfig, TrainConfig
+    from repro_torch.train import make_train_step
+    from repro_torch.train import optimizer as opt_mod
+    cfg = dataclasses.replace(get_smoke_config("yi-6b"),
+                              act_dtype=torch.float32)
+    tc = TrainConfig(microbatches=2, opt=OptimizerConfig(
+        lr=2e-3, warmup_steps=3, total_steps=30))
+    cpu = init_tree(torch.Generator().manual_seed(0), model_schema(cfg))
+    card = tree_map(lambda t: t.to(dev, copy=True), cpu)
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab, (4, 65))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    grads = {}
+    for where, p in (("cpu", cpu), ("cuda", card)):
+        leaves = list(tree_paths(p).values())
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = loss_fn(p, batch, cfg)
+        grads[where] = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        for t in leaves:
+            t.requires_grad_(False)
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    before = [t.clone() for t in tree_paths(cpu).values()]
+    step = make_train_step(cfg, tc)
+    cpu, _, mc = step(cpu, opt_mod.init(cpu), batch)
+    card, state, md = step(card, opt_mod.init(card), batch)
+    assert state.step.device == card["embed"]["table"].device
+    assert int(state.step) == 1
+    assert abs(float(md["loss"]) - float(mc["loss"])) <= \
+        1e-5 * float(mc["loss"])
+    assert abs(float(md["grad_norm"]) - float(mc["grad_norm"])) <= \
+        1e-4 * float(mc["grad_norm"])
+    lr = float(mc["lr"])
+    for a, b, p0, g in zip(tree_paths(card).values(),
+                           tree_paths(cpu).values(), before, grads["cpu"]):
+        assert not torch.equal(b, p0)
+        clear = g.abs() > 1e-3 * g.abs().max()
+        err = (a.cpu() - b).abs()
+        assert float(err[clear].max()) <= 1e-3 * lr
+        assert float(err.max()) <= 2.5 * lr
