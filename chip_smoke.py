@@ -18,8 +18,11 @@ hubert-xlarge's bidirectional encoder over frames, and internvl2-1b's
 patch projector in front of its Qwen2 stack, served), and the training
 path (the synthetic token pipeline ordered by the paper's greedy reorder
 over a k-NN graph of the documents, loss_fn, AdamW, the guarded step and
-loop, checkpoints and the fault policy; yi-6b). Run from the root of a
-checkout, on a machine with an H100:
+loop, checkpoints and the fault policy; yi-6b) with its sharded state
+(the logical-axis rules on the production meshes, FSDP steps on a
+(data, model) mesh of logical shards, sharded checkpoints resharded
+onto an elastic mesh). Run from the root of a checkout, on a machine
+with an H100:
 
     python3 chip_smoke.py
 
@@ -27,6 +30,13 @@ Phases, each printed as one JSON line with ``t_s``, the seconds since the
 script started (phases with several lanes print one line a lane):
   device       the card (nvidia-smi name and power limit), torch and CUDA
                versions; the capability must be (9, 0);
+  sharding_check  the sharding rules on make_production_mesh(device=
+               "meta"), (16, 16) and (2, 16, 16), for all ten configs at
+               full size, no storage allocated: parameter leaves per spec,
+               the largest shard's parameter and AdamW bytes beside the
+               unsharded ones, cache bytes a shard at decode_32k
+               (cache_shardings), input_specs and skip_reason per (arch,
+               shape);
   build_lib    nvcc builds src/repro_torch/kernels/csrc/*.cu (one nvcc per
                source, all started together): seconds, registers / shared
                memory / spills per kernel (and per template instance),
@@ -394,7 +404,15 @@ script started (phases with several lanes print one line a lane):
                the step-2 checkpoint bit-equal; bytes, host copy, commit
                and load seconds. Lane attention_under_grad: the f32 and
                bf16 attention kernels raise under autograd (naming the
-               plain path) and launch nothing, and launch under no_grad;
+               plain path) and launch nothing, and launch under no_grad.
+               Lane sharded_ckpt: the state placed on a (data 2, model 2)
+               mesh of logical shards, one FSDP step (2 x 512), saved as
+               sharded leaves (bytes, save s); a shard lost:
+               elastic_mesh(["cuda:0"] * 3, model_axis=2) is (3, 1), where
+               d_model 4096 falls back to replicas; loaded with
+               shardings= onto it (load s), every gathered leaf bit-equal
+               to the saved state's; one step there on a replicated batch
+               against the unsharded step, held as path 21 holds its;
   train        path 20: 65536 documents of the synthetic source (vocab
                64000), each embedded by mean_pool_embeddings (d_proj 64)
                from its first 64 tokens (a shorter document repeated from
@@ -412,6 +430,19 @@ script started (phases with several lanes print one line a lane):
                over 67 beside the step, peak memory; flash_attention
                never launched; one more step profiled (device only:
                launches a step, idle share);
+  train_sharded  path 21: yi-6b at full width cut from 32 to 4 layers,
+               fp32 parameters placed by sharding_tree on a (data 2,
+               model 2) mesh of four logical shards on cuda:0, AdamW's
+               moments placed like them; 3 FSDP steps of 2 x 4096 tokens
+               (batches placed by batch_specs: a data group a row), each
+               beside the unsharded step with 2 microbatches from the same
+               parameters on the same batch: the loss within 1e-6
+               relative, the grad norm 1e-5, every parameter and moment
+               within 1e-6 of its leaf's largest magnitude; seconds a step
+               and tokens/s both ways, the largest shard's parameter and
+               moment bytes over the unsharded state's, peak memory; no
+               kernel launched; one more FSDP step profiled (launches a
+               step, idle share);
   profile      every path but truth once more under torch.profiler (and
                a window of lm_serve, lm_gemma2 and lm_deepseek: the first
                4 requests, 8 new tokens each; and lm_gemma2's and
@@ -681,6 +712,20 @@ TRAIN_GRAD_SEQ, TRAIN_GRAD_LIMIT = 256, 1e-4
 TRAIN_ORDER_DOCS = 16384
 TRAIN_CKPT_BATCH, TRAIN_CKPT_SEQ, TRAIN_RESUME_LIMIT = 2, 512, 1e-4
 TRAIN_KERNELS = ("knn_join_dists", "knn_join_select", "knn_merge")
+# sharding_check, path 21 (train_sharded) and train_check's sharded_ckpt
+# lane: the sharding rules over the ten configs at full size on the
+# production meshes (meta: no storage); yi-6b at full width on a
+# SHARD_MESH (data, model) mesh of logical shards on cuda:0, its depth cut
+# from 32 to SHARD_LAYERS, SHARD_STEPS FSDP steps of SHARD_BATCH x
+# TRAIN_SEQ tokens beside the unsharded step with SHARD_BATCH
+# microbatches from the same parameters, held to SHARD_LOSS_REL /
+# SHARD_NORM_REL relative and SHARD_LEAF_REL of each leaf's largest
+# magnitude; the checkpoint lane at train_check's size onto the
+# (SHARD_LIVE, 1) mesh of elastic_mesh(["cuda:0"] * SHARD_LIVE,
+# model_axis=2) after a shard is lost
+SHARD_MESH, SHARD_LAYERS, SHARD_STEPS, SHARD_BATCH = (2, 2), 4, 3, 2
+SHARD_LOSS_REL, SHARD_NORM_REL, SHARD_LEAF_REL = 1e-6, 1e-5, 1e-6
+SHARD_LIVE = 3
 KNN_SEQS, KNN_SEQ_LEN, KNN_K, KNN_BATCH = 16, 2048, 16, 4
 KNN_CHUNK, KNN_SNAPSHOT_EVERY = 64, 128     # knn_grow: insert, snapshot
 # retrieval: the interactive lane's queries and burst sizes, the deadline
@@ -3329,6 +3374,266 @@ def attention_grad_check(dev) -> dict:
     return out
 
 
+def sharding_check() -> dict:
+    """The sharding rules on make_production_mesh(device="meta"), single
+    and multi-pod, for all ten configs at full size: the parameter leaves
+    per spec, the largest shard's parameter and AdamW bytes (every shard
+    holds one block of each leaf, all of one shape) beside the unsharded
+    ones, the cache bytes a shard at decode_32k from cache_shardings, and
+    input_specs / skip_reason per (arch, shape). Fails if the card's
+    memory moved (nothing is allocated) or a leaf's blocks do not tile
+    it."""
+    import collections
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES, get_config, input_specs, list_archs
+    from repro_torch.launch import make_production_mesh
+    from repro_torch.models import model_schema, sharding_tree
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serve import cache_schema, cache_shardings
+
+    def shard_bytes(defs, shardings):
+        one, full = 0, 0
+        for d, sh in zip(defs, shardings):
+            block = sh.shard_shape(d.shape)
+            parts = int(np.prod(d.shape)) // max(int(np.prod(block)), 1) \
+                if d.shape else 1
+            blocks = len({tuple((i.start, i.stop) for i in idx)
+                          for idx in sh.indices(d.shape)})
+            if blocks != parts:
+                raise AssertionError(f"sharding_check: {d.shape} {sh.spec}: "
+                                     f"{blocks} blocks, {parts} parts")
+            one += int(np.prod(block)) * d.dtype.itemsize
+            full += int(np.prod(d.shape)) * d.dtype.itemsize
+        return one, full
+
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = {}
+    for multi in (False, True):
+        mesh = make_production_mesh(multi_pod=multi, device="meta")
+        archs = {}
+        for arch in list_archs():
+            cfg = get_config(arch)
+            defs = tree_leaves(model_schema(cfg))
+            shs = tree_leaves(sharding_tree(model_schema(cfg), mesh))
+            p_one, p_full = shard_bytes(defs, shs)
+            row = {"leaves": len(defs), "leaves_per_spec": dict(
+                collections.Counter(str(tuple(sh.spec)) for sh in shs)),
+                "param_bytes_largest_shard": p_one,
+                "param_bytes_unsharded": p_full,
+                # m and v like their parameter, step replicated (int32)
+                "adamw_bytes_largest_shard": 2 * p_one + 4,
+                "adamw_bytes_unsharded": 2 * p_full + 4,
+                "param_share_a_shard": p_one / p_full}
+            dec = SHAPES["decode_32k"]
+            if cfg.supports("decode_32k"):
+                c_defs = tree_leaves(cache_schema(cfg, dec.global_batch,
+                                                  dec.seq_len))
+                c_shs = tree_leaves(cache_shardings(
+                    cfg, dec.global_batch, dec.seq_len, mesh))
+                c_one, c_full = shard_bytes(c_defs, c_shs)
+                row["cache_bytes_a_shard_decode_32k"] = c_one
+                row["cache_bytes_unsharded_decode_32k"] = c_full
+            row["cells"] = {
+                shape: {"skip_reason": cfg.skip_reason(shape),
+                        "inputs": {k: [list(t.shape),
+                                       str(t.dtype).split(".")[1]]
+                                   for k, t in input_specs(cfg,
+                                                           shape).items()}}
+                for shape in SHAPES}
+            archs[arch] = row
+        out["multi_pod" if multi else "single_pod"] = {
+            "mesh": mesh.shape, "archs": archs}
+    out["seconds"] = time.perf_counter() - t0
+    out["allocated_bytes"] = torch.cuda.memory_allocated() - before
+    if out["allocated_bytes"] or len(out["single_pod"]["archs"]) != 10:
+        raise AssertionError(f"sharding_check: {out['allocated_bytes']} "
+                             "bytes allocated or archs missing")
+    return out
+
+
+def shard_bytes_share(params, state) -> dict:
+    """The largest shard's parameter-plus-moment bytes (its blocks of
+    params, m and v) and their share of the unsharded state's."""
+    from repro_torch.models.params import tree_leaves
+    leaves = [t for tree in (params, state.m, state.v)
+              for t in tree_leaves(tree)]
+    per_shard = [sum(t.addressable_shards[p].data.nbytes for t in leaves)
+                 for p in range(leaves[0].sharding.mesh.size)]
+    full = sum(t.shape.numel() * t.dtype.itemsize for t in leaves)
+    return {"largest_shard_bytes": max(per_shard),
+            "unsharded_state_bytes": full,
+            "largest_shard_share": max(per_shard) / full}
+
+
+def hold_sharded(mu, ms, pu, su, ps, ss) -> dict:
+    """One sharded step against the unsharded one: the loss, the grad
+    norm, and each parameter and moment leaf gathered (one at a time)
+    against its unsharded twin, over the leaf's largest magnitude."""
+    import torch
+    from repro_torch.models.params import tree_leaves
+    lu, ls = float(mu["loss"]), float(ms["loss"])
+    gu, gs = float(mu["grad_norm"]), float(ms["grad_norm"])
+    worst = {}
+    for kind, tu, ts in (("param", pu, ps), ("m", su.m, ss.m),
+                         ("v", su.v, ss.v)):
+        errs = []
+        for a, b in zip(tree_leaves(tu), tree_leaves(ts)):
+            full = b.gather()
+            errs.append(float((a - full).abs().max()
+                              / a.abs().max().clamp_min(1e-30)))
+            del full
+        worst[kind] = max(errs)
+    out = {"loss": [lu, ls], "loss_rel_diff": abs(lu - ls) / abs(lu),
+           "grad_norm": [gu, gs], "grad_norm_rel_diff": abs(gu - gs) / abs(gu),
+           "max_leaf_rel_diff": worst,
+           "bit_equal_loss": lu == ls, "step": int(ss.step.gather()),
+           "skipped": [int(mu["skipped"]), int(ms["skipped"])]}
+    if out["loss_rel_diff"] > SHARD_LOSS_REL \
+            or out["grad_norm_rel_diff"] > SHARD_NORM_REL \
+            or max(worst.values()) > SHARD_LEAF_REL \
+            or out["step"] != int(su.step) or any(out["skipped"]) \
+            or not math.isfinite(ls):
+        raise AssertionError(f"sharded step against unsharded: {out}")
+    torch.cuda.synchronize()
+    return out
+
+
+def place_state(params, cfg, mesh):
+    """``params`` placed by sharding_tree on ``mesh`` (copies) and a fresh
+    AdamW state placed like them."""
+    from repro_torch.models import device_put, model_schema, sharding_tree
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import optimizer as opt_mod
+    placed = tree_map(device_put, params, sharding_tree(model_schema(cfg),
+                                                        mesh))
+    return placed, opt_mod.init(placed)
+
+
+def place_batch(batch, cfg, mesh, dev) -> dict:
+    """A batch placed as ``batch_specs`` places train_4k's on ``mesh``."""
+    import torch
+    from repro_torch.configs import batch_specs
+    from repro_torch.models import device_put
+    specs = batch_specs(cfg, "train_4k", mesh)
+    return {k: device_put(torch.as_tensor(v).to(dev), specs[k])
+            for k, v in batch.items()}
+
+
+def train_sharded_ckpt_check(params, cfg, dev) -> dict:
+    """The sharded checkpoint lane at train_check's size: the state placed
+    on a SHARD_MESH mesh, one FSDP step on TRAIN_CKPT_BATCH x
+    TRAIN_CKPT_SEQ, saved as sharded leaves; a shard lost:
+    elastic_mesh(["cuda:0"] * SHARD_LIVE, model_axis=2) gives (3, 1),
+    where d_model 4096 does not split and falls back to replicas; loaded
+    with shardings= onto it, every gathered leaf bit-equal to the saved
+    state's; one step there on a replicated batch (batch_specs: 256 does
+    not split by 3) against the unsharded step from the same state, held
+    as path 21 holds its steps. The directory (under build/) is removed
+    after."""
+    import shutil
+
+    import torch
+    from repro_torch.launch import make_test_mesh
+    from repro_torch.models import NamedSharding, PartitionSpec, model_schema
+    from repro_torch.models import sharding_tree
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import AdamState, elastic_mesh, make_train_step
+    from repro_torch.train.checkpoint import Checkpointer, _leaf_paths
+    tc = train_config(steps=8, microbatches=1)
+    step_fn = make_train_step(cfg, tc)
+    b0, b1 = token_batches(cfg, 2, TRAIN_CKPT_SEQ, TRAIN_CKPT_BATCH)
+    mesh = make_test_mesh(SHARD_MESH, device=dev)
+    placed, state = place_state(params, cfg, mesh)
+    placed, state, m0 = step_fn(placed, state,
+                                place_batch(b0, cfg, mesh, dev))
+    ck_dir = snapshot_dir()
+    out = {"mesh": mesh.shape, "batch": TRAIN_CKPT_BATCH,
+           "seq": TRAIN_CKPT_SEQ, "first_loss": float(m0["loss"])}
+    try:
+        ck = Checkpointer(str(ck_dir), async_write=False)
+        _, save_s = timed(lambda: ck.save(1, placed, state))
+        step_dir = ck_dir / "step_00000001"
+        with open(step_dir / "manifest.json") as f:
+            kinds = {v["kind"] for v in json.load(f)["index"].values()}
+        out["checkpoint"] = {
+            "bytes": sum(f.stat().st_size for f in step_dir.iterdir()),
+            "kinds": sorted(kinds), "save_s": save_s}
+        live = elastic_mesh([dev] * SHARD_LIVE, model_axis=2)
+        sh = sharding_tree(model_schema(cfg), live)
+        rep = NamedSharding(live, PartitionSpec())
+        (step, tree), load_s = timed(lambda: ck.load(
+            like=(placed, state), shardings=(sh, AdamState(rep, sh, sh))))
+        out["checkpoint"]["load_s"] = load_s
+        old = dict(_leaf_paths({"params": placed, "opt_state": state}))
+        equal = all(torch.equal(leaf.gather(), old[name].gather())
+                    for name, leaf in _leaf_paths(tree))
+        out["elastic"] = {
+            "mesh": live.shape, "step": step, "bit_equal": equal,
+            "embed_spec": str(tuple(
+                tree["params"]["embed"]["table"].sharding.spec))}
+        if kinds != {"sharded"} or step != 1 or not equal:
+            raise AssertionError(f"train_check sharded_ckpt: {out}")
+        del placed, state, old
+        ps, ss = tree["params"], tree["opt_state"]
+        pu = tree_map(lambda t: t.gather(), ps)
+        su = AdamState(ss.step.gather(), tree_map(lambda t: t.gather(),
+                                                  ss.m),
+                       tree_map(lambda t: t.gather(), ss.v))
+        batch = place_batch(b1, cfg, live, dev)
+        out["elastic"]["batch_spec"] = str(tuple(
+            batch["tokens"].sharding.spec))
+        if tuple(batch["tokens"].sharding.spec) != (None, None):
+            raise AssertionError(f"the {live.shape} batch is not replicated")
+        pu, su, mu = step_fn(pu, su, b1)
+        ps, ss, ms = step_fn(ps, ss, batch)
+        out["elastic"]["step_vs_unsharded"] = hold_sharded(mu, ms, pu, su,
+                                                           ps, ss)
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    return out
+
+
+def train_sharded_run(params, cfg, dev) -> dict:
+    """Path 21: SHARD_STEPS FSDP steps on a SHARD_MESH mesh of logical
+    shards on cuda:0 (parameters and moments placed by sharding_tree,
+    batches of SHARD_BATCH x TRAIN_SEQ by batch_specs), each beside the
+    unsharded step with SHARD_BATCH microbatches from the same parameters
+    on the same batch (``params``, updated in place), and held to it.
+    Returns the run's figures, the placed state, the step function and a
+    further placed batch (for the profile)."""
+    import torch
+    from repro_torch.launch import make_test_mesh
+    from repro_torch.train import make_train_step
+    from repro_torch.train import optimizer as opt_mod
+    mesh = make_test_mesh(SHARD_MESH, device=dev)
+    placed, ss = place_state(params, cfg, mesh)
+    su = opt_mod.init(params)
+    step_s = make_train_step(cfg, train_config(microbatches=1))
+    step_u = make_train_step(cfg, train_config(microbatches=SHARD_BATCH))
+    batches = token_batches(cfg, SHARD_STEPS + 1, TRAIN_SEQ, SHARD_BATCH)
+    rows, secs = [], {"sharded": [], "unsharded": []}
+    for b in batches[:SHARD_STEPS]:
+        pb = place_batch(b, cfg, mesh, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, su, mu = step_u(params, su, b)
+        float(mu["loss"])
+        t1 = time.perf_counter()
+        placed, ss, ms = step_s(placed, ss, pb)
+        float(ms["loss"])
+        t2 = time.perf_counter()
+        secs["unsharded"].append(t1 - t0)
+        secs["sharded"].append(t2 - t1)
+        rows.append(hold_sharded(mu, ms, params, su, placed, ss))
+    return {"mesh": mesh.shape, "steps": rows, "step_s": secs,
+            **shard_bytes_share(placed, ss), "placed": placed, "state": ss,
+            "step_fn": step_s,
+            "next_batch": place_batch(batches[-1], cfg, mesh, dev)}
+
+
 def train_run(params, cfg, emb, dev) -> dict:
     """Path 20: semantic_order over the corpus on the card, then
     TRAIN_STEPS steps of TrainLoop over a TokenPipeline in that order.
@@ -3368,7 +3673,10 @@ def train_run(params, cfg, emb, dev) -> dict:
 def train_family_run(dev):
     """The corpus's embeddings, train_check (TRAIN_ARCH cut to
     TRAIN_CHECK_LAYERS), then path 20 (train: TRAIN_LAYERS, driven, then
-    one more step profiled). Returns path 20's launches and recorder."""
+    one more step profiled), then path 21 (train_sharded: SHARD_LAYERS
+    on SHARD_MESH logical shards, driven, then one more FSDP step
+    profiled). Returns path 20's launches and recorder (path 21 launches
+    no kernel)."""
     import torch
     from repro_torch.configs import get_config
     emb, emb_s = corpus_embeddings(get_config(TRAIN_ARCH).vocab)
@@ -3381,6 +3689,8 @@ def train_family_run(dev):
          **train_checkpoint_check(params, cfg, dev))
     emit("train_check", lane="attention_under_grad",
          **attention_grad_check(dev))
+    emit("train_check", **fields, lane="sharded_ckpt",
+         **train_sharded_ckpt_check(params, cfg, dev))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3428,7 +3738,44 @@ def train_family_run(dev):
     del res
     gc.collect()
     torch.cuda.empty_cache()
+
+    train_sharded_family(dev)
     return launches, rec
+
+
+def train_sharded_family(dev) -> None:
+    """Path 21 (train_sharded): yi-6b at full width, SHARD_LAYERS layers,
+    FSDP over SHARD_MESH logical shards on cuda:0, driven, then one more
+    FSDP step profiled. It launches no kernel."""
+    import torch
+    cfg, params, fields = train_params(SHARD_LAYERS, dev)
+    res, wall, shard_launches, peak, _ = drive(
+        "train_sharded", lambda: train_sharded_run(params, cfg, dev))
+    del params
+    if any(shard_launches.values()):
+        raise AssertionError(f"train_sharded launched {shard_launches}")
+    prof = profile_run(lambda: res["step_fn"](
+        res["placed"], res["state"], res["next_batch"]), host_ops=False)
+    emit("profile", path="train_sharded",
+         window=f"one FSDP step (step {SHARD_STEPS + 1})", **prof)
+    s_step = {k: statistics.median(v[1:]) for k, v in res["step_s"].items()}
+    tokens = SHARD_BATCH * TRAIN_SEQ
+    emit("train_sharded", **fields, mesh=res["mesh"],
+         logical_shards_on=str(dev), seq=TRAIN_SEQ, batch=SHARD_BATCH,
+         unsharded_microbatches=SHARD_BATCH, steps=res["steps"],
+         step_s=res["step_s"], s_per_step=s_step,
+         tokens_per_s={k: tokens / v for k, v in s_step.items()},
+         largest_shard_bytes=res["largest_shard_bytes"],
+         unsharded_state_bytes=res["unsharded_state_bytes"],
+         largest_shard_share=res["largest_shard_share"],
+         limits={"loss_rel": SHARD_LOSS_REL, "grad_norm_rel": SHARD_NORM_REL,
+                 "leaf_rel": SHARD_LEAF_REL},
+         wall_s=wall, max_memory_allocated=peak, launches=shard_launches,
+         launches_per_step=prof["device_kernel_calls"],
+         device_idle_share=prof["device_idle_share"])
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def knn_lm_run(params, cfg, dev, entry_seed: int):
@@ -4526,6 +4873,9 @@ def main() -> int:
          cuda=torch.version.cuda, count=torch.cuda.device_count())
     if cap != (9, 0):
         raise RuntimeError(f"needs an sm_90 card; got capability {cap}")
+
+    # -- sharding_check: the rules on the production meshes, no storage
+    emit("sharding_check", **sharding_check())
 
     # -- build_lib
     _lib.build(force=True)

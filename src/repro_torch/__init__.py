@@ -40,6 +40,14 @@ LM serving slices):
     the JAX package's format, the fault policy, int8 gradient
     compression; ``python -m repro_torch.launch.train`` — the training
     CLI;
+  * the sharded training state: the logical-axis rules
+    (``repro_torch.models.sharding``: ``logical_to_spec``,
+    ``sharding_tree``, ``device_put`` to a ``ShardedTensor``) on a
+    (data, model) ``ShardMesh`` (``make_production_mesh``,
+    ``make_test_mesh``, ``train.elastic_mesh``), the FSDP train step over
+    placed parameters, sharded checkpoints with an elastic reshard, and
+    the abstract specs (``abstract_tree``, ``input_specs``,
+    ``batch_specs``, ``abstract_cache``, ``abstract_init``);
   all run on a CUDA device unless asked for the CPU.
   * ``repro_torch.kernels`` — the thirteen kernels (join distances, join
     select, merge, pairwise l2, search distances, the int8 and bf16 twins
@@ -61,6 +69,7 @@ from repro_torch.core import (
     Router,
     RouterConfig,
     SearchConfig,
+    ShardMesh,
     SnapshotError,
     SnapshotWriter,
     apply_permutation,
@@ -90,8 +99,23 @@ from repro_torch.core import (
     store_from_numpy,
     window_cluster_purity,
 )
-from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.models import forward, init_tree, model_schema, run_stack
+from repro_torch.configs import (
+    batch_specs,
+    get_config,
+    get_smoke_config,
+    input_specs,
+)
+from repro_torch.launch import make_production_mesh, make_test_mesh
+from repro_torch.models import (
+    ShardedTensor,
+    abstract_tree,
+    device_put,
+    forward,
+    init_tree,
+    model_schema,
+    run_stack,
+    sharding_tree,
+)
 from repro_torch.serve import (
     ContinuousBatcher,
     KNNDatastore,
@@ -110,6 +134,8 @@ __all__ = [
     "ContinuousBatcher",
     "KNNDatastore",
     "Request",
+    "ShardMesh",
+    "ShardedTensor",
     "DescentConfig",
     "DescentStats",
     "FaultPlan",
@@ -150,15 +176,22 @@ __all__ = [
     "snapshot_store",
     "store_from_numpy",
     "window_cluster_purity",
+    "abstract_tree",
+    "batch_specs",
+    "device_put",
     "forward",
     "get_config",
     "get_smoke_config",
     "init_cache",
     "init_tree",
+    "input_specs",
     "interpolate",
     "knn_logits",
+    "make_production_mesh",
+    "make_test_mesh",
     "model_schema",
     "prefill",
     "run_stack",
     "serve_step",
+    "sharding_tree",
 ]

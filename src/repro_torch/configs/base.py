@@ -12,10 +12,9 @@ All ten architectures of the JAX package register (the dense family:
 yi-6b, gemma2-27b, starcoder2-3b, codeqwen1.5-7b; the MoE family:
 deepseek-v2-lite-16b with MLA, granite-moe-3b-a800m; the SSM / hybrid
 family: mamba2-130m, zamba2-1.2b; the front ends: hubert-xlarge's audio
-frames, internvl2-1b's vision patches). The dry-run's ``input_specs`` /
-``batch_specs`` (the frames' and patches' shapes among them) are not
-here: they come with ``launch/``'s dry-run (ROADMAP.md, Queue 1,
-item 8).
+frames, internvl2-1b's vision patches). ``input_specs`` gives a cell's
+model inputs as "meta" tensors (shapes and dtypes, no storage: JAX's
+ShapeDtypeStructs) and ``batch_specs`` their NamedShardings on a mesh.
 """
 from __future__ import annotations
 
@@ -118,8 +117,9 @@ class ModelConfig:
     remat: str = "none"                      # none | full | dots
     scan_layers: bool = True
     triangle_schedule: bool = False          # triangular causal chunks
-    attn_head_constraint: bool = True        # mesh layout hint (no mesh
-                                             # in the port yet)
+    attn_head_constraint: bool = True        # a layout hint JAX gives
+                                             # XLA; the port computes
+                                             # heads whole
     # --- shape applicability overrides
     max_train_seq: int = 1 << 20
 
@@ -130,6 +130,10 @@ class ModelConfig:
         if self.layer_pattern == "local_global":
             return self.window if layer % 2 == 0 else None
         return None
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
 
     @property
     def subquadratic(self) -> bool:
@@ -146,6 +150,13 @@ class ModelConfig:
         if shape == "long_500k" and not self.subquadratic:
             return False
         return True
+
+    def skip_reason(self, shape: str) -> str | None:
+        if self.supports(shape):
+            return None
+        if SHAPES[shape].kind == "decode" and self.encoder_only:
+            return "encoder-only arch has no decode step"
+        return "pure full-attention arch: 500k decode cache is out of scope"
 
 
 # ---------------------------------------------------------------------------
@@ -187,3 +198,51 @@ def _ensure_loaded():
     import importlib
     for mod in _PORTED:
         importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+# ---------------------------------------------------------------------------
+# input_specs: a cell's inputs as meta tensors (no allocation)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: str) -> dict:
+    """Abstract model inputs for one (arch, shape) cell, on the "meta"
+    device.
+
+    train:   {"tokens", "labels"} (+ modality extras)
+    prefill: {"tokens"} (+ extras)
+    decode:  {"tokens" (B,1), "lengths" (B,)}; the cache's specs come from
+             serve.decode.abstract_cache (they are serve_step state, not
+             data).
+    """
+    s = SHAPES[shape]
+    B, L = s.global_batch, s.seq_len
+
+    def spec(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if s.kind == "train":
+        batch: dict = {"tokens": spec((B, L)), "labels": spec((B, L))}
+    elif s.kind == "prefill":
+        batch = {"tokens": spec((B, L))}
+    else:  # decode
+        batch = {"tokens": spec((B, 1)), "lengths": spec((B,))}
+
+    if cfg.frontend == "audio":
+        # precomputed frame embeddings replace the token stream
+        if s.kind in ("train", "prefill"):
+            batch.pop("tokens")
+            batch["frames"] = spec((B, L, cfg.frontend_dim), torch.float32)
+    elif cfg.frontend == "vision" and s.kind in ("train", "prefill"):
+        batch["patches"] = spec((B, cfg.n_patches, cfg.frontend_dim),
+                                torch.float32)
+    return batch
+
+
+def batch_specs(cfg: ModelConfig, shape: str, mesh) -> dict:
+    """NamedShardings matching input_specs (batch axis -> (pod, data))."""
+    from repro_torch.models.sharding import logical_sharding
+    out = {}
+    for name, spec in input_specs(cfg, shape).items():
+        logical = ["batch"] + [None] * (spec.ndim - 1)
+        out[name] = logical_sharding(logical, mesh, dims=tuple(spec.shape))
+    return out

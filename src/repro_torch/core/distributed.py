@@ -5,7 +5,9 @@ global top-k, or one global K-NN graph built by NN-Descent over them.
 Single controller, as in the JAX package: one host call drives every
 shard. A ``ShardMesh`` names the P torch devices the shards live on
 (repeats allowed: ``["cuda:0"] * 4`` is four logical shards on one card;
-on a machine with P cards, shard p can sit on ``cuda:p``). Its small
+on a machine with P cards, shard p can sit on ``cuda:p``); it may have
+more than one named axis, as the (data, model) meshes of the sharded
+training state do (models/sharding.py, launch/mesh.py). Its small
 collectives (``all_gather``, the ring ``ppermute``, ``all_to_all``,
 ``psum``) are ``.to(device)`` moves between shards: a view or a copy on
 one device, a peer copy between cards. No ``torch.distributed`` process
@@ -44,6 +46,7 @@ import dataclasses
 import time
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import faults, heap, selection
@@ -71,20 +74,38 @@ _GOLDEN = 0x9E3779B97F4A7C15
 
 
 class ShardMesh:
-    """A 1-D mesh of P shards over the axis ``axis``: ``devices[p]`` holds
-    shard p's rows. Outputs of the sharded entry points land on
-    ``devices[0]``."""
+    """A mesh of logical shards over named axes. ``devices`` nests one
+    level per name in ``axis``: a flat list and one name (the default,
+    "data") make the 1-D mesh of the sharded search and build, where
+    ``devices[p]`` holds shard p's rows; ``[["cuda:0"] * 2] * 2`` with
+    ``("data", "model")`` makes a 2 x 2 mesh (``grid`` builds one on a
+    single device). ``shape`` is the ordered {name: size}, ``size`` their
+    product; ``devices`` lists the shards in row-major order, and
+    ``coords`` / ``device_at`` map a position to its coordinates and
+    back. Outputs of the sharded entry points land on ``devices[0]``.
 
-    def __init__(self, devices, axis: str = "data"):
-        devices = tuple(torch.device(d) for d in devices)
-        if not devices:
+    The collectives (``split``, ``all_gather``, ``ppermute``,
+    ``all_to_all``, ``psum``) run over one axis: on a 1-D mesh its own;
+    on an N-D mesh the ``axis=`` they are given, over the shards along it
+    whose other coordinates are 0 (``line``), and with none they
+    raise."""
+
+    def __init__(self, devices, axis="data"):
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        grid = np.array(devices, dtype=object)
+        if grid.size == 0:
             raise ValueError("a ShardMesh needs at least one device")
+        if grid.ndim != len(names) or len(set(names)) != len(names):
+            raise ValueError(f"devices of shape {grid.shape} do not match "
+                             f"the distinct axis names {names}")
+        devices = tuple(torch.device(d) for d in grid.reshape(-1))
         if any(d.type == "cuda" for d in devices) \
                 and not torch.cuda.is_available():
             raise RuntimeError("ShardMesh names a CUDA device and none is "
                                "available")
         self.devices = devices
-        self.axis = axis
+        self.axes = names
+        self._dims = grid.shape
 
     @classmethod
     def on(cls, n_shards: int, device=None, axis: str = "data"):
@@ -94,43 +115,82 @@ class ShardMesh:
             raise ValueError("n_shards must be >= 1")
         return cls([resolve_device(device, "ShardMesh.on")] * n_shards, axis)
 
+    @classmethod
+    def grid(cls, shape: dict, device=None):
+        """A mesh of ``shape`` ({name: size}, in order) with every shard on
+        one device: the card unless the caller names another ("meta"
+        gives placements with no storage); with no card present that
+        raises."""
+        if not shape or min(shape.values()) < 1:
+            raise ValueError(f"mesh shape {shape} needs sizes >= 1")
+        dev = resolve_device(device, "ShardMesh.grid")
+        devices = np.empty(tuple(shape.values()), dtype=object)
+        devices.fill(dev)
+        return cls(devices, tuple(shape))
+
     @property
     def size(self) -> int:
         return len(self.devices)
 
     @property
     def shape(self) -> dict:
-        return {self.axis: self.size}
+        return dict(zip(self.axes, self._dims))
 
-    def split(self, x, dtype=None) -> list:
-        """Row blocks of the global ``x`` (n, ...), block p on devices[p];
-        n must divide by P."""
+    def coords(self, p: int) -> dict:
+        """{name: coordinate} of the shard at row-major position p."""
+        return dict(zip(self.axes,
+                        (int(c) for c in np.unravel_index(p, self._dims))))
+
+    def device_at(self, coords: dict) -> torch.device:
+        return self.devices[int(np.ravel_multi_index(
+            tuple(coords[a] for a in self.axes), self._dims))]
+
+    def line(self, axis: str | None = None) -> tuple:
+        """The devices the collectives run over: this 1-D mesh's, or on an
+        N-D mesh those along ``axis`` whose other coordinates are 0."""
+        if axis is None:
+            if len(self.axes) > 1:
+                raise ValueError(f"a collective on the {len(self.axes)}-D "
+                                 f"mesh {self.shape} needs an axis")
+            return self.devices
+        if axis not in self.axes:
+            raise ValueError(f"{axis!r} is not an axis of {self.shape}")
+        at = dict.fromkeys(self.axes, 0)
+        return tuple(self.device_at({**at, axis: c})
+                     for c in range(self.shape[axis]))
+
+    def split(self, x, dtype=None, *, axis: str | None = None) -> list:
+        """Row blocks of the global ``x`` (n, ...), block p on the p-th
+        device of ``line(axis)``; n must divide by their count."""
+        devices = self.line(axis)
         x = torch.as_tensor(x, dtype=dtype)
         n = x.shape[0]
-        if n % self.size:
-            raise ValueError(f"{n} rows do not split over {self.size} "
+        if n % len(devices):
+            raise ValueError(f"{n} rows do not split over {len(devices)} "
                              "shards")
-        n_local = n // self.size
+        n_local = n // len(devices)
         return [x[p * n_local:(p + 1) * n_local].to(d)
-                for p, d in enumerate(self.devices)]
+                for p, d in enumerate(devices)]
 
-    def all_gather(self, parts) -> torch.Tensor:
-        """(P, ...) stack of the per-shard tensors, on devices[0]."""
-        return torch.stack([t.to(self.devices[0]) for t in parts])
+    def all_gather(self, parts, *, axis: str | None = None) -> torch.Tensor:
+        """(P, ...) stack of the per-shard tensors, on the line's first
+        device."""
+        first = self.line(axis)[0]
+        return torch.stack([t.to(first) for t in parts])
 
-    def ppermute(self, blocks) -> list:
+    def ppermute(self, blocks, *, axis: str | None = None) -> list:
         """The ring step: shard p receives shard p-1's block."""
-        return [blocks[p - 1].to(d) for p, d in enumerate(self.devices)]
+        return [blocks[p - 1].to(d) for p, d in enumerate(self.line(axis))]
 
-    def all_to_all(self, buckets) -> list:
+    def all_to_all(self, buckets, *, axis: str | None = None) -> list:
         """buckets[p] (P, ...): row q goes to shard q. Returns got with
-        got[q][p] = buckets[p][q], on devices[q]."""
+        got[q][p] = buckets[p][q], on the line's q-th device."""
         return [torch.stack([b[q].to(d) for b in buckets])
-                for q, d in enumerate(self.devices)]
+                for q, d in enumerate(self.line(axis))]
 
-    def psum(self, parts) -> torch.Tensor:
-        """Sum of the per-shard tensors, on devices[0]."""
-        return self.all_gather(parts).sum(dim=0)
+    def psum(self, parts, *, axis: str | None = None) -> torch.Tensor:
+        """Sum of the per-shard tensors, on the line's first device."""
+        return self.all_gather(parts, axis=axis).sum(dim=0)
 
 
 def _shard_seed(key: int, p: int) -> int:

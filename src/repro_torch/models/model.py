@@ -6,9 +6,9 @@ one biased dense, no token table read) and internvl2's vision prefix
 (patches through a two-layer projector, prefixed to the tokens), and
 the parameter counts (``active_param_count``: the MoE's per-token
 share; every parameter of the other families, zamba2's shared block
-counted once). ``loss_fn`` is the training objective; what stays open
-of training is the mesh (sharded parameters and checkpoints: ROADMAP.md,
-Queue 1, item 7d).
+counted once). ``loss_fn`` is the training objective; the FSDP step over
+parameters placed on a mesh (models/sharding.py) calls it on each data
+group's rows with the parameters gathered (train/loop.py).
 """
 from __future__ import annotations
 

@@ -5,6 +5,12 @@ logical axes, initializer). From that schema come:
 
   * ``init_tree``         — materialized parameters, drawn from a
                             ``torch.Generator`` on the target device
+  * ``abstract_tree``     — tensors on the "meta" device, the
+                            counterpart of JAX's ShapeDtypeStructs:
+                            shapes and dtypes with no storage
+  * ``sharding_tree`` / ``spec_tree`` — a NamedSharding / PartitionSpec
+                            per leaf from the logical rules
+                            (models/sharding.py)
   * ``count_params`` / ``bytes_params``
   * ``params_from_numpy`` — a parameter tree of the JAX package (numpy
                             leaves, the layer ``stack`` axis included)
@@ -16,8 +22,7 @@ logical axes, initializer). From that schema come:
 
 The layer stack keeps JAX's leading ``stack`` axis; the port's per-layer
 loops index it (a view, no copy). The front ends' ``frontend`` subtree
-is carried like any other (its matrices cast, its biases kept fp32). The
-sharding trees wait for a mesh (ROADMAP.md, Queue 1, item 7d).
+is carried like any other (its matrices cast, its biases kept fp32).
 """
 from __future__ import annotations
 
@@ -29,6 +34,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.models.sharding import (
+    ShardingRules,
+    logical_sharding,
+    logical_to_spec,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +117,25 @@ def init_tree(generator: torch.Generator, schema) -> dict:
     tests that compare the packages carry JAX's weights over with
     ``params_from_numpy``."""
     return tree_map(lambda d: init_leaf(generator, d), schema)
+
+
+def abstract_tree(schema) -> dict:
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), schema)
+
+
+def sharding_tree(schema, mesh, rules: ShardingRules | None = None) -> dict:
+    return tree_map(
+        lambda d: logical_sharding(d.logical, mesh, dims=d.shape,
+                                   rules=rules), schema)
+
+
+def spec_tree(schema, mesh, rules: ShardingRules | None = None) -> dict:
+    """PartitionSpec tree. ``mesh`` may be anything with a ``.shape``
+    mapping (no devices are needed for a spec)."""
+    return tree_map(
+        lambda d: logical_to_spec(d.logical, mesh, dims=d.shape,
+                                  rules=rules), schema)
 
 
 def count_params(schema) -> int:

@@ -1,10 +1,12 @@
 """Serving (src/repro/serve): prefill and decode over batched KV, latent
 and SSM caches, the continuous batcher with lane admission and
 decode-time datastore growth, the retrieval scheduler, and kNN-LM
-retrieval over the port's graph. ``abstract_cache`` and ``cache_shardings`` wait for the mesh
-(ROADMAP.md, Queue 1, item 6)."""
+retrieval over the port's graph; ``abstract_cache`` and
+``cache_shardings``, the cache's shapes and placement on a mesh."""
 from repro_torch.serve.decode import (
+    abstract_cache,
     cache_schema,
+    cache_shardings,
     init_cache,
     prefill,
     serve_step,
@@ -36,7 +38,9 @@ __all__ = [
     "Request",
     "RetrievalScheduler",
     "SchedulerConfig",
+    "abstract_cache",
     "cache_schema",
+    "cache_shardings",
     "init_cache",
     "interpolate",
     "knn_logits",

@@ -24,6 +24,8 @@ axis 2; its ``shared`` cache is stacked over the invocations):
   * SSM cache         conv tail (n, B, K-1, conv_dim) + state (n, B, H,
     P, N) f32: O(1) in the sequence.
 
+``abstract_cache`` gives the cache as "meta" tensors (no storage) and
+``cache_shardings`` its NamedShardings on a mesh (models/sharding.py).
 ``serve_step`` updates the cache IN PLACE and returns it (JAX returns an
 updated copy); per-layer loops (``transformer.stack_layers``) take the
 place of ``lax.scan``.
@@ -36,7 +38,12 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.model import embed_inputs, output_logits
-from repro_torch.models.params import init_tree, tree_map
+from repro_torch.models.params import (
+    abstract_tree,
+    init_tree,
+    sharding_tree,
+    tree_map,
+)
 from repro_torch.models.transformer import (
     apply_norm,
     finish_block,
@@ -63,6 +70,14 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     device = resolve_device(device, "init_cache")
     return init_tree(torch.Generator(device=device).manual_seed(0),
                      cache_schema(cfg, batch, max_len))
+
+
+def abstract_cache(cfg, batch: int, max_len: int) -> dict:
+    return abstract_tree(cache_schema(cfg, batch, max_len))
+
+
+def cache_shardings(cfg, batch: int, max_len: int, mesh, rules=None):
+    return sharding_tree(cache_schema(cfg, batch, max_len), mesh, rules)
 
 
 # ---------------------------------------------------------------------------

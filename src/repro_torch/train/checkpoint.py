@@ -13,8 +13,19 @@ Layout (step 1200, 2 hosts):
 
 Leaves are named by their tree paths as JAX names them
 (``params/stack/layers/attn/wq``, ``opt_state/m/...``,
-``opt_state/step``: dict keys and ``AdamState``'s field names), each a
-"full" leaf. Crash safety: writes go to ``step_X.tmp`` and are renamed
+``opt_state/step``: dict keys and ``AdamState``'s field names). A tensor
+is a "full" leaf; a ``ShardedTensor`` on a mesh of more than one shard
+is a "sharded" leaf, as JAX writes one (its ``shape``, ``dtype`` and
+each shard's ``slices``, ``[start, stop]`` a dimension, null where the
+dimension is whole; payloads ``name@@i`` in ``addressable_shards``
+order, replicas included; the replicated 0-d ``opt_state/step`` has
+empty slice lists). JAX decides by the number of distinct devices; the
+port's shards may share one card, so it decides by the mesh's shard
+count. ``load`` assembles sharded leaves into the global array and,
+with ``shardings=``, places each leaf by its sharding (the elastic
+reshard onto another mesh), else by its ``like`` leaf's placement, so
+the fault policy's rollback returns the state on its own mesh (JAX's
+``load`` without ``shardings`` returns unplaced arrays). Crash safety: writes go to ``step_X.tmp`` and are renamed
 into place once every file is written; a partial directory is never
 visible under its final name, and ``latest_step`` ignores unrenamed temp
 dirs. ``save`` copies every leaf to host memory on the caller's thread
@@ -22,9 +33,6 @@ before the writer thread starts, so the train loop's in-place updates
 after it returns never reach the file. ``config_hash`` is JAX's function,
 but the port's config reprs name torch dtypes, so its hashes differ from
 JAX's (no load checks them).
-
-The "sharded" leaves of a multi-device mesh wait for the port's mesh
-(ROADMAP.md, Queue 1, item 7d).
 """
 from __future__ import annotations
 
@@ -40,7 +48,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.device import process_grid
+from repro_torch.core.device import process_grid, resolve_device
+from repro_torch.models.sharding import ShardedTensor, device_put
 
 
 def _leaf_paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
@@ -77,6 +86,24 @@ def _to_host(leaf) -> np.ndarray:
     return np.array(leaf)
 
 
+def _host_leaf(leaf) -> tuple:
+    """(kind, shape, dtype, data) as JAX's ``save`` gathers them: a
+    sharded leaf's (index, host array) a shard, replicas sharing one host
+    copy; else the whole array."""
+    if isinstance(leaf, ShardedTensor):
+        if leaf.sharding.mesh.size > 1:
+            copies: dict[int, np.ndarray] = {}
+            shards = []
+            for idx, data in leaf.addressable_shards:
+                if id(data) not in copies:
+                    copies[id(data)] = _to_host(data)
+                shards.append((idx, copies[id(data)]))
+            return ("sharded", tuple(leaf.shape), shards[0][1].dtype.name,
+                    shards)
+        leaf = leaf.gather()
+    return ("full", None, None, _to_host(leaf))
+
+
 def config_hash(cfg) -> str:
     return hashlib.sha1(repr(cfg).encode()).hexdigest()[:12]
 
@@ -108,19 +135,38 @@ class Checkpointer:
         tree = {"params": params, "opt_state": opt_state}
         # host copies on the caller's thread: the loop updates the
         # device tensors in place once this returns
-        host_data = {name: _to_host(leaf) for name, leaf in _leaf_paths(tree)}
+        host_data = {name: _host_leaf(leaf)
+                     for name, leaf in _leaf_paths(tree)}
 
         def write():
             tmp = os.path.join(self.directory, f"step_{step:08d}.tmp")
             final = os.path.join(self.directory, f"step_{step:08d}")
             os.makedirs(tmp, exist_ok=True)
+            payload = {}
+            index = {}
+            for name, (kind, shape, dtype, data) in host_data.items():
+                if kind == "full":
+                    payload[name] = data
+                    index[name] = {"kind": "full"}
+                else:
+                    for i, (_, arr) in enumerate(data):
+                        payload[f"{name}@@{i}"] = arr
+                    index[name] = {
+                        "kind": "sharded",
+                        "shape": list(shape),
+                        "dtype": dtype,
+                        "slices": [
+                            [[sl.start, sl.stop] for sl in idx]
+                            for idx, _ in data
+                        ],
+                    }
             rank, world = process_grid()
-            np.savez(os.path.join(tmp, f"host_{rank:05d}.npz"), **host_data)
+            np.savez(os.path.join(tmp, f"host_{rank:05d}.npz"), **payload)
             manifest = {
                 "step": step,
                 "cfg_hash": self.cfg_hash,
                 "n_hosts": world,
-                "index": {name: {"kind": "full"} for name in host_data},
+                "index": index,
                 "time": time.time(),
             }
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -177,12 +223,16 @@ class Checkpointer:
         steps = self._list_steps()
         return max(steps) if steps else None
 
-    def load(self, step: int | None = None, *, like=None, device=None):
+    def load(self, step: int | None = None, *, like=None, shardings=None,
+             device=None):
         """Load {'params','opt_state'}: (step, {name: numpy array}) with no
-        ``like``; with ``like`` (a tree of tensors, or a (params,
-        opt_state) pair) its structure filled with the saved leaves as
-        tensors, bit for bit, on ``device`` (default: each ``like``
-        leaf's own device). (None, None) when there is no checkpoint."""
+        ``like``; with ``like`` (a tree of tensors, ShardedTensors or meta
+        tensors, or a (params, opt_state) pair) its structure filled with
+        the saved leaves, bit for bit: placed by ``shardings`` (the same
+        structure of NamedShardings) when given, else a placed ``like``
+        leaf by its own sharding, else a tensor on ``device`` (default:
+        the ``like`` leaf's own device; "cuda" for a meta leaf). (None,
+        None) when there is no checkpoint."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None
@@ -197,19 +247,43 @@ class Checkpointer:
                         buf[k] = z[k]
         full: dict[str, np.ndarray] = {}
         for name, info in manifest["index"].items():
-            if info["kind"] != "full":
-                raise NotImplementedError(
-                    f"leaf {name!r} is {info['kind']!r}: sharded leaves "
-                    "wait for the port's mesh")
-            full[name] = buf[name]
+            if info["kind"] == "full":
+                full[name] = buf[name]
+            else:
+                arr = np.zeros(info["shape"], dtype=info["dtype"])
+                i = 0
+                while f"{name}@@{i}" in buf:
+                    sl = tuple(
+                        slice(a, b) for a, b in info["slices"][i])
+                    arr[sl] = buf[f"{name}@@{i}"]
+                    i += 1
+                full[name] = arr
 
         if like is None:
             return step, full
         tree = {"params": like[0], "opt_state": like[1]} \
             if isinstance(like, tuple) else like
+        named = _leaf_paths(tree)
+        if shardings is not None:
+            sh_tree = {"params": shardings[0], "opt_state": shardings[1]} \
+                if isinstance(shardings, tuple) else shardings
+            placements = [s for _, s in _leaf_paths(sh_tree)]
+        else:
+            placements = [ref.sharding if isinstance(ref, ShardedTensor)
+                          else None for _, ref in named]
         leaves = []
-        for name, ref in _leaf_paths(tree):
-            dev = device if device is not None else (
-                ref.device if isinstance(ref, torch.Tensor) else "cpu")
-            leaves.append(torch.from_numpy(full[name]).to(dev))
+        for (name, ref), sh in zip(named, placements):
+            t = torch.from_numpy(full[name])
+            if sh is not None:
+                leaves.append(device_put(t, sh))
+                continue
+            if device is not None:
+                dev = device
+            elif isinstance(ref, torch.Tensor) and ref.device.type != "meta":
+                dev = ref.device
+            elif isinstance(ref, torch.Tensor):   # an abstract leaf
+                dev = resolve_device(None, "Checkpointer.load")
+            else:
+                dev = "cpu"
+            leaves.append(t.to(dev))
         return step, _rebuild(tree, iter(leaves))

@@ -1,25 +1,31 @@
 """Fault-tolerance policy (src/repro/train/fault.py): NaN rollback, a
-restart budget, a straggler watchdog.
+restart budget, a straggler watchdog, elastic re-meshing.
 
 The train step already refuses to apply a non-finite update (loop.py's
 NaN guard); this layer handles the persistent failure modes:
 
   * ``FaultPolicy`` counts consecutive skipped steps; after
     ``max_consecutive_skips`` it rolls params and optimizer state back to
-    the last checkpoint (loaded onto the params' devices) and the loop
-    moves on past the poisonous batches. After ``max_restarts`` rollbacks
-    in all it raises.
+    the last checkpoint (loaded onto the params' devices, placed leaves
+    onto their own mesh) and the loop moves on past the poisonous
+    batches. After ``max_restarts`` rollbacks in all it raises.
   * ``StragglerWatchdog`` keeps an EWMA of step wall time; steps slower
     than ``threshold`` x the EWMA are counted and logged.
-
-``elastic_mesh`` (a data x model mesh of the live devices) waits for the
-port's mesh (ROADMAP.md, Queue 1, item 7d).
+  * ``elastic_mesh`` builds the largest (data, model) mesh of the live
+    devices that keeps the model axis, so losing a shard re-forms a
+    smaller data axis; ``Checkpointer.load(shardings=)`` reshards into
+    it.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from typing import Any
+
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.core.distributed import ShardMesh
 
 
 @dataclasses.dataclass
@@ -83,3 +89,23 @@ class StragglerWatchdog:
             self.ewma = dt if self.ewma is None else (
                 self.ewma * (1 - self.alpha) + dt * self.alpha)
         return slow
+
+
+def elastic_mesh(devices=None, *, model_axis: int = 16,
+                 axis_names=("data", "model")) -> ShardMesh:
+    """Largest (data, model) mesh from the live devices (repeats allowed:
+    ``["cuda:0"] * 3`` is three live logical shards), preserving the model
+    axis (the parameters' layout survives); the data axis shrinks to fit.
+    By default the card's devices; with no card that raises."""
+    if devices is None:
+        resolve_device(None, "elastic_mesh")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    n = len(devices)
+    model = min(model_axis, n)
+    while n % model:
+        model -= 1
+    data = n // model
+    return ShardMesh([devices[r * model:(r + 1) * model]
+                      for r in range(data)], axis_names)

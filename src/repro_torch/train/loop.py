@@ -13,6 +13,29 @@
     the whole optimizer state, ``step`` included, stay as they were) and
     sets ``skipped`` (fault.py's rollback handles repeated failures).
 
+Placed parameters (``ShardedTensor``s on a (data, model) mesh, e.g. by
+``sharding_tree``) make the step FSDP's (ZeRO-3), following its inputs'
+placements as JAX's jitted step follows theirs, and a placement never
+changes the objective: every leaf is gathered once before the forward;
+the batch (placed by ``batch_specs``) is split into microbatches as the
+unsharded step splits it, and each microbatch at the row boundaries of
+its data groups, the distinct row blocks of the batch's placement (a
+batch the placement replicates is one group, computed once, not once a
+shard); each piece's mean loss is weighted by its share of its
+microbatch's valid labels (labels >= 0), so the loss is the
+microbatch's nll sum over its valid labels, as JAX's, and ``tokens``
+counts the microbatch whole; the gradients are summed in that fixed
+order, and each shard's block of the sum is its gradient (the
+reduce-scatter); AdamW updates each block in place (optimizer.py), and
+the step returns the same placements. With a data axis of 2,
+``microbatches=1`` and the valid labels split evenly, each half weighs
+1/2 and the arithmetic is the unsharded step's ``microbatches=2`` on
+the same halves; the grad norm sums its squares block by block, in
+fp64, so both clip by the same scale. The tensor-parallel compute over
+``model`` that JAX gets from XLA's partitioner is not reproduced: the
+logical shards share one card, where it cannot pay; the placement is
+what is kept.
+
 The loop's final save skips a step already on disk: one its cadence has
 just saved, or the checkpoint a rollback has just loaded. The
 parameters are the caller's tensors: autograd is switched on for them
@@ -29,7 +52,8 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.models.model import loss_fn
-from repro_torch.models.params import tree_leaves
+from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.sharding import ShardedTensor, scatter_view
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.optimizer import AdamState, OptimizerConfig
 
@@ -59,48 +83,108 @@ def _value_and_grad(params, batch, cfg):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def make_train_step(cfg, tc: TrainConfig) -> Callable:
-    """Returns train_step(params, opt_state, batch) -> (p, s, metrics)."""
+def _data_groups(batch: dict, dev) -> tuple:
+    """A placed batch whole on ``dev``, and the row bounds of its data
+    groups: its placement's distinct row blocks, in order; a batch with
+    no placement, or one its placement replicates, is one group."""
+    rows = {(idx[0].start, idx[0].stop) for v in batch.values()
+            if isinstance(v, ShardedTensor) for idx, _ in v.unique_blocks()}
+    full = {k: (v.gather(dev) if isinstance(v, ShardedTensor)
+                else torch.as_tensor(v).to(dev)) for k, v in batch.items()}
+    b = next(iter(full.values())).shape[0]
+    if len(rows) <= 1:
+        return full, [(0, b)]
+    if (None, None) in rows:
+        raise ValueError(f"a batch placed with mixed row blocks: {rows}")
+    return full, sorted(rows)
 
-    def compute_grads(params, batch):
-        if tc.microbatches <= 1:
-            _, metrics, grads = _value_and_grad(params, batch, cfg)
+
+def _pieces(full: dict, groups: list, m: int) -> list:
+    """``full``'s ``m`` microbatches along axis 0, each cut at the data
+    groups' row bounds: (piece, divisor, microbatch) with the piece's
+    mean loss and gradients divided by ``m * max(N, 1) / n`` (n valid
+    labels in the piece, N in its microbatch; a piece with none divides
+    by inf). One group gives each microbatch whole, divided by m."""
+    b = next(iter(full.values())).shape[0]
+    assert b % m == 0, (b, m)
+    size, out = b // m, []
+    for i in range(m):
+        lo, hi = i * size, (i + 1) * size
+        cuts = [(max(lo, a), min(hi, e)) for a, e in groups
+                if max(lo, a) < min(hi, e)]
+        valid = [(full["labels"][a:e] >= 0).sum() for a, e in cuts]
+        total = torch.clamp_min(sum(valid), 1).double() * m
+        for (a, e), n in zip(cuts, valid):
+            out.append(({k: v[a:e] for k, v in full.items()},
+                        (total / n.double()).float(), i))
+    return out
+
+
+def make_train_step(cfg, tc: TrainConfig) -> Callable:
+    """Returns train_step(params, opt_state, batch) -> (p, s, metrics).
+    Placed parameters take the FSDP step (the module docstring)."""
+
+    def compute_grads(params, pieces):
+        """Gradients of the loss over ``pieces``, (piece, divisor,
+        microbatch) triples (the batch's microbatches, or their cuts at
+        the data groups), accumulated in their order as ``g / divisor``;
+        each microbatch's metrics pool its pieces', and the step's
+        average its microbatches' (JAX's mean over its scan)."""
+        if len(pieces) == 1:
+            _, metrics, grads = _value_and_grad(params, pieces[0][0], cfg)
             return grads, metrics
 
-        m = tc.microbatches
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in tree_leaves(params)]
-        loss_acc, ms = 0.0, []
-        for i in range(m):
-            def split(x):
-                b = x.shape[0]
-                assert b % m == 0, (b, m)
-                return x[i * (b // m):(i + 1) * (b // m)]
-            loss, metrics, grads = _value_and_grad(
-                params, {k: split(v) for k, v in batch.items()}, cfg)
+        loss_acc, tokens, correct = 0.0, {}, {}
+        for piece, div, i in pieces:
+            loss, metrics, grads = _value_and_grad(params, piece, cfg)
             for a, g in zip(acc, grads):
-                a.add_(g.float() / m)
+                a.add_(g.float() / div)
             del grads
-            loss_acc = loss_acc + loss / m
-            ms.append(metrics)
-        metrics = {k: torch.stack([x[k] for x in ms]).float().mean()
-                   for k in ms[0]}
-        metrics["loss"] = loss_acc
+            loss_acc = loss_acc + loss / div
+            n = metrics["tokens"]
+            tokens[i] = tokens.get(i, 0) + n
+            correct[i] = correct.get(i, 0) + torch.round(
+                metrics["accuracy"] * torch.clamp_min(n, 1)).long()
+        metrics = {
+            "tokens": torch.stack(list(tokens.values())).float().mean(),
+            "accuracy": torch.stack([
+                correct[i] / torch.clamp_min(tokens[i], 1)
+                for i in tokens]).float().mean(),
+            "loss": loss_acc}
         return acc, metrics
 
-    def train_step(params, opt_state: AdamState, batch):
-        dev = tree_leaves(params)[0].device
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        grads, metrics = compute_grads(params, batch)
+    def update(params, opt_state, grads, metrics):
         guard = torch.isfinite(metrics["loss"]) if tc.nan_guard else None
         params, opt_state, om = opt_mod.apply(
             tc.opt, params, opt_state, grads, guard=guard)
-        del grads
         ok = om.pop("ok", None)
         metrics.update(om)
         if ok is not None:
             metrics["skipped"] = (~ok).to(torch.int32)
         return params, opt_state, metrics
+
+    def sharded_step(params, opt_state: AdamState, batch):
+        leaves = tree_leaves(params)
+        dev = leaves[0].blocks()[0].device
+        full = tree_map(lambda p: p.gather(), params)     # the all-gather
+        pieces = _pieces(*_data_groups(batch, dev), tc.microbatches)
+        grads, metrics = compute_grads(full, pieces)
+        del full
+        grads = [scatter_view(g, p.sharding)              # reduce-scatter
+                 for g, p in zip(grads, leaves)]
+        return update(params, opt_state, grads, metrics)
+
+    def train_step(params, opt_state: AdamState, batch):
+        if isinstance(tree_leaves(params)[0], ShardedTensor):
+            return sharded_step(params, opt_state, batch)
+        dev = tree_leaves(params)[0].device
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        b = next(iter(batch.values())).shape[0]
+        grads, metrics = compute_grads(
+            params, _pieces(batch, [(0, b)], tc.microbatches))
+        return update(params, opt_state, grads, metrics)
 
     return train_step
 

@@ -2,9 +2,10 @@
 (src/repro/train/optimizer.py), over the port's nested-dict parameter
 trees.
 
-The arithmetic is JAX's, in fp32 and in its order: the bias corrections
-from the incremented step, the learning rate from the step before it,
-weight decay decoupled and applied to the fp32 parameter. ``step`` is a
+The arithmetic is JAX's, in fp32 and in its order (but the grad norm's
+fp64 sum, below): the bias corrections from the incremented step, the
+learning rate from the step before it, weight decay decoupled and
+applied to the fp32 parameter. ``step`` is a
 0-d int32 tensor on the parameters' device, so the schedule needs no
 host sync.
 
@@ -15,6 +16,17 @@ loss is finite) every write is ``torch.where(ok, new, old)``, ``ok``
 being the guard and a finite grad norm, both known before the first
 write: a skipped step leaves params and the whole state, ``step``
 included, as they were.
+
+Placed leaves (``ShardedTensor``s, models/sharding.py) are JAX's ZeRO by
+sharding (src/repro/train/optimizer.py:1-5): ``init`` places each moment
+like its parameter and ``step`` replicated (``PartitionSpec()``), and
+``apply`` updates each block in place, the gradients placed like the
+parameters. ``global_norm`` reads each distinct block once, so a leaf
+replicated over an axis (a norm scale, a head count that does not split)
+counts its elements once, and sums the squares in fp64, so the clip
+scale does not depend on the blocking; the guard's ``ok`` is one
+decision for the whole state. ``abstract_init`` is the state as "meta"
+tensors.
 """
 from __future__ import annotations
 
@@ -25,6 +37,12 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.sharding import (
+    NamedSharding,
+    PartitionSpec,
+    ShardedTensor,
+    device_put,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,11 +65,31 @@ class AdamState(NamedTuple):
     v: Any
 
 
+def _blocks(x) -> list:
+    """What an in-place update writes: a placed leaf's blocks, or the
+    tensor itself."""
+    return x.blocks() if isinstance(x, ShardedTensor) else [x]
+
+
 def init(params) -> AdamState:
-    dev = tree_leaves(params)[0].device
-    return AdamState(torch.zeros((), dtype=torch.int32, device=dev),
-                     tree_map(torch.zeros_like, params),
-                     tree_map(torch.zeros_like, params))
+    first = tree_leaves(params)[0]
+    if isinstance(first, ShardedTensor):
+        step = device_put(torch.zeros((), dtype=torch.int32),
+                          NamedSharding(first.sharding.mesh, PartitionSpec()))
+
+        def zeros(p):
+            return p.map_blocks(torch.zeros_like)
+    else:
+        step = torch.zeros((), dtype=torch.int32, device=first.device)
+        zeros = torch.zeros_like
+    return AdamState(step, tree_map(zeros, params), tree_map(zeros, params))
+
+
+def abstract_init(params_abs) -> AdamState:
+    """The state of ``params_abs`` (an ``abstract_tree``) as meta tensors."""
+    z = tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype,
+                                       device="meta"), params_abs)
+    return AdamState(torch.empty((), dtype=torch.int32, device="meta"), z, z)
 
 
 def learning_rate(cfg: OptimizerConfig, step) -> torch.Tensor:
@@ -77,9 +115,33 @@ def _leaves(tree) -> list:
     return tree if isinstance(tree, list) else tree_leaves(tree)
 
 
+# elements a piece of a leaf's fp64 sum of squares (a 512 MB copy)
+_NORM_PIECE = 1 << 26
+
+
+def _sum_sq(x) -> torch.Tensor:
+    """The sum of the squares of ``x``'s elements, each distinct block of
+    a placed leaf once, in fp64: each square of an fp32 (or bf16) value
+    is exact there, so the sum hardly depends on how the leaf is blocked
+    or ordered."""
+    blocks = [b for _, b in x.unique_blocks()] \
+        if isinstance(x, ShardedTensor) else [x]
+    total = torch.zeros((), dtype=torch.float64, device=blocks[0].device)
+    for b in blocks:
+        for piece in b.reshape(-1).split(_NORM_PIECE):
+            d = piece.to(device=total.device, dtype=torch.float64)
+            total += torch.dot(d, d)
+    return total
+
+
 def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float())) for x in _leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    """fp32 norm of the fp64 sum of every element's square (JAX sums in
+    fp32): a sharded state and its unsharded twin clip by the same scale,
+    where a last-bit difference would reach every element's update, and
+    Adam's normalization magnifies it wherever a gradient is near eps."""
+    sums = [_sum_sq(x) for x in _leaves(tree)]
+    total = torch.sum(torch.stack([t.to(sums[0].device) for t in sums]))
+    return torch.sqrt(total).to(torch.float32)
 
 
 def clip_by_global_norm(tree, max_norm: float):
@@ -98,37 +160,53 @@ def apply(
     guard: torch.Tensor | None = None,
 ) -> tuple[Any, AdamState, dict]:
     """One AdamW update, in place. ``grads`` is a tree like ``params`` or
-    the list of its leaves in ``tree_leaves`` order. Returns (params,
-    state, metrics): the same trees, updated, and {"grad_norm", "lr"}
-    (with ``guard``, also "ok": whether the update was written)."""
+    the list of its leaves in ``tree_leaves`` order, each placed like its
+    parameter when the parameters are placed. Returns (params, state,
+    metrics): the same trees, updated, and {"grad_norm", "lr"} (with
+    ``guard``, also "ok": whether the update was written)."""
     gnorm = global_norm(grads)
     scale = None
     if cfg.grad_clip:
         scale = torch.clamp_max(
             cfg.grad_clip / torch.clamp_min(gnorm, 1e-12), 1.0)
     ok = None if guard is None else guard & torch.isfinite(gnorm)
-    step = state.step + 1
-    lr = learning_rate(cfg, state.step)
+    step_blocks = _blocks(state.step)
+    step = step_blocks[0] + 1
+    lr = learning_rate(cfg, step_blocks[0])
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1.0 - b1 ** step.to(torch.float32)
     bc2 = 1.0 - b2 ** step.to(torch.float32)
 
     def write(dst, new):
-        dst.copy_(new if ok is None else torch.where(ok, new, dst))
+        dst.copy_(new if ok is None else torch.where(ok.to(dst.device), new,
+                                                     dst))
+
+    def on(t, dev):        # a scalar on a block's device (a no-op on one)
+        return t if t is None or t.device == dev else t.to(dev)
 
     for p, m, v, g in zip(tree_leaves(params), tree_leaves(state.m),
                           tree_leaves(state.v), _leaves(grads)):
-        g = g.float()
-        if scale is not None:
-            g = g * scale
-        m_new = b1 * m + (1 - b1) * g
-        v_new = b2 * v + (1 - b2) * g * g
-        delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps) \
-            + cfg.weight_decay * p.float()
-        write(p, (p.float() - lr * delta).to(p.dtype))
-        write(m, m_new.to(m.dtype))
-        write(v, v_new.to(v.dtype))
-    write(state.step, step)
+        if isinstance(p, ShardedTensor) and (
+                not isinstance(g, ShardedTensor)
+                or g.sharding.spec != p.sharding.spec):
+            raise ValueError("a placed parameter needs its gradient placed "
+                             f"like it ({p.sharding.spec})")
+        for pb, mb, vb, gb in zip(_blocks(p), _blocks(m), _blocks(v),
+                                  _blocks(g)):
+            dev = pb.device
+            gb = gb.float()
+            if scale is not None:
+                gb = gb * on(scale, dev)
+            m_new = b1 * mb + (1 - b1) * gb
+            v_new = b2 * vb + (1 - b2) * gb * gb
+            delta = (m_new / on(bc1, dev)) / (
+                torch.sqrt(v_new / on(bc2, dev)) + cfg.eps) \
+                + cfg.weight_decay * pb.float()
+            write(pb, (pb.float() - on(lr, dev) * delta).to(pb.dtype))
+            write(mb, m_new.to(mb.dtype))
+            write(vb, v_new.to(vb.dtype))
+    for sb in step_blocks:
+        write(sb, on(step, sb.device))
     metrics = {"grad_norm": gnorm, "lr": lr}
     if ok is not None:
         metrics["ok"] = ok
