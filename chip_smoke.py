@@ -37,6 +37,12 @@ script started (phases with several lanes print one line a lane):
                unsharded ones, cache bytes a shard at decode_32k
                (cache_shardings), input_specs and skip_reason per (arch,
                shape);
+  dryrun_check  the dry-run (launch/dryrun.py) on the meta (16, 16)
+               mesh of yi-6b x train_4k, prefill_32k and decode_32k,
+               granite-moe-3b-a800m x decode_32k (MoE) and zamba2-1.2b x
+               decode_32k (hybrid): each record's roofline line, memory a
+               chip, depth cuts and the count's seconds; fails if the
+               card's allocated memory moves;
   build_lib    nvcc builds src/repro_torch/kernels/csrc/*.cu (one nvcc per
                source, all started together): seconds, registers / shared
                memory / spills per kernel (and per template instance),
@@ -443,6 +449,24 @@ script started (phases with several lanes print one line a lane):
                moment bytes over the unsharded state's, peak memory; no
                kernel launched; one more FSDP step profiled (launches a
                step, idle share);
+  roofline_check  one untimed call after a phase's timed runs, counted
+               on the card by the op-level cost counter (launch/op_cost.py;
+               one line a call): lm_serve's prefill of its first prompt
+               through the bf16 attention kernel and one decode step on its
+               cache (after lm_serve), path 20's train step (after its
+               profile), path 13's exact_knn_sharded (the ring tiles and
+               the merge kernel) and path 14's sharded iteration (the
+               select kernel). Each call's kernels must be among its
+               launches; its Roofline (launch/roofline.py) stands beside
+               the phase's measured seconds (the count is the eager
+               implementation's traffic; path 20's seconds stand beside
+               train_flops' work bound too). The LM calls are counted
+               again on meta twins of their inputs (the dry-run's count of
+               the same cut) and the two counts must be equal, FLOPs by
+               dtype and bytes; the train step's counted FLOPs stand
+               beside train_flops' hand count, and the dry-run's peak
+               estimate beside the allocator's. The sharded calls cannot
+               run on meta: their counts stand beside their model FLOPs;
   profile      every path but truth once more under torch.profiler (and
                a window of lm_serve, lm_gemma2 and lm_deepseek: the first
                4 requests, 8 new tokens each; and lm_gemma2's and
@@ -545,10 +569,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 T0 = time.perf_counter()
 
-PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_FP32_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
-PEAK_BF16_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
-PEAK_INT8_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
+# the H100 SXM peaks (NVIDIA data sheet), PEAK_BYTES_PER_S,
+# PEAK_FP32_PER_S, PEAK_BF16_PER_S and PEAK_INT8_PER_S: main() takes them
+# from the port's roofline (launch/roofline.py), their one copy
 REPLACES = {
     "knn_join_dists": "src/repro/kernels/knn_join.py:82",
     "knn_join_select": "src/repro/kernels/knn_join.py:152",
@@ -3716,6 +3739,18 @@ def train_family_run(dev):
     emit("profile", path="train", window="one train step (step 7)", **prof)
     work = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     s_step = statistics.median(res["step_s"][1:])
+    # -- roofline_check: one more step counted on the card and on meta
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in res["next_batch"].items()}
+    step_args = (res["params"], res["state"], batch)
+    roofline_lane("train step (path 20)",
+                  lambda: res["step_fn"](*step_args), s_step,
+                  work["model_flops"], (),
+                  meta_run=lambda: res["step_fn"](*meta_twin(step_args)),
+                  args=step_args, work_bound_s=work["bound_s"],
+                  train_flops=work,
+                  peak_of_the_timed_steps=peak)
+    del batch, step_args
     emit("train", **fields, docs=TRAIN_DOCS, doc_tokens=TRAIN_DOC_TOKENS,
          d_proj=TRAIN_D_PROJ, embed_s=emb_s,
          semantic_order={"k": TRAIN_K, "build_s": res["order_s"],
@@ -4581,6 +4616,12 @@ def sharded_run(x, graph, q, qt, truth, path_out, search_wall_s, scfg,
                                            "knn_join_select", "knn_merge",
                                            "pairwise_sq_l2"))
     lanes.update(wall_s=wall, launches=launches, max_memory_allocated=peak)
+    # -- roofline_check: the exact lane counted on the card (its ring
+    # tiles and the merge kernel; 2 d operations a scored pair)
+    roofline_lane("sharded exact_knn_sharded (path 13)",
+                  lambda: exact_knn_sharded(mesh, x, 20), res["exact"][1],
+                  2.0 * n * n * x.shape[1], ("pairwise_sq_l2", "knn_merge"),
+                  shards=P)
 
     # -- replicated: the stable merge of four direct searches, bitwise
     (rd, ri, rst), rep_s, _ = res["replicated"]
@@ -4804,6 +4845,11 @@ def sharded_build_run(x, truth_i, path1_wall_s, path1_recall, dev):
                      "model_flops": flops,
                      "model_flops_per_s": flops / step_s,
                      "updates": int(upd), "evals": int(ev)}
+    # -- roofline_check: that iteration counted on the card (it cannot
+    # run on meta: its compactions' shapes depend on the data)
+    roofline_lane("sharded_build iteration (path 14)",
+                  lambda: step(x, nl0, key=SB_KEY), step_s, flops,
+                  ("knn_join_select",), shards=SHARDS, n=n, d=d, k=20)
 
     # -- the kernels line: the select at both widths, on the inputs the
     # main path gave it; the widths' launches add up to the path's count
@@ -4829,6 +4875,166 @@ def sharded_build_run(x, truth_i, path1_wall_s, path1_recall, dev):
     return lanes, rows
 
 
+# -- the launch tooling: the dry-run on meta, the counter on the card
+
+DRYRUN_CELLS = (("yi-6b", "train_4k"), ("yi-6b", "prefill_32k"),
+                ("yi-6b", "decode_32k"),
+                ("granite-moe-3b-a800m", "decode_32k"),     # MoE
+                ("zamba2-1.2b", "decode_32k"))              # hybrid
+
+
+def dryrun_check() -> list:
+    """The dry-run (launch/dryrun.py) of DRYRUN_CELLS on the single-pod
+    meta mesh: each record's roofline line (JAX's ``_print_rec``), its
+    memory a chip and the seconds the count took. Fails if the card's
+    allocated memory moved (nothing is allocated on meta)."""
+    import torch
+    from repro_torch.launch import dryrun
+    before = torch.cuda.memory_allocated()
+    out = []
+    for arch, shape in DRYRUN_CELLS:
+        rec = dryrun.lower_cell(arch, shape, False)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun_check: {arch} x {shape}: {rec}")
+        out.append({"cell": f"{arch} x {shape} x single",
+                    "line": dryrun.summary_line(rec),
+                    "roofline": rec["roofline"], "memory": rec["memory"],
+                    "depth": rec["depth"],
+                    "counter": rec["counter"], "count_s": rec["compile_s"]})
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError("dryrun_check: the card's allocated memory "
+                             f"moved ({before} -> "
+                             f"{torch.cuda.memory_allocated()})")
+    return out
+
+
+def meta_twin(tree):
+    """``tree`` (dicts, lists, tuples, NamedTuples of tensors) with each
+    tensor a meta tensor of its shape, strides and dtype."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return torch.empty_strided(tree.shape, tree.stride(),
+                                   dtype=tree.dtype, device="meta")
+    if isinstance(tree, dict):
+        return {k: meta_twin(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [meta_twin(v) for v in tree]
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
+    return tree
+
+
+def tree_bytes(tree) -> int:
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return 0
+
+
+def roofline_lane(call: str, run, seconds: float, model_flops: float,
+                  kernels, meta_run=None, args=None, work_bound_s=None,
+                  **extra) -> dict:
+    """roofline_check: one untimed call of ``run`` on the card under the
+    op-level cost counter (after its phase's timed runs, whose seconds
+    are ``seconds``), the kernels ``kernels`` required among its
+    launches; its Roofline (launch/roofline.py: one chip) beside the
+    seconds. The counted roofline is this implementation's traffic (every
+    eager op's bytes), not a bound on the work: with ``work_bound_s``
+    (the work's own least time, which no change of the implementation
+    moves) the seconds stand beside it too. With ``meta_run`` (the same call on meta twins of its
+    inputs, the dry-run's count of the same cut) the two counts must be
+    equal, FLOPs (by dtype) and bytes; with ``args`` (the call's inputs)
+    the dry-run's peak estimate (their bytes plus the tracker's peak on
+    meta) stands beside the allocator's peak, and the tracker's peak
+    beside the allocator's rise above what was allocated before the call
+    (other phases' tensors are alive too)."""
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.roofline import roofline_from_cost
+    torch.cuda.synchronize()
+    before = dict(_lib.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    allocated = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with op_cost.counting() as counter:
+        run()
+        torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in _lib.LAUNCHES.items()}
+    require_launched(f"roofline_check {call}", launched, kernels)
+    card = counter.cost
+    rl = roofline_from_cost(card, 1, model_flops)
+    fields = {"call": call, "seconds": seconds, "counted_call_s": counted_s,
+              "launches": {k: v for k, v in launched.items() if v},
+              "card": card.totals(), "roofline": rl.as_dict(),
+              "step_time_s": rl.step_time, "bottleneck": rl.bottleneck,
+              "seconds_over_roofline": seconds / rl.step_time,
+              "work_bound_s": work_bound_s,
+              "seconds_over_work_bound": seconds / work_bound_s
+              if work_bound_s else None,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "peak_above_allocated": torch.cuda.max_memory_allocated()
+              - allocated, **extra}
+    if meta_run is not None:
+        meta = op_cost.analyze(meta_run)
+        fields["meta"] = meta.totals()
+        fields["meta_equal"] = (
+            (meta.flops, meta.bytes, dict(meta.flops_by_dtype))
+            == (card.flops, card.bytes, dict(card.flops_by_dtype)))
+        if not fields["meta_equal"]:
+            raise AssertionError(
+                f"roofline_check {call}: the card counted {card.flops} "
+                f"FLOPs, {card.bytes} bytes; meta {meta.flops}, "
+                f"{meta.bytes}")
+        if args is not None:
+            fields["peak_estimate_bytes"] = tree_bytes(args) \
+                + meta.peak_bytes
+            fields["peak_above_args_estimate"] = meta.peak_bytes
+    emit("roofline_check", **fields)
+    return fields
+
+
+def roofline_lm_lanes(params, cfg, prompt) -> None:
+    """roofline_check's serving lanes: one prefill of ``prompt`` (an
+    lm_serve prompt) through the bf16 attention kernel, then one decode
+    step on its cache; each timed once, then counted on the card and on
+    meta."""
+    import torch
+    from repro_torch.models import active_param_count
+    from repro_torch.serve import prefill, serve_step
+    dev = params["embed"]["table"].device
+    batch = {"tokens": torch.as_tensor(prompt, dtype=torch.int32,
+                                       device=dev)[None]}
+    n = active_param_count(cfg)
+    seq = batch["tokens"].shape[1]
+
+    def run_prefill(p=params, b=batch):
+        return prefill(p, b, cfg, LM_MAX_LEN, last_only=True)
+    (logits, cache, lengths), secs = timed(run_prefill)
+    roofline_lane("lm_serve prefill", run_prefill, secs, 2.0 * n * seq,
+                  ("flash_attention",),
+                  meta_run=lambda: run_prefill(meta_twin(params),
+                                               meta_twin(batch)),
+                  tokens=seq)
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+
+    def run_step(p=params, c=cache, t=tok, n_=lengths):
+        return serve_step(p, c, t, n_, cfg)
+    _, secs = timed(run_step)
+    roofline_lane("lm_serve decode step", run_step, secs, 2.0 * n, (),
+                  meta_run=lambda: run_step(meta_twin(params),
+                                            meta_twin(cache),
+                                            meta_twin(tok),
+                                            meta_twin(lengths)),
+                  slots=1, max_len=LM_MAX_LEN)
+
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run it from a checkout of the repository "
@@ -4843,6 +5049,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    global PEAK_BYTES_PER_S, PEAK_FP32_PER_S, PEAK_BF16_PER_S, \
+        PEAK_INT8_PER_S
+    from repro_torch.launch.roofline import (
+        HBM_BW as PEAK_BYTES_PER_S,
+        PEAK_FLOPS_BF16 as PEAK_BF16_PER_S,
+        PEAK_FLOPS_FP32 as PEAK_FP32_PER_S,
+        PEAK_OPS_INT8 as PEAK_INT8_PER_S,
+    )
     from repro_torch import (
         DescentConfig,
         OnlineConfig,
@@ -4876,6 +5090,9 @@ def main() -> int:
 
     # -- sharding_check: the rules on the production meshes, no storage
     emit("sharding_check", **sharding_check())
+
+    # -- dryrun_check: the dry-run's cells on meta, no storage
+    emit("dryrun_check", cells=dryrun_check())
 
     # -- build_lib
     _lib.build(force=True)
@@ -5314,6 +5531,9 @@ def main() -> int:
              params, lm_cfg, prompts[:LM_SLOTS], slots=LM_SLOTS,
              max_len=LM_MAX_LEN, max_new=LM_PROFILE_NEW)))
     del reqs, stats
+
+    # -- roofline_check: a prefill and a decode step counted on the card
+    roofline_lm_lanes(params, lm_cfg, prompts[0])
 
     # -- knn_lm: path 10, kNN-LM retrieval over the port's graph
     res, wall, launches["knn_lm"], peak, recs["knn_lm"] = drive(

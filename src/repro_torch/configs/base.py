@@ -204,9 +204,10 @@ def _ensure_loaded():
 # input_specs: a cell's inputs as meta tensors (no allocation)
 # ---------------------------------------------------------------------------
 
-def input_specs(cfg: ModelConfig, shape: str) -> dict:
+def input_specs(cfg: ModelConfig, shape) -> dict:
     """Abstract model inputs for one (arch, shape) cell, on the "meta"
-    device.
+    device. ``shape`` is a name of ``SHAPES`` or a ``ShapeSpec`` (the
+    dry-run's tests count cells cut to a few tokens).
 
     train:   {"tokens", "labels"} (+ modality extras)
     prefill: {"tokens"} (+ extras)
@@ -214,7 +215,7 @@ def input_specs(cfg: ModelConfig, shape: str) -> dict:
              serve.decode.abstract_cache (they are serve_step state, not
              data).
     """
-    s = SHAPES[shape]
+    s = SHAPES[shape] if isinstance(shape, str) else shape
     B, L = s.global_batch, s.seq_len
 
     def spec(shp, dtype=torch.int32):
@@ -238,7 +239,7 @@ def input_specs(cfg: ModelConfig, shape: str) -> dict:
     return batch
 
 
-def batch_specs(cfg: ModelConfig, shape: str, mesh) -> dict:
+def batch_specs(cfg: ModelConfig, shape, mesh) -> dict:
     """NamedShardings matching input_specs (batch axis -> (pod, data))."""
     from repro_torch.models.sharding import logical_sharding
     out = {}

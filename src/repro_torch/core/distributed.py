@@ -67,6 +67,7 @@ from repro_torch.core.nn_descent import (
     invert_candidates,
     join_pairs,
 )
+from repro_torch.core import cost
 from repro_torch.kernels import ops
 
 _MASK64 = (1 << 64) - 1
@@ -88,7 +89,9 @@ class ShardMesh:
     ``all_to_all``, ``psum``) run over one axis: on a 1-D mesh its own;
     on an N-D mesh the ``axis=`` they are given, over the shards along it
     whose other coordinates are 0 (``line``), and with none they
-    raise."""
+    raise. Under the cost counter (launch/op_cost.py) each collective
+    is counted where it is called, with a participant's payload, and one
+    along ``pod`` as cross-node."""
 
     def __init__(self, devices, axis="data"):
         names = (axis,) if isinstance(axis, str) else tuple(axis)
@@ -172,25 +175,35 @@ class ShardMesh:
         return [x[p * n_local:(p + 1) * n_local].to(d)
                 for p, d in enumerate(devices)]
 
+    def _count(self, kind: str, payload: torch.Tensor, axis) -> None:
+        cost.collective(kind, payload.numel() * payload.element_size(),
+                        cross_pod=axis == "pod")
+
     def all_gather(self, parts, *, axis: str | None = None) -> torch.Tensor:
         """(P, ...) stack of the per-shard tensors, on the line's first
         device."""
         first = self.line(axis)[0]
-        return torch.stack([t.to(first) for t in parts])
+        out = torch.stack([t.to(first) for t in parts])
+        self._count("all-gather", out, axis)
+        return out
 
     def ppermute(self, blocks, *, axis: str | None = None) -> list:
         """The ring step: shard p receives shard p-1's block."""
+        self._count("collective-permute", blocks[0], axis)
         return [blocks[p - 1].to(d) for p, d in enumerate(self.line(axis))]
 
     def all_to_all(self, buckets, *, axis: str | None = None) -> list:
         """buckets[p] (P, ...): row q goes to shard q. Returns got with
         got[q][p] = buckets[p][q], on the line's q-th device."""
+        self._count("all-to-all", buckets[0], axis)
         return [torch.stack([b[q].to(d) for b in buckets])
                 for q, d in enumerate(self.line(axis))]
 
     def psum(self, parts, *, axis: str | None = None) -> torch.Tensor:
         """Sum of the per-shard tensors, on the line's first device."""
-        return self.all_gather(parts, axis=axis).sum(dim=0)
+        first = self.line(axis)[0]
+        self._count("all-reduce", parts[0], axis)
+        return torch.stack([t.to(first) for t in parts]).sum(dim=0)
 
 
 def _shard_seed(key: int, p: int) -> int:

@@ -42,6 +42,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import cost
+
 # logical axis -> candidate mesh axes, in priority order. A tuple entry
 # means "all of these together" (e.g. batch over pod AND data).
 DEFAULT_RULES: dict[str, tuple] = {
@@ -264,7 +266,11 @@ class ShardedTensor:
 
     def gather(self, device=None) -> torch.Tensor:
         """The whole tensor, bit for bit, on ``device`` (default: the
-        mesh's first device)."""
+        mesh's first device). Under the cost counter, a tensor split into
+        blocks counts as an all-gather of its whole bytes (cross-node
+        where it is split over ``pod``)."""
+        _count_collective("all-gather", self.shape, self.dtype,
+                          self.sharding)
         first = self.unique_blocks()[0][1]
         out = torch.empty(self.shape, dtype=self.dtype,
                           device=device or first.device)
@@ -306,10 +312,28 @@ def device_put(x, sharding: NamedSharding) -> ShardedTensor:
     return _place(torch.as_tensor(x), sharding, copy=True)
 
 
+def _count_collective(kind, shape, dtype, sharding: NamedSharding) -> None:
+    """Count ``kind`` over the whole tensor's bytes when the sharding
+    splits it, cross-node when ``pod`` is among its axes."""
+    axes = {a for e in sharding.spec for a in _entry_axes(e)}
+    if axes:
+        cost.collective(kind, int(np.prod(shape)) * dtype.itemsize,
+                        cross_pod="pod" in axes)
+
+
 def scatter_view(x: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:
     """``x`` placed by ``sharding`` with each block a view of ``x`` where
     it lies on the block's device (a copy elsewhere): a reduce-scatter's
-    output when ``x`` is the reduced sum."""
+    output when ``x`` is the reduced sum. Under the cost counter it
+    counts as a reduce-scatter of ``x`` where the sharding splits it, and
+    as an all-reduce where it replicates ``x`` over a mesh of more than
+    one shard (every data group holds a part of the sum); cross-node
+    when the mesh has a ``pod`` axis (the batch spans it)."""
+    if sharding.mesh.size > 1:
+        split = any(_entry_axes(e) for e in sharding.spec)
+        cost.collective("reduce-scatter" if split else "all-reduce",
+                        x.numel() * x.element_size(),
+                        cross_pod="pod" in sharding.mesh.shape)
     return _place(x, sharding, copy=False)
 
 

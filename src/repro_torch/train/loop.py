@@ -51,6 +51,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core import cost
 from repro_torch.models.model import loss_fn
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.models.sharding import ShardedTensor, scatter_view
@@ -138,7 +139,12 @@ def make_train_step(cfg, tc: TrainConfig) -> Callable:
                for p in tree_leaves(params)]
         loss_acc, tokens, correct = 0.0, {}, {}
         for piece, div, i in pieces:
-            loss, metrics, grads = _value_and_grad(params, piece, cfg)
+            # pieces of one shape cost the same: on "meta" the cost
+            # counter counts the first and replays it (core/cost.py)
+            key = ("value_and_grad", id(cfg),
+                   tuple((k, tuple(v.shape)) for k, v in piece.items()))
+            loss, metrics, grads = cost.repeated(
+                key, _value_and_grad, params, piece, cfg)
             for a, g in zip(acc, grads):
                 a.add_(g.float() / div)
             del grads

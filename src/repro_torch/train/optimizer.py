@@ -36,6 +36,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core import cost
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.models.sharding import (
     NamedSharding,
@@ -128,10 +129,17 @@ def _sum_sq(x) -> torch.Tensor:
         if isinstance(x, ShardedTensor) else [x]
     total = torch.zeros((), dtype=torch.float64, device=blocks[0].device)
     for b in blocks:
-        for piece in b.reshape(-1).split(_NORM_PIECE):
-            d = piece.to(device=total.device, dtype=torch.float64)
-            total += torch.dot(d, d)
+        # blocks of one shape cost the same: on "meta" the cost counter
+        # counts the first and replays it (core/cost.py)
+        cost.repeated(("sum_sq", tuple(b.shape), b.stride(), b.dtype),
+                         _add_sq, total, b)
     return total
+
+
+def _add_sq(total: torch.Tensor, b: torch.Tensor) -> None:
+    for piece in b.reshape(-1).split(_NORM_PIECE):
+        d = piece.to(device=total.device, dtype=torch.float64)
+        total += torch.dot(d, d)
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -184,6 +192,20 @@ def apply(
     def on(t, dev):        # a scalar on a block's device (a no-op on one)
         return t if t is None or t.device == dev else t.to(dev)
 
+    def update(pb, mb, vb, gb):
+        dev = pb.device
+        gb = gb.float()
+        if scale is not None:
+            gb = gb * on(scale, dev)
+        m_new = b1 * mb + (1 - b1) * gb
+        v_new = b2 * vb + (1 - b2) * gb * gb
+        delta = (m_new / on(bc1, dev)) / (
+            torch.sqrt(v_new / on(bc2, dev)) + cfg.eps) \
+            + cfg.weight_decay * pb.float()
+        write(pb, (pb.float() - on(lr, dev) * delta).to(pb.dtype))
+        write(mb, m_new.to(mb.dtype))
+        write(vb, v_new.to(vb.dtype))
+
     for p, m, v, g in zip(tree_leaves(params), tree_leaves(state.m),
                           tree_leaves(state.v), _leaves(grads)):
         if isinstance(p, ShardedTensor) and (
@@ -193,18 +215,10 @@ def apply(
                              f"like it ({p.sharding.spec})")
         for pb, mb, vb, gb in zip(_blocks(p), _blocks(m), _blocks(v),
                                   _blocks(g)):
-            dev = pb.device
-            gb = gb.float()
-            if scale is not None:
-                gb = gb * on(scale, dev)
-            m_new = b1 * mb + (1 - b1) * gb
-            v_new = b2 * vb + (1 - b2) * gb * gb
-            delta = (m_new / on(bc1, dev)) / (
-                torch.sqrt(v_new / on(bc2, dev)) + cfg.eps) \
-                + cfg.weight_decay * pb.float()
-            write(pb, (pb.float() - on(lr, dev) * delta).to(pb.dtype))
-            write(mb, m_new.to(mb.dtype))
-            write(vb, v_new.to(vb.dtype))
+            # blocks of one shape cost the same (as ``_sum_sq``'s)
+            key = ("adam", tuple(pb.shape),
+                   *((t.dtype, t.stride()) for t in (pb, mb, vb, gb)))
+            cost.repeated(key, update, pb, mb, vb, gb)
     for sb in step_blocks:
         write(sb, on(step, sb.device))
     metrics = {"grad_norm": gnorm, "lr": lr}

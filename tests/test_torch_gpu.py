@@ -1780,3 +1780,100 @@ def test_sharded_checkpoint_on_card_round_trips(dev, tmp_path):
             assert leaf.sharding.mesh is want_mesh
             assert all(blk.is_cuda for blk in leaf.blocks())
             assert torch.equal(leaf.gather(), saved[name]), name
+
+
+# ---------------------------------------------------------------------------
+# the op-level cost counter (launch/op_cost.py): one charge a kernel call
+# ---------------------------------------------------------------------------
+
+def _charge_cases(dev):
+    """(entry point, args, kwargs, kernel) at small shapes the kernels take,
+    on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def ids(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+    n_big, dp, n, c, w, k = 300, 32, 40, 12, 50, 10
+    x, q = randn(n_big, dp), randn(16, dp)
+    x2, q2 = (x * x).sum(1), (q * q).sum(1)
+    cd = torch.sort(torch.rand(n, k, generator=g, device=dev), 1).values
+    ci, cand_i = ids(0, n_big, n, k), ids(-1, n_big, n, 20)
+    cand_d = torch.rand(n, 20, generator=g, device=dev)
+    rows = torch.tensor([3, 0, -1, 17], dtype=torch.int32, device=dev)
+    drop = torch.rand(n, k, generator=g, device=dev) < 0.3
+    xs8, qs8 = _mirror(dev, n_big, dp, "int8", 1), _mirror(dev, 16, dp,
+                                                           "int8", 2)
+    xsb, qsb = _mirror(dev, n_big, dp, "bf16", 3), _mirror(dev, 16, dp,
+                                                           "bf16", 4)
+    jids, sids = ids(-1, n_big, n, c), ids(-1, n_big, 16, w)
+    att = [randn(1, 130, h, 64).bfloat16() for h in (4, 2, 2)]
+    att32 = [randn(2, 70, h, 32) for h in (4, 2, 2)]
+    return {
+        "knn_join_dists": (ops.knn_join_dists, (x, x2, jids, 6), {},
+                           "knn_join_dists"),
+        "knn_join_select": (ops.knn_join_select, (
+            torch.rand(n, w, generator=g, device=dev), ids(-1, n_big, n, w),
+            torch.full((n,), 0.8, device=dev), 12), {}, "knn_join_select"),
+        "knn_merge": (ops.knn_merge, (cd, ci, cand_d, cand_i), {},
+                      "knn_merge"),
+        "knn_merge_rows": (ops.knn_merge_rows, (
+            cd, ci, rows, cand_d[:4], cand_i[:4]), {}, "knn_merge_rows"),
+        "knn_compact": (ops.knn_compact, (cd, ci, drop), {}, "knn_compact"),
+        "knn_compact_rows": (ops.knn_compact_rows, (cd, ci, rows, drop[:4]),
+                             {}, "knn_compact_rows"),
+        "pairwise_sq_l2": (ops.pairwise_sq_l2, (q, x), {}, "pairwise_sq_l2"),
+        "centroid_assign": (ops.centroid_assign, (q, q2, x, x2), {"t": 2},
+                            "pairwise_sq_l2"),
+        "knn_search_dists": (ops.knn_search_dists, (q, q2, x, x2, sids), {},
+                             "knn_search_dists"),
+        "knn_search_dists_q8": (ops.knn_search_dists_q8, (
+            qs8.data, qs8.scale, qs8.x2, xs8.data, xs8.scale, xs8.x2, sids),
+            {}, "knn_search_dists_q8"),
+        "knn_search_dists_bf16": (ops.knn_search_dists_bf16, (
+            qsb.data, qsb.x2, xsb.data, xsb.x2, sids), {},
+            "knn_search_dists_bf16"),
+        "knn_join_dists_q8": (ops.knn_join_dists_q8, (
+            xs8.data, xs8.scale, xs8.x2, jids, 6), {}, "knn_join_dists_q8"),
+        "knn_join_dists_bf16": (ops.knn_join_dists_bf16, (
+            xsb.data, xsb.x2, jids, 6), {}, "knn_join_dists_bf16"),
+        "attention_bf16": (ops.attention, tuple(att),
+                           {"causal": True, "window": 50},
+                           "flash_attention"),
+        "attention_f32": (ops.attention, tuple(att32),
+                          {"causal": True, "q_offset": 3},
+                          "flash_attention"),
+    }
+
+
+CHARGE_CASES = (
+    "attention_bf16", "attention_f32", "centroid_assign", "knn_compact",
+    "knn_compact_rows", "knn_join_dists", "knn_join_dists_bf16",
+    "knn_join_dists_q8", "knn_join_select", "knn_merge", "knn_merge_rows",
+    "knn_search_dists", "knn_search_dists_bf16", "knn_search_dists_q8",
+    "pairwise_sq_l2")
+
+
+@pytest.mark.parametrize("case", CHARGE_CASES)
+def test_counter_charge_on_card_equals_plain_on_cpu(dev, case):
+    """Each ``ops`` entry point charges its kernel's formula once, and the
+    aten ops under it nothing: on the card, where the kernel launches,
+    the count equals the plain version's on CPU copies of the inputs."""
+    from repro_torch.launch import op_cost
+    cases = _charge_cases(dev)
+    assert sorted(cases) == sorted(CHARGE_CASES)
+    fn, args, kw, kernel = cases[case]
+    before = dict(_lib.LAUNCHES)
+    on_card = op_cost.analyze(fn, *args, **kw)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES[kernel] > before[kernel]
+    cpu = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+    on_cpu = op_cost.analyze(fn, *cpu, **kw)
+    for cost in (on_card, on_cpu):
+        assert cost.ops == 1 and dict(cost.kernels) == {kernel: 1}
+    assert (on_card.flops, on_card.bytes, dict(on_card.flops_by_dtype)) == \
+        (on_cpu.flops, on_cpu.bytes, dict(on_cpu.flops_by_dtype))
+    assert on_card.bytes > 0
