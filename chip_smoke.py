@@ -467,6 +467,32 @@ script started (phases with several lanes print one line a lane):
                beside train_flops' hand count, and the dry-run's peak
                estimate beside the allocator's. The sharded calls cannot
                run on meta: their counts stand beside their model FLOPs;
+  large_k_check  on online_check's corpus (16000 x 784): lane kernels,
+               the joins above C 64 (knn_join_dists_kernel_wide and the
+               int8 / bf16 wide kernels: sets of slots, a block or warp a
+               (set, set) piece) at C 92, 180 and 256, fp32, int8 and
+               bf16, and the streamed select (knn_join_select_kernel_
+               stream, above a padded W of 8192) at W 16928 / c 273, 64800
+               / c 540 and 131072 / c 2048 on rows of ties, of -0.0 /
+               +0.0 and of a straddled run, each against its plain
+               version (evals exact, int8 and the selects bitwise, fp32
+               and bf16 within 1e-4 + 1e-5 (|a|^2 + |b|^2)), one launch a
+               call; lane builds, build_knn_graph(k=91) through the
+               kernels and through the plain versions with the same
+               generator seed (recalls against an exact k-NN within 0.01,
+               both >= 0.84), the int8 and bf16 builds at k 91 (driven;
+               recall >= the f32 build's - 0.02, distances exact fp32) and
+               MutableKNNStore.build(k=48) (rho 1.0: C 96);
+  knn_build_k91  path 22: t-SNE's neighbour graph (scikit-learn's TSNE
+               asks for 3 perplexity + 1 = 91 neighbours at perplexity
+               30): build_knn_graph(k=91) at rho 0.5 on path 1's corpus
+               (C 92, merge_k 273, receiver select W 16928, polish select
+               W 8281 at c 546; the polish's gather in chunks of at most
+               4 GB), through the kernels; wall time, iterations,
+               dist_evals, launches, peak memory, recall@91 against an
+               exact k-NN (>= 0.84), the graph's distances (check_graph),
+               then one more build profiled: the idle share and the wide
+               join's and streamed select's device time (each > 0);
   profile      every path but truth once more under torch.profiler (and
                a window of lm_serve, lm_gemma2 and lm_deepseek: the first
                4 requests, 8 new tokens each; and lm_gemma2's and
@@ -549,7 +575,11 @@ in path 17), once for hubert (``call`` ``audio_encode:flash_attention``,
 ``lm_vlm:flash_attention``, ``launches``: its calls in path 19 with
 patches), and knn_join_dists, knn_join_select (each width) and knn_merge
 once more each on path 20's semantic_order build (``launches``: that
-key's calls in path 20); ``call`` tells the entries apart. Last, {"ok": true, "device": ...}. Any failure
+key's calls in path 20), and, after each kernel's own entries, path 22's
+calls (knn_join_dists at C 92, knn_join_select at W 16928 / c 273 and W
+8281 / c 546, knn_merge) and the k = 91 int8 and bf16 builds' joins (C
+92; ``launches``: that key's calls in its run); ``call`` tells the
+entries apart. Last, {"ok": true, "device": ...}. Any failure
 raises, and the script exits non-zero. With no CUDA card, or without the
 repository's src/ beside it, it exits 2 and prints no result.
 """
@@ -769,6 +799,20 @@ BREAKER_QUERIES, BREAKER_DISPATCHES, CHAOS_FLOOR = 512, 4, 0.80
 SB_KEY, SB_FETCH_M, SB_FETCH_CAP = SEED + 50, 250_000, 62_500
 SB_FETCH_SPAN = 100_000
 SB_WIDTHS = ((480, 60), (400, 120))
+# large_k_check and path 22 (knn_build_k91): t-SNE's neighbour graph
+# (scikit-learn's TSNE asks for min(n - 1, 3 perplexity + 1) = 91
+# neighbours at its default perplexity of 30): build_knn_graph(k=91) at
+# the default rho 0.5 on path 1's corpus (C 92, merge_k 273, receiver
+# select 2 C x C = 16928, polish select k^2 = 8281 at c 6k = 546). The
+# check's joins at C 92, 180 and 256 over JOIN_ROWS rows each, its selects
+# at (W, c) over SELECT_ROWS rows each, and MutableKNNStore.build at k
+# LARGE_K_STORE (rho 1.0: C 96)
+TSNE_K = 91
+LARGE_K_JOIN_C, LARGE_K_JOIN_ROWS = (92, 180, 256), (4096, 2048, 1024)
+LARGE_K_SELECT_W = ((16928, 273), (64800, 540), (131072, 2048))
+LARGE_K_SELECT_ROWS = (2048, 512, 256)
+LARGE_K_STORE = 48
+K91_TAG = "knn_build_k91"
 ATTN_F32_TOL = (2e-3, 2e-3)     # (rtol, atol): tests/test_kernels.py:122-137
 ATTN_BF16_TOL = (1e-2, 2e-3)    # + one bf16 rounding of the output (2^-7)
 # (Lq, Lk, H, Hkv, Dq, Dv, keyword arguments of ops.attention)
@@ -843,6 +887,9 @@ def time_ms(fn, reps: int) -> float:
     end.synchronize()
     ms = start.elapsed_time(end) / reps
     del graph
+    # the graph's private pool back to the card: path 22's join needs
+    # tens of GB for its plain version's gathered copy
+    torch.cuda.empty_cache()
     return ms
 
 
@@ -1053,6 +1100,10 @@ def profile_run(run, top: int = 12, ranges=(), host_ops: bool = True) -> dict:
     busy_s = sum(r[0] for r in rows) * 1e-6
     ours = {name: sum(r[0] for r in rows if f"{name}_kernel" in r[2]) * 1e-6
             for name in _lib.KERNELS}
+    # the variants' own share of their kernel's (the wide joins, the
+    # streamed select, ...)
+    ours.update({name: sum(r[0] for r in rows if sub in r[2]) * 1e-6
+                 for sub, name in _lib.VARIANTS.items()})
     # a profiler that saw no device activity measured nothing
     idle = 1.0 - busy_s / wall if busy_s > 0 else "not measured"
     out = {
@@ -1153,7 +1204,7 @@ def check_kernel(name, args, reps):
         nbytes = 4 * (x.numel() + x2.numel() + ids.numel() + gd.numel()
                       + gev.numel())
         valid = ids >= 0
-        xg = torch.where(valid[:, :, None], x[safe], 0.0)
+        xg = x[safe].masked_fill_(~valid[:, :, None], 0.0)
         x2g = torch.where(valid, x2[safe], 0.0)
         base = x2g[:, :, None] + x2g[:, None, :]
         xgt = xg.transpose(1, 2)
@@ -4883,6 +4934,259 @@ DRYRUN_CELLS = (("yi-6b", "train_4k"), ("yi-6b", "prefill_32k"),
                 ("zamba2-1.2b", "decode_32k"))              # hybrid
 
 
+def kernel_rows(rec, launches: dict, names) -> list:
+    """Each recorded call of ``rec`` whose kernel is in ``names`` against
+    its plain version (check_kernel), with that key's own launches, one
+    "kernels" line each. The path's per-key select launches must add up
+    to its count."""
+    per_key = sum(c for k, c in rec.launched.items()
+                  if k.startswith(f"{rec.tag}:knn_join_select:"))
+    if per_key != launches["knn_join_select"]:
+        raise AssertionError(f"{rec.tag}: select launches by width sum to "
+                             f"{per_key} of {launches['knn_join_select']}")
+    rows = []
+    for key, call in sorted(rec.calls.items()):
+        name = key.split(":")[1]
+        if name not in names:
+            continue
+        e = check_kernel(name, call, reps=20)
+        e.update(route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+                 launches=rec.launched[key], path=rec.tag, call=key,
+                 calls_at_this_key=rec.seen[key],
+                 launches_at_this_key=rec.launched[key])
+        emit("kernels", **e)
+        rows.append(e)
+    return rows
+
+
+def select_rows(kind: str, n: int, w: int, seed: int, dev):
+    """(gd, gi, kth) rows for the streamed select: "ties" (six values),
+    "zeros" (-0.0 and +0.0 beside 0.125) or "straddle" (two values, the
+    c-th key inside a run spread over the whole row); +inf pads, ids -1,
+    and a prefilter on every third row."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = torch.rand(n, w, generator=g, device=dev)
+    if kind == "ties":
+        gd = torch.randint(0, 6, (n, w), generator=g, device=dev) / 4.0
+    elif kind == "zeros":
+        gd = torch.where(r < 0.5, torch.full_like(r, -0.0),
+                         torch.zeros_like(r))
+        gd[r >= 0.7] = 0.125
+    else:
+        gd = torch.where(r < 0.04, 0.25, 0.5)
+    gd[torch.rand(n, w, generator=g, device=dev) < 0.2] = torch.inf
+    gi = torch.randint(-1, 99, (n, w), generator=g, device=dev,
+                       dtype=torch.int32)
+    kth = torch.full((n,), torch.inf, device=dev)
+    kth[1::3] = 0.5
+    return gd.float().contiguous(), gi, kth
+
+
+def large_k_kernel_check(xc, dev) -> dict:
+    """The wide joins and the streamed select against their plain versions
+    on the card: the fp32, int8 and bf16 joins at C 92, 180 and 256 on
+    the check corpus (padded, and its mirrors), ids with -1, an
+    all-invalid row and a repeated id, cn = C / 2 (evals exact; int8
+    bitwise; fp32 and bf16 within 1e-4 + 1e-5 (|a|^2 + |b|^2), +inf
+    exact), and the select at
+    LARGE_K_SELECT_W on rows of ties, of -0.0 / +0.0 and of a straddled
+    run (bitwise: ids and distance bits); each call one launch."""
+    import torch
+    from repro_torch.core import quantize
+    from repro_torch.core.layout import pad_features
+    from repro_torch.kernels import _lib, ops
+    xp = pad_features(xc).contiguous()
+    x2 = (xp * xp).sum(1)
+    width = quantize.mirror_width(xc.shape[1], xp.shape[1])
+    mirrors = {p: quantize.quantize_corpus(xp, p, width=width)
+               for p in PRECISIONS}
+    big_n = xp.shape[0]
+    g = torch.Generator(device=dev).manual_seed(SEED + 60)
+    joins = []
+    for c, n in zip(LARGE_K_JOIN_C, LARGE_K_JOIN_ROWS):
+        ids = torch.randint(-1, big_n, (n, c), generator=g, device=dev,
+                            dtype=torch.int32)
+        ids[3] = -1
+        ids[4, c - 1] = ids[4, 0]
+        cn = c // 2
+        for prec in ("f32",) + PRECISIONS:
+            if prec == "f32":
+                fn, name, n2 = ops.knn_join_dists, "knn_join_dists", x2
+                args = (xp, x2, ids, cn)
+            elif prec == "int8":
+                m = mirrors[prec]
+                fn, name, n2 = ops.knn_join_dists_q8, "knn_join_dists_q8", m.x2
+                args = (m.data, m.scale, m.x2, ids, cn)
+            else:
+                m = mirrors[prec]
+                fn, name = ops.knn_join_dists_bf16, "knn_join_dists_bf16"
+                n2, args = m.x2, (m.data, m.x2, ids, cn)
+            before = _lib.LAUNCHES[name]
+            gd, gev = fn(*args)
+            torch.cuda.synchronize()
+            launched = _lib.LAUNCHES[name] - before
+            wd, wev = fn(*args, backend="ref")
+            if launched != 1 or not torch.equal(gev, wev):
+                raise AssertionError(f"{name} C={c}: launches {launched}, "
+                                     "evals equal: "
+                                     f"{torch.equal(gev, wev)}")
+            row = {"name": name, "C": c, "rows": n, "cn": cn,
+                   "evals": int(gev.sum())}
+            if prec == "int8":
+                if not torch.equal(gd, wd):
+                    raise AssertionError(f"{name} C={c}: kernel and plain "
+                                         "differ")
+                fin = torch.isfinite(wd)
+                row.update(max_abs_err=float((gd - wd).abs()[fin].max()),
+                           tolerance="bitwise")
+            else:
+                valid = (ids >= 0) & (ids < big_n)
+                x2g = torch.where(valid, n2[ids.clamp(0, big_n - 1).long()],
+                                  0.0)
+                row.update(close_to_plain(
+                    f"{name} C={c}", gd, wd,
+                    x2g[:, :, None] + x2g[:, None, :]),
+                    tolerance="1e-4 + 1e-5 * (|a|^2 + |b|^2); inf exact")
+            joins.append(row)
+            del gd, wd
+    selects = []
+    for (w, c), n in zip(LARGE_K_SELECT_W, LARGE_K_SELECT_ROWS):
+        for kind in ("ties", "zeros", "straddle"):
+            gd, gi, kth = select_rows(kind, n, w, SEED + w + len(kind), dev)
+            before = _lib.LAUNCHES["knn_join_select"]
+            od, oi = ops.knn_join_select(gd, gi, kth, c)
+            torch.cuda.synchronize()
+            launched = _lib.LAUNCHES["knn_join_select"] - before
+            wd, wi = ops.knn_join_select(gd, gi, kth, c, backend="ref")
+            if launched != 1 or not torch.equal(oi, wi) or not torch.equal(
+                    od.view(torch.int32), wd.view(torch.int32)):
+                raise AssertionError(f"knn_join_select W={w} c={c} {kind}: "
+                                     f"launches {launched}, kernel and "
+                                     "plain differ")
+            selects.append({"W": w, "c": c, "rows": n, "kind": kind,
+                            "winners": int((wi >= 0).sum()),
+                            "tolerance": "bitwise (ids, distance bits)"})
+    return {"joins": joins, "selects": selects}
+
+
+def large_k_build_check(xc, dev):
+    """Builds at large k on the check corpus: build_knn_graph(k=91) through
+    the kernels and through their plain versions with the same generator
+    seed (recalls against an exact k-NN within 0.01, both >= 0.84), the
+    int8 and bf16 two-stage builds at k 91 (driven: their joins' calls
+    recorded for the kernels line; recall >= the f32 build's - 0.02,
+    distances exact fp32), and MutableKNNStore.build at k LARGE_K_STORE
+    (rho 1.0: C 96). Returns (fields, [(recorder, launches, join)] of
+    the quantized builds)."""
+    import torch
+    from repro_torch import (DescentConfig, MutableKNNStore,
+                             build_knn_graph, recall_at_k)
+    from repro_torch.kernels import _lib
+    truth = exact_knn(xc, TSNE_K)
+    out = {}
+    for backend in ("plain", "auto"):
+        _lib.reset_launches()
+        cfg = DescentConfig(k=TSNE_K, backend=backend)
+        (_, idx, st), sec = timed(lambda: build_knn_graph(
+            xc, k=TSNE_K, cfg=cfg,
+            generator=torch.Generator(device=dev).manual_seed(SEED)))
+        launched = {k: v for k, v in _lib.LAUNCHES.items() if v}
+        if backend == "auto":
+            require_launched(f"k{TSNE_K} build", _lib.LAUNCHES, TRAIN_KERNELS)
+        elif launched:
+            raise AssertionError(f"the plain k{TSNE_K} build launched "
+                                 f"{launched}")
+        out[backend] = {"seconds": sec, "recall": recall_at_k(idx, truth),
+                        "iters": st.iters, "dist_evals": st.dist_evals,
+                        "launches": launched}
+    gap = abs(out["auto"]["recall"] - out["plain"]["recall"])
+    if gap > 0.01 or min(out["auto"]["recall"],
+                         out["plain"]["recall"]) < 0.84:
+        raise AssertionError(f"k{TSNE_K} build check failed: {out}")
+    out["recall_gap"] = gap
+    recs = []
+    for prec in PRECISIONS:
+        qcfg = DescentConfig(k=TSNE_K, precision=prec)
+        (qd, qi, qst), wall, launches, peak, rec = drive(
+            f"k{TSNE_K}_{prec}", lambda: build_knn_graph(
+                xc, k=TSNE_K, cfg=qcfg,
+                generator=torch.Generator(device=dev).manual_seed(SEED)))
+        require_launched(rec.tag, launches, (OWNED[f"build_{prec}"],
+                                             "knn_join_select", "knn_merge"))
+        out[prec] = {"seconds": wall, "recall": recall_at_k(qi, truth),
+                     "iters": qst.iters, "dist_evals": qst.dist_evals,
+                     "max_memory_allocated": peak,
+                     "dist_err_over_tol": check_graph(xc, qd, qi,
+                                                      repeats_ok=True),
+                     "launches": {k: v for k, v in launches.items() if v}}
+        if out[prec]["recall"] < out["auto"]["recall"] - 0.02:
+            raise AssertionError(f"k{TSNE_K} {prec} build: {out[prec]}")
+        recs.append((rec, launches, OWNED[f"build_{prec}"]))
+        del qd, qi
+    _lib.reset_launches()
+    (store, sst), sec = timed(lambda: MutableKNNStore.build(
+        xc, LARGE_K_STORE,
+        generator=torch.Generator(device=dev).manual_seed(SEED)))
+    require_launched("MutableKNNStore.build", _lib.LAUNCHES, TRAIN_KERNELS)
+    sidx = store.nl.idx[:xc.shape[0]]
+    if not bool((sidx >= 0).all()) or sidx.device != xc.device:
+        raise AssertionError("MutableKNNStore.build: lists not full")
+    out["store"] = {"k": LARGE_K_STORE, "C": 2 * LARGE_K_STORE,
+                    "seconds": sec, "iters": sst.iters,
+                    "recall": recall_at_k(sidx, exact_knn(xc, LARGE_K_STORE)),
+                    "launches": {k: v for k, v in _lib.LAUNCHES.items()
+                                 if v}}
+    return out, recs
+
+
+def knn_build_k91_run(x, dev):
+    """Path 22: build_knn_graph(k=91) on path 1's corpus, driven, its
+    graph checked and scored against an exact k-NN, then built once more
+    under the profiler (idle share; the wide join's and the streamed
+    select's device time, each > 0); its line printed. Returns its
+    kernel rows."""
+    import torch
+    from repro_torch import DescentConfig, build_knn_graph, recall_at_k
+    cfg = DescentConfig(k=TSNE_K)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    (dist, idx, st), wall, launches, peak, rec = drive(
+        K91_TAG, lambda: build_knn_graph(x, k=TSNE_K, cfg=cfg, generator=g))
+    require_launched(K91_TAG, launches, TRAIN_KERNELS)
+    c_all = 2 * cfg.rho_k
+    widths = {k for k in rec.calls if ":knn_join_select:" in k}
+    want = {f"{K91_TAG}:knn_join_select:W={w}:c={c}" for w, c in (
+        (2 * c_all * c_all, cfg.merge_k), (TSNE_K ** 2, 6 * TSNE_K))}
+    join_c = rec.calls[f"{K91_TAG}:knn_join_dists"][2].shape[1]
+    if widths != want or join_c != c_all:
+        raise AssertionError(f"{K91_TAG}: join C {join_c}, selects {widths}")
+    graph_err = check_graph(x, dist, idx, repeats_ok=True)
+    repeated = int((idx.sort(dim=1).values.diff(dim=1) == 0).any(1).sum())
+    del dist
+    recall = recall_at_k(idx, exact_knn(x, TSNE_K))
+    del idx
+    prof = profile_run(lambda: build_knn_graph(
+        x, k=TSNE_K, cfg=cfg,
+        generator=torch.Generator(device=dev).manual_seed(SEED)))
+    variants = {v: prof["our_kernels_s"][v] for v in (
+        "knn_join_dists_wide", "knn_join_select_stream")}
+    fields = {"n": x.shape[0], "d": x.shape[1], "k": TSNE_K, "rho": cfg.rho,
+              "C": c_all, "merge_k": cfg.merge_k, "wall_s": wall,
+              "iters": st.iters, "updates": list(st.updates),
+              "polish_updates": list(st.polish_updates),
+              "dist_evals": st.dist_evals, "max_memory_allocated": peak,
+              "launches": launches, "recall_at_91": recall,
+              "dist_err_over_tol": graph_err,
+              "rows_with_a_repeated_id": repeated,
+              "device_idle_share": prof["device_idle_share"],
+              "profiled_wall_s": prof["profiled_wall_s"],
+              "variant_device_s": variants}
+    emit(K91_TAG, **fields)
+    if recall < 0.84 or not all(variants.values()):
+        raise AssertionError(f"{K91_TAG}: {fields}")
+    return kernel_rows(rec, launches, TRAIN_KERNELS)
+
+
 def dryrun_check() -> list:
     """The dry-run (launch/dryrun.py) of DRYRUN_CELLS on the single-pod
     meta mesh: each record's roofline line (JAX's ``_print_rec``), its
@@ -5104,7 +5408,8 @@ def main() -> int:
              if k.startswith("flash_attention")}
     # the joins: the bf16 one on the tensor cores, the fp32 one never
     hmma = {k: v for k, v in sass["HMMA"].items()
-            if k.startswith(("knn_join_dists<", "knn_join_dists_bf16"))}
+            if k.startswith(("knn_join_dists<", "knn_join_dists_wide",
+                             "knn_join_dists_bf16"))}
     # the int8 join on the tensor cores (s8 mma.sync)
     imma = {k: v for k, v in sass["IMMA"].items()
             if k.startswith("knn_join_dists_q8")}
@@ -5123,6 +5428,9 @@ def main() -> int:
                     if k.split("<")[0] in SEARCH_TILES}
     compactions = {k: v for k, v in _lib.build_info["kernels"].items()
                    if "<" in k and k.split("<")[0] in COMPACTIONS}
+    # the joins above C 64 and the select above a padded W of 8192
+    large_k = {k: v for k, v in _lib.build_info["kernels"].items()
+               if k.split("<")[0].endswith(("_wide", "_stream"))}
     emit("build_lib", seconds=_lib.build_info["seconds"],
          path=str(so.relative_to(ROOT)),
          kernels=_lib.build_info["kernels"], hgmma_in_sass=hgmma,
@@ -5131,6 +5439,7 @@ def main() -> int:
          f32_search_tensor_ops_in_sass=f32_search,
          spill_store_bytes_of_new_instances=spills,
          search_tiles=search_tiles, compaction_instances=compactions,
+         large_k_instances=large_k,
          ptxas_performance_notes=_lib.build_info["performance_notes"])
     sm90 = [v for k, v in hgmma.items()
             if k.startswith("flash_attention_sm90")]
@@ -5486,7 +5795,20 @@ def main() -> int:
         emit("profile", path="search" + suffix, **profile_run(
             lambda: graph_search(x, idx, q, k_out=10, cfg=qscfg)))
     emit("profile", path="online", **profile_run(online_run))
+
+    # -- large_k_check and path 22 (knn_build_k91): t-SNE's k = 91 graph
+    xc = datasets.mnist_like(CHECK_N, 784, seed=SEED + 1, device=dev)
+    emit("large_k_check", n=CHECK_N, d=784, lane="kernels",
+         **large_k_kernel_check(xc, dev))
+    fields, quant_recs = large_k_build_check(xc, dev)
+    emit("large_k_check", n=CHECK_N, d=784, k=TSNE_K, lane="builds",
+         **fields)
+    k91_rows = [e for rec, lq, name in quant_recs
+                for e in kernel_rows(rec, lq, (name,))]
+    del xc, quant_recs
+    k91_rows += knn_build_k91_run(x, dev)
     del x, idx, q, x2_full, q2_full, dels
+    gc.collect()
     torch.cuda.empty_cache()
 
     # -- the LM paths: yi-6b at full width, weights drawn from the seed
@@ -5699,6 +6021,8 @@ def main() -> int:
             # every other recorded c of the online path
             line.extend(e for c, e in sorted(merges.items())
                         if e is not entries[n])
+        # path 22's calls and the k = 91 quantized builds' joins
+        line.extend(e for e in k91_rows if e["name"] == n)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call")

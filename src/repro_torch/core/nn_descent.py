@@ -52,6 +52,9 @@ from repro_torch.kernels import ops
 
 BACKENDS = ("auto", "plain", "ref")
 PRECISIONS = ("f32", "bf16", "int8")
+# a polish chunk's (rows, k*k, dp) f32 gather, and its merge's (rows, c,
+# c) dedup mask, at most this many bytes
+POLISH_CHUNK_BYTES = 1 << 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -366,9 +369,16 @@ def polish_iteration(
     as one (n, k*k, dp) array; on the card that would need n*k*k*dp*4
     bytes (100 GB at 70000 x 400 x 896), so this one computes the
     distances, and the full merge, ``chunk`` rows at a time, with the
-    same results. ``backend`` is an ops backend (auto | ref). Returns
+    same results; fewer where a chunk's (chunk, k*k, dp) f32 gather would
+    pass ``POLISH_CHUNK_BYTES`` (2048 rows at k 20 and dp 896, 2.9 GB;
+    144 at k 91, 4.3 GB). The merge's dedup mask is (rows, c, c) bools
+    (c = 6k): it runs on row chunks of at most ``POLISH_CHUNK_BYTES`` too
+    (one chunk at k 20; 14407 rows at k 91, where the whole mask would be
+    21 GB at 70000 rows). ``backend`` is an ops backend (auto | ref). Returns
     (nl, accepted, evals)."""
     n, k = nl.idx.shape
+    chunk = max(1, min(chunk, POLISH_CHUNK_BYTES
+                       // (4 * k * k * x.shape[1] or 1)))
     ni = nl.idx
     nbl = ni.clamp(0, n - 1).long()
     nb = ni[nbl].reshape(n, k * k)
@@ -383,19 +393,20 @@ def polish_iteration(
         dd[s:s + chunk] = x2[s:s + chunk, None] + x2[ii] - 2.0 * ab
     dd = torch.where(ok, dd.clamp_min(0.0), torch.inf)
     evals = int(ok.sum())
+    ci = torch.where(ok, nb, -1)
     if full_merge:
-        ci = torch.where(ok, nb, -1)
-        parts = [heap.merge(NeighborLists(*(t[s:s + chunk] for t in nl)),
-                            dd[s:s + chunk], ci[s:s + chunk])
-                 for s in range(0, n, chunk)]
-        nl = NeighborLists(*(torch.cat([p[0][f] for p in parts])
-                             for f in range(3)))
-        return nl, sum(int(p[1].sum()) for p in parts), evals
-    cd, ci = ops.knn_join_select(
-        dd, torch.where(ok, nb, -1).contiguous(),
-        nl.dist[:, -1].contiguous(), min(6 * k, k * k), backend=backend)
-    nl, upd = heap.merge(nl, cd, ci)
-    return nl, int(upd.sum()), evals
+        cd, step = dd, chunk
+    else:
+        cd, ci = ops.knn_join_select(
+            dd, ci.contiguous(), nl.dist[:, -1].contiguous(),
+            min(6 * k, k * k), backend=backend)
+        step = max(1, POLISH_CHUNK_BYTES // cd.shape[1] ** 2)
+    parts = [heap.merge(NeighborLists(*(t[s:s + step] for t in nl)),
+                        cd[s:s + step], ci[s:s + step])
+             for s in range(0, n, step)]
+    nl = NeighborLists(*(torch.cat([p[0][f] for p in parts])
+                         for f in range(3)))
+    return nl, sum(int(p[1].sum()) for p in parts), evals
 
 
 def rerank_lists(

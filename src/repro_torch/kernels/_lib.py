@@ -17,7 +17,10 @@ path went through the kernels. The device function of kernel ``name`` is
 operands' k-major copies) before ``pairwise_sq_l2_kernel``, and after it,
 on a grid split over the features, ``pairwise_sq_l2_kernel_split_sum``;
 they are reported as ``pairwise_sq_l2_k_major`` and
-``pairwise_sq_l2_split_sum``.
+``pairwise_sq_l2_split_sum``. The joins above C 64 and the select above a
+padded W of 8192 launch ``<name>_kernel_wide`` and
+``knn_join_select_kernel_stream``, reported with ``_wide`` and ``_stream``
+after the kernel's name.
 """
 from __future__ import annotations
 
@@ -47,6 +50,10 @@ KERNELS = ("knn_join_dists", "knn_join_select", "knn_merge",
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 # device functions reported under their own name (substring -> name)
 VARIANTS = {"flash_attention_kernel_sm90": "flash_attention_sm90",
+            "knn_join_dists_kernel_wide": "knn_join_dists_wide",
+            "knn_join_dists_q8_kernel_wide": "knn_join_dists_q8_wide",
+            "knn_join_dists_bf16_kernel_wide": "knn_join_dists_bf16_wide",
+            "knn_join_select_kernel_stream": "knn_join_select_stream",
             "pairwise_sq_l2_kernel_k_major": "pairwise_sq_l2_k_major",
             "pairwise_sq_l2_kernel_split_sum": "pairwise_sq_l2_split_sum"}
 
@@ -56,8 +63,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, x2, ids, od, ev, N, n, C, dp, cn, stream
     "knn_join_dists_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # gd, gi, kth, od, oi, n, W, c, stream
-    "knn_join_select_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # gd, gi, kth, od, oi, scratch (or NULL), n, W, c, stream
+    "knn_join_select_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # cd, ci, qd, qi, od, oi, upd, n, k, c, stream
     "knn_merge_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # a, b, at, bt (k-major scratch), out, ws (split scratch), M, N, D,

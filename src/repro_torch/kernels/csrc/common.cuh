@@ -74,4 +74,53 @@ __device__ __forceinline__ int join_epilogue(const float* gram,
   return local;
 }
 
+// The epilogue of one piece of a wide join's row (C above 64, cut into
+// sets of slots): gram holds the cross terms of slots [i0, i0 + ri) x [j0,
+// j0 + rj) (ri x rj, row-major; on a diagonal piece, i0 == j0, only its
+// upper triangle s < t). sid_i / n2_i / sc_i describe set I's slots,
+// sid_j / n2_j / sc_j set J's (the same arrays on a diagonal piece). The
+// distance and the mask are join_epilogue's, with the pair's lower slot
+// in set I. A diagonal piece writes its own square of the row's C x C
+// output, an off-diagonal one both (I, J) and (J, I), each in order
+// within its rows. Returns the valid unordered pairs among this thread's
+// entries of the (I, J) orientation.
+__device__ __forceinline__ int join_epilogue_piece(
+    const float* gram, const int* sid_i, const float* n2_i,
+    const float* sc_i, const int* sid_j, const float* n2_j,
+    const float* sc_j, float* __restrict__ out, int C, int cn, int i0,
+    int ri, int j0, int rj, int e0, int step) {
+  const bool diag = i0 == j0;
+  // slot i0 + s of set I and j0 + t of set J, i0 + s < j0 + t
+  auto pair = [&](int s, int t, bool& ok) {
+    const int a = sid_i[s];
+    const int b = sid_j[t];
+    ok = i0 + s < cn && a >= 0 && b >= 0 && a != b;
+    if (!ok) return INFINITY;
+    const float f =
+        sc_i ? __fmul_rn(2.0f, __fmul_rn(sc_i[s], sc_j[t])) : 2.0f;
+    return fmaxf(__fsub_rn(__fadd_rn(n2_i[s], n2_j[t]),
+                           __fmul_rn(f, gram[s * rj + t])),
+                 0.0f);
+  };
+  int local = 0;
+  for (int e = e0; e < ri * rj; e += step) {
+    const int s = e / rj;
+    const int t = e - s * rj;
+    bool ok = false;
+    float v = INFINITY;
+    if (!diag || s != t) v = diag && s > t ? pair(t, s, ok) : pair(s, t, ok);
+    local += ok && (!diag || s < t) ? 1 : 0;
+    out[(int64_t)(i0 + s) * C + j0 + t] = v;
+  }
+  if (!diag) {
+    for (int e = e0; e < ri * rj; e += step) {
+      const int t = e / ri;
+      const int s = e - t * ri;
+      bool ok;
+      out[(int64_t)(j0 + t) * C + i0 + s] = pair(s, t, ok);
+    }
+  }
+  return local;
+}
+
 }  // namespace

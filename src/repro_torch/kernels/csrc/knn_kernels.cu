@@ -26,8 +26,9 @@ namespace {
 // knn_join_dists: replaces knn_join_dists_blocked / _join_dists_kernel
 // (src/repro/kernels/knn_join.py:49,82).
 //
-// Per row of candidate ids (C <= 64), the C x C squared-l2 pair tensor with
-// the join mask folded in, plus the count of valid unordered pairs.
+// Per row of candidate ids, the C x C squared-l2 pair tensor with the join
+// mask folded in, plus the count of valid unordered pairs. This kernel
+// takes C <= 64; above it, knn_join_dists_kernel_wide (below).
 // Bound: fp32 operations, fed from shared memory. At the build's call (C =
 // 20, dp = 896) a row needs 190 dot products of 896; the fp32 pipe (no
 // TF32 or tensor cores: fp32 is the exact stage) is the limit once the
@@ -208,6 +209,210 @@ __global__ void __launch_bounds__(kJoinMaxThreads, 1) knn_join_dists_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// knn_join_dists above C 64 (knn_join_dists_kernel_wide), the same function
+// at any C: t-SNE's k = 91 neighbour graph gives C = 92 at rho 0.5.
+// Design: the row's C slots are cut into `sets` sets of at most kJoinMaxC
+// (R = 4 ceil(ceil(C / sets) / 4) each, the last shorter), and each of the
+// sets (sets + 1) / 2 pieces (I, J), I <= J, of the C x C tensor is one
+// block. A diagonal piece is the kernel above on set I's rows (the upper
+// triangle of its 4 x 4 tiles); an off-diagonal piece is the whole
+// rectangle of tiles between set I's rows, staged first, and set J's. So a
+// block stages at most 2 R <= 128 rows whatever C is (its ring at most 3 x
+// 128 x 144 B = 54 KB, its Gram piece at most 64 x 64 floats), and the
+// row's candidates are gathered `sets` times, not C / 4. Two feature
+// slices a tile (a rectangle of 16 x 16 tiles is 512 threads), summed by
+// one shuffle. The piece's epilogue (common.cuh) writes both orientations
+// and adds the piece's valid pairs to the row's count, which the launcher
+// zeroes first. Blocks are numbered (row, piece) row-major, so a row's
+// pieces run together and share its candidates' rows in L2.
+// ---------------------------------------------------------------------------
+
+constexpr int kJoinWideSlices = 2;
+
+template <int kVec>
+__global__ void __launch_bounds__(kJoinMaxThreads, 1)
+    knn_join_dists_kernel_wide(const float* __restrict__ x,
+                               const float* __restrict__ x2,
+                               const int* __restrict__ ids,
+                               float* __restrict__ od, int* __restrict__ ev,
+                               int N, int C, int dp, int cn, int R, int sets,
+                               int64_t block0) {
+  constexpr int kS = kJoinWideSlices;
+  // kJoinStages x (the staged rows of kJoinStride); then the Gram piece
+  extern __shared__ __align__(16) float jsm[];
+  __shared__ int sid[2 * kJoinMaxC];
+  __shared__ float sx2[2 * kJoinMaxC];
+  __shared__ int s_evals;
+
+  const int pieces = sets * (sets + 1) / 2;
+  const int64_t blk = block0 + blockIdx.x;
+  const int row = (int)(blk / pieces);
+  int piece = (int)(blk - (int64_t)row * pieces);
+  int I = 0;                            // row-major over I <= J
+  while (piece >= sets - I) {
+    piece -= sets - I;
+    ++I;
+  }
+  const int J = I + piece;
+  const bool diag = I == J;
+  const int i0 = I * R;
+  const int j0 = J * R;
+  const int ri = min(R, C - i0);
+  const int rj = min(R, C - j0);
+  const int nbi = (ri + 3) >> 2;
+  const int nbj = (rj + 3) >> 2;
+  const int jb = diag ? 0 : 4 * nbi;    // first staged row of set J
+  const int srows = diag ? 4 * nbi : 4 * (nbi + nbj);
+  const int stage = srows * kJoinStride;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+
+  // staged slot s: set I's slot i0 + s, or set J's j0 + s - jb; the
+  // padding slots of each set's last 4-row block are invalid (zero rows)
+  for (int s = tid; s < srows; s += nthreads) {
+    const bool in_i = s < 4 * nbi;
+    const int loc = in_i ? s : s - jb;
+    int id = -1;
+    if (loc < (in_i ? ri : rj)) {
+      id = ids[(int64_t)row * C + (in_i ? i0 : j0) + loc];
+      if (id >= N) id = -1;             // out of range: an invalid slot
+    }
+    sid[s] = id;
+    sx2[s] = id >= 0 ? x2[id] : 0.0f;
+  }
+  if (tid == 0) s_evals = 0;
+  __syncthreads();
+
+  // this thread's tile: a diagonal piece's upper triangle in row-major
+  // order, or an off-diagonal piece's rectangle; threads past the last
+  // tile compute tile (0, 0) and write nothing
+  const int tiles = diag ? nbi * (nbi + 1) / 2 : nbi * nbj;
+  const int slice = tid % kS;
+  int tile = tid / kS;
+  const bool owner = tile < tiles;
+  if (!owner) tile = 0;
+  int bi = 0;
+  int bj = 0;
+  if (diag) {
+    while (tile >= nbi - bi) {
+      tile -= nbi - bi;
+      ++bi;
+    }
+    bj = bi + tile;
+  } else {
+    bi = tile / nbj;
+    bj = tile - bi * nbj;
+  }
+
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+
+  const int chunks = (dp + kJoinChunk - 1) / kJoinChunk;
+#pragma unroll
+  for (int s = 0; s < kJoinStages - 1; ++s) {
+    if (s < chunks)
+      join_load_chunk<kVec>(jsm + s * stage, x, sid, srows, dp,
+                            s * kJoinChunk, tid, nthreads);
+    cp_async_commit();
+  }
+  for (int kc = 0; kc < chunks; ++kc) {
+    cp_async_wait<kJoinStages - 2>();   // this thread's copies of chunk kc
+    __syncthreads();                    // everyone's; stage kc - 1 is free
+    const int nxt = kc + kJoinStages - 1;
+    if (nxt < chunks)
+      join_load_chunk<kVec>(jsm + (nxt % kJoinStages) * stage, x, sid, srows,
+                            dp, nxt * kJoinChunk, tid, nthreads);
+    cp_async_commit();
+
+    const float* st = jsm + (kc % kJoinStages) * stage;
+    const float* ra = st + 4 * bi * kJoinStride;
+    const float* rb = st + (jb + 4 * bj) * kJoinStride;
+#pragma unroll
+    for (int j = 0; j < kJoinChunk / 4 / kS; ++j) {
+      const int q = 4 * (slice + j * kS);
+      float4 b[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        b[c] = *reinterpret_cast<const float4*>(rb + c * kJoinStride + q);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 a = *reinterpret_cast<const float4*>(ra + r * kJoinStride
+                                                          + q);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float v = fmaf(a.x, b[c].x, acc[r][c]);
+          v = fmaf(a.y, b[c].y, v);
+          v = fmaf(a.z, b[c].z, v);
+          acc[r][c] = fmaf(a.w, b[c].w, v);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();                   // only empty groups are left
+  __syncthreads();                      // the ring now holds the Gram piece
+
+#pragma unroll
+  for (int off = 1; off < kS; off <<= 1)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], off);
+  float* gram = jsm;                    // ri x rj, row-major
+  if (owner) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int s = 4 * bi + e / 4;
+      const int t = 4 * bj + e % 4;
+      if (e % kS == slice && s < ri && t < rj && (!diag || s < t))
+        gram[s * rj + t] = acc[e / 4][e % 4];
+    }
+  }
+  __syncthreads();
+
+  int local = join_epilogue_piece(
+      gram, sid, sx2, nullptr, sid + jb, sx2 + jb, nullptr,
+      od + (int64_t)row * C * C, C, cn, i0, ri, j0, rj, tid, nthreads);
+  for (int off = 16; off > 0; off >>= 1)
+    local += __shfl_down_sync(0xffffffffu, local, off);
+  if ((tid & 31) == 0) atomicAdd(&s_evals, local);
+  __syncthreads();
+  if (tid == 0) atomicAdd(ev + row, s_evals);
+}
+
+int launch_join_wide(const float* x, const float* x2, const int* ids,
+                     float* od, int* ev, int N, int n, int C, int dp, int cn,
+                     bool vec, cudaStream_t stream) {
+  int sets = (C + kJoinMaxC - 1) / kJoinMaxC;
+  const int R = ((C + sets - 1) / sets + 3) / 4 * 4;
+  sets = (C + R - 1) / R;
+  const int pieces = sets * (sets + 1) / 2;
+  const int threads =
+      ((R / 4) * (R / 4) * kJoinWideSlices + 31) / 32 * 32;
+  const size_t smem =
+      (size_t)kJoinStages * 2 * R * kJoinStride * sizeof(float);
+  auto kernel = vec ? knn_join_dists_kernel_wide<4>
+                    : knn_join_dists_kernel_wide<1>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(ev, 0, (size_t)n * sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t blocks = (int64_t)n * pieces;
+  constexpr int64_t kMaxGrid = 0x7fffffff;
+  for (int64_t b0 = 0; b0 < blocks; b0 += kMaxGrid) {
+    const unsigned grid =
+        (unsigned)(blocks - b0 < kMaxGrid ? blocks - b0 : kMaxGrid);
+    kernel<<<grid, threads, smem, stream>>>(x, x2, ids, od, ev, N, C, dp, cn,
+                                            R, sets, b0);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // knn_join_select: replaces knn_join_select_blocked / _join_select_kernel
 // (src/repro/kernels/knn_join.py:125,152).
 //
@@ -220,7 +425,8 @@ __global__ void __launch_bounds__(kJoinMaxThreads, 1) knn_join_dists_kernel(
 // prefilter, and survivors at FLT_MAX, carry the FLT_MAX sentinel), its
 // input position the tie-break. A row belongs to one warp where W pads to
 // at most 1024 (eight rows per block, so the search's 32-wide rows fill a
-// warp, not a block), else to a block of 256 threads. The row is read once,
+// warp, not a block), else to a block of 256 threads (above a padded 8192,
+// to knn_join_select_kernel_stream, below). The row is read once,
 // coalesced, into registers: thread t of the T in its group holds
 // positions t, t + T, ..., so position order is item-major, then thread
 // order, and a prefix in position order is one ballot per item plus a scan
@@ -561,6 +767,214 @@ int launch_select(const float* gd, const int* gi, const float* kth,
 }
 
 // ---------------------------------------------------------------------------
+// knn_join_select above a padded W of kSelectMaxPadded
+// (knn_join_select_kernel_stream), the same selection at any W: k = 91
+// gives a receiver select of 2 C x C = 16928 and a polish select of k^2 =
+// 8281. A row no longer fits in a block's registers, so it is streamed
+// from device memory (or L2): one block of 256 threads per row reads it
+// once to count the survivors; if more than c survive, once per 8-bit
+// pass to build that pass's histogram (select_winners' shared
+// histograms, warp-aggregated atomics and find_bin) of the keys that
+// match the digits found so far; and once more, in tiles of 256
+// consecutive positions, to compact the winners in position order (a
+// ballot and a scan of the eight warps' counts a tile, the counts of keys
+// equal to T and of winners carried from tile to tile). The winners are
+// then ranked as in select_winners: by rank up to 4 T of them, else by a
+// bitonic sort over the next power of two of their count. Their words sit
+// in shared memory up to kStreamSmemWords (64 KB), beyond it in the row's
+// slice of a scratch the wrapper allocates. Keys, the prefilter, -0 as +0,
+// the sentinel and the (key, position) order are select_winners', so the
+// result is the register instances' bit for bit.
+// Bound: bytes. A row is read 2 to 6 times (from L2 where the rows in
+// flight fit), where the bound counts it once.
+// ---------------------------------------------------------------------------
+
+constexpr int kStreamSmemWords = 8192;
+
+__global__ void __launch_bounds__(kSelectThreads)
+    knn_join_select_kernel_stream(const float* __restrict__ gd,
+                                  const int* __restrict__ gi,
+                                  const float* __restrict__ kth,
+                                  float* __restrict__ od,
+                                  int* __restrict__ oi,
+                                  unsigned long long* __restrict__ scratch,
+                                  int W, int c, int cap) {
+  constexpr int T = kSelectThreads;
+  constexpr int G = T / 32;
+  extern __shared__ __align__(16) unsigned long long stream_smem[];
+  __shared__ __align__(16) int hist[2 * kSelectBins];
+  __shared__ int cnt_e[G];
+  __shared__ int cnt_w[G];
+  const int row = blockIdx.x;
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const unsigned below = (1u << lane) - 1u;
+  unsigned long long* words =
+      scratch != nullptr ? scratch + (int64_t)row * cap : stream_smem;
+  const float th = kth[row];
+  const float* rd = gd + (int64_t)row * W;
+  const int* ri = gi + (int64_t)row * W;
+  const uint32_t big = order_bits(FLT_MAX);
+  auto key_at = [&](int p) {
+    uint32_t kb = big;
+    if (p < W) {
+      const float d = rd[p];
+      if (ri[p] >= 0 && d < th) kb = order_bits(d);
+    }
+    return kb;
+  };
+
+  // 1. the survivors
+  int mine = 0;
+  for (int p = t; p < W; p += T) mine += key_at(p) < big ? 1 : 0;
+  mine = __reduce_add_sync(0xffffffffu, mine);
+  if (lane == 0) cnt_w[warp] = mine;
+  __syncthreads();
+  int s = 0;
+#pragma unroll
+  for (int w = 0; w < G; ++w) s += cnt_w[w];
+  __syncthreads();                     // cnt_w is read: free again
+
+  // 2. the c-th smallest key T and how many keys equal to it win
+  uint32_t thr = big;
+  int need = 0;
+  if (s > c) {
+    for (int b = t; b < kSelectBins; b += T) hist[b] = 0;
+    __syncthreads();
+    uint32_t prefix = 0;
+    uint32_t pmask = 0;
+    int r = c - 1;
+#pragma unroll 1
+    for (int pass = 0; pass < 4; ++pass) {
+      const int shift = 24 - 8 * pass;
+      int* h = hist + (pass & 1) * kSelectBins;
+      int* h_next = hist + ((pass + 1) & 1) * kSelectBins;
+      for (int base = 0; base < W; base += T) {
+        const uint32_t key = key_at(base + t);
+        const bool cand = key < big && (key & pmask) == prefix;
+        if (__any_sync(0xffffffffu, cand)) {
+          const int dig = (key >> shift) & 0xff;
+          const unsigned peers =
+              __match_any_sync(0xffffffffu, cand ? dig : 0x100 + lane);
+          if (cand && lane == __ffs(peers) - 1)
+            atomicAdd(&h[dig], __popc(peers));
+        }
+      }
+      __syncthreads();
+      // h_next was last read before the barrier above
+      for (int b = t; b < kSelectBins; b += T) h_next[b] = 0;
+      int bin, rin;
+      find_bin(h, r, lane, bin, rin);
+      prefix |= (uint32_t)bin << shift;
+      pmask |= 0xffu << shift;
+      r = rin;
+      __syncthreads();                 // h read, h_next clear
+    }
+    thr = prefix;
+    need = r + 1;
+  }
+
+  // 3. the winners in position order: keys below T, then the first
+  // `need` keys equal to it
+  int run_e = 0;
+  int run_w = 0;
+  for (int base = 0; base < W; base += T) {
+    const int p = base + t;
+    const uint32_t key = key_at(p);
+    bool win = key < thr;
+    if (need > 0) {                    // the same branch in every thread
+      const bool eq = key == thr;
+      const unsigned eb = __ballot_sync(0xffffffffu, eq);
+      if (lane == 0) cnt_e[warp] = __popc(eb);
+      __syncthreads();
+      int before = run_e;
+#pragma unroll
+      for (int w = 0; w < G; ++w) {
+        before += w < warp ? cnt_e[w] : 0;
+        run_e += cnt_e[w];
+      }
+      win = win || (eq && before + __popc(eb & below) < need);
+    }
+    const unsigned wb = __ballot_sync(0xffffffffu, win);
+    if (lane == 0) cnt_w[warp] = __popc(wb);
+    __syncthreads();
+    int before = run_w;
+#pragma unroll
+    for (int w = 0; w < G; ++w) {
+      before += w < warp ? cnt_w[w] : 0;
+      run_w += cnt_w[w];
+    }
+    if (win)
+      words[before + __popc(wb & below)] =
+          ((unsigned long long)key << 32) | (unsigned)p;
+    __syncthreads();                   // the counts are read: free again
+  }
+  const int nwin = run_w;
+
+  // 4. each winner to its slot, read back from the input (so -0.0 keeps
+  // its sign); the rest of the c slots (+inf, -1)
+  float* rod = od + (int64_t)row * c;
+  int* roi = oi + (int64_t)row * c;
+  if (nwin <= 4 * T) {
+    for (int j = t; j < nwin; j += T) {
+      const unsigned long long w = words[j];
+      int rank = 0;
+#pragma unroll 4
+      for (int x = 0; x < nwin; ++x) rank += words[x] < w;
+      const int p = (int)(w & 0xffffffffu);
+      rod[rank] = rd[p];
+      roi[rank] = ri[p];
+    }
+  } else {
+    int size = 1;
+    while (size < nwin) size <<= 1;
+    for (int j = nwin + t; j < size; j += T) words[j] = ~0ull;
+    __syncthreads();
+    for (int k = 2; k <= size; k <<= 1) {
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        for (int i = t; i < (size >> 1); i += T) {
+          const int lo = 2 * i - (i & (j - 1));
+          const int hi = lo + j;
+          const unsigned long long a = words[lo], b = words[hi];
+          if ((a > b) == ((lo & k) == 0)) {
+            words[lo] = b;
+            words[hi] = a;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    for (int j = t; j < nwin; j += T) {
+      const int p = (int)(words[j] & 0xffffffffu);
+      rod[j] = rd[p];
+      roi[j] = ri[p];
+    }
+  }
+  for (int j = nwin + t; j < c; j += T) {
+    rod[j] = INFINITY;
+    roi[j] = -1;
+  }
+}
+
+int launch_select_stream(const float* gd, const int* gi, const float* kth,
+                         float* od, int* oi, unsigned long long* scratch,
+                         int n, int W, int c, int cap, cudaStream_t stream) {
+  if (scratch == nullptr && cap > kStreamSmemWords)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      scratch != nullptr ? 0 : (size_t)cap * sizeof(unsigned long long);
+  // always opted in: the dynamic part may pass 48 KB less the histograms
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_join_select_kernel_stream,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  knn_join_select_kernel_stream<<<n, kSelectThreads, smem, stream>>>(
+      gd, gi, kth, od, oi, scratch, W, c, cap);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // knn_merge replaces knn_merge_blocked / _merge_kernel
 // (src/repro/kernels/knn_merge.py:30,156); knn_merge_rows replaces
 // knn_merge_rows_blocked (:210), the online store's frontier form: slot s
@@ -595,7 +1009,7 @@ int launch_select(const float* gd, const int* gi, const float* kth,
 // which are written only after the last lookup.
 // ---------------------------------------------------------------------------
 
-constexpr int kMergeMaxPool = 8192;        // k + c: the select's widest row
+constexpr int kMergeMaxPool = 8192;  // k + c: the widest row in registers
 // one warp per row up to a pool of 128. Above it a block per row fills the
 // card where the rows are few (the online store's few hundred) and costs a
 // little where they are many
@@ -852,7 +1266,7 @@ int merge_dispatch(const float* cd, const int* ci, const int* rows,
 // survivors are ranked in one step, by rank up to 4 T of them, by the
 // bitonic sort above. Rows go through the merges' dispatch: a warp per row
 // up to a padded k of 128 (eight rows a block), a block of 256 threads
-// above, up to the select's widest row (8192).
+// above, up to the widest row a block holds in registers (8192).
 // ---------------------------------------------------------------------------
 
 // One row group compacts list row rows[slot] under drop row `slot`; rows
@@ -997,8 +1411,12 @@ const char* knn_error_string(int code) {
 int knn_join_dists_launch(const float* x, const float* x2, const int* ids,
                           float* od, int* ev, int N, int n, int C, int dp,
                           int cn, cudaStream_t stream) {
-  if (n <= 0 || C < 1 || C > kJoinMaxC || dp < 0)
-    return (int)cudaErrorInvalidValue;
+  if (n <= 0 || C < 1 || dp < 0) return (int)cudaErrorInvalidValue;
+  const bool vec =
+      (dp & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  if (C > kJoinMaxC)
+    return launch_join_wide(x, x2, ids, od, ev, N, n, C, dp, cn, vec,
+                            stream);
   const int nb = (C + 3) / 4;
   const int tiles = nb * (nb + 1) / 2;
   const int slices = tiles * 8 <= kJoinMaxThreads   ? 8
@@ -1007,8 +1425,6 @@ int knn_join_dists_launch(const float* x, const float* x2, const int* ids,
   const int threads = (tiles * slices + 31) / 32 * 32;
   const size_t smem = (size_t)kJoinStages * 4 * nb * kJoinStride *
                       sizeof(float);
-  const bool vec =
-      (dp & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
 #define JOIN_LAUNCH(S, V)                                             \
   knn_join_dists_kernel<S, V><<<n, threads, smem, stream>>>(x, x2, ids, od, \
                                                             ev, N, C, dp, cn)
@@ -1025,14 +1441,16 @@ int knn_join_dists_launch(const float* x, const float* x2, const int* ids,
 }
 
 int knn_join_select_launch(const float* gd, const int* gi, const float* kth,
-                           float* od, int* oi, int n, int W, int c,
-                           cudaStream_t stream) {
+                           float* od, int* oi, unsigned long long* scratch,
+                           int n, int W, int c, cudaStream_t stream) {
   if (n <= 0 || W < 0 || c < 1) return (int)cudaErrorInvalidValue;
-  int padded = 1;
-  while (padded < W) padded <<= 1;
-  if (padded > kSelectMaxPadded) return (int)cudaErrorInvalidValue;
   int cap = 1;                      // the winners' sort: at most min(c, W)
   while (cap < c && cap < W) cap <<= 1;
+  if (W > kSelectMaxPadded)
+    return launch_select_stream(gd, gi, kth, od, oi, scratch, n, W, c, cap,
+                                stream);
+  int padded = 1;
+  while (padded < W) padded <<= 1;
   if (padded <= kSelectWarpMaxPadded) {
     switch (padded <= 32 ? 1 : padded / 32) {
       case 1:

@@ -87,10 +87,11 @@ __global__ void __launch_bounds__(kSearchThreads, kSearchMinBlocks)
 // and knn_join_dists_bf16_blocked (src/repro/kernels/l2_quant.py:241,279;
 // bodies _join_dists_q8_kernel :194, _join_dists_bf16_kernel :215).
 //
-// Per row of candidate ids (C <= 64), the C x C quantized squared-l2 pair
-// tensor with the join mask folded in (at least one slot in the "new"
-// prefix cn, distinct slots, both ids valid and distinct), +inf on the
-// diagonal and on refused pairs, plus the count of valid unordered pairs.
+// Per row of candidate ids (C <= 64 here; above it the wide kernels
+// below), the C x C quantized squared-l2 pair tensor with the join mask
+// folded in (at least one slot in the "new" prefix cn, distinct slots,
+// both ids valid and distinct), +inf on the diagonal and on refused
+// pairs, plus the count of valid unordered pairs.
 // Bound: the gather. At the build's call (70000 x 20 candidates, w 800) a
 // row reads 20 mirror rows (800 bytes int8, 1600 bf16) for 190 products of
 // w: at most 4 operations per byte, far below the tensor cores' 295 (bf16)
@@ -363,6 +364,230 @@ __global__ void __launch_bounds__(kMJoinWarps * 32, 1)
                           cn);
 }
 
+// ---------------------------------------------------------------------------
+// knn_join_dists_q8 / _bf16 above C 64 (knn_join_dists_q8_kernel_wide,
+// knn_join_dists_bf16_kernel_wide), the same functions at any C: k = 91 at
+// rho 0.5 gives C = 92. The row's C slots are cut into `sets` sets of at
+// most kMJoinSet (32) slots, R = ceil(C / sets) each (the last shorter),
+// and one warp computes one piece (I, J), I <= J, of the C x C tensor: a
+// diagonal piece is the kernel above on set I's rows (the 16 x 8 blocks
+// that touch its upper triangle), an off-diagonal piece every 16 x 8 block
+// between set I's rows (the A fragments) and set J's (the B fragments),
+// set I staged first. So a warp's ring is 3 stages of at most 2 R = 64 rows
+// (27 KB) whatever C is, its sums 2 x 4 blocks (32 a lane), its Gram
+// piece at most 32 x 32, and the row's candidates are gathered `sets`
+// times. The arithmetic is the kernel above's (int8 bitwise equal to the
+// plain version, bf16 differing by the order of the sums only); the
+// piece's epilogue (common.cuh) writes both orientations and adds the
+// piece's valid pairs to the row's count, which the launcher zeroes first.
+// Warps take the (row, piece) items in row-major order, four a block.
+// ---------------------------------------------------------------------------
+
+constexpr int kMJoinSet = 32;                   // two 16-row blocks
+
+// One piece of one row on its warp: ring is the warp's kMJoinStages stages
+// of the piece's staged rows (set I's, then set J's off the diagonal),
+// zrow a zero row, sid / sx2 / ssc the staged slots' ids, norms and scales
+// (int8; nullptr for bf16), rids the row's C ids, out its C x C output.
+template <bool kQ8>
+__device__ __forceinline__ void mma_join_piece(
+    uint8_t* ring, const uint8_t* zrow, int* sid, float* sx2, float* ssc,
+    const uint8_t* __restrict__ data, const float* __restrict__ scale,
+    const float* __restrict__ x2, const int* __restrict__ rids,
+    float* __restrict__ out, int* __restrict__ ev_row, int N, int C,
+    int row_bytes, int cn, int i0, int ri, int j0, int rj) {
+  constexpr int kMB = kMJoinSet / 16;
+  using Acc = typename MmaStep<kQ8>::Acc;
+  const bool diag = i0 == j0;
+  const int jb = diag ? 0 : ri;             // first staged row of set J
+  const int srows = diag ? ri : ri + rj;
+  const int stage = srows * kMJoinStride;   // bytes per ring stage
+  const int lane = threadIdx.x & 31;
+  for (int s = lane; s < srows; s += 32) {
+    int id = rids[s < ri ? i0 + s : j0 + s - ri];
+    if (id < 0 || id >= N) id = -1;   // out of range: an invalid slot
+    sid[s] = id;
+    sx2[s] = id >= 0 ? x2[id] : 0.0f;
+    if constexpr (kQ8) ssc[s] = id >= 0 ? scale[id] : 0.0f;
+  }
+  __syncwarp();
+
+  Acc acc[kMB][2 * kMB][4];
+#pragma unroll
+  for (int mi = 0; mi < kMB; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 2 * kMB; ++nj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][nj][i] = 0;
+
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lcol = (lane >> 4) * 16;
+  const unsigned ring_a = (unsigned)__cvta_generic_to_shared(ring);
+  const unsigned zrow_a = (unsigned)__cvta_generic_to_shared(zrow);
+  const int chunks = (row_bytes + kMJoinChunk - 1) / kMJoinChunk;
+#pragma unroll
+  for (int s = 0; s < kMJoinStages - 1; ++s) {
+    if (s < chunks)
+      mjoin_load_chunk(ring + s * stage, data, sid, srows, row_bytes,
+                       s * kMJoinChunk, lane);
+    cp_async_commit();
+  }
+  for (int kc = 0; kc < chunks; ++kc) {
+    cp_async_wait<kMJoinStages - 2>();   // this lane's copies of chunk kc
+    __syncwarp();                        // the warp's; stage kc - 1 is free
+    const int nxt = kc + kMJoinStages - 1;
+    if (nxt < chunks)
+      mjoin_load_chunk(ring + (nxt % kMJoinStages) * stage, data, sid, srows,
+                       row_bytes, nxt * kMJoinChunk, lane);
+    cp_async_commit();
+
+    // lane l's row of each 16-row block of both sets (on a diagonal piece
+    // the same rows), or the zero row past the set
+    const unsigned st = ring_a + (kc % kMJoinStages) * stage;
+    unsigned pa[kMB], pb[kMB];
+#pragma unroll
+    for (int mi = 0; mi < kMB; ++mi) {
+      const int r = mi * 16 + lrow;
+      pa[mi] = (r < ri ? st + r * kMJoinStride : zrow_a) + lcol;
+      pb[mi] = (r < rj ? st + (jb + r) * kMJoinStride : zrow_a) + lcol;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kMJoinChunk; kk += 32) {
+      uint32_t fa[kMB][4], fb[kMB][4];
+#pragma unroll
+      for (int mi = 0; mi < kMB; ++mi) {
+        ldmatrix_x4(fa[mi], pa[mi] + kk);
+        ldmatrix_x4(fb[mi], pb[mi] + kk);
+      }
+#pragma unroll
+      for (int mi = 0; mi < kMB; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 2 * kMB; ++nj) {
+          if (mi * 16 >= ri || nj * 8 >= rj || (diag && nj < 2 * mi))
+            continue;
+          // B's 8 columns are set J's rows 8 nj..: half nj % 2 of block
+          // nj / 2
+          MmaStep<kQ8>::run(acc[mi][nj], fa[mi], fb[nj >> 1][nj & 1],
+                            fb[nj >> 1][2 + (nj & 1)]);
+        }
+    }
+  }
+  cp_async_wait<0>();                    // only empty groups are left
+  __syncwarp();                          // the ring now holds the Gram
+
+  // accumulator i of lane l: row l / 4 + 8 (i / 2), column 2 (l % 4) + i % 2
+  float* gram = reinterpret_cast<float*>(ring);   // ri x rj, row-major
+#pragma unroll
+  for (int mi = 0; mi < kMB; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 2 * kMB; ++nj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = mi * 16 + (lane >> 2) + (i >> 1) * 8;
+        const int t = nj * 8 + 2 * (lane & 3) + (i & 1);
+        if (s < ri && t < rj && (!diag || s < t))
+          gram[s * rj + t] = MmaStep<kQ8>::cross(acc[mi][nj][i]);
+      }
+  __syncwarp();
+
+  int local = join_epilogue_piece(gram, sid, sx2, ssc, sid + jb, sx2 + jb,
+                                  kQ8 ? ssc + jb : nullptr, out, C, cn, i0,
+                                  ri, j0, rj, lane, 32);
+  for (int off = 16; off > 0; off >>= 1)
+    local += __shfl_xor_sync(0xffffffffu, local, off);
+  if (lane == 0) atomicAdd(ev_row, local);
+}
+
+// A block of either wide kernel: kMJoinWarps (row, piece) items, one per
+// warp. It zeroes its zero row, synchronises once, and never again.
+template <bool kQ8>
+__device__ __forceinline__ void mjoin_block_wide(
+    const uint8_t* __restrict__ data, const float* __restrict__ scale,
+    const float* __restrict__ x2, const int* __restrict__ ids,
+    float* __restrict__ od, int* __restrict__ ev, int N, int C,
+    int row_bytes, int cn, int R, int sets, int64_t items, int64_t item0) {
+  extern __shared__ __align__(16) uint8_t mjoin_sm[];
+  __shared__ int sid[kMJoinWarps][2 * kMJoinSet];
+  __shared__ float sx2[kMJoinWarps][2 * kMJoinSet];
+  __shared__ float ssc[kQ8 ? kMJoinWarps : 1][2 * kMJoinSet];
+  if (threadIdx.x < kMJoinChunk / 16)
+    reinterpret_cast<uint4*>(mjoin_sm)[threadIdx.x] =
+        make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int64_t item = item0 + (int64_t)blockIdx.x * kMJoinWarps + warp;
+  if (item >= items) return;
+  const int pieces = sets * (sets + 1) / 2;
+  const int row = (int)(item / pieces);
+  int piece = (int)(item - (int64_t)row * pieces);
+  int I = 0;                               // row-major over I <= J
+  while (piece >= sets - I) {
+    piece -= sets - I;
+    ++I;
+  }
+  const int J = I + piece;
+  float* sc = nullptr;
+  if constexpr (kQ8) sc = ssc[warp];
+  mma_join_piece<kQ8>(
+      mjoin_sm + kMJoinChunk +
+          (size_t)warp * kMJoinStages * 2 * R * kMJoinStride,
+      mjoin_sm, sid[warp], sx2[warp], sc, data, scale, x2,
+      ids + (int64_t)row * C, od + (int64_t)row * C * C, ev + row, N, C,
+      row_bytes, cn, I * R, min(R, C - I * R), J * R, min(R, C - J * R));
+}
+
+__global__ void __launch_bounds__(kMJoinWarps * 32, 1)
+    knn_join_dists_q8_kernel_wide(
+        const uint8_t* __restrict__ data, const float* __restrict__ scale,
+        const float* __restrict__ x2, const int* __restrict__ ids,
+        float* __restrict__ od, int* __restrict__ ev, int N, int C,
+        int row_bytes, int cn, int R, int sets, int64_t items,
+        int64_t item0) {
+  mjoin_block_wide<true>(data, scale, x2, ids, od, ev, N, C, row_bytes, cn,
+                         R, sets, items, item0);
+}
+
+__global__ void __launch_bounds__(kMJoinWarps * 32, 1)
+    knn_join_dists_bf16_kernel_wide(
+        const uint8_t* __restrict__ data, const float* __restrict__ scale,
+        const float* __restrict__ x2, const int* __restrict__ ids,
+        float* __restrict__ od, int* __restrict__ ev, int N, int C,
+        int row_bytes, int cn, int R, int sets, int64_t items,
+        int64_t item0) {
+  mjoin_block_wide<false>(data, scale, x2, ids, od, ev, N, C, row_bytes, cn,
+                          R, sets, items, item0);
+}
+
+template <bool kQ8>
+int launch_mjoin_wide(const uint8_t* data, const float* scale,
+                      const float* x2, const int* ids, float* od, int* ev,
+                      int N, int n, int C, int row_bytes, int cn,
+                      cudaStream_t stream) {
+  int sets = (C + kMJoinSet - 1) / kMJoinSet;
+  const int R = (C + sets - 1) / sets;
+  sets = (C + R - 1) / R;
+  const int64_t items = (int64_t)n * (sets * (sets + 1) / 2);
+  const size_t smem = kMJoinChunk + (size_t)kMJoinWarps * kMJoinStages * 2 *
+                                        R * kMJoinStride;
+  auto kernel = kQ8 ? knn_join_dists_q8_kernel_wide
+                    : knn_join_dists_bf16_kernel_wide;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(ev, 0, (size_t)n * sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t blocks = (items + kMJoinWarps - 1) / kMJoinWarps;
+  constexpr int64_t kMaxGrid = 0x7fffffff;
+  for (int64_t b0 = 0; b0 < blocks; b0 += kMaxGrid) {
+    const unsigned grid =
+        (unsigned)(blocks - b0 < kMaxGrid ? blocks - b0 : kMaxGrid);
+    kernel<<<grid, kMJoinWarps * 32, smem, stream>>>(
+        data, scale, x2, ids, od, ev, N, C, row_bytes, cn, R, sets, items,
+        b0 * kMJoinWarps);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <bool kQ8, int kMB>
 int launch_mjoin(const uint8_t* data, const float* scale, const float* x2,
                  const int* ids, float* od, int* ev, int N, int n, int C,
@@ -385,6 +610,9 @@ int dispatch_mjoin(const void* data, const float* scale, const float* x2,
                    const int* ids, float* od, int* ev, int N, int n, int C,
                    int row_bytes, int cn, cudaStream_t stream) {
   const uint8_t* d = static_cast<const uint8_t*>(data);
+  if (C > kJoinMaxC)
+    return launch_mjoin_wide<kQ8>(d, scale, x2, ids, od, ev, N, n, C,
+                                  row_bytes, cn, stream);
   switch ((C + 15) / 16) {
     case 1:
       return launch_mjoin<kQ8, 1>(d, scale, x2, ids, od, ev, N, n, C,
@@ -436,7 +664,7 @@ int knn_join_dists_q8_launch(const int8_t* data, const float* scale,
                              const float* x2, const int* ids, float* od,
                              int* ev, int N, int n, int C, int w, int cn,
                              cudaStream_t stream) {
-  if (n <= 0 || C < 1 || C > kJoinMaxC || w < 0 || !rows_ok(data, w))
+  if (n <= 0 || C < 1 || w < 0 || !rows_ok(data, w))
     return (int)cudaErrorInvalidValue;
   return dispatch_mjoin<true>(data, scale, x2, ids, od, ev, N, n, C, w, cn,
                               stream);
@@ -446,7 +674,7 @@ int knn_join_dists_bf16_launch(const uint16_t* data, const float* x2,
                                const int* ids, float* od, int* ev, int N,
                                int n, int C, int w, int cn,
                                cudaStream_t stream) {
-  if (n <= 0 || C < 1 || C > kJoinMaxC || w < 0 || !rows_ok(data, 2 * w))
+  if (n <= 0 || C < 1 || w < 0 || !rows_ok(data, 2 * w))
     return (int)cudaErrorInvalidValue;
   return dispatch_mjoin<false>(data, nullptr, x2, ids, od, ev, N, n, C,
                                2 * w, cn, stream);

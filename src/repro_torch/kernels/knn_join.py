@@ -9,12 +9,17 @@
   fed from shared memory; one block per row computes the rows' Gram on
   register-tiled 4 x 4 tiles of its upper triangle, the features split
   over 8 lanes (4 or 2 above C 40) and summed by shuffles, the rows
-  gathered by ``cp.async`` into a 3-stage ring (any dp).
+  gathered by ``cp.async`` into a 3-stage ring (any dp). Above C 64 the
+  row's slots are cut into sets of at most 64 and a block computes one
+  (set, set) piece of the tensor, so any C runs in bounded shared memory.
 * ``knn_join_select_cuda`` replaces ``knn_join_select_blocked``
   (knn_join.py:152, body ``_join_select_kernel`` :125). Bound: bytes (8 in
   per entry, 8 out per winner). A radix select, not a sort of the row: one
   warp per row up to a padded W of 1024 (one block of 256 threads above),
-  the row read once into registers; unless every survivor of the
+  the row read once into registers (above a padded 8192, a block of 256
+  threads per row streams the row from device memory once a pass, and
+  the winners' words go to a scratch of (n, cap) words where more than
+  ``SELECT_SMEM_WORDS`` of them could win); unless every survivor of the
   prefilter wins, four 8-bit histogram passes find the c-th smallest key,
   and only the c winners are sorted by (distance bits, position), so ties
   keep the lowest position.
@@ -29,8 +34,7 @@ import torch
 
 from repro_torch.kernels import _lib
 
-JOIN_MAX_C = 64          # kJoinMaxC in csrc/knn_kernels.cu
-SELECT_MAX_PADDED = 8192  # kSelectMaxPadded
+SELECT_SMEM_WORDS = 8192  # kStreamSmemWords in csrc/knn_kernels.cu
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -59,8 +63,8 @@ def knn_join_dists_cuda(
     n, c = ids.shape
     if x2.shape[0] != big_n:
         raise ValueError(f"x2 has {x2.shape[0]} rows, x has {big_n}")
-    if not 1 <= c <= JOIN_MAX_C:
-        raise ValueError(f"C must be in [1, {JOIN_MAX_C}]; got {c}")
+    if c < 1:
+        raise ValueError(f"C must be >= 1; got {c}")
     od = torch.empty((n, c, c), dtype=torch.float32, device=dev)
     ev = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
@@ -88,17 +92,18 @@ def knn_join_select_cuda(
                          f"gi {tuple(gi.shape)}, kth {tuple(kth.shape)}")
     if c < 1:
         raise ValueError(f"c must be >= 1; got {c}")
-    padded = 1 << max(w - 1, 0).bit_length()
-    if padded > SELECT_MAX_PADDED:
-        raise ValueError(f"W={w} exceeds the kernel's {SELECT_MAX_PADDED}")
     od = torch.empty((n, c), dtype=torch.float32, device=dev)
     oi = torch.empty((n, c), dtype=torch.int32, device=dev)
     if n == 0:
         return od, oi
+    # the winners' sort: the next power of two of min(c, W) words a row
+    cap = 1 << max(min(c, w) - 1, 0).bit_length()
+    scratch = (torch.empty((n, cap), dtype=torch.int64, device=dev)
+               if cap > SELECT_SMEM_WORDS else None)
     code = _lib.lib().knn_join_select_launch(
         gd.data_ptr(), gi.data_ptr(), kth.data_ptr(), od.data_ptr(),
-        oi.data_ptr(), n, w, int(c),
-        torch.cuda.current_stream(dev).cuda_stream)
+        oi.data_ptr(), None if scratch is None else scratch.data_ptr(), n, w,
+        int(c), torch.cuda.current_stream(dev).cuda_stream)
     _lib.check(code, "knn_join_select")
     _lib.LAUNCHES["knn_join_select"] += 1
     return od, oi

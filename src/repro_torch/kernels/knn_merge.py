@@ -29,7 +29,7 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.knn_join import _check
 
 MERGE_MAX_POOL = 8192    # kMergeMaxPool in csrc/knn_kernels.cu
-COMPACT_MAX_K = 8192     # kSelectMaxPadded: the select's widest row
+COMPACT_MAX_K = 8192     # kSelectMaxPadded: the widest row in registers
 
 
 def knn_merge_cuda(

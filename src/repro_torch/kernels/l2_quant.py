@@ -15,8 +15,9 @@ x2 of core/quantize.py) and gather the rows in-kernel; an id outside
 per valid candidate). Both search tiles are instances of the fp32 tile's
 body (``csrc/search_tile.cuh``; int8: ``__dp4a`` int32 sums, bitwise
 equal to the plain version); both joins run their Gram on the tensor cores
-(``mma.sync``, s8 -> s32 and bf16 -> f32, one warp per row), the int8 one
-bitwise equal to its plain version. The kernels read rows in 16-byte
+(``mma.sync``, s8 -> s32 and bf16 -> f32, one warp per row; above C 64
+one warp per (set, set) piece of a row, sets of at most 32 slots), the
+int8 one bitwise equal to its plain version. The kernels read rows in 16-byte
 chunks, so each wrapper also requires the rows to start on 16-byte
 boundaries: a row of a multiple of 16 bytes (16 int8 or 8 bf16 values;
 the mirror's 32-column quantum gives that) in a tensor whose storage is
@@ -31,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels.knn_join import JOIN_MAX_C, _check
+from repro_torch.kernels.knn_join import _check
 
 SEARCH_MAX_ROW_BYTES = 48 * 1024   # kSearchMaxRowBytes in search_tile.cuh
 
@@ -123,8 +124,8 @@ def _check_join(data, ids, norms, dtype):
         raise ValueError(f"data has {big_n} rows; " + ", ".join(
             f"{n} has {t.shape[0]}" for n, t in norms))
     n, c = ids.shape
-    if not 1 <= c <= JOIN_MAX_C:
-        raise ValueError(f"C must be in [1, {JOIN_MAX_C}]; got {c}")
+    if c < 1:
+        raise ValueError(f"C must be >= 1; got {c}")
     _check_rows(data, "data")
     od = torch.empty((n, c, c), dtype=torch.float32, device=dev)
     ev = torch.empty((n,), dtype=torch.int32, device=dev)

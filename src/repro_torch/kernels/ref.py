@@ -40,7 +40,7 @@ def knn_join_dists(
     +inf on invalid pairs, evals (n,) i32 — valid unordered pairs)."""
     valid = ids >= 0
     safe = torch.where(valid, ids, 0).long()
-    xg = torch.where(valid[:, :, None], x[safe], 0.0)
+    xg = x[safe].masked_fill_(~valid[:, :, None], 0.0)   # one (n, C, dp) copy
     x2g = torch.where(valid, x2[safe], 0.0)
     ab = torch.bmm(xg, xg.transpose(1, 2))
     dd = x2g[:, :, None] + x2g[:, None, :] - 2.0 * ab

@@ -102,6 +102,10 @@ def _both(fn, *args, **kw):
     (300, 17, 9, 130),           # C not a multiple of the 4 x 4 tile
     (512, 32, 16, 4096),         # the kNN-LM's build: C = 32, d = 4096
     (2048, 40, 20, 896),         # the online store's build: rho 1.0
+    (2048, 92, 46, 896),         # the wide kernel: k 91's C, 2 sets
+    (300, 65, 30, 130),          # one past the narrow kernel
+    (257, 180, 90, 131),         # 3 sets of 60; dp % 4 != 0
+    (130, 256, 100, 784),        # 4 sets of 64: the widest pieces
 ])
 def test_join_dists_kernel(dev, n, c, cn, dp):
     rng = np.random.RandomState(n + c)
@@ -185,7 +189,13 @@ def _select_case(kind, n, w, c, seed):
     (16, 40, 100),               # c > W
     (3, 0, 4),                   # W = 0
     (8, 2048, 60),               # one block per row
-    (4, 8192, 30), (4, 8192, 500),   # the widest row the kernel takes
+    (4, 8192, 30), (4, 8192, 500),   # the widest row in registers
+    (16, 8193, 60),              # streamed: one past it
+    (64, 16928, 273),            # streamed: k 91's receiver select
+    (64, 8281, 546),             # streamed: k 91's polish select
+    (8, 64800, 540),             # streamed: C 180's receiver select
+    (4, 131072, 768),            # streamed: a bitonic sort of the winners
+    (3, 20000, 12000),           # streamed: the winners' words in scratch
 ])
 def test_join_select_radix_cases(dev, kind, n, w, c):
     """The radix select bitwise against its plain version (a stable sort),
@@ -196,6 +206,109 @@ def test_join_select_radix_cases(dev, kind, n, w, c):
     assert launched["knn_join_select"] == 1
     assert torch.equal(gi_, wi)
     assert torch.equal(gd_.view(torch.int32), wd.view(torch.int32))
+
+
+# (shape, the device function knn_join_dists_launch, knn_join_select_launch
+# and the quantized joins' launchers pick for it): C <= 64 and a padded W
+# <= 8192 the instances they picked before the wide joins and the
+# streamed select existed (8 slices up to C 40, 4, then 2; 16-byte copies
+# where dp % 4 == 0; ceil(C / 16) row blocks), above them the new kernels
+LAUNCHED_INSTANCES = [
+    (("f32", 20, 896), "knn_join_dists_kernel<8, 4>"),
+    (("f32", 40, 896), "knn_join_dists_kernel<8, 4>"),
+    (("f32", 48, 130), "knn_join_dists_kernel<4, 1>"),
+    (("f32", 64, 896), "knn_join_dists_kernel<2, 4>"),
+    (("f32", 65, 896), "knn_join_dists_kernel_wide<4>"),
+    (("f32", 92, 131), "knn_join_dists_kernel_wide<1>"),
+    (("int8", 64, 800), "knn_join_dists_q8_kernel<4>"),
+    (("int8", 92, 800), "knn_join_dists_q8_kernel_wide"),
+    (("bf16", 20, 800), "knn_join_dists_bf16_kernel<2>"),
+    (("bf16", 92, 800), "knn_join_dists_bf16_kernel_wide"),
+    (("select", 32, 6), "knn_join_select_kernel<1, 1>"),
+    (("select", 800, 60), "knn_join_select_kernel<1, 32>"),
+    (("select", 2048, 60), "knn_join_select_kernel<8, 8>"),
+    (("select", 8192, 500), "knn_join_select_kernel<8, 32>"),
+    (("select", 8193, 60), "knn_join_select_kernel_stream"),
+    (("select", 16928, 273), "knn_join_select_kernel_stream"),
+]
+
+
+def _instance_call(dev, kind, a, b):
+    """One call of the join or select at shape (a, b), ready to run."""
+    if kind == "select":
+        gd = torch.rand(16, a, device=dev)
+        gi = torch.randint(0, 99, (16, a), device=dev, dtype=torch.int32)
+        kth = torch.full((16,), float("inf"), device=dev)
+        return lambda: ops.knn_join_select(gd, gi, kth, b)
+    ids = torch.randint(0, 500, (64, a), device=dev, dtype=torch.int32)
+    if kind == "f32":
+        x = torch.randn(500, b, device=dev)
+        x2 = (x * x).sum(1)
+        return lambda: ops.knn_join_dists(x, x2, ids, a // 2)
+    xs = _mirror(dev, 500, b, kind, a)
+    if kind == "int8":
+        return lambda: ops.knn_join_dists_q8(xs.data, xs.scale, xs.x2, ids,
+                                             a // 2)
+    return lambda: ops.knn_join_dists_bf16(xs.data, xs.x2, ids, a // 2)
+
+
+def test_launchers_pick_their_instances(dev):
+    """Each shape of LAUNCHED_INSTANCES launches its device function and
+    no other, read by torch.profiler: one profile over every call, each
+    warmed up (and the library built) before it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    calls = [_instance_call(dev, *shape) for shape, _ in LAUNCHED_INSTANCES]
+    for run in calls:
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for run in calls:
+            run()
+            torch.cuda.synchronize()
+    got = [e.name for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA
+         and "knn_join" in e.name), key=lambda e: e.time_range.start)]
+    want = [name for _, name in LAUNCHED_INSTANCES]
+    assert len(got) == len(want), got
+    for (shape, name), g in zip(LAUNCHED_INSTANCES, got):
+        assert name + ("(" if name.endswith(">") else "") in g, (shape, g)
+
+
+@pytest.mark.parametrize("k", [48, 91])
+def test_store_and_datastore_build_at_large_k_on_card(dev, k):
+    """MutableKNNStore.build and KNNDatastore.build (their default rho
+    1.0: C 2k, 96 at k 48) run on the card at k past the old C <= 64 cap:
+    full lists, every build kernel launched, recall@k
+    against brute_force_knn within 0.01 of the same builds through the
+    plain versions with the same generator seed, and at or above the
+    build floor of 0.84, on chip_smoke.py's check corpus."""
+    from repro_torch import KNNDatastore
+    n = 16000
+    x = datasets.mnist_like(n, 784, seed=1, device=dev)
+    _, truth = brute_force_knn(x, x, k)
+    recalls = {}
+    for backend in ("auto", "plain"):
+        before = dict(_lib.LAUNCHES)
+        store, _ = MutableKNNStore.build(
+            x, k, descent=DescentConfig(k=k, rho=1.0, max_iters=15,
+                                        backend=backend),
+            generator=torch.Generator(device=dev).manual_seed(1))
+        ds = KNNDatastore.build(
+            x, torch.arange(n, device=dev), k=k,
+            cfg=DescentConfig(k=k, rho=1.0, max_iters=10, backend=backend),
+            generator=torch.Generator(device=dev).manual_seed(1))
+        launched = {n: _lib.LAUNCHES[n] - before[n] for n in before}
+        for name in ("knn_join_dists", "knn_join_select", "knn_merge"):
+            assert (launched[name] > 0) == (backend == "auto"), launched
+        assert store.nl.idx.device.type == "cuda"
+        assert bool((store.nl.idx[:n] >= 0).all())
+        recalls[backend] = (recall_at_k(store.nl.idx[:n], truth),
+                            recall_at_k(ds.graph_idx, truth))
+    for got, want in zip(recalls["auto"], recalls["plain"]):
+        assert abs(got - want) <= 0.01, recalls
+        assert min(got, want) >= 0.84, recalls
 
 
 @pytest.mark.parametrize("n,k,c", [
@@ -689,6 +802,10 @@ def test_quant_search_dists_kernel(dev, mode, nq, w_cand, width, big_n):
     (300, 17, 9, 800),           # C not a multiple of 16 (nor of 4)
     (300, 27, 13, 800),          # ring and static arrays past 48 KB
     (300, 28, 14, 800),          # C = 2 rho k: k 14 rho 1.0, k 20 rho 0.7
+    (2048, 92, 46, 800),         # the wide kernels: k 91's C, 3 sets
+    (300, 65, 30, 288),          # one past the narrow kernels: 33 + 32
+    (257, 180, 90, 800),         # 6 sets of 30
+    (130, 256, 100, 96),         # 8 sets of 32
 ])
 def test_quant_join_dists_kernel(dev, mode, n, c, cn, width):
     big_n = 4 * n

@@ -105,10 +105,60 @@ def test_join_dists_plain_matches_jax(n, c, cn, dp, tb):
 
 def _join_slices(c):
     """The feature slices per 4 x 4 tile that knn_join_dists_launch picks:
-    8, or 4 or 2 so that a block stays at most 512 threads."""
+    8, or 4 or 2 so that a block stays at most 512 threads; above C 64 the
+    wide kernel's two (kJoinWideSlices), which the same rule gives."""
     nb = -(-c // 4)
     tiles = nb * (nb + 1) // 2
     return 8 if tiles * 8 <= 512 else 4 if tiles * 4 <= 512 else 2
+
+
+def join_pieces(c, most, quantum):
+    """A wide join's pieces of a row (launch_join_wide, most 64 and
+    quantum 4; launch_mjoin_wide, 32 and 1): ``sets`` sets of R = quantum
+    ceil(ceil(c / sets) / quantum) slots, the last shorter, and the pieces
+    (I, J), I <= J, in the launchers' row-major order, as (i0, ri, j0,
+    rj)."""
+    sets = -(-c // most)
+    r = quantum * -(-(-(-c // sets)) // quantum)
+    sets = -(-c // r)
+    return [(i * r, min(r, c - i * r), j * r, min(r, c - j * r))
+            for i in range(sets) for j in range(i, sets)]
+
+
+def join_piece_epilogue_np(gram, n2, ids, cn, pieces, sc=None):
+    """common.cuh's join_epilogue_piece over every piece of each row: the
+    pair's lower slot lo is set I's, (n2[lo] + n2[hi]) - f g[lo, hi] in
+    f32 with no contraction (f = 2, or 2 (sc[lo] sc[hi])), clamped at 0,
+    +inf where the mask refuses (lo >= cn, a slot invalid, one id twice,
+    the diagonal); a diagonal piece writes its square, an off-diagonal one
+    both orientations. Every entry must be written exactly once. gram:
+    (n, C, C) cross terms, read on the upper triangle; ids: invalid slots
+    -1. Returns (dists, evals)."""
+    n, c = ids.shape
+    out = np.full((n, c, c), np.nan, np.float32)
+    evals = np.zeros(n, np.int64)
+    for i0, ri, j0, rj in pieces:
+        diag = i0 == j0
+        s = np.arange(ri)[:, None]
+        t = np.arange(rj)[None, :]
+        swap = diag & (s > t)
+        lo = i0 + np.where(swap, t, s)
+        hi = j0 + np.where(swap, s, t)
+        a, b = ids[:, lo], ids[:, hi]
+        ok = (lo < cn) & (a >= 0) & (b >= 0) & (a != b) & (lo != hi)
+        f = np.float32(2.0) if sc is None else \
+            np.float32(2.0) * (sc[:, lo] * sc[:, hi])
+        v = np.maximum((n2[:, lo] + n2[:, hi]) - f * gram[:, lo, hi],
+                       np.float32(0.0))
+        v = np.where(ok, v, np.float32(np.inf))
+        assert np.isnan(out[:, i0:i0 + ri, j0:j0 + rj]).all()
+        out[:, i0:i0 + ri, j0:j0 + rj] = v
+        if not diag:
+            assert np.isnan(out[:, j0:j0 + rj, i0:i0 + ri]).all()
+            out[:, j0:j0 + rj, i0:i0 + ri] = v.transpose(0, 2, 1)
+        evals += (ok & ((not diag) | (s < t))).sum(axis=(1, 2))
+    assert not np.isnan(out).any()
+    return out, evals.astype(np.int32)
 
 
 def _join_epilogue_np(gram, x2g, ids, cn):
@@ -128,7 +178,9 @@ def _join_gram_emulation(x, x2, ids, cn):
     its sums with one f32 multiply-add per feature (emulated in f64 and
     rounded once to f32: the product is exact in f64); then a butterfly
     adds the S partial sums (lanes k and k ^ off, off = 1, 2, 4), then the
-    epilogue. Ids outside [0, N) are invalid slots, zero rows."""
+    epilogue. Ids outside [0, N) are invalid slots, zero rows. Above C 64
+    (the wide kernel) the sums are the same, and the epilogue runs piece
+    by piece (``join_pieces``, ``join_piece_epilogue_np``)."""
     big_n, dp = x.shape
     n, c = ids.shape
     ids = np.where(ids >= big_n, -1, ids)
@@ -152,17 +204,23 @@ def _join_gram_emulation(x, x2, ids, cn):
         part = (part + part[lane ^ off]).astype(np.float32)
         off *= 2
     x2g = np.where(valid, x2[np.where(valid, ids, 0)], 0.0).astype(np.float32)
+    if c > 64:
+        return join_piece_epilogue_np(part[0], x2g, ids, cn,
+                                      join_pieces(c, 64, 4))
     return _join_epilogue_np(part[0], x2g, ids, cn)
 
 
 @pytest.mark.parametrize("cn_of", ["none", "half", "all"])
 @pytest.mark.parametrize("c,dp", [
-    (1, 45), (17, 130), (20, 96), (40, 45), (64, 130)])
+    (1, 45), (17, 130), (20, 96), (40, 45), (64, 130),
+    (92, 45),               # the wide kernel: k 91's C, pieces 48 + 44
+    (180, 40)])             # three sets of 60: six pieces
 def test_join_gram_emulation_matches_jax(c, dp, cn_of):
     """The fp32 kernel's order of sums (``_join_gram_emulation``) against
     the Pallas kernel in interpret mode and the port's plain version, with
     invalid slots (-1 and >= N), a repeated id and dp not a multiple of
-    the 32-feature chunk."""
+    the 32-feature chunk; above C 64, the wide kernel's pieces cover the
+    tensor once each, "half" puts cn inside a set."""
     cn = {"none": 0, "half": c // 2, "all": c}[cn_of]
     n, big_n = 6, 40
     rng = np.random.RandomState(7 * c + dp)
@@ -292,11 +350,54 @@ def _radix_winners(key, c, threads):
     return slots, (s, int(thr), need)
 
 
+def _stream_winners(key, c, threads=256):
+    """The streamed select's core (knn_join_select_kernel_stream) on one
+    row's keys in position order: the survivors counted over the whole
+    row, the four 8-bit passes (order-free histograms of the matching
+    keys) as ``_radix_winners``; then the winners compacted tile by tile
+    (``threads`` consecutive positions a tile, the counts of keys equal to
+    T and of winners carried from tile to tile), each put in the slot its
+    (key, position) rank names. Returns the winners' positions in slot
+    order and (s, T, need)."""
+    big = _order_bits(np.array([np.finfo(np.float32).max], np.float32))[0]
+    s = int((key < big).sum())
+    thr, need = big, 0
+    if s > c:
+        prefix, pmask, r = 0, 0, c - 1
+        for shift in (24, 16, 8, 0):
+            cand = (key < big) & ((key & pmask) == prefix)
+            hist = np.bincount(((key[cand] >> shift) & 0xFF)
+                               .astype(np.int64), minlength=256)
+            cum = np.cumsum(hist)
+            b = int(np.searchsorted(cum, r, side="right"))
+            r -= int(cum[b - 1]) if b else 0
+            prefix |= b << shift
+            pmask |= 0xFF << shift
+        thr, need = prefix, r + 1
+    words = []
+    run_e = 0
+    for base in range(0, key.shape[0], threads):
+        tile = key[base:base + threads]
+        eq = (tile == thr) & (need > 0)
+        eq_rank = run_e + np.cumsum(eq) - eq
+        win = (tile < thr) | (eq & (eq_rank < need))
+        run_e += int(eq.sum())
+        pos = base + np.nonzero(win)[0]
+        words.extend((tile[win].astype(np.uint64) << np.uint64(32))
+                     | pos.astype(np.uint64))
+    words = np.array(words, np.uint64)
+    rank = (words[None, :] < words[:, None]).sum(1)
+    slots = np.empty(len(words), np.int64)
+    slots[rank] = (words & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    return slots, (s, int(thr), need)
+
+
 def _radix_select_emulation(gd, gi, kth, c, threads):
     """csrc/knn_kernels.cu's knn_join_select, step by step, in numpy: each
     row's keys (the FLT_MAX sentinel where the prefilter fails) through
-    ``_radix_winners``. Returns (dist, idx) and the per-row (s, T, need)
-    for the test to inspect."""
+    ``_radix_winners``, or above a padded W of 8192 through the streamed
+    kernel's ``_stream_winners``. Returns (dist, idx) and the per-row (s,
+    T, need) for the test to inspect."""
     n, w = gd.shape
     big = _order_bits(np.array([np.finfo(np.float32).max], np.float32))[0]
     od = np.full((n, c), np.inf, np.float32)
@@ -307,7 +408,10 @@ def _radix_select_emulation(gd, gi, kth, c, threads):
         key = np.full(ipl * threads, big, np.uint32)
         ok = (gi[row] >= 0) & (gd[row] < kth[row])
         key[:w] = np.where(ok, _order_bits(gd[row]), big)
-        pos, tr = _radix_winners(key, c, threads)
+        if w > 8192:
+            pos, tr = _stream_winners(key[:w], c, threads)
+        else:
+            pos, tr = _radix_winners(key, c, threads)
         od[row, :len(pos)] = gd[row, pos]
         oi[row, :len(pos)] = gi[row, pos]
         trace.append(tr)
@@ -351,6 +455,8 @@ def _radix_rows(kind, n, w, c, seed):
     (800, 60, 32),      # receiver select
     (2048, 60, 256),    # one block per row
     (40, 100, 32),      # c > W
+    (16928, 273, 256),  # streamed: k 91's receiver select (2 C x C, 3k)
+    (64800, 540, 256),  # streamed: C 180's receiver select
 ])
 def test_radix_select_emulation_matches_jax(kind, w, c, threads):
     """The radix select's passes (layout, threshold, need at T) against
@@ -358,18 +464,23 @@ def test_radix_select_emulation_matches_jax(kind, w, c, threads):
     the branches taken are the ones named. On -0.0 / +0.0 JAX's oracle
     (top_k of the negated pool, a total order) puts -0.0 first, where its
     Pallas kernel and the port tie them by position (next test), so there
-    it is held to the Pallas kernel."""
+    it is held to the Pallas kernel (at the streamed widths, to the oracle
+    on the same rows with -0.0 written as +0.0)."""
     gd, gi, kth = _radix_rows(kind, 6, w, c, w + c)
     ed, ei, trace = _radix_select_emulation(gd, gi, kth, c, threads)
     td, ti = tref.knn_join_select(_t(gd), _t(gi), _t(kth), c)
     np.testing.assert_array_equal(ei, ti.numpy())
     np.testing.assert_array_equal(ed.view(np.int32), td.numpy().view(np.int32))
-    if kind == "zeros":
+    if kind == "zeros" and w <= 8192:
         jd, ji = knn_join_select_blocked(jnp.asarray(gd), jnp.asarray(gi),
                                          jnp.asarray(kth), c=c, tr=2,
                                          interpret=True)
     else:
-        jd, ji = jref.knn_join_select(jnp.asarray(gd), jnp.asarray(gi),
+        # the streamed widths: the interpreted kernel unrolls c steps of a
+        # min over W (tens of seconds), so there the oracle holds the
+        # zeros with -0.0 written as +0.0, which the select ties with it
+        jgd = np.where(gd == 0, np.float32(0), gd) if kind == "zeros" else gd
+        jd, ji = jref.knn_join_select(jnp.asarray(jgd), jnp.asarray(gi),
                                       jnp.asarray(kth), c)
     np.testing.assert_array_equal(ei, np.asarray(ji))
     np.testing.assert_array_equal(ed, np.asarray(jd))

@@ -51,7 +51,12 @@ from repro_torch.core import quantize as tq
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.l2_quant import _check_rows
-from test_torch_kernels import _search_tile_case, _search_tile_emulation
+from test_torch_kernels import (
+    _search_tile_case,
+    _search_tile_emulation,
+    join_piece_epilogue_np,
+    join_pieces,
+)
 
 K = 10
 
@@ -592,6 +597,107 @@ def test_join_q8_emulation_matches_jax(c, w, cn_of):
     assert eev[3] == 0 and np.isinf(ed[3]).all()
     if cn == 0:
         assert eev.sum() == 0
+
+
+def _q8_join_wide_emulation(data, scale, x2, ids, cn):
+    """The wide int8 kernel (knn_join_dists_q8_kernel_wide, C above 64) in
+    numpy int64: the row's slots cut into sets of at most 32
+    (``join_pieces``), one warp a piece (I, J); its A fragments from set
+    I's rows and its B fragments from set J's (the same rows on a
+    diagonal piece), each set padded to two 16-row blocks with zero rows;
+    the 16 x 8 blocks (mi, nj) with 16 mi < ri and 8 nj < rj (nj >= 2 mi
+    on a diagonal piece) multiplied per 32-byte k-step as in
+    ``_q8_join_mma_emulation``; the accumulators to the piece's Gram (s <
+    t on a diagonal piece), then the piece's epilogue
+    (``join_piece_epilogue_np``). Returns (dists, evals, upper-triangle
+    entries no block wrote)."""
+    big_n, w = data.shape
+    n, c = ids.shape
+    ids = np.where((ids >= 0) & (ids < big_n), ids, -1)
+    valid = ids >= 0
+    safe = np.where(valid, ids, 0)
+    width = 128 * -(-w // 128)
+    x = np.zeros((n, c, width), np.int64)
+    x[:, :, :w] = np.where(valid[:, :, None], data[safe], 0)
+    pieces = join_pieces(c, 32, 1)
+    gram = np.full((n, c, c), np.nan, np.float32)
+
+    def rows(i0, r):               # a set's rows, two 16-row blocks
+        out = np.zeros((n, 32, width), np.int64)
+        out[:, :r] = x[:, i0:i0 + r]
+        return out
+
+    def frags(xs, k0):
+        return [np.stack([xs[:, (16 * mi + 8 * (j % 2) + _G)[:, None],
+                             k0 + 16 * (j // 2) + 4 * _T4[:, None] + _E]
+                          for j in range(4)], 1) for mi in range(2)]
+    for i0, ri, j0, rj in pieces:
+        diag = i0 == j0
+        xi, xj = rows(i0, ri), rows(j0, rj)
+        acc = {}
+        for k0 in range(0, width, 32):
+            fa, fb = frags(xi, k0), frags(xj, k0)
+            for mi in range(2):
+                for nj in range(4):
+                    if 16 * mi >= ri or 8 * nj >= rj or (diag and nj < 2 * mi):
+                        continue
+                    d = _mma_m16n8k32(fa[mi], fb[nj // 2][:, nj % 2],
+                                      fb[nj // 2][:, 2 + nj % 2])
+                    acc[mi, nj] = acc.get((mi, nj), 0) + d
+        for (mi, nj), d in acc.items():
+            for lane in range(32):
+                for i in range(4):
+                    s_ = 16 * mi + _D_ROW[lane, i]
+                    t_ = 8 * nj + _D_COL[lane, i]
+                    if s_ < ri and t_ < rj and (not diag or s_ < t_):
+                        gram[:, i0 + s_, j0 + t_] = \
+                            d[:, lane, i].astype(np.float32)
+    upper = np.triu(np.ones((c, c), bool), 1)
+    missing = int(np.isnan(gram[:, upper]).sum())
+    sc = np.where(valid, scale[safe], 0.0).astype(np.float32)
+    n2 = np.where(valid, x2[safe], 0.0).astype(np.float32)
+    out, evals = join_piece_epilogue_np(np.nan_to_num(gram), n2, ids, cn,
+                                        pieces, sc=sc)
+    return out, evals, missing
+
+
+@pytest.mark.parametrize("cn_of", ["none", "half", "all"])
+@pytest.mark.parametrize("c,w", [
+    (92, 48),               # k 91's C: three sets (32, 32, 28), 6 pieces
+    (65, 800),              # one past the narrow kernel: sets of 33, 32
+    (180, 16)])             # six sets of 30: 21 pieces
+def test_join_q8_wide_emulation_matches_jax(c, w, cn_of):
+    """The wide int8 kernel's pieces and fragment mapping
+    (``_q8_join_wide_emulation``) cover the upper triangle, write every
+    entry once, and give JAX's oracle bit for bit, evals exact; invalid
+    slots (-1 and >= N), a repeated id, an all-invalid row."""
+    cn = {"none": 0, "half": c // 2, "all": c}[cn_of]
+    n, big_n = 4, 300
+    rng = np.random.RandomState(3 * c + w)
+    base = jq.quantize_corpus(jnp.asarray(
+        rng.randn(big_n, w).astype(np.float32) * 3.0), "int8")
+    ids = rng.randint(-1, big_n, size=(n, c)).astype(np.int32)
+    ids[3] = -1                                  # an all-invalid row
+    ids[0, 0] = big_n                            # >= N: an invalid slot
+    ids[2, -1] = big_n + 5
+    ids[1, 60] = ids[1, 2]                       # a repeated id, two sets
+    data, scale, x2 = (np.asarray(a) for a in (base.data, base.scale,
+                                               base.x2))
+    ed, eev, missing = _q8_join_wide_emulation(data, scale, x2, ids, cn)
+    assert missing == 0
+    jids = np.where(ids >= big_n, -1, ids)
+    safe = np.where(jids >= 0, jids, 0)
+    x2g = np.where(jids >= 0, x2[safe], 0.0).astype(np.float32)
+    wd, wev = jref.knn_join_dists_q8(
+        jnp.asarray(data[safe]), jnp.asarray(scale[safe]), jnp.asarray(x2g),
+        jnp.asarray(jids), cn)
+    np.testing.assert_array_equal(ed, np.asarray(wd))
+    np.testing.assert_array_equal(eev, np.asarray(wev))
+    td, tev = tref.knn_join_dists_q8(_t(data), _t(scale), _t(x2), _t(ids),
+                                     cn)
+    np.testing.assert_array_equal(ed, td.numpy())
+    np.testing.assert_array_equal(eev, tev.numpy())
+    assert eev[3] == 0 and np.isinf(ed[3]).all()
 
 
 def test_near_identical_points_cancellation_guard():
