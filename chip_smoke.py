@@ -468,21 +468,40 @@ script started (phases with several lanes print one line a lane):
                estimate beside the allocator's. The sharded calls cannot
                run on meta: their counts stand beside their model FLOPs;
   large_k_check  on online_check's corpus (16000 x 784): lane kernels,
-               the joins above C 64 (knn_join_dists_kernel_wide and the
-               int8 / bf16 wide kernels: sets of slots, a block or warp a
-               (set, set) piece) at C 92, 180 and 256, fp32, int8 and
-               bf16, and the streamed select (knn_join_select_kernel_
-               stream, above a padded W of 8192) at W 16928 / c 273, 64800
-               / c 540 and 131072 / c 2048 on rows of ties, of -0.0 /
-               +0.0 and of a straddled run, each against its plain
+               the joins above C 64 (knn_join_dists_kernel_wide: the
+               row's valid slots compacted, new x valid cross terms, a
+               block a row, in panels at C 320; the int8 / bf16 wide
+               kernels: sets of slots, a warp a (set, set) piece) at C
+               92, 180, 256 and 320, fp32,
+               int8 and bf16, and the selects above a padded W of 8192
+               (knn_join_select_kernel_resident, the row's keys in shared
+               memory, at W 16928 / c 273; knn_join_select_kernel_stream
+               at 64800 / c 540 and 131072 / c 2048) on rows of ties, of
+               -0.0 / +0.0 and of a straddled run, each against its plain
                version (evals exact, int8 and the selects bitwise, fp32
                and bf16 within 1e-4 + 1e-5 (|a|^2 + |b|^2)), one launch a
-               call; lane builds, build_knn_graph(k=91) through the
-               kernels and through the plain versions with the same
+               call; lane merges, knn_merge and knn_merge_rows above a
+               pool of 8192 (knn_merge_kernel_wide and its row form) at
+               k 91 with c 8281 (the online store's pool, in shared
+               memory) and c 12000 (past it: the scratch instance) on 512
+               rows of ties, repeated candidate ids, candidate ids in the
+               list, ids -1, -0.0 / +0.0 and the FLT_MAX sentinel,
+               bitwise, one launch a call; lane builds,
+               build_knn_graph(k=91) through the kernels and through the
+               plain versions with the same
                generator seed (recalls against an exact k-NN within 0.01,
                both >= 0.84), the int8 and bf16 builds at k 91 (driven;
                recall >= the f32 build's - 0.02, distances exact fp32) and
-               MutableKNNStore.build(k=48) (rho 1.0: C 96);
+               MutableKNNStore.build(k=48) (rho 1.0: C 96); lane online,
+               knn_insert / knn_delete at k 91 on online_check's shape
+               (path 22's descent, frontier chunk 512) through the kernels
+               and through the plain versions on the same draws (the row
+               merge at c 8281 launched; recall@91 of the live lists
+               against an exact k-NN of the live rows within 0.01, both
+               >= 0.84; the live lists checked), then a
+               MutableKNNDatastore at k 91 on 4096 keys, two appends of
+               256, one delete of 256, through the kernels (recall@91 >=
+               0.84, the row merge at c 8281 launched);
   knn_build_k91  path 22: t-SNE's neighbour graph (scikit-learn's TSNE
                asks for 3 perplexity + 1 = 91 neighbours at perplexity
                30): build_knn_graph(k=91) at rho 0.5 on path 1's corpus
@@ -492,7 +511,18 @@ script started (phases with several lanes print one line a lane):
                dist_evals, launches, peak memory, recall@91 against an
                exact k-NN (>= 0.84), the graph's distances (check_graph),
                then one more build profiled: the idle share and the wide
-               join's and streamed select's device time (each > 0);
+               join's and resident select's device time (each > 0);
+  online_k91   path 23: the online store at t-SNE's k on path 8's shape
+               (path 1's corpus): MutableKNNStore.build on rows [0, 60000)
+               at k 91, routed, at path 22's descent (rho 0.5, C 92: the
+               phase's time goes to the updates), knn_insert of rows
+               [60000, 70000) in 20 batches of 500 and knn_delete of 7000
+               seeded rows in 7 batches of 1000, through the kernels; wall
+               times of build, inserts and deletes, dist_evals against the
+               build's, frontier and padded rows, peak memory, the live
+               lists checked, recall@91 against an exact k-NN of the live
+               rows (>= 0.84), launches (knn_merge_rows at c 8281
+               required), and one more insert batch profiled (idle share);
   profile      every path but truth once more under torch.profiler (and
                a window of lm_serve, lm_gemma2 and lm_deepseek: the first
                4 requests, 8 new tokens each; and lm_gemma2's and
@@ -577,9 +607,12 @@ patches), and knn_join_dists, knn_join_select (each width) and knn_merge
 once more each on path 20's semantic_order build (``launches``: that
 key's calls in path 20), and, after each kernel's own entries, path 22's
 calls (knn_join_dists at C 92, knn_join_select at W 16928 / c 273 and W
-8281 / c 546, knn_merge) and the k = 91 int8 and bf16 builds' joins (C
-92; ``launches``: that key's calls in its run); ``call`` tells the
-entries apart. Last, {"ok": true, "device": ...}. Any failure
+8281 / c 546, knn_merge), the k = 91 int8 and bf16 builds' joins (C
+92; ``launches``: that key's calls in its run), knn_merge on
+large_k_check's dense merge at k 91, c 8281 (``launches``: 0, no main
+path merges a dense pool above 8192) and knn_merge_rows on path 23's
+row merge at c 8281 (``launches``: that key's calls in path 23);
+``call`` tells the entries apart. Last, {"ok": true, "device": ...}. Any failure
 raises, and the script exits non-zero. With no CUDA card, or without the
 repository's src/ beside it, it exits 2 and prints no result.
 """
@@ -804,15 +837,31 @@ SB_WIDTHS = ((480, 60), (400, 120))
 # neighbours at its default perplexity of 30): build_knn_graph(k=91) at
 # the default rho 0.5 on path 1's corpus (C 92, merge_k 273, receiver
 # select 2 C x C = 16928, polish select k^2 = 8281 at c 6k = 546). The
-# check's joins at C 92, 180 and 256 over JOIN_ROWS rows each, its selects
+# check's joins at C 92, 180, 256 and 320 (the fp32 join in panels) over
+# JOIN_ROWS rows each, its selects
 # at (W, c) over SELECT_ROWS rows each, and MutableKNNStore.build at k
 # LARGE_K_STORE (rho 1.0: C 96)
 TSNE_K = 91
-LARGE_K_JOIN_C, LARGE_K_JOIN_ROWS = (92, 180, 256), (4096, 2048, 1024)
+LARGE_K_JOIN_C, LARGE_K_JOIN_ROWS = (92, 180, 256, 320), (4096, 2048, 1024,
+                                                         512)
 LARGE_K_SELECT_W = ((16928, 273), (64800, 540), (131072, 2048))
 LARGE_K_SELECT_ROWS = (2048, 512, 256)
 LARGE_K_STORE = 48
 K91_TAG = "knn_build_k91"
+# large_k_check's merges above a pool of 8192, on LARGE_K_MERGE_ROWS rows:
+# the online store's k + k^2 = 8372 at k 91 and a pool past what the wide
+# merge holds in shared memory (its scratch instance); its online lane at
+# online_check's shape with a frontier chunk of LARGE_K_CHUNK (the plain
+# version's gathered rows: 512 x 8281 x 896 floats, 15 GB); its datastore
+# lane LARGE_K_DS keys, grown and shrunk by LARGE_K_DS_BATCH. Path 23
+# (online_k91): path 8's shape at k 91
+LARGE_K_MERGE_POOLS = ((TSNE_K, TSNE_K ** 2), (TSNE_K, 12000))
+LARGE_K_MERGE_ROWS = 512
+LARGE_K_CHUNK = 512
+LARGE_K_DS, LARGE_K_DS_BATCH = 4096, 256
+K91_ONLINE_TAG = "online_k91"
+# per driven path: its dense merges above the register instances' pool
+DRIVEN_WIDE_MERGES: dict[str, int] = {}
 ATTN_F32_TOL = (2e-3, 2e-3)     # (rtol, atol): tests/test_kernels.py:122-137
 ATTN_BF16_TOL = (1e-2, 2e-3)    # + one bf16 rounding of the output (2^-7)
 # (Lq, Lk, H, Hkv, Dq, Dv, keyword arguments of ops.attention)
@@ -970,7 +1019,9 @@ class Recorder:
     wrapped functions are the ones the path would call, so each kernel
     launches as it would. Keys carry the path's tag.
     ``launched`` holds, per key, what the calls added to the kernel's
-    count in ``_lib.LAUNCHES`` (the wrappers' own counts)."""
+    count in ``_lib.LAUNCHES`` (the wrappers' own counts);
+    ``wide_merges`` what the dense merges above a pool of MERGE_MAX_POOL
+    added to ``knn_merge``'s (row 3d's launches)."""
 
     NAMES = ("knn_join_dists", "knn_join_select", "knn_merge",
              "pairwise_sq_l2", "knn_search_dists", "knn_search_dists_q8",
@@ -989,6 +1040,7 @@ class Recorder:
         self.launched: dict[str, int] = {}
         self.reorder_s: list[float] = []
         self.first_q: dict[str, int] = {}
+        self.wide_merges = 0
 
     def __enter__(self):
         from repro_torch.core import nn_descent
@@ -1009,6 +1061,7 @@ class Recorder:
     def _wrap(self, name, fn):
         import torch
         from repro_torch.kernels import _lib
+        from repro_torch.kernels.knn_merge import MERGE_MAX_POOL
 
         kernel = self.KERNEL_OF.get(name, name)
 
@@ -1051,8 +1104,11 @@ class Recorder:
                 self.kwargs[key] = dict(kw)
             before = _lib.LAUNCHES[kernel]
             out = fn(*args, **kw)
-            self.launched[key] = self.launched.get(key, 0) \
-                + _lib.LAUNCHES[kernel] - before
+            added = _lib.LAUNCHES[kernel] - before
+            self.launched[key] = self.launched.get(key, 0) + added
+            if name == "knn_merge" and args[0].shape[1] \
+                    + args[2].shape[1] > MERGE_MAX_POOL:
+                self.wide_merges += added
             return out
         return call
 
@@ -1495,6 +1551,8 @@ def drive(tag: str, run):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = dict(_lib.LAUNCHES)
+    DRIVEN_WIDE_MERGES[tag] = DRIVEN_WIDE_MERGES.get(tag, 0) \
+        + rec.wide_merges
     return out, wall, launches, torch.cuda.max_memory_allocated(), rec
 
 
@@ -1571,9 +1629,9 @@ def search_check(xc, gidx, scfg) -> dict:
 
 
 def run_online(x, n_base, ins_batch, dels, del_batch, cfg, descent,
-               queries=None, search_off=None) -> dict:
-    """The online path: a store built on x[:n_base], the rest of x
-    inserted in batches, ``dels`` deleted in batches, then (with
+               queries=None, search_off=None, k=20) -> dict:
+    """The online path: a store of k-lists built on x[:n_base], the rest
+    of x inserted in batches, ``dels`` deleted in batches, then (with
     ``queries``) one routed search and one with ``search_off``. Wall time
     of each step, ended by a synchronize."""
     import torch
@@ -1581,7 +1639,7 @@ def run_online(x, n_base, ins_batch, dels, del_batch, cfg, descent,
     g = torch.Generator(device=x.device).manual_seed(SEED)
     out = {"insert_s": [], "delete_s": [], "insert": [], "delete": []}
     (store, out["build_stats"]), out["build_s"] = timed(
-        lambda: MutableKNNStore.build(x[:n_base], 20, cfg=cfg,
+        lambda: MutableKNNStore.build(x[:n_base], k, cfg=cfg,
                                       descent=descent, generator=g))
     out["capacity"] = [store.capacity]
     for s in range(n_base, x.shape[0], ins_batch):
@@ -4983,9 +5041,94 @@ def select_rows(kind: str, n: int, w: int, seed: int, dev):
     return gd.float().contiguous(), gi, kth
 
 
+def merge_pool_rows(n: int, k: int, c: int, seed: int, dev):
+    """(cur_d, cur_i, cand_d, cand_i) for the merges above a pool of 8192,
+    row r of kind r % 7: ties (list and candidates at one distance),
+    repeated candidate ids (eight values), candidate ids already in the
+    list, ids -1, -0.0 / +0.0 beside +0.25, the FLT_MAX sentinel (and
+    list entries at +inf, -1 and 3e38), and a mix on a grid of ties."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cur_d = torch.rand(n, k, generator=g, device=dev).sort(1).values
+    cur_i = torch.randint(0, 40 * c, (n, k), generator=g, device=dev,
+                          dtype=torch.int32)
+    cand_d = (torch.rand(n, c, generator=g, device=dev) * 16).round() / 16
+    cand_i = torch.randint(-1, 40 * c, (n, c), generator=g, device=dev,
+                           dtype=torch.int32)
+    kind = torch.arange(n, device=dev) % 7
+    cur_d[kind == 0] = 0.5
+    cand_d[kind == 0] = 0.5
+    few = torch.randint(0, 8, (n, c), generator=g, device=dev,
+                        dtype=torch.int32)
+    cand_i = torch.where((kind == 1)[:, None], few, cand_i)
+    pick = torch.randint(0, k, (n, c), generator=g, device=dev)
+    cand_i = torch.where((kind == 2)[:, None], cur_i.gather(1, pick), cand_i)
+    half = torch.rand(n, c, generator=g, device=dev) < 0.5
+    cand_i = torch.where((kind == 3)[:, None] & half, -1, cand_i)
+    zeros = torch.where(half, torch.full_like(cand_d, -0.0),
+                        torch.zeros_like(cand_d))
+    zeros[torch.rand(n, c, generator=g, device=dev) < 0.3] = 0.25
+    cand_d = torch.where((kind == 4)[:, None], zeros, cand_d)
+    cur_d[kind == 4, :k // 4] = 0.0
+    fmax = torch.finfo(torch.float32).max
+    sent = (kind == 5)[:, None] & (torch.rand(n, c, generator=g, device=dev)
+                                   < 0.4)
+    cand_d = torch.where(sent, fmax, cand_d)
+    cur_d[kind == 5, k - 6:k - 3] = 3.0e38
+    cur_d[kind == 5, k - 3:] = torch.inf
+    cur_i[kind == 5, k - 3:] = -1
+    return (cur_d.contiguous(), cur_i.contiguous(), cand_d.contiguous(),
+            cand_i.contiguous())
+
+
+def large_k_merge_check(dev):
+    """The merges above a pool of 8192 against their plain version on the
+    card, dense and row forms, at LARGE_K_MERGE_POOLS over
+    LARGE_K_MERGE_ROWS rows of merge_pool_rows (the row form into lists
+    three times as long, a seventh of its slots padding): distances bit for
+    bit, ids and accepted counts exact, one launch a call. Returns (rows,
+    the dense call at the first pool: row 3d's inputs)."""
+    import torch
+    from repro_torch.kernels import _lib, ops
+    rows, call_3d = [], None
+    n = LARGE_K_MERGE_ROWS
+    for k, c in LARGE_K_MERGE_POOLS:
+        cd, ci, qd, qi = merge_pool_rows(n, k, c, SEED + 70 + c, dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 71 + c)
+        big_d = torch.rand(3 * n, k, generator=g, device=dev).sort(1).values
+        big_i = torch.randint(0, 40 * c, (3 * n, k), generator=g, device=dev,
+                              dtype=torch.int32)
+        slot = torch.randperm(3 * n, generator=g, device=dev)[:n]
+        big_d[slot], big_i[slot] = cd, ci
+        at = slot.to(torch.int32)
+        at[::7] = -1
+        for name, args in (("knn_merge", (cd, ci, qd, qi)),
+                           ("knn_merge_rows", (big_d, big_i, at, qd, qi))):
+            fn = getattr(ops, name)
+            before = _lib.LAUNCHES[name]
+            got = fn(*args)
+            torch.cuda.synchronize()
+            launched = _lib.LAUNCHES[name] - before
+            want = fn(*args, backend="ref")
+            same = (torch.equal(got[0].view(torch.int32),
+                                want[0].view(torch.int32))
+                    and torch.equal(got[1], want[1])
+                    and torch.equal(got[2], want[2]))
+            if launched != 1 or not same:
+                raise AssertionError(f"{name} k={k} c={c}: launches "
+                                     f"{launched}, kernel and plain differ")
+            rows.append({"name": name, "k": k, "c": c, "pool": k + c,
+                         "rows": n, "accepted": int(want[2].sum()),
+                         "tolerance": "bitwise (distance bits, ids, "
+                                      "accepted counts)"})
+        if call_3d is None:
+            call_3d = (cd, ci, qd, qi)
+    return rows, call_3d
+
+
 def large_k_kernel_check(xc, dev) -> dict:
     """The wide joins and the streamed select against their plain versions
-    on the card: the fp32, int8 and bf16 joins at C 92, 180 and 256 on
+    on the card: the fp32, int8 and bf16 joins at LARGE_K_JOIN_C on
     the check corpus (padded, and its mirrors), ids with -1, an
     all-invalid row and a repeated id, cn = C / 2 (evals exact; int8
     bitwise; fp32 and bf16 within 1e-4 + 1e-5 (|a|^2 + |b|^2), +inf
@@ -5140,10 +5283,175 @@ def large_k_build_check(xc, dev):
     return out, recs
 
 
+def large_k_online_check(xc, dev) -> dict:
+    """knn_insert / knn_delete at k 91 on online_check's shape (a routed
+    store of CHECK_BASE rows at path 22's descent, the rest inserted and
+    a tenth of the rows deleted in batches of CHECK_BATCH, a frontier
+    chunk of LARGE_K_CHUNK) through the kernels and through the plain
+    versions on the same draws: the row merge at c = 91^2 launched, the
+    live lists checked (check_live_lists), recall@91 against an exact
+    k-NN of the live rows within 0.01, both >= 0.84. Then
+    MutableKNNDatastore at k 91 (its default descent: rho 1.0, C 182) on
+    LARGE_K_DS keys, grown by two batches of LARGE_K_DS_BATCH and shrunk
+    by one, through the kernels: the row merge at c = 91^2 launched, its
+    live lists checked, recall@91 >= 0.84."""
+    import torch
+    from repro_torch import (DescentConfig, OnlineConfig, RouterConfig,
+                             recall_at_k)
+    from repro_torch.kernels import _lib
+    from repro_torch.serve import MutableKNNDatastore
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    dels = torch.randperm(CHECK_N, generator=g, device=dev)[:CHECK_N // 10]
+    wide = f"c={TSNE_K ** 2}"
+    out = {}
+    for backend in ("plain", "auto"):
+        cfg = OnlineConfig(router=RouterConfig(), chunk=LARGE_K_CHUNK,
+                           backend=backend)
+        descent = DescentConfig(k=TSNE_K, backend=backend)
+        _lib.reset_launches()
+        with Recorder(f"k{TSNE_K}_online_{backend}") as rec:
+            res = run_online(xc, CHECK_BASE, CHECK_BATCH, dels, CHECK_BATCH,
+                             cfg, descent, k=TSNE_K)
+        store = res["store"]
+        live, truth = live_truth(xc, store.alive, TSNE_K)
+        merged = sum(v for key, v in rec.launched.items()
+                     if key.endswith(f"knn_merge_rows:{wide}"))
+        out[backend] = {
+            "recall_at_91": recall_at_k(store.nl.idx[live], truth),
+            "insert_dist_evals": sum(st.dist_evals for st in res["insert"]),
+            "delete_dist_evals": sum(st.dist_evals for st in res["delete"]),
+            "seconds": res["build_s"] + sum(res["insert_s"])
+            + sum(res["delete_s"]),
+            "wide_row_merge_launches": merged,
+            "launches": {k: v for k, v in _lib.LAUNCHES.items() if v},
+            **check_live_lists(store, dels)}
+        if backend == "auto":
+            require_launched("large_k_check online", _lib.LAUNCHES,
+                             ONLINE_KERNELS)
+            if merged == 0:
+                raise AssertionError(f"large_k_check online: no row merge "
+                                     f"at {wide}: {rec.launched}")
+        elif any(_lib.LAUNCHES.values()):
+            raise AssertionError(f"large_k_check online plain run launched "
+                                 f"{_lib.LAUNCHES}")
+        del res, store
+    gap = abs(out["auto"]["recall_at_91"] - out["plain"]["recall_at_91"])
+    out["recall_gap"] = gap
+    if gap > 0.01 or min(out["auto"]["recall_at_91"],
+                         out["plain"]["recall_at_91"]) < 0.84:
+        raise AssertionError(f"large_k_check online failed: {out}")
+
+    keys = xc[:LARGE_K_DS + 2 * LARGE_K_DS_BATCH]
+    vals = torch.arange(keys.shape[0], device=dev, dtype=torch.int32) % 50
+    _lib.reset_launches()
+    with Recorder(f"k{TSNE_K}_datastore") as rec:
+        ds = MutableKNNDatastore.build(
+            keys[:LARGE_K_DS], vals[:LARGE_K_DS], k=TSNE_K,
+            router=RouterConfig(), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 8))
+        for s in range(LARGE_K_DS, keys.shape[0], LARGE_K_DS_BATCH):
+            ds, _ = ds.append(keys[s:s + LARGE_K_DS_BATCH],
+                              vals[s:s + LARGE_K_DS_BATCH],
+                              generator=torch.Generator(
+                                  device=dev).manual_seed(s))
+        gone = torch.randperm(keys.shape[0], generator=g,
+                              device=dev)[:LARGE_K_DS_BATCH]
+        ds, _ = ds.delete(gone)
+        torch.cuda.synchronize()
+    merged = sum(v for key, v in rec.launched.items()
+                 if key.endswith(f"knn_merge_rows:{wide}"))
+    live, truth = live_truth(keys, ds.store.alive, TSNE_K)
+    out["datastore"] = {
+        "keys": LARGE_K_DS, "appended": 2 * LARGE_K_DS_BATCH,
+        "deleted": LARGE_K_DS_BATCH, "wide_row_merge_launches": merged,
+        "recall_at_91": recall_at_k(ds.store.nl.idx[live], truth),
+        "launches": {k: v for k, v in _lib.LAUNCHES.items() if v},
+        **check_live_lists(ds.store, gone)}
+    if merged == 0 or out["datastore"]["recall_at_91"] < 0.84:
+        raise AssertionError(f"large_k_check datastore: {out['datastore']}")
+    return out
+
+
+def online_k91_run(x, dev):
+    """Path 23: the online store at t-SNE's k on path 8's shape, through
+    the kernels, driven, its live lists checked and scored against an
+    exact k-NN of the live rows, then one more insert batch profiled;
+    its line printed. Returns its kernel rows (row 6e: the row merge at
+    c = 91^2)."""
+    import torch
+    from repro_torch import (DescentConfig, OnlineConfig, RouterConfig,
+                             knn_insert, recall_at_k)
+    cfg = OnlineConfig(router=RouterConfig())
+    descent = DescentConfig(k=TSNE_K)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    dels = torch.randperm(N, generator=g, device=dev)[:N_DELETE]
+    res, wall, launches, peak, rec = drive(K91_ONLINE_TAG, lambda: run_online(
+        x, N_BASE, INSERT_BATCH, dels, DELETE_BATCH, cfg, descent,
+        k=TSNE_K))
+    require_launched(K91_ONLINE_TAG, launches, ONLINE_KERNELS + (
+        "knn_join_dists", "knn_join_select", "knn_merge", "knn_search_dists"))
+    wide = f"{K91_ONLINE_TAG}:knn_merge_rows:c={TSNE_K ** 2}"
+    if rec.launched.get(wide, 0) == 0:
+        raise AssertionError(f"{K91_ONLINE_TAG}: no row merge at c = "
+                             f"{TSNE_K ** 2}: {rec.launched}")
+    store = res["store"]
+    checks = check_live_lists(store, dels)
+    live, truth = live_truth(x, store.alive, TSNE_K)
+    recall = recall_at_k(store.nl.idx[live], truth)
+    extra = noisy_queries(x, INSERT_BATCH, SEED + 23)
+    prof = profile_run(lambda: knn_insert(
+        store, extra, generator=torch.Generator(device=dev).manual_seed(
+            SEED + 24)))
+    ins, dl = res["insert"], res["delete"]
+    build_evals = res["build_stats"].dist_evals
+    ins_evals = sum(st.dist_evals for st in ins)
+    del_evals = sum(st.dist_evals for st in dl)
+    fields = {
+        "n_base": N_BASE, "inserted": N - N_BASE,
+        "insert_batch": INSERT_BATCH, "deleted": N_DELETE,
+        "delete_batch": DELETE_BATCH, "live": int(live.numel()), "d": 784,
+        "k": TSNE_K, "rho": descent.rho, "C": 2 * descent.rho_k,
+        "cfg": dataclasses.asdict(cfg),
+        "reduced": "the store's descent at path 22's settings (rho 0.5, "
+                   "C 92) where path 8 builds at rho 1.0: the phase's "
+                   "time goes to the updates, not to a second wide build",
+        "wall_s": wall, "build_s": res["build_s"],
+        "build_dist_evals": build_evals,
+        "insert_s": {"median": statistics.median(res["insert_s"]),
+                     "max": max(res["insert_s"]), "all": res["insert_s"]},
+        "delete_s": res["delete_s"],
+        "insert": {"dist_evals": ins_evals,
+                   "frontier_rows": sum(st.frontier_rows for st in ins),
+                   "padded_rows": sum(st.padded_rows for st in ins)},
+        "delete": {"dist_evals": del_evals,
+                   "frontier_rows": sum(st.frontier_rows for st in dl),
+                   "padded_rows": sum(st.padded_rows for st in dl)},
+        "insert_evals_over_build": ins_evals / build_evals,
+        "delete_evals_over_build": del_evals / build_evals,
+        "max_memory_allocated": peak, "launches": launches,
+        "wide_row_merge_launches": rec.launched[wide],
+        "recall_at_91": recall,
+        "profiled_insert": {k: prof[k] for k in (
+            "device_idle_share", "profiled_wall_s", "device_busy_s",
+            "device_kernel_calls")},
+        **checks}
+    emit(K91_ONLINE_TAG, **fields)
+    if recall < 0.84:
+        raise AssertionError(f"{K91_ONLINE_TAG}: {fields}")
+    e = check_kernel("knn_merge_rows", rec.calls[wide], reps=20)
+    e.update(route="cuda", source=SOURCES["knn_merge_rows"],
+             replaces=REPLACES["knn_merge_rows"],
+             launches=rec.launched[wide], path=K91_ONLINE_TAG, call=wide,
+             calls_at_this_key=rec.seen[wide],
+             launches_at_this_key=rec.launched[wide])
+    emit("kernels", **e)
+    return [e]
+
+
 def knn_build_k91_run(x, dev):
     """Path 22: build_knn_graph(k=91) on path 1's corpus, driven, its
     graph checked and scored against an exact k-NN, then built once more
-    under the profiler (idle share; the wide join's and the streamed
+    under the profiler (idle share; the wide join's and the resident
     select's device time, each > 0); its line printed. Returns its
     kernel rows."""
     import torch
@@ -5169,7 +5477,7 @@ def knn_build_k91_run(x, dev):
         x, k=TSNE_K, cfg=cfg,
         generator=torch.Generator(device=dev).manual_seed(SEED)))
     variants = {v: prof["our_kernels_s"][v] for v in (
-        "knn_join_dists_wide", "knn_join_select_stream")}
+        "knn_join_dists_wide", "knn_join_select_resident")}
     fields = {"n": x.shape[0], "d": x.shape[1], "k": TSNE_K, "rho": cfg.rho,
               "C": c_all, "merge_k": cfg.merge_k, "wall_s": wall,
               "iters": st.iters, "updates": list(st.updates),
@@ -5800,13 +6108,26 @@ def main() -> int:
     xc = datasets.mnist_like(CHECK_N, 784, seed=SEED + 1, device=dev)
     emit("large_k_check", n=CHECK_N, d=784, lane="kernels",
          **large_k_kernel_check(xc, dev))
+    merge_rows, call_3d = large_k_merge_check(dev)
+    emit("large_k_check", lane="merges", merges=merge_rows)
     fields, quant_recs = large_k_build_check(xc, dev)
     emit("large_k_check", n=CHECK_N, d=784, k=TSNE_K, lane="builds",
          **fields)
+    emit("large_k_check", n=CHECK_N, d=784, k=TSNE_K, lane="online",
+         **large_k_online_check(xc, dev))
     k91_rows = [e for rec, lq, name in quant_recs
                 for e in kernel_rows(rec, lq, (name,))]
-    del xc, quant_recs
+    # row 3d: the dense merge at the online pool, timed on a check lane's
+    # call; its launches are the main paths' dense merges above a pool of
+    # MERGE_MAX_POOL, read once every path has run
+    row_3d = check_kernel("knn_merge", call_3d, reps=20)
+    row_3d.update(route="cuda", source=SOURCES["knn_merge"],
+                  replaces=REPLACES["knn_merge"], path="large_k_check",
+                  call=f"large_k_check:knn_merge:c={call_3d[2].shape[1]}")
+    k91_rows.append(row_3d)
+    del xc, quant_recs, call_3d
     k91_rows += knn_build_k91_run(x, dev)
+    k91_rows += online_k91_run(x, dev)
     del x, idx, q, x2_full, q2_full, dels
     gc.collect()
     torch.cuda.empty_cache()
@@ -5995,6 +6316,10 @@ def main() -> int:
                     ":float32")
     emit("kernels", **f32)
     entries["flash_attention"]["call"] += ":bfloat16"
+    row_3d.update(launches=sum(DRIVEN_WIDE_MERGES.values()),
+                  launches_by_path={
+                      t: v for t, v in DRIVEN_WIDE_MERGES.items() if v})
+    emit("kernels", **row_3d)
     line = []
     for n in _lib.KERNELS:
         line.append(entries[n])

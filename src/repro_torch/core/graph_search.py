@@ -42,10 +42,9 @@ precision.
 With a ``router`` (core/router.py) and ``cfg.router`` not "off", the fused
 path seeds every query with the members of its top-``router_t`` centroids
 (t*m of them, IVF-style); dead or missing members are filled from a random
-draw. The seed merge runs over slices of at most ``MERGE_MAX_POOL - beam``
-seeds when the seeds are wider than the merge kernel's pool (successive
-merges keep exactly what one wide merge keeps). ``expand_frontier`` is the
-online store's update frontier (core/online.py).
+draw. The seeds go into the pool in one merge, whatever their width.
+``expand_frontier`` is the online store's update frontier
+(core/online.py).
 """
 from __future__ import annotations
 
@@ -61,7 +60,6 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.heap import NeighborLists
 from repro_torch.core.quantize import QuantizedStore
 from repro_torch.kernels import ops
-from repro_torch.kernels.knn_merge import MERGE_MAX_POOL
 
 _BIG = 3.0e38    # the greedy oracle's empty-slot distance (the fused path
                  # uses +inf, as the JAX package does)
@@ -424,18 +422,10 @@ def _routed_entries(router, queries, n, alive, cfg, backend, fill,
 
 def _seed_merge(pool: NeighborLists, ed: torch.Tensor, eids: torch.Tensor,
                 backend: str) -> NeighborLists:
-    """Merge the (qb, e) seeds into the empty pool: one merge, or, where
-    beam + e exceeds the merge kernel's pool, successive merges of slices
-    at most ``MERGE_MAX_POOL - beam`` wide. Both keep the same entries in
-    the same order: a seed pushed out of the pool by a slice is beaten by
-    ``beam`` entries that stay, and a later copy of it sorts after them."""
-    beam = pool.idx.shape[1]
-    step = max(1, MERGE_MAX_POOL - beam)
+    """Merge the (qb, e) seeds into the empty pool, in one merge."""
     ed = torch.where(eids >= 0, ed, torch.inf)
-    for s in range(0, max(eids.shape[1], 1), step):
-        pool, _ = heap.merge_kernel(
-            pool, ed[:, s:s + step].contiguous(),
-            eids[:, s:s + step].contiguous(), backend=backend)
+    pool, _ = heap.merge_kernel(pool, ed.contiguous(), eids.contiguous(),
+                                backend=backend)
     return pool
 
 

@@ -17,10 +17,12 @@ path went through the kernels. The device function of kernel ``name`` is
 operands' k-major copies) before ``pairwise_sq_l2_kernel``, and after it,
 on a grid split over the features, ``pairwise_sq_l2_kernel_split_sum``;
 they are reported as ``pairwise_sq_l2_k_major`` and
-``pairwise_sq_l2_split_sum``. The joins above C 64 and the select above a
-padded W of 8192 launch ``<name>_kernel_wide`` and
-``knn_join_select_kernel_stream``, reported with ``_wide`` and ``_stream``
-after the kernel's name.
+``pairwise_sq_l2_split_sum``. The joins above C 64 launch
+``<name>_kernel_wide``, the select above a padded W of 8192
+``knn_join_select_kernel_resident`` or, past what a block holds,
+``knn_join_select_kernel_stream``, and the merges above a pool of 8192
+``knn_merge_kernel_wide`` and ``knn_merge_rows_kernel_wide``: each is
+reported with its suffix after the kernel's name.
 """
 from __future__ import annotations
 
@@ -54,6 +56,9 @@ VARIANTS = {"flash_attention_kernel_sm90": "flash_attention_sm90",
             "knn_join_dists_q8_kernel_wide": "knn_join_dists_q8_wide",
             "knn_join_dists_bf16_kernel_wide": "knn_join_dists_bf16_wide",
             "knn_join_select_kernel_stream": "knn_join_select_stream",
+            "knn_join_select_kernel_resident": "knn_join_select_resident",
+            "knn_merge_kernel_wide": "knn_merge_wide",
+            "knn_merge_rows_kernel_wide": "knn_merge_rows_wide",
             "pairwise_sq_l2_kernel_k_major": "pairwise_sq_l2_k_major",
             "pairwise_sq_l2_kernel_split_sum": "pairwise_sq_l2_split_sum"}
 
@@ -61,12 +66,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, x2, ids, od, ev, N, n, C, dp, cn, stream
-    "knn_join_dists_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, x2, ids, od, ev, scratch (or NULL), scratch blocks, N, n, C, dp,
+    # cn, stream; and the scratch bytes a block of the wide join needs
+    "knn_join_dists_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _P],
+    "knn_join_scratch_bytes": [_I, _I],
     # gd, gi, kth, od, oi, scratch (or NULL), n, W, c, stream
     "knn_join_select_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # cd, ci, qd, qi, od, oi, upd, n, k, c, stream
-    "knn_merge_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # cd, ci, qd, qi, od, oi, upd, scratch (or NULL), scratch blocks, n,
+    # k, c, stream; and the scratch bytes a block of the wide merge needs
+    "knn_merge_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _P],
+    "knn_merge_scratch_bytes": [_I, _I],
     # a, b, at, bt (k-major scratch), out, ws (split scratch), M, N, D,
     # lda, ldb, splits, stream; and the split count for (M, N, D)
     "pairwise_sq_l2_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -88,8 +99,9 @@ _SIGNATURES = {
                                    _P],
     # cd, ci, drop, od, oi, removed, n, k, stream
     "knn_compact_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    # cd, ci, rows, qd, qi, od, oi, upd, n, f, k, c, stream
-    "knn_merge_rows_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
+    # cd, ci, rows, qd, qi, od, oi, upd, scratch (or NULL), scratch
+    # blocks, n, f, k, c, stream
+    "knn_merge_rows_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                               _I, _I, _I, _I, _P],
     # cd, ci, rows, drop, od, oi, removed, n, f, k, stream
     "knn_compact_rows_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -100,6 +112,9 @@ _SIGNATURES = {
     "flash_attention_sm90_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     _I, _F, _F, _I, _I, _I, _P],
 }
+
+_RESTYPES = {"knn_merge_scratch_bytes": ctypes.c_int64,
+             "knn_join_scratch_bytes": ctypes.c_int64}
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}
@@ -232,7 +247,7 @@ def lib() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         handle.knn_error_string.argtypes = [ctypes.c_int]
         handle.knn_error_string.restype = ctypes.c_char_p
         _lib = handle

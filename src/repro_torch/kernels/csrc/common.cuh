@@ -74,8 +74,8 @@ __device__ __forceinline__ int join_epilogue(const float* gram,
   return local;
 }
 
-// The epilogue of one piece of a wide join's row (C above 64, cut into
-// sets of slots): gram holds the cross terms of slots [i0, i0 + ri) x [j0,
+// The epilogue of one piece of a quantized wide join's row (C above 64,
+// cut into sets of slots): gram holds the cross terms of slots [i0, i0 + ri) x [j0,
 // j0 + rj) (ri x rj, row-major; on a diagonal piece, i0 == j0, only its
 // upper triangle s < t). sid_i / n2_i / sc_i describe set I's slots,
 // sid_j / n2_j / sc_j set J's (the same arrays on a diagonal piece). The

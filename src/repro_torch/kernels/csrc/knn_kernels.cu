@@ -210,205 +210,366 @@ __global__ void __launch_bounds__(kJoinMaxThreads, 1) knn_join_dists_kernel(
 
 // ---------------------------------------------------------------------------
 // knn_join_dists above C 64 (knn_join_dists_kernel_wide), the same function
-// at any C: t-SNE's k = 91 neighbour graph gives C = 92 at rho 0.5.
-// Design: the row's C slots are cut into `sets` sets of at most kJoinMaxC
-// (R = 4 ceil(ceil(C / sets) / 4) each, the last shorter), and each of the
-// sets (sets + 1) / 2 pieces (I, J), I <= J, of the C x C tensor is one
-// block. A diagonal piece is the kernel above on set I's rows (the upper
-// triangle of its 4 x 4 tiles); an off-diagonal piece is the whole
-// rectangle of tiles between set I's rows, staged first, and set J's. So a
-// block stages at most 2 R <= 128 rows whatever C is (its ring at most 3 x
-// 128 x 144 B = 54 KB, its Gram piece at most 64 x 64 floats), and the
-// row's candidates are gathered `sets` times, not C / 4. Two feature
-// slices a tile (a rectangle of 16 x 16 tiles is 512 threads), summed by
-// one shuffle. The piece's epilogue (common.cuh) writes both orientations
-// and adds the piece's valid pairs to the row's count, which the launcher
-// zeroes first. Blocks are numbered (row, piece) row-major, so a row's
-// pieces run together and share its candidates' rows in L2.
+// at any C: t-SNE's k = 91 neighbour graph gives C = 92 at rho 0.5, cn = 46.
+// Bound: fp32 operations on the row's valid pairs (min(s, t) < cn, both
+// ids valid), fed from shared memory; the candidates' rows come from L2 or
+// device memory once a list row.
+// Design: one block of 256 threads a row computes only what the mask can
+// keep. Warp 0 first compacts the row's valid slots, new ones (s < cn)
+// first, then old ones, each in slot order: V valid slots, vn of them new.
+// The cross terms needed are G(u, v), u < V, v < vn (compacted indices), a
+// V x vn block; it is cut into 8 x 8 tiles (bu, bv) over 8 vn-blocks of
+// columns, and a tile whose rows and columns are both new is computed only
+// on or below the diagonal (bu >= bv) and written both ways. So the old x
+// old square and every empty slot cost nothing: no Gram, no gather. The
+// valid rows are gathered once by cp.async into a ring of 2 or 3 stages of
+// 32 features (16-byte copies where dp % 4 == 0, else 4-byte ones; features
+// past dp zero-filled); 8 lanes a tile, lane `slice` taking features
+// 4 slice .. 4 slice + 3 of each chunk, so a quarter-warp's 16-byte loads
+// read one row's 128 contiguous bytes (no bank conflict), and 64 multiply-
+// adds per 16 loads. A round holds 32 tiles; rows with more tiles take more
+// rounds, each gathering the valid rows again. A butterfly over the 8
+// lanes adds the partial tiles (the C <= 64 kernel's order of sums at 8
+// slices), the tiles go to shared memory (H, V x vn), and the epilogue
+// writes the row's C x C output in order: the norm expansion of common.cuh
+// from H where the mask keeps the pair, +inf elsewhere, and the row's
+// count of valid unordered pairs.
+// Where the ring of all V rows, H and the slot maps do not fit a block
+// (from C about 256 with every slot new, 320 with half), the same kernel
+// runs in panels: the slot maps go to a slice of a scratch the wrapper
+// allocates (a grid of at most a few blocks an SM walks the rows), a
+// round's 32 tiles are a rectangle of 8 row blocks by 4 new column blocks
+// whose 64 + 32 rows alone are staged (a ring of 3 x 96 rows, 41 KB,
+// whatever C is), and each tile writes its distances and their mirrors
+// straight into the output, which the block first fills with +inf: no H.
+// The sums are the same, so both ways give the same bits.
 // ---------------------------------------------------------------------------
 
-constexpr int kJoinWideSlices = 2;
+constexpr int kJoinWideThreads = 256;
+constexpr int kJoinWideSlices = 8;                 // lanes a tile
+constexpr int kJoinWideTiles = kJoinWideThreads / kJoinWideSlices;
+constexpr size_t kJoinWideMaxSmem = 232448 - 1024;  // a block's most, less static
+constexpr int kJoinPanelRows = 8;                  // row blocks a panel round
+constexpr int kJoinPanelCols = kJoinWideTiles / kJoinPanelRows;
+constexpr int kJoinPanelStage = 8 * (kJoinPanelRows + kJoinPanelCols);
 
-template <int kVec>
-__global__ void __launch_bounds__(kJoinMaxThreads, 1)
+__host__ __device__ constexpr int pad8(int v) { return (v + 7) / 8 * 8; }
+
+// the floats of the ring (stages x rows x kJoinStride), of H and of the
+// slot maps (ids, norms, positions) of a wide join at (C, cn)
+__host__ __device__ inline size_t join_wide_floats(int C, int cn,
+                                                   int stages) {
+  const int cp = pad8(C);
+  return (size_t)stages * cp * kJoinStride +
+         (size_t)cp * pad8(cn > 1 ? cn : 1) + 3 * (size_t)cp;
+}
+
+// the panels' scratch a block: the slot maps (ids, norms, positions and
+// compacted -> slot), pad8(C) words each
+__host__ __device__ inline size_t join_panel_ints(int C) {
+  return 4 * (size_t)pad8(C);
+}
+
+// the scratch bytes a block of the wide join needs at (C, cn): 0 up to C 64
+// and where the ring of all valid rows (2 stages at least), H and the slot
+// maps fit a block, else the panels'
+int64_t join_scratch_bytes(int C, int cn) {
+  cn = cn < 0 ? 0 : (cn > C ? C : cn);
+  if (C <= kJoinMaxC ||
+      join_wide_floats(C, cn, 2) * sizeof(float) <= kJoinWideMaxSmem)
+    return 0;
+  return (int64_t)(join_panel_ints(C) * sizeof(int));
+}
+
+// kPanel 1: the panels (an int, so that build reports name the instance)
+template <int kVec, int kStages, int kPanel>
+__global__ void __launch_bounds__(kJoinWideThreads, 2)
     knn_join_dists_kernel_wide(const float* __restrict__ x,
                                const float* __restrict__ x2,
                                const int* __restrict__ ids,
                                float* __restrict__ od, int* __restrict__ ev,
-                               int N, int C, int dp, int cn, int R, int sets,
-                               int64_t block0) {
-  constexpr int kS = kJoinWideSlices;
-  // kJoinStages x (the staged rows of kJoinStride); then the Gram piece
+                               int* __restrict__ scratch, int N, int n,
+                               int C, int dp, int cn) {
   extern __shared__ __align__(16) float jsm[];
-  __shared__ int sid[2 * kJoinMaxC];
-  __shared__ float sx2[2 * kJoinMaxC];
+  __shared__ int s_counts[2];            // vn, V
   __shared__ int s_evals;
-
-  const int pieces = sets * (sets + 1) / 2;
-  const int64_t blk = block0 + blockIdx.x;
-  const int row = (int)(blk / pieces);
-  int piece = (int)(blk - (int64_t)row * pieces);
-  int I = 0;                            // row-major over I <= J
-  while (piece >= sets - I) {
-    piece -= sets - I;
-    ++I;
-  }
-  const int J = I + piece;
-  const bool diag = I == J;
-  const int i0 = I * R;
-  const int j0 = J * R;
-  const int ri = min(R, C - i0);
-  const int rj = min(R, C - j0);
-  const int nbi = (ri + 3) >> 2;
-  const int nbj = (rj + 3) >> 2;
-  const int jb = diag ? 0 : 4 * nbi;    // first staged row of set J
-  const int srows = diag ? 4 * nbi : 4 * (nbi + nbj);
-  const int stage = srows * kJoinStride;
+  constexpr bool panel = kPanel != 0;   // each way its own instance
+  const int cp = pad8(C);
+  const int cnp = pad8(cn > 1 ? cn : 1);
+  const int stage = (panel ? kJoinPanelStage : cp) * kJoinStride;
+  float* hbuf = jsm + kStages * stage;   // H: cp x cnp (not in panels)
+  int* cid = panel ? scratch + blockIdx.x * join_panel_ints(C)
+                   : reinterpret_cast<int*>(hbuf + (size_t)cp * cnp);
+  float* cx2 = reinterpret_cast<float*>(cid + cp);
+  int* pos = reinterpret_cast<int*>(cx2 + cp);
+  int* slot = pos + cp;                  // panels only
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-
-  // staged slot s: set I's slot i0 + s, or set J's j0 + s - jb; the
-  // padding slots of each set's last 4-row block are invalid (zero rows)
-  for (int s = tid; s < srows; s += nthreads) {
-    const bool in_i = s < 4 * nbi;
-    const int loc = in_i ? s : s - jb;
-    int id = -1;
-    if (loc < (in_i ? ri : rj)) {
-      id = ids[(int64_t)row * C + (in_i ? i0 : j0) + loc];
-      if (id >= N) id = -1;             // out of range: an invalid slot
-    }
-    sid[s] = id;
-    sx2[s] = id >= 0 ? x2[id] : 0.0f;
-  }
-  if (tid == 0) s_evals = 0;
-  __syncthreads();
-
-  // this thread's tile: a diagonal piece's upper triangle in row-major
-  // order, or an off-diagonal piece's rectangle; threads past the last
-  // tile compute tile (0, 0) and write nothing
-  const int tiles = diag ? nbi * (nbi + 1) / 2 : nbi * nbj;
-  const int slice = tid % kS;
-  int tile = tid / kS;
-  const bool owner = tile < tiles;
-  if (!owner) tile = 0;
-  int bi = 0;
-  int bj = 0;
-  if (diag) {
-    while (tile >= nbi - bi) {
-      tile -= nbi - bi;
-      ++bi;
-    }
-    bj = bi + tile;
-  } else {
-    bi = tile / nbj;
-    bj = tile - bi * nbj;
-  }
-
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
-
+  const int lane = tid & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int slice = tid % kJoinWideSlices;
   const int chunks = (dp + kJoinChunk - 1) / kJoinChunk;
-#pragma unroll
-  for (int s = 0; s < kJoinStages - 1; ++s) {
-    if (s < chunks)
-      join_load_chunk<kVec>(jsm + s * stage, x, sid, srows, dp,
-                            s * kJoinChunk, tid, nthreads);
-    cp_async_commit();
-  }
-  for (int kc = 0; kc < chunks; ++kc) {
-    cp_async_wait<kJoinStages - 2>();   // this thread's copies of chunk kc
-    __syncthreads();                    // everyone's; stage kc - 1 is free
-    const int nxt = kc + kJoinStages - 1;
-    if (nxt < chunks)
-      join_load_chunk<kVec>(jsm + (nxt % kJoinStages) * stage, x, sid, srows,
-                            dp, nxt * kJoinChunk, tid, nthreads);
-    cp_async_commit();
 
-    const float* st = jsm + (kc % kJoinStages) * stage;
-    const float* ra = st + 4 * bi * kJoinStride;
-    const float* rb = st + (jb + 4 * bj) * kJoinStride;
+  for (int row = blockIdx.x; row < n; row += gridDim.x) {
+    const int* rid = ids + (int64_t)row * C;
+    float* out = od + (int64_t)row * C * C;
+    if (tid < 32) {
+      // the new valid slots, then the old ones, each in slot order
+      int nv = 0;
+#pragma unroll 1
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int base = 0; base < C; base += 32) {
+          const int s = base + lane;
+          int id = -1;
+          if (s < C) {
+            id = rid[s];
+            if (id >= N) id = -1;
+          }
+          const bool mine = id >= 0 && (pass == 0) == (s < cn);
+          const unsigned b = __ballot_sync(0xffffffffu, mine);
+          if (mine) {
+            const int u = nv + __popc(b & below);
+            cid[u] = id;
+            cx2[u] = x2[id];
+            pos[s] = u;
+            if constexpr (panel) slot[u] = s;
+          } else if (s < C && id < 0) {
+            pos[s] = -1;
+          }
+          nv += __popc(b);
+        }
+        if (pass == 0 && lane == 0) s_counts[0] = nv;
+      }
+      if (lane == 0) {
+        s_counts[1] = nv;
+        s_evals = 0;
+      }
+    }
+    if constexpr (panel)
+      for (int64_t e = tid; e < (int64_t)C * C; e += kJoinWideThreads)
+        out[e] = INFINITY;
+    __syncthreads();
+    const int vn = s_counts[0];
+    const int V = s_counts[1];
+    const int nbn = (vn + 7) >> 3;
+    const int nbv = (V + 7) >> 3;
+    const int tiles = nbn * nbv - nbn * (nbn - 1) / 2;
+    const int hs = 8 * nbn;              // H's row stride this row
+    int rounds = 0;
+    if constexpr (panel) {
+      for (int bv0 = 0; bv0 < nbn; bv0 += kJoinPanelCols)
+        rounds += (nbv - bv0 + kJoinPanelRows - 1) / kJoinPanelRows;
+    } else {
+      rounds = (tiles + kJoinWideTiles - 1) / kJoinWideTiles;
+      // the padding rows [V, 8 nbv) of every stage stay zero
+      for (int e = tid; e < kStages * (8 * nbv - V) * kJoinStride;
+           e += kJoinWideThreads) {
+        const int st = e / ((8 * nbv - V) * kJoinStride);
+        const int r = e - st * (8 * nbv - V) * kJoinStride;
+        jsm[st * stage + V * kJoinStride + r] = 0.0f;
+      }
+    }
+    int local = 0;
+
+    for (int rd = 0; rd < rounds; ++rd) {
+      // this thread's tile (bu, bv), and the staged rows: compacted rows
+      // [a0, a0 + na) at ring row 0 and [b0, b0 + nb) at ring row boff
+      int bu, bv, a0, na, b0, nb, boff;
+      bool owner;
+      if constexpr (panel) {
+        // the rectangle of row blocks [bu0, bu0 + 8) by new column blocks
+        // [bv0, bv0 + 4); tiles off the V x vn block or above the diagonal
+        // write nothing
+        int r = rd;
+        int bv0 = 0;
+        while (r >= (nbv - bv0 + kJoinPanelRows - 1) / kJoinPanelRows) {
+          r -= (nbv - bv0 + kJoinPanelRows - 1) / kJoinPanelRows;
+          bv0 += kJoinPanelCols;
+        }
+        const int bu0 = bv0 + kJoinPanelRows * r;
+        const int t = tid / kJoinWideSlices;
+        bu = bu0 + t % kJoinPanelRows;
+        bv = bv0 + t / kJoinPanelRows;
+        owner = bu < nbv && bv < nbn && bu >= bv;
+        a0 = 8 * bu0;
+        na = min(8 * kJoinPanelRows, V - a0);
+        b0 = 8 * bv0;
+        nb = min(8 * kJoinPanelCols, V - b0);
+        boff = 8 * kJoinPanelRows;
+      } else {
+        // bv over the new column blocks, bu >= bv over all row blocks;
+        // threads past the last tile compute the round's first and write
+        // nothing
+        int tile = rd * kJoinWideTiles + tid / kJoinWideSlices;
+        owner = tile < tiles;
+        if (!owner) tile = rd * kJoinWideTiles;
+        bv = 0;
+        while (tile >= nbv - bv) {
+          tile -= nbv - bv;
+          ++bv;
+        }
+        bu = bv + tile;
+        a0 = 0;
+        na = V;
+        b0 = 0;
+        nb = 0;
+        boff = 0;
+      }
+      auto load = [&](int st, int kc) {
+        float* dst = jsm + st * stage;
+        join_load_chunk<kVec>(dst, x, cid + a0, na, dp, kc * kJoinChunk, tid,
+                              kJoinWideThreads);
+        if (nb > 0)
+          join_load_chunk<kVec>(dst + boff * kJoinStride, x, cid + b0, nb, dp,
+                                kc * kJoinChunk, tid, kJoinWideThreads);
+      };
+
+      float acc[8][8];
 #pragma unroll
-    for (int j = 0; j < kJoinChunk / 4 / kS; ++j) {
-      const int q = 4 * (slice + j * kS);
-      float4 b[4];
+      for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        b[c] = *reinterpret_cast<const float4*>(rb + c * kJoinStride + q);
+        for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+
+      __syncthreads();                   // the ring's last round is done
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float4 a = *reinterpret_cast<const float4*>(ra + r * kJoinStride
-                                                          + q);
+      for (int st = 0; st < kStages - 1; ++st) {
+        if (st < chunks) load(st, st);
+        cp_async_commit();
+      }
+      const int ra_row = 8 * bu - a0;
+      const int rb_row = 8 * bv - b0 + boff;
+      for (int kc = 0; kc < chunks; ++kc) {
+        cp_async_wait<kStages - 2>();    // this thread's copies of chunk kc
+        __syncthreads();                 // everyone's; stage kc - 1 is free
+        const int nxt = kc + kStages - 1;
+        if (nxt < chunks) load(nxt % kStages, nxt);
+        cp_async_commit();
+
+        const float* st = jsm + (kc % kStages) * stage + 4 * slice;
+        const float* ra = st + ra_row * kJoinStride;
+        const float* rb = st + rb_row * kJoinStride;
+        float4 b[8];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float v = fmaf(a.x, b[c].x, acc[r][c]);
-          v = fmaf(a.y, b[c].y, v);
-          v = fmaf(a.z, b[c].z, v);
-          acc[r][c] = fmaf(a.w, b[c].w, v);
+        for (int c = 0; c < 8; ++c)
+          b[c] = *reinterpret_cast<const float4*>(rb + c * kJoinStride);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float4 a =
+              *reinterpret_cast<const float4*>(ra + r * kJoinStride);
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            float v = fmaf(a.x, b[c].x, acc[r][c]);
+            v = fmaf(a.y, b[c].y, v);
+            v = fmaf(a.z, b[c].z, v);
+            acc[r][c] = fmaf(a.w, b[c].w, v);
+          }
+        }
+      }
+      cp_async_wait<0>();                // only empty groups are left
+
+#pragma unroll
+      for (int off = 1; off < kJoinWideSlices; off <<= 1)
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], off);
+      if (owner) {
+        // lane `slice` takes column 8 bv + slice: G(u, v) at H[u hs + v],
+        // and where u is new too, G(v, u) at H[v hs + u]; in panels the
+        // pair's distance at (slot u, slot v) and (slot v, slot u), counted
+        // once (u old, or u > v)
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            if (c == slice) {
+              const int u = 8 * bu + r;
+              const int v = 8 * bv + c;
+              if constexpr (!panel) {
+                hbuf[u * hs + v] = acc[r][c];
+                if (bu < nbn) hbuf[v * hs + u] = acc[r][c];
+              } else if (u < V && v < vn && u != v && cid[u] != cid[v]) {
+                const float d = fmaxf(
+                    __fsub_rn(__fadd_rn(cx2[v], cx2[u]),
+                              __fmul_rn(2.0f, acc[r][c])),
+                    0.0f);
+                const int su = slot[u];
+                const int sv = slot[v];
+                out[(int64_t)su * C + sv] = d;
+                out[(int64_t)sv * C + su] = d;
+                local += (u >= vn || u > v) ? 1 : 0;
+              }
+            }
+          }
         }
       }
     }
-  }
-  cp_async_wait<0>();                   // only empty groups are left
-  __syncthreads();                      // the ring now holds the Gram piece
+    __syncthreads();                     // H is whole
 
-#pragma unroll
-  for (int off = 1; off < kS; off <<= 1)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], off);
-  float* gram = jsm;                    // ri x rj, row-major
-  if (owner) {
-#pragma unroll
-    for (int e = 0; e < 16; ++e) {
-      const int s = 4 * bi + e / 4;
-      const int t = 4 * bj + e % 4;
-      if (e % kS == slice && s < ri && t < rj && (!diag || s < t))
-        gram[s * rj + t] = acc[e / 4][e % 4];
+    if constexpr (!panel) {
+      // the row's C x C output in order: pair (lo, hi) = (min, max) of
+      // (s, t)
+      for (int e = tid; e < C * C; e += kJoinWideThreads) {
+        const int s = e / C;
+        const int t = e - s * C;
+        const int lo = min(s, t);
+        const int hi = max(s, t);
+        float v = INFINITY;
+        if (lo != hi && lo < cn) {
+          const int cu = pos[lo];          // new: below vn
+          const int cv = pos[hi];
+          if (cu >= 0 && cv >= 0 && cid[cu] != cid[cv]) {
+            v = fmaxf(__fsub_rn(__fadd_rn(cx2[cu], cx2[cv]),
+                                __fmul_rn(2.0f, hbuf[cv * hs + cu])),
+                      0.0f);
+            local += s < t ? 1 : 0;
+          }
+        }
+        out[e] = v;
+      }
     }
+    for (int off = 16; off > 0; off >>= 1)
+      local += __shfl_down_sync(0xffffffffu, local, off);
+    if (lane == 0) atomicAdd(&s_evals, local);
+    __syncthreads();
+    if (tid == 0) ev[row] = s_evals;
+    __syncthreads();                     // the maps are free for the next row
   }
-  __syncthreads();
-
-  int local = join_epilogue_piece(
-      gram, sid, sx2, nullptr, sid + jb, sx2 + jb, nullptr,
-      od + (int64_t)row * C * C, C, cn, i0, ri, j0, rj, tid, nthreads);
-  for (int off = 16; off > 0; off >>= 1)
-    local += __shfl_down_sync(0xffffffffu, local, off);
-  if ((tid & 31) == 0) atomicAdd(&s_evals, local);
-  __syncthreads();
-  if (tid == 0) atomicAdd(ev + row, s_evals);
 }
 
+// The wide join's instance: three stages where the ring, H and the maps
+// fit a block's shared memory, else two; else panels (three stages of 96
+// rows) over a grid of `blocks` blocks with the scratch the wrapper
+// allocated (join_scratch_bytes a block). The panels are instances of
+// their own, so the others hold no register for them.
 int launch_join_wide(const float* x, const float* x2, const int* ids,
-                     float* od, int* ev, int N, int n, int C, int dp, int cn,
-                     bool vec, cudaStream_t stream) {
-  int sets = (C + kJoinMaxC - 1) / kJoinMaxC;
-  const int R = ((C + sets - 1) / sets + 3) / 4 * 4;
-  sets = (C + R - 1) / R;
-  const int pieces = sets * (sets + 1) / 2;
-  const int threads =
-      ((R / 4) * (R / 4) * kJoinWideSlices + 31) / 32 * 32;
+                     float* od, int* ev, int* scratch, int blocks, int N,
+                     int n, int C, int dp, int cn, bool vec,
+                     cudaStream_t stream) {
+  cn = cn < 0 ? 0 : (cn > C ? C : cn);
+  const bool panel = join_scratch_bytes(C, cn) > 0;
+  if (panel != (scratch != nullptr) || (panel && blocks < 1))
+    return (int)cudaErrorInvalidValue;
+  int stages = 3;
+  while (!panel &&
+         join_wide_floats(C, cn, stages) * sizeof(float) > kJoinWideMaxSmem)
+    --stages;
   const size_t smem =
-      (size_t)kJoinStages * 2 * R * kJoinStride * sizeof(float);
-  auto kernel = vec ? knn_join_dists_kernel_wide<4>
-                    : knn_join_dists_kernel_wide<1>;
+      panel ? (size_t)3 * kJoinPanelStage * kJoinStride * sizeof(float)
+            : join_wide_floats(C, cn, stages) * sizeof(float);
+  auto kernel =
+      panel ? (vec ? knn_join_dists_kernel_wide<4, 3, 1>
+                   : knn_join_dists_kernel_wide<1, 3, 1>)
+      : vec ? (stages == 3 ? knn_join_dists_kernel_wide<4, 3, 0>
+                           : knn_join_dists_kernel_wide<4, 2, 0>)
+            : (stages == 3 ? knn_join_dists_kernel_wide<1, 3, 0>
+                           : knn_join_dists_kernel_wide<1, 2, 0>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(ev, 0, (size_t)n * sizeof(int), stream);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t blocks = (int64_t)n * pieces;
-  constexpr int64_t kMaxGrid = 0x7fffffff;
-  for (int64_t b0 = 0; b0 < blocks; b0 += kMaxGrid) {
-    const unsigned grid =
-        (unsigned)(blocks - b0 < kMaxGrid ? blocks - b0 : kMaxGrid);
-    kernel<<<grid, threads, smem, stream>>>(x, x2, ids, od, ev, N, C, dp, cn,
-                                            R, sets, b0);
-  }
+  const int grid = panel ? (blocks < n ? blocks : n) : n;
+  kernel<<<grid, kJoinWideThreads, smem, stream>>>(x, x2, ids, od, ev, scratch,
+                                                   N, n, C, dp, cn);
   return (int)cudaGetLastError();
 }
 
@@ -426,8 +587,8 @@ int launch_join_wide(const float* x, const float* x2, const int* ids,
 // input position the tie-break. A row belongs to one warp where W pads to
 // at most 1024 (eight rows per block, so the search's 32-wide rows fill a
 // warp, not a block), else to a block of 256 threads (above a padded 8192,
-// to knn_join_select_kernel_stream, below). The row is read once,
-// coalesced, into registers: thread t of the T in its group holds
+// to knn_join_select_kernel_resident or _stream, below). The row is read
+// once, coalesced, into registers: thread t of the T in its group holds
 // positions t, t + T, ..., so position order is item-major, then thread
 // order, and a prefix in position order is one ballot per item plus a scan
 // of the (item, warp) counts. Then:
@@ -767,74 +928,60 @@ int launch_select(const float* gd, const int* gi, const float* kth,
 }
 
 // ---------------------------------------------------------------------------
-// knn_join_select above a padded W of kSelectMaxPadded
-// (knn_join_select_kernel_stream), the same selection at any W: k = 91
-// gives a receiver select of 2 C x C = 16928 and a polish select of k^2 =
-// 8281. A row no longer fits in a block's registers, so it is streamed
-// from device memory (or L2): one block of 256 threads per row reads it
-// once to count the survivors; if more than c survive, once per 8-bit
-// pass to build that pass's histogram (select_winners' shared
-// histograms, warp-aggregated atomics and find_bin) of the keys that
-// match the digits found so far; and once more, in tiles of 256
-// consecutive positions, to compact the winners in position order (a
-// ballot and a scan of the eight warps' counts a tile, the counts of keys
-// equal to T and of winners carried from tile to tile). The winners are
-// then ranked as in select_winners: by rank up to 4 T of them, else by a
-// bitonic sort over the next power of two of their count. Their words sit
-// in shared memory up to kStreamSmemWords (64 KB), beyond it in the row's
-// slice of a scratch the wrapper allocates. Keys, the prefilter, -0 as +0,
-// the sentinel and the (key, position) order are select_winners', so the
-// result is the register instances' bit for bit.
-// Bound: bytes. A row is read 2 to 6 times (from L2 where the rows in
-// flight fit), where the bound counts it once.
+// The resident-row core (block_select): one row of W keys, any W, held by a
+// block of kSelectThreads threads, read through key_at(p): from shared
+// memory where the row is resident (the select above a padded W of 8192,
+// the merge above a pool of 8192), from device memory where it is streamed
+// (the select past what a block's shared memory holds). Warp w owns the
+// positions [w span, (w + 1) span), span = 32 ceil(W / T), read 32 at a
+// time, coalesced. Keys, the sentinel and the (key, position) order are
+// select_winners', so the result is the register instances' bit for bit:
+//  1. the survivors s (keys below `big`); if s <= c every survivor wins;
+//  2. else four 8-bit passes, each a 256-bin shared histogram of the keys
+//     that match the digits found so far (a shared atomic a key: warp
+//     aggregation by __match_any_sync cost 1.2-1.8x the time here) and
+//     select_winners' find_bin, find the c-th smallest key T and `need`;
+//  3. each warp counts its keys below T and equal to T, one barrier turns
+//     the counts into each warp's offsets, and a second read of its range
+//     writes its winners in position order as 64-bit (key, position)
+//     words (a ballot a 32 keys, no barrier);
+//  4. up to T winners each take the slot their rank names; more are
+//     bitonic-sorted over the next power of two of their count.
+// put(slot, position) is called once for each winner; returns how many.
+// `words` holds the next power of two of min(c, W) words; `ints` holds
+// kBlockSelectInts ints.
 // ---------------------------------------------------------------------------
 
-constexpr int kStreamSmemWords = 8192;
+constexpr int kBlockSelectInts = 2 * kSelectBins + 2 * (kSelectThreads / 32);
 
-__global__ void __launch_bounds__(kSelectThreads)
-    knn_join_select_kernel_stream(const float* __restrict__ gd,
-                                  const int* __restrict__ gi,
-                                  const float* __restrict__ kth,
-                                  float* __restrict__ od,
-                                  int* __restrict__ oi,
-                                  unsigned long long* __restrict__ scratch,
-                                  int W, int c, int cap) {
+template <class KeyAt, class Put>
+__device__ __forceinline__ int block_select(KeyAt key_at, int W, uint32_t big,
+                                            int c,
+                                            unsigned long long* words,
+                                            int* ints, Put put) {
   constexpr int T = kSelectThreads;
   constexpr int G = T / 32;
-  extern __shared__ __align__(16) unsigned long long stream_smem[];
-  __shared__ __align__(16) int hist[2 * kSelectBins];
-  __shared__ int cnt_e[G];
-  __shared__ int cnt_w[G];
-  const int row = blockIdx.x;
   const int t = threadIdx.x;
   const int warp = t >> 5;
   const int lane = t & 31;
   const unsigned below = (1u << lane) - 1u;
-  unsigned long long* words =
-      scratch != nullptr ? scratch + (int64_t)row * cap : stream_smem;
-  const float th = kth[row];
-  const float* rd = gd + (int64_t)row * W;
-  const int* ri = gi + (int64_t)row * W;
-  const uint32_t big = order_bits(FLT_MAX);
-  auto key_at = [&](int p) {
-    uint32_t kb = big;
-    if (p < W) {
-      const float d = rd[p];
-      if (ri[p] >= 0 && d < th) kb = order_bits(d);
-    }
-    return kb;
-  };
+  int* hist = ints;                      // [2][kSelectBins]
+  int* cnt = ints + 2 * kSelectBins;     // [G] below T, then [G] equal to T
+  const int span = 32 * ((W + T - 1) / T);
+  const int p0 = min(warp * span, W);
+  const int p1 = min(p0 + span, W);
+  auto key = [&](int p) { return p < p1 ? key_at(p) : big; };
 
   // 1. the survivors
   int mine = 0;
-  for (int p = t; p < W; p += T) mine += key_at(p) < big ? 1 : 0;
+  for (int p = p0 + lane; p < p1; p += 32) mine += key_at(p) < big ? 1 : 0;
   mine = __reduce_add_sync(0xffffffffu, mine);
-  if (lane == 0) cnt_w[warp] = mine;
+  if (lane == 0) cnt[warp] = mine;
   __syncthreads();
   int s = 0;
 #pragma unroll
-  for (int w = 0; w < G; ++w) s += cnt_w[w];
-  __syncthreads();                     // cnt_w is read: free again
+  for (int w = 0; w < G; ++w) s += cnt[w];
+  __syncthreads();                       // cnt is read: free again
 
   // 2. the c-th smallest key T and how many keys equal to it win
   uint32_t thr = big;
@@ -850,16 +997,10 @@ __global__ void __launch_bounds__(kSelectThreads)
       const int shift = 24 - 8 * pass;
       int* h = hist + (pass & 1) * kSelectBins;
       int* h_next = hist + ((pass + 1) & 1) * kSelectBins;
-      for (int base = 0; base < W; base += T) {
-        const uint32_t key = key_at(base + t);
-        const bool cand = key < big && (key & pmask) == prefix;
-        if (__any_sync(0xffffffffu, cand)) {
-          const int dig = (key >> shift) & 0xff;
-          const unsigned peers =
-              __match_any_sync(0xffffffffu, cand ? dig : 0x100 + lane);
-          if (cand && lane == __ffs(peers) - 1)
-            atomicAdd(&h[dig], __popc(peers));
-        }
+      for (int p = p0 + lane; p < p1; p += 32) {
+        const uint32_t kb = key_at(p);
+        if (kb < big && (kb & pmask) == prefix)
+          atomicAdd(&h[(kb >> shift) & 0xff], 1);
       }
       __syncthreads();
       // h_next was last read before the barrier above
@@ -869,62 +1010,65 @@ __global__ void __launch_bounds__(kSelectThreads)
       prefix |= (uint32_t)bin << shift;
       pmask |= 0xffu << shift;
       r = rin;
-      __syncthreads();                 // h read, h_next clear
+      __syncthreads();                   // h read, h_next clear
     }
     thr = prefix;
     need = r + 1;
   }
 
-  // 3. the winners in position order: keys below T, then the first
-  // `need` keys equal to it
-  int run_e = 0;
-  int run_w = 0;
-  for (int base = 0; base < W; base += T) {
-    const int p = base + t;
-    const uint32_t key = key_at(p);
-    bool win = key < thr;
-    if (need > 0) {                    // the same branch in every thread
-      const bool eq = key == thr;
-      const unsigned eb = __ballot_sync(0xffffffffu, eq);
-      if (lane == 0) cnt_e[warp] = __popc(eb);
-      __syncthreads();
-      int before = run_e;
-#pragma unroll
-      for (int w = 0; w < G; ++w) {
-        before += w < warp ? cnt_e[w] : 0;
-        run_e += cnt_e[w];
-      }
-      win = win || (eq && before + __popc(eb & below) < need);
-    }
-    const unsigned wb = __ballot_sync(0xffffffffu, win);
-    if (lane == 0) cnt_w[warp] = __popc(wb);
-    __syncthreads();
-    int before = run_w;
-#pragma unroll
-    for (int w = 0; w < G; ++w) {
-      before += w < warp ? cnt_w[w] : 0;
-      run_w += cnt_w[w];
-    }
-    if (win)
-      words[before + __popc(wb & below)] =
-          ((unsigned long long)key << 32) | (unsigned)p;
-    __syncthreads();                   // the counts are read: free again
+  // 3. the winners in position order: keys below T, then the first `need`
+  // keys equal to it (T < big wherever need > 0)
+  int lt = 0;
+  int eq = 0;
+  for (int p = p0 + lane; p < p1; p += 32) {
+    const uint32_t kb = key_at(p);
+    lt += kb < thr ? 1 : 0;
+    eq += need > 0 && kb == thr ? 1 : 0;
   }
-  const int nwin = run_w;
+  lt = __reduce_add_sync(0xffffffffu, lt);
+  eq = __reduce_add_sync(0xffffffffu, eq);
+  if (lane == 0) {
+    cnt[warp] = lt;
+    cnt[G + warp] = eq;
+  }
+  __syncthreads();
+  int e_at = 0;                          // keys equal to T before this warp
+  int w_at = 0;                          // winners before this warp
+  int e_run = 0;
+  int nwin = 0;
+#pragma unroll
+  for (int w = 0; w < G; ++w) {
+    if (w == warp) {
+      e_at = e_run;
+      w_at = nwin;
+    }
+    const int e_w = cnt[G + w];
+    nwin += cnt[w] + max(0, min(e_w, need - e_run));
+    e_run += e_w;
+  }
+  for (int base = p0; base < p1; base += 32) {
+    const int p = base + lane;
+    const uint32_t kb = key(p);
+    const bool is_eq = need > 0 && kb == thr;
+    const unsigned eb = __ballot_sync(0xffffffffu, is_eq);
+    const bool win = kb < thr || (is_eq && e_at + __popc(eb & below) < need);
+    const unsigned wb = __ballot_sync(0xffffffffu, win);
+    if (win)
+      words[w_at + __popc(wb & below)] =
+          ((unsigned long long)kb << 32) | (unsigned)p;
+    e_at += __popc(eb);
+    w_at += __popc(wb);
+  }
+  __syncthreads();                       // the words are written
 
-  // 4. each winner to its slot, read back from the input (so -0.0 keeps
-  // its sign); the rest of the c slots (+inf, -1)
-  float* rod = od + (int64_t)row * c;
-  int* roi = oi + (int64_t)row * c;
-  if (nwin <= 4 * T) {
+  // 4. each winner to its slot
+  if (nwin <= T) {
     for (int j = t; j < nwin; j += T) {
       const unsigned long long w = words[j];
       int rank = 0;
 #pragma unroll 4
       for (int x = 0; x < nwin; ++x) rank += words[x] < w;
-      const int p = (int)(w & 0xffffffffu);
-      rod[rank] = rd[p];
-      roi[rank] = ri[p];
+      put(rank, (int)(w & 0xffffffffu));
     }
   } else {
     int size = 1;
@@ -945,26 +1089,144 @@ __global__ void __launch_bounds__(kSelectThreads)
         __syncthreads();
       }
     }
-    for (int j = t; j < nwin; j += T) {
-      const int p = (int)(words[j] & 0xffffffffu);
-      rod[j] = rd[p];
-      roi[j] = ri[p];
-    }
+    for (int j = t; j < nwin; j += T) put(j, (int)(words[j] & 0xffffffffu));
   }
-  for (int j = nwin + t; j < c; j += T) {
+  return nwin;
+}
+
+// ---------------------------------------------------------------------------
+// knn_join_select above a padded W of kSelectMaxPadded, the same selection
+// at any W: k = 91 gives a receiver select of 2 C x C = 16928 and a polish
+// select of k^2 = 8281. A row no longer fits in a block's registers.
+// knn_join_select_kernel_resident: where the row's keys and the winners'
+// words fit kResidentMaxBytes of shared memory (two or three rows an SM),
+// one block of 256 threads a row reads each (dist, id) entry once from
+// device memory, coalesced, eight entries in flight a thread, and folds
+// the prefilter (id >= 0 and dist < kth), -0 as +0 and the FLT_MAX
+// sentinel into one 32-bit key in shared memory (68 KB at W 16928); the
+// resident-row core then reads shared memory only, and the winners'
+// distances and ids are read back from device memory (so -0.0 keeps its
+// sign). knn_join_select_kernel_stream: wider rows (or wider outputs) are
+// read from device memory (or L2) by the same core once a pass; the
+// winners' words sit in shared memory up to kStreamSmemWords (64 KB),
+// beyond it in the row's slice of a scratch the wrapper allocates.
+// Bound: bytes. The resident instance reads a row once, as the bound
+// counts it; the streamed one 3 to 7 times.
+// ---------------------------------------------------------------------------
+
+constexpr int kStreamSmemWords = 8192;
+constexpr size_t kResidentMaxBytes = 110 * 1024;   // two rows an SM
+constexpr int kResidentBatch = 8;        // entries in flight a thread
+
+// the output slots past the winners: (+inf, -1)
+__device__ __forceinline__ void select_put_fill(float* rod, int* roi,
+                                                int nwin, int c) {
+  for (int j = nwin + (int)threadIdx.x; j < c; j += kSelectThreads) {
     rod[j] = INFINITY;
     roi[j] = -1;
   }
 }
 
-int launch_select_stream(const float* gd, const int* gi, const float* kth,
-                         float* od, int* oi, unsigned long long* scratch,
-                         int n, int W, int c, int cap, cudaStream_t stream) {
+__global__ void __launch_bounds__(kSelectThreads)
+    knn_join_select_kernel_stream(const float* __restrict__ gd,
+                                  const int* __restrict__ gi,
+                                  const float* __restrict__ kth,
+                                  float* __restrict__ od,
+                                  int* __restrict__ oi,
+                                  unsigned long long* __restrict__ scratch,
+                                  int W, int c, int cap) {
+  extern __shared__ __align__(16) unsigned long long stream_smem[];
+  __shared__ __align__(16) int ints[kBlockSelectInts];
+  const int row = blockIdx.x;
+  unsigned long long* words =
+      scratch != nullptr ? scratch + (int64_t)row * cap : stream_smem;
+  const float th = kth[row];
+  const float* rd = gd + (int64_t)row * W;
+  const int* ri = gi + (int64_t)row * W;
+  const uint32_t big = order_bits(FLT_MAX);
+  float* rod = od + (int64_t)row * c;
+  int* roi = oi + (int64_t)row * c;
+  const int nwin = block_select(
+      [&](int p) {
+        const float d = rd[p];
+        return ri[p] >= 0 && d < th ? order_bits(d) : big;
+      },
+      W, big, c, words, ints, [&](int slot, int p) {
+        rod[slot] = rd[p];
+        roi[slot] = ri[p];
+      });
+  select_put_fill(rod, roi, nwin, c);
+}
+
+__global__ void __launch_bounds__(kSelectThreads)
+    knn_join_select_kernel_resident(const float* __restrict__ gd,
+                                    const int* __restrict__ gi,
+                                    const float* __restrict__ kth,
+                                    float* __restrict__ od,
+                                    int* __restrict__ oi, int W, int c,
+                                    int cap) {
+  extern __shared__ __align__(16) unsigned long long resident_smem[];
+  __shared__ __align__(16) int ints[kBlockSelectInts];
+  constexpr int T = kSelectThreads;
+  const int row = blockIdx.x;
+  const int t = threadIdx.x;
+  unsigned long long* words = resident_smem;
+  uint32_t* keys = reinterpret_cast<uint32_t*>(resident_smem + cap);
+  const float th = kth[row];
+  const float* rd = gd + (int64_t)row * W;
+  const int* ri = gi + (int64_t)row * W;
+  const uint32_t big = order_bits(FLT_MAX);
+  for (int base = 0; base < W; base += kResidentBatch * T) {
+    float d[kResidentBatch];
+    int id[kResidentBatch];
+#pragma unroll
+    for (int u = 0; u < kResidentBatch; ++u) {
+      const int p = base + u * T + t;
+      d[u] = p < W ? rd[p] : 0.0f;
+      id[u] = p < W ? ri[p] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kResidentBatch; ++u) {
+      const int p = base + u * T + t;
+      if (p < W) keys[p] = id[u] >= 0 && d[u] < th ? order_bits(d[u]) : big;
+    }
+  }
+  __syncthreads();
+  float* rod = od + (int64_t)row * c;
+  int* roi = oi + (int64_t)row * c;
+  const int nwin = block_select(
+      [&](int p) { return keys[p]; }, W, big, c, words, ints,
+      [&](int slot, int p) {
+        rod[slot] = rd[p];
+        roi[slot] = ri[p];
+      });
+  select_put_fill(rod, roi, nwin, c);
+}
+
+// shared bytes of a resident row: the winners' words, then the keys
+__host__ __device__ inline size_t select_resident_bytes(int W, int cap) {
+  return (size_t)cap * sizeof(unsigned long long) +
+         ((size_t)W * sizeof(uint32_t) + 7) / 8 * 8;
+}
+
+int launch_select_wide(const float* gd, const int* gi, const float* kth,
+                       float* od, int* oi, unsigned long long* scratch,
+                       int n, int W, int c, int cap, cudaStream_t stream) {
+  const size_t resident = select_resident_bytes(W, cap);
+  if (resident <= kResidentMaxBytes) {
+    cudaError_t err = cudaFuncSetAttribute(
+        knn_join_select_kernel_resident,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)resident);
+    if (err != cudaSuccess) return (int)err;
+    knn_join_select_kernel_resident<<<n, kSelectThreads, resident, stream>>>(
+        gd, gi, kth, od, oi, W, c, cap);
+    return (int)cudaGetLastError();
+  }
   if (scratch == nullptr && cap > kStreamSmemWords)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       scratch != nullptr ? 0 : (size_t)cap * sizeof(unsigned long long);
-  // always opted in: the dynamic part may pass 48 KB less the histograms
+  // always opted in: the dynamic part may pass 48 KB less the counts
   cudaError_t err = cudaFuncSetAttribute(
       knn_join_select_kernel_stream,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1009,7 +1271,7 @@ int launch_select_stream(const float* gd, const int* gi, const float* kth,
 // which are written only after the last lookup.
 // ---------------------------------------------------------------------------
 
-constexpr int kMergeMaxPool = 8192;  // k + c: the widest row in registers
+constexpr int kMergeMaxPool = 8192;  // k + c: the widest pool in registers
 // one warp per row up to a pool of 128. Above it a block per row fills the
 // card where the rows are few (the online store's few hundred) and costs a
 // little where they are many
@@ -1245,6 +1507,235 @@ int merge_dispatch(const float* cd, const int* ci, const int* rows,
 }
 
 // ---------------------------------------------------------------------------
+// The merges above a pool of kMergeMaxPool (knn_merge_kernel_wide,
+// knn_merge_rows_kernel_wide), the same merge at any pool: the online
+// store's insert refinement and delete refill merge k + k^2 = 8372 a row at
+// t-SNE's k = 91. A pool no longer fits in a block's registers, so one
+// block of 256 threads a row holds it in memory: an open-addressing table
+// of (id, lowest position) words sized to the pool (the next power of two
+// of 1.5 m slots: 16384, 128 KB at m 8372), filled as merge_row fills its
+// own (a warp's lanes that hold one id send the lowest position once;
+// atomicCAS claims a slot, atomicMin lowers a claimed one), then the pool's
+// 32-bit keys (written over its ids, each by the thread that read it),
+// then the resident-row core (block_select) picks k and writes them
+// ascending. The contract is merge_row's, so the output is the register
+// instances' (and the plain merge's) bit for bit: a candidate is dropped
+// if its id is < 0, sits in the list or repeats an earlier candidate; the
+// list is never deduped; ties go to the lowest pool position; the output
+// stops at the FLT_MAX sentinel; the count is the picks from the
+// candidates. Where the table, the keys and the winners' words fit
+// kMergeWideSmem of shared memory they live there, a block a row; beyond
+// it they live in a scratch the wrapper allocates, a slice a block, and a
+// grid of as many blocks as slices walks the rows. Either way one launch
+// merges the call: the pool is never cut into slices, whose merges could
+// accept a candidate that a later slice evicts.
+// Bound: bytes (8 per list and candidate entry in, 8 per list entry out).
+// ---------------------------------------------------------------------------
+
+constexpr size_t kMergeWideSmem = 200 * 1024;
+
+struct MergeWideLayout {
+  int slots;                             // power of two >= 1.5 m
+  int lg;                                // log2(slots)
+  int cap;                               // power of two >= k: the words
+  size_t bytes;                          // table, words, keys
+};
+
+__host__ __device__ inline MergeWideLayout merge_wide_layout(int k, int c) {
+  const int m = k + c;
+  MergeWideLayout l;
+  l.slots = 1;
+  l.lg = 0;
+  while (l.slots < m + m / 2) {
+    l.slots <<= 1;
+    ++l.lg;
+  }
+  l.cap = 1;
+  while (l.cap < k) l.cap <<= 1;
+  l.bytes = (size_t)l.slots * sizeof(unsigned long long) +
+            (size_t)l.cap * sizeof(unsigned long long) +
+            ((size_t)m * sizeof(uint32_t) + 7) / 8 * 8;
+  return l;
+}
+
+// One block merges candidate slot `slot` into list row rows[slot] (rows ==
+// nullptr: list row `slot`); `mem` holds the row's table, words and keys.
+__device__ __forceinline__ void merge_row_wide(
+    const float* __restrict__ cd, const int* __restrict__ ci,
+    const int* __restrict__ rows, const float* __restrict__ qd,
+    const int* __restrict__ qi, float* __restrict__ od, int* __restrict__ oi,
+    int* __restrict__ upd, int n, int k, int c, MergeWideLayout l, int slot,
+    char* mem, int* ints, int* s_picks) {
+  constexpr int T = kSelectThreads;
+  constexpr unsigned long long kEmpty = ~0ull;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int row = rows == nullptr ? slot : rows[slot];
+  if (row < 0 || row >= n) {             // padding: count 0, write nothing
+    if (t == 0) upd[slot] = 0;
+    return;
+  }
+  unsigned long long* table = reinterpret_cast<unsigned long long*>(mem);
+  unsigned long long* words = table + l.slots;
+  uint32_t* keys = reinterpret_cast<uint32_t*>(words + l.cap);
+  const int m = k + c;
+  const int shift = 32 - l.lg;
+  const float* rcd = cd + (int64_t)row * k;
+  const int* rci = ci + (int64_t)row * k;
+  const float* rqd = qd + (int64_t)slot * c;
+  const int* rqi = qi + (int64_t)slot * c;
+
+  for (int j = t; j < l.slots; j += T) table[j] = kEmpty;
+  if (t == 0) *s_picks = 0;
+  __syncthreads();
+  for (int base = 0; base < m; base += T) {
+    const int p = base + t;
+    int id = -1;
+    if (p < m) {
+      id = p < k ? rci[p] : rqi[p - k];
+      keys[p] = (uint32_t)id;
+    }
+    const unsigned peers = __match_any_sync(0xffffffffu, id);
+    if (id >= 0 && lane == __ffs(peers) - 1) {
+      const unsigned long long w =
+          ((unsigned long long)(unsigned)id << 32) | (unsigned)p;
+      uint32_t h = ((uint32_t)id * 0x9E3779B1u) >> shift;
+      while (true) {
+        const unsigned long long prev = atomicCAS(&table[h], kEmpty, w);
+        if (prev == kEmpty) break;
+        if ((uint32_t)(prev >> 32) == (uint32_t)id) {
+          atomicMin(&table[h], w);
+          break;
+        }
+        h = (h + 1) & (l.slots - 1);
+      }
+    }
+  }
+  __syncthreads();
+
+  const uint32_t big = order_bits(FLT_MAX);
+  for (int p = t; p < m; p += T) {
+    const int id = (int)keys[p];
+    uint32_t kb = big;
+    if (p < k) {
+      const float d = rcd[p];
+      if (d != -INFINITY && d < FLT_MAX) kb = order_bits(d);
+    } else if (id >= 0) {
+      uint32_t h = ((uint32_t)id * 0x9E3779B1u) >> shift;
+      unsigned long long v = table[h];
+      while ((uint32_t)(v >> 32) != (uint32_t)id) {
+        h = (h + 1) & (l.slots - 1);
+        v = table[h];
+      }
+      const float d = rqd[p - k];
+      if ((int)(v & 0xffffffffu) == p && d < FLT_MAX) kb = order_bits(d);
+    }
+    keys[p] = kb;
+  }
+  __syncthreads();
+
+  float* rod = od + (int64_t)row * k;
+  int* roi = oi + (int64_t)row * k;
+  int picked = 0;
+  const int nwin = block_select(
+      [&](int p) { return keys[p]; }, m, big, k, words, ints,
+      [&](int s, int p) {
+        if (p < k) {
+          rod[s] = rcd[p];
+          roi[s] = rci[p];
+        } else {
+          rod[s] = rqd[p - k];
+          roi[s] = rqi[p - k];
+          ++picked;
+        }
+      });
+  select_put_fill(rod, roi, nwin, k);
+  picked = __reduce_add_sync(0xffffffffu, picked);
+  if (lane == 0) atomicAdd(s_picks, picked);
+  __syncthreads();
+  if (t == 0) upd[slot] = *s_picks;
+}
+
+// the row walk of both forms: scratch == nullptr, the row's memory in
+// shared memory and a block a row; else the block's slice of the scratch
+// and a grid-stride walk over the rows
+__device__ __forceinline__ void merge_rows_wide(
+    const float* __restrict__ cd, const int* __restrict__ ci,
+    const int* __restrict__ rows, const float* __restrict__ qd,
+    const int* __restrict__ qi, float* __restrict__ od, int* __restrict__ oi,
+    int* __restrict__ upd, int n, int f, int k, int c,
+    char* __restrict__ scratch, char* smem) {
+  __shared__ __align__(16) int ints[kBlockSelectInts];
+  __shared__ int s_picks;
+  const MergeWideLayout l = merge_wide_layout(k, c);
+  char* mem = scratch != nullptr ? scratch + (size_t)blockIdx.x * l.bytes
+                                 : smem;
+  for (int slot = blockIdx.x; slot < f; slot += gridDim.x) {
+    merge_row_wide(cd, ci, rows, qd, qi, od, oi, upd, n, k, c, l, slot, mem,
+                   ints, &s_picks);
+    __syncthreads();                     // the memory is free for the next
+  }
+}
+
+__global__ void __launch_bounds__(kSelectThreads) knn_merge_kernel_wide(
+    const float* __restrict__ cd, const int* __restrict__ ci,
+    const float* __restrict__ qd, const int* __restrict__ qi,
+    float* __restrict__ od, int* __restrict__ oi, int* __restrict__ upd,
+    int n, int k, int c, char* __restrict__ scratch) {
+  extern __shared__ __align__(16) unsigned long long merge_wide_smem[];
+  merge_rows_wide(cd, ci, nullptr, qd, qi, od, oi, upd, n, n, k, c, scratch,
+                  reinterpret_cast<char*>(merge_wide_smem));
+}
+
+__global__ void __launch_bounds__(kSelectThreads) knn_merge_rows_kernel_wide(
+    const float* __restrict__ cd, const int* __restrict__ ci,
+    const int* __restrict__ rows, const float* __restrict__ qd,
+    const int* __restrict__ qi, float* __restrict__ od, int* __restrict__ oi,
+    int* __restrict__ upd, int n, int f, int k, int c,
+    char* __restrict__ scratch) {
+  extern __shared__ __align__(16) unsigned long long merge_wide_smem[];
+  merge_rows_wide(cd, ci, rows, qd, qi, od, oi, upd, n, f, k, c, scratch,
+                  reinterpret_cast<char*>(merge_wide_smem));
+}
+
+// the scratch bytes a block of the wide merge needs at (k, c): 0 where the
+// register instances take the pool or its memory fits shared memory
+int64_t merge_scratch_bytes(int k, int c) {
+  if (k + c <= kMergeMaxPool) return 0;
+  const MergeWideLayout l = merge_wide_layout(k, c);
+  return l.bytes <= kMergeWideSmem ? 0 : (int64_t)l.bytes;
+}
+
+int launch_merge_wide(const float* cd, const int* ci, const int* rows,
+                      const float* qd, const int* qi, float* od, int* oi,
+                      int* upd, int n, int f, int k, int c, char* scratch,
+                      int scratch_blocks, cudaStream_t stream) {
+  const MergeWideLayout l = merge_wide_layout(k, c);
+  const bool resident = l.bytes <= kMergeWideSmem;
+  if (!resident && (scratch == nullptr || scratch_blocks < 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = resident ? l.bytes : 0;
+  const int grid = resident || f < scratch_blocks ? f : scratch_blocks;
+  char* mem = resident ? nullptr : scratch;
+  if (rows == nullptr) {
+    cudaError_t err = cudaFuncSetAttribute(
+        knn_merge_kernel_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    knn_merge_kernel_wide<<<grid, kSelectThreads, smem, stream>>>(
+        cd, ci, qd, qi, od, oi, upd, n, k, c, mem);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        knn_merge_rows_kernel_wide,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    knn_merge_rows_kernel_wide<<<grid, kSelectThreads, smem, stream>>>(
+        cd, ci, rows, qd, qi, od, oi, upd, n, f, k, c, mem);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // knn_compact replaces knn_compact_blocked / _compact_kernel
 // (src/repro/kernels/knn_merge.py:72,108), the tombstone purge, and
 // knn_compact_rows replaces knn_compact_rows_blocked (:237), its frontier
@@ -1408,15 +1899,20 @@ const char* knn_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+int64_t knn_join_scratch_bytes(int C, int cn) {
+  return join_scratch_bytes(C, cn);
+}
+
 int knn_join_dists_launch(const float* x, const float* x2, const int* ids,
-                          float* od, int* ev, int N, int n, int C, int dp,
+                          float* od, int* ev, int* scratch,
+                          int scratch_blocks, int N, int n, int C, int dp,
                           int cn, cudaStream_t stream) {
   if (n <= 0 || C < 1 || dp < 0) return (int)cudaErrorInvalidValue;
   const bool vec =
       (dp & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   if (C > kJoinMaxC)
-    return launch_join_wide(x, x2, ids, od, ev, N, n, C, dp, cn, vec,
-                            stream);
+    return launch_join_wide(x, x2, ids, od, ev, scratch, scratch_blocks, N,
+                            n, C, dp, cn, vec, stream);
   const int nb = (C + 3) / 4;
   const int tiles = nb * (nb + 1) / 2;
   const int slices = tiles * 8 <= kJoinMaxThreads   ? 8
@@ -1447,8 +1943,8 @@ int knn_join_select_launch(const float* gd, const int* gi, const float* kth,
   int cap = 1;                      // the winners' sort: at most min(c, W)
   while (cap < c && cap < W) cap <<= 1;
   if (W > kSelectMaxPadded)
-    return launch_select_stream(gd, gi, kth, od, oi, scratch, n, W, c, cap,
-                                stream);
+    return launch_select_wide(gd, gi, kth, od, oi, scratch, n, W, c, cap,
+                              stream);
   int padded = 1;
   while (padded < W) padded <<= 1;
   if (padded <= kSelectWarpMaxPadded) {
@@ -1479,21 +1975,30 @@ int knn_join_select_launch(const float* gd, const int* gi, const float* kth,
   }
 }
 
+int64_t knn_merge_scratch_bytes(int k, int c) {
+  return merge_scratch_bytes(k, c);
+}
+
 int knn_merge_launch(const float* cd, const int* ci, const float* qd,
-                     const int* qi, float* od, int* oi, int* upd, int n, int k,
-                     int c, cudaStream_t stream) {
-  if (n <= 0 || k < 1 || c < 0 || k + c > kMergeMaxPool)
-    return (int)cudaErrorInvalidValue;
+                     const int* qi, float* od, int* oi, int* upd,
+                     char* scratch, int scratch_blocks, int n, int k, int c,
+                     cudaStream_t stream) {
+  if (n <= 0 || k < 1 || c < 0) return (int)cudaErrorInvalidValue;
+  if (k + c > kMergeMaxPool)
+    return launch_merge_wide(cd, ci, nullptr, qd, qi, od, oi, upd, n, n, k,
+                             c, scratch, scratch_blocks, stream);
   return merge_dispatch(cd, ci, nullptr, qd, qi, od, oi, upd, n, n, k, c,
                         stream);
 }
 
 int knn_merge_rows_launch(const float* cd, const int* ci, const int* rows,
                           const float* qd, const int* qi, float* od, int* oi,
-                          int* upd, int n, int f, int k, int c,
-                          cudaStream_t stream) {
-  if (f <= 0 || k < 1 || c < 0 || k + c > kMergeMaxPool)
-    return (int)cudaErrorInvalidValue;
+                          int* upd, char* scratch, int scratch_blocks, int n,
+                          int f, int k, int c, cudaStream_t stream) {
+  if (f <= 0 || k < 1 || c < 0) return (int)cudaErrorInvalidValue;
+  if (k + c > kMergeMaxPool)
+    return launch_merge_wide(cd, ci, rows, qd, qi, od, oi, upd, n, f, k, c,
+                             scratch, scratch_blocks, stream);
   return merge_dispatch(cd, ci, rows, qd, qi, od, oi, upd, n, f, k, c,
                         stream);
 }

@@ -9,18 +9,26 @@
   fed from shared memory; one block per row computes the rows' Gram on
   register-tiled 4 x 4 tiles of its upper triangle, the features split
   over 8 lanes (4 or 2 above C 40) and summed by shuffles, the rows
-  gathered by ``cp.async`` into a 3-stage ring (any dp). Above C 64 the
-  row's slots are cut into sets of at most 64 and a block computes one
-  (set, set) piece of the tensor, so any C runs in bounded shared memory.
+  gathered by ``cp.async`` into a 3-stage ring (any dp). Above C 64 one
+  block of 256 threads a row compacts the row's valid slots (new first),
+  gathers each once and computes only the cross terms the mask can keep
+  (new x valid, 8 x 8 tiles of 8 lanes each); where the row's rows and
+  cross terms do not fit a block's shared memory (C about 320 with half
+  the slots new), the same kernel stages 96 rows a round and writes the
+  distances straight out, its slot maps in a scratch allocated here, a
+  slice for each block of a grid of at most ``JOIN_SCRATCH_BLOCKS_PER_SM``
+  blocks an SM that walks the rows.
 * ``knn_join_select_cuda`` replaces ``knn_join_select_blocked``
   (knn_join.py:152, body ``_join_select_kernel`` :125). Bound: bytes (8 in
   per entry, 8 out per winner). A radix select, not a sort of the row: one
   warp per row up to a padded W of 1024 (one block of 256 threads above),
   the row read once into registers (above a padded 8192, a block of 256
-  threads per row streams the row from device memory once a pass, and
-  the winners' words go to a scratch of (n, cap) words where more than
-  ``SELECT_SMEM_WORDS`` of them could win); unless every survivor of the
-  prefilter wins, four 8-bit histogram passes find the c-th smallest key,
+  threads per row reads the row once into shared memory as 32-bit keys,
+  up to 110 KB of keys and winners; wider rows are streamed from device
+  memory once a pass, and the winners' words go to a scratch of (n, cap)
+  words where more than ``SELECT_SMEM_WORDS`` of them could win); unless
+  every survivor of the prefilter wins, four 8-bit histogram passes find
+  the c-th smallest key,
   and only the c winners are sorted by (distance bits, position), so ties
   keep the lowest position.
 
@@ -35,6 +43,7 @@ import torch
 from repro_torch.kernels import _lib
 
 SELECT_SMEM_WORDS = 8192  # kStreamSmemWords in csrc/knn_kernels.cu
+JOIN_SCRATCH_BLOCKS_PER_SM = 2   # the wide join's grid where it needs scratch
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -69,9 +78,18 @@ def knn_join_dists_cuda(
     ev = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return od, ev
+    # the wide kernel's panels: a slice of slot maps for each block of a
+    # grid that walks the rows
+    per = _lib.lib().knn_join_scratch_bytes(c, int(cn))
+    scratch, blocks = None, 0
+    if per:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        blocks = min(n, JOIN_SCRATCH_BLOCKS_PER_SM * sms)
+        scratch = torch.empty((blocks * per,), dtype=torch.uint8, device=dev)
     code = _lib.lib().knn_join_dists_launch(
         x.data_ptr(), x2.data_ptr(), ids.data_ptr(), od.data_ptr(),
-        ev.data_ptr(), big_n, n, c, dp, int(cn),
+        ev.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        blocks, big_n, n, c, dp, int(cn),
         torch.cuda.current_stream(dev).cuda_stream)
     _lib.check(code, "knn_join_dists")
     _lib.LAUNCHES["knn_join_dists"] += 1

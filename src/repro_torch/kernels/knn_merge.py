@@ -16,10 +16,14 @@ Bound on this card: bytes (8 per list and candidate entry in, 8 per list
 entry out, 1 per drop flag). A merge is one row of the join select's radix
 select over the pool [list | candidates], a warp per row up to a pool of
 128 and a block above, after a dedup through a shared-memory hash table of
-the pool's ids; a compaction is one row of the same select with c = k and
-the keep mask as its prefilter, through the same dispatch. Same checks,
-allocation, stream and launch count as the join wrappers
-(kernels/knn_join.py).
+the pool's ids; above a pool of ``MERGE_MAX_POOL`` (the widest a block
+holds in registers) a block holds the row's pool, table and keys in shared
+memory (the online store's k + k^2 = 8372 at k 91) or, past what it holds,
+in a scratch allocated here, a slice for each block of a grid that walks
+the rows: any pool runs, in one launch. A compaction is one row of the
+same select with c = k and the keep mask as its prefilter, through the
+same dispatch. Same checks, allocation, stream and launch count as the
+join wrappers (kernels/knn_join.py).
 """
 from __future__ import annotations
 
@@ -28,8 +32,21 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.knn_join import _check
 
-MERGE_MAX_POOL = 8192    # kMergeMaxPool in csrc/knn_kernels.cu
+MERGE_MAX_POOL = 8192    # kMergeMaxPool: the widest pool in registers
 COMPACT_MAX_K = 8192     # kSelectMaxPadded: the widest row in registers
+SCRATCH_BLOCKS_PER_SM = 4   # the wide merge's grid where it needs scratch
+
+
+def _merge_scratch(dev: torch.device, k: int, c: int, rows: int):
+    """(scratch or None, blocks): the wide merge's per-block memory past
+    what shared memory holds, for a grid of at most SCRATCH_BLOCKS_PER_SM
+    blocks an SM that walks ``rows`` rows."""
+    per = _lib.lib().knn_merge_scratch_bytes(k, c)
+    if per == 0:
+        return None, 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = min(rows, SCRATCH_BLOCKS_PER_SM * sms)
+    return torch.empty((blocks * per,), dtype=torch.uint8, device=dev), blocks
 
 
 def knn_merge_cuda(
@@ -48,17 +65,18 @@ def knn_merge_cuda(
     if cur_idx.shape != (n, k) or cand_idx.shape != (n, c) \
             or cand_dist.shape[0] != n:
         raise ValueError("list and candidate shapes disagree")
-    if k < 1 or k + c > MERGE_MAX_POOL:
-        raise ValueError(f"need 1 <= k and k + c <= {MERGE_MAX_POOL}; "
-                         f"got k={k}, c={c}")
+    if k < 1:
+        raise ValueError(f"need 1 <= k; got k={k}")
     od = torch.empty((n, k), dtype=torch.float32, device=dev)
     oi = torch.empty((n, k), dtype=torch.int32, device=dev)
     upd = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return od, oi, upd
+    scratch, blocks = _merge_scratch(dev, k, c, n)
     code = _lib.lib().knn_merge_launch(
         cur_dist.data_ptr(), cur_idx.data_ptr(), cand_dist.data_ptr(),
         cand_idx.data_ptr(), od.data_ptr(), oi.data_ptr(), upd.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), blocks,
         n, k, c, torch.cuda.current_stream(dev).cuda_stream)
     _lib.check(code, "knn_merge")
     _lib.LAUNCHES["knn_merge"] += 1
@@ -94,17 +112,18 @@ def knn_merge_rows_cuda(
     _check_rows(rows, dev, f)
     if cand_idx.shape != (f, c):
         raise ValueError("candidate shapes disagree")
-    if k < 1 or k + c > MERGE_MAX_POOL:
-        raise ValueError(f"need 1 <= k and k + c <= {MERGE_MAX_POOL}; "
-                         f"got k={k}, c={c}")
+    if k < 1:
+        raise ValueError(f"need 1 <= k; got k={k}")
     od, oi = cur_dist.clone(), cur_idx.clone()
     upd = torch.zeros((f,), dtype=torch.int32, device=dev)
     if f == 0:
         return od, oi, upd
+    scratch, blocks = _merge_scratch(dev, k, c, f)
     code = _lib.lib().knn_merge_rows_launch(
         cur_dist.data_ptr(), cur_idx.data_ptr(), rows.data_ptr(),
         cand_dist.data_ptr(), cand_idx.data_ptr(), od.data_ptr(),
-        oi.data_ptr(), upd.data_ptr(), n, f, k, c,
+        oi.data_ptr(), upd.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), blocks, n, f, k, c,
         torch.cuda.current_stream(dev).cuda_stream)
     _lib.check(code, "knn_merge_rows")
     _lib.LAUNCHES["knn_merge_rows"] += 1

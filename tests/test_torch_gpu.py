@@ -102,10 +102,12 @@ def _both(fn, *args, **kw):
     (300, 17, 9, 130),           # C not a multiple of the 4 x 4 tile
     (512, 32, 16, 4096),         # the kNN-LM's build: C = 32, d = 4096
     (2048, 40, 20, 896),         # the online store's build: rho 1.0
-    (2048, 92, 46, 896),         # the wide kernel: k 91's C, 2 sets
+    (2048, 92, 46, 896),         # the wide kernel: k 91's C
     (300, 65, 30, 130),          # one past the narrow kernel
-    (257, 180, 90, 131),         # 3 sets of 60; dp % 4 != 0
-    (130, 256, 100, 784),        # 4 sets of 64: the widest pieces
+    (257, 180, 90, 131),         # two stages; dp % 4 != 0
+    (130, 256, 100, 784),        # two stages
+    (1000, 320, 160, 100),       # panels, the grid walking the rows
+    (200, 300, 300, 131),        # panels, every slot new; dp % 4 != 0
 ])
 def test_join_dists_kernel(dev, n, c, cn, dp):
     rng = np.random.RandomState(n + c)
@@ -208,18 +210,24 @@ def test_join_select_radix_cases(dev, kind, n, w, c):
     assert torch.equal(gd_.view(torch.int32), wd.view(torch.int32))
 
 
-# (shape, the device function knn_join_dists_launch, knn_join_select_launch
-# and the quantized joins' launchers pick for it): C <= 64 and a padded W
-# <= 8192 the instances they picked before the wide joins and the
-# streamed select existed (8 slices up to C 40, 4, then 2; 16-byte copies
-# where dp % 4 == 0; ceil(C / 16) row blocks), above them the new kernels
+# (shape, the device function knn_join_dists_launch, knn_join_select_launch,
+# the quantized joins' launchers and the merges' launchers pick for it):
+# C <= 64, a padded W <= 8192 and a pool <= 8192 the instances they
+# picked before the wide joins, the wide selects and the wide merges
+# existed (8 slices up to C 40, 4, then 2; 16-byte copies where dp % 4 ==
+# 0; ceil(C / 16) row blocks; a block of 32 pool entries a thread), above
+# them the new kernels: the wide fp32 join (three stages; its panel
+# instance where its rows and cross terms do not fit: C 320 at cn 160),
+# the resident select (the streamed one past 110 KB of keys), the wide
+# merges
 LAUNCHED_INSTANCES = [
     (("f32", 20, 896), "knn_join_dists_kernel<8, 4>"),
     (("f32", 40, 896), "knn_join_dists_kernel<8, 4>"),
     (("f32", 48, 130), "knn_join_dists_kernel<4, 1>"),
     (("f32", 64, 896), "knn_join_dists_kernel<2, 4>"),
-    (("f32", 65, 896), "knn_join_dists_kernel_wide<4>"),
-    (("f32", 92, 131), "knn_join_dists_kernel_wide<1>"),
+    (("f32", 65, 896), "knn_join_dists_kernel_wide<4, 3, 0>"),
+    (("f32", 92, 131), "knn_join_dists_kernel_wide<1, 3, 0>"),
+    (("f32", 320, 896), "knn_join_dists_kernel_wide<4, 3, 1>"),
     (("int8", 64, 800), "knn_join_dists_q8_kernel<4>"),
     (("int8", 92, 800), "knn_join_dists_q8_kernel_wide"),
     (("bf16", 20, 800), "knn_join_dists_bf16_kernel<2>"),
@@ -228,13 +236,30 @@ LAUNCHED_INSTANCES = [
     (("select", 800, 60), "knn_join_select_kernel<1, 32>"),
     (("select", 2048, 60), "knn_join_select_kernel<8, 8>"),
     (("select", 8192, 500), "knn_join_select_kernel<8, 32>"),
-    (("select", 8193, 60), "knn_join_select_kernel_stream"),
-    (("select", 16928, 273), "knn_join_select_kernel_stream"),
+    (("select", 8193, 60), "knn_join_select_kernel_resident"),
+    (("select", 16928, 273), "knn_join_select_kernel_resident"),
+    (("select", 64800, 540), "knn_join_select_kernel_stream"),
+    (("merge", 20, 8172), "knn_merge_kernel<8, 32>"),
+    (("merge", 91, 8281), "knn_merge_kernel_wide"),
+    (("merge", 91, 12000), "knn_merge_kernel_wide"),
+    (("merge_rows", 20, 8172), "knn_merge_rows_kernel<8, 32>"),
+    (("merge_rows", 91, 8281), "knn_merge_rows_kernel_wide"),
 ]
 
 
 def _instance_call(dev, kind, a, b):
-    """One call of the join or select at shape (a, b), ready to run."""
+    """One call of the join, select or merge at shape (a, b), ready to
+    run (a merge: k, c)."""
+    if kind in ("merge", "merge_rows"):
+        cd = torch.rand(64, a, device=dev).sort(1).values
+        ci = torch.randint(0, 5000, (64, a), device=dev, dtype=torch.int32)
+        qd = torch.rand(16, b, device=dev)
+        qi = torch.randint(-1, 5000, (16, b), device=dev, dtype=torch.int32)
+        if kind == "merge":
+            return lambda: ops.knn_merge(cd[:16].contiguous(),
+                                         ci[:16].contiguous(), qd, qi)
+        rows = torch.arange(0, 64, 4, device=dev, dtype=torch.int32)
+        return lambda: ops.knn_merge_rows(cd, ci, rows, qd, qi)
     if kind == "select":
         gd = torch.rand(16, a, device=dev)
         gi = torch.randint(0, 99, (16, a), device=dev, dtype=torch.int32)
@@ -269,7 +294,8 @@ def test_launchers_pick_their_instances(dev):
             torch.cuda.synchronize()
     got = [e.name for e in sorted(
         (e for e in prof.events() if e.device_type == DeviceType.CUDA
-         and "knn_join" in e.name), key=lambda e: e.time_range.start)]
+         and ("knn_join" in e.name or "knn_merge" in e.name)),
+        key=lambda e: e.time_range.start)]
     want = [name for _, name in LAUNCHED_INSTANCES]
     assert len(got) == len(want), got
     for (shape, name), g in zip(LAUNCHED_INSTANCES, got):
@@ -353,12 +379,16 @@ def _dup_heavy(rng, f, k, c, cur_i):
     (500, 20, 500),              # the online path's recorded width
     (300, 20, 400),              # the refinement's c = k^2
     (64, 20, 108), (64, 20, 109),   # a warp per row up to a pool of 128
-    (4, 20, 8172), (3, 100, 8092),  # the widest pool the kernel takes
+    (4, 20, 8172), (3, 100, 8092),  # the widest pool in registers
+    (500, 91, 8281),             # the wide merge: the online pool at k 91
+    (64, 91, 12000),             # past its shared memory: the scratch
 ])
 @pytest.mark.parametrize("dups", [False, True])
 def test_merge_kernel_wide_pools(dev, n, k, c, dups):
-    """The merge bitwise at the block-per-row widths, with and without
-    rows full of duplicates; a repeated list id survives."""
+    """The merge bitwise at the block-per-row widths and above a pool of
+    8192 (knn_merge_kernel_wide, in shared memory and in its scratch),
+    with and without rows full of duplicates; a repeated list id
+    survives."""
     rng = np.random.RandomState(n + k + c)
     cur_d = np.sort(rng.rand(n, k).astype(np.float32), axis=1)
     cur_i = rng.randint(0, 10 * n, size=(n, k)).astype(np.int32)
@@ -1024,12 +1054,15 @@ def test_merge_rows_kernel(dev, n, k, f, c, pad):
     (65536, 20, 500, 500, 0),    # the online path's recorded call
     (65536, 20, 500, 400, 7),    # the refinement and the delete refill
     (131072, 20, 1024, 80, 30),  # a route-width merge (warp per row)
-    (50, 20, 8, 8172, 2),        # the widest pool the kernel takes
+    (50, 20, 8, 8172, 2),        # the widest pool in registers
+    (65536, 91, 500, 8281, 7),   # the online path's refinement at k 91
+    (4096, 91, 64, 12000, 3),    # past the shared memory: the scratch
 ])
 @pytest.mark.parametrize("dups", [False, True])
 def test_merge_rows_kernel_wide_pools(dev, n, k, f, c, pad, dups):
-    """The row merge bitwise at the online path's widths and the widest
-    pool, with and without rows full of duplicates."""
+    """The row merge bitwise at the online path's widths, the widest pool
+    in registers and above it (knn_merge_rows_kernel_wide), with and
+    without rows full of duplicates."""
     rng = np.random.RandomState(n + f + c)
     d, i = _lists(rng, n, k, 5 * n)
     rows = np.full((f,), -1, np.int32)
@@ -1111,6 +1144,72 @@ def test_online_store_through_kernels(dev):
         r[device.type] = recall_at_k(idx[live], truth)
     assert r["cuda"] > 0.9, r
     assert abs(r["cuda"] - r["cpu"]) <= 0.01, r
+
+
+def _k91_online(dev, backend):
+    """A routed store from the exact k = 91 graph of 2048 clustered rows,
+    two inserts of 128 (the same route fills) and a delete of every 11th
+    row, through ``backend`` on the card; then a MutableKNNDatastore at k
+    91 (its default descent, rho 1.0: C 182) on 1536 rows, two appends of
+    128 and a delete, the same generators. Returns (the store's recall@91
+    over the live rows, the datastore's, wide row-merge launches)."""
+    from repro_torch.serve import MutableKNNDatastore
+    k = 91
+    x = datasets.clustered(2304, 16, 8, seed=0, device=dev)
+    dd, gi = brute_force_knn(x[:2048], x[:2048], k)
+    cfg = OnlineConfig(router=RouterConfig(), chunk=256, backend=backend)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    weights = torch.rand(2048, generator=gen, device=dev)
+    fills = [torch.randperm(2048 + s, generator=gen, device=dev)[:128]
+             for s in range(0, 256, 128)]
+    dead = torch.arange(0, 2304, 11, device=dev)
+    before = _lib.LAUNCHES["knn_merge_rows"]
+    store = MutableKNNStore.from_graph(x[:2048], dd, gi, cfg=cfg,
+                                       device=dev, router_weights=weights)
+    for j, s in enumerate(range(2048, 2304, 128)):
+        store, _ = knn_insert(store, x[s:s + 128], route_fill=fills[j])
+    store, _ = knn_delete(store, dead)
+    live = torch.ones(2304, dtype=torch.bool, device=dev)
+    live[dead] = False
+    idx = store.nl.idx[:2304]
+    assert not torch.isin(idx[idx >= 0], dead).any()
+    _, truth = brute_force_knn(x[live], x[live], k)
+    ids = torch.nonzero(live)[:, 0]
+    r_store = recall_at_k(idx[live], ids[truth.long()])
+    vals = torch.arange(1792, device=dev, dtype=torch.int32) % 50
+    ds = MutableKNNDatastore.build(
+        x[:1536], vals[:1536], k=k, online_cfg=cfg, router=RouterConfig(),
+        cfg=DescentConfig(k=k, rho=1.0, max_iters=10, backend=backend),
+        device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    for s in range(1536, 1792, 128):
+        ds, _ = ds.append(x[s:s + 128], vals[s:s + 128],
+                          generator=torch.Generator(device=dev).manual_seed(s))
+    gone = torch.arange(0, 1792, 7, device=dev)
+    ds, _ = ds.delete(gone)
+    keep = torch.ones(1792, dtype=torch.bool, device=dev)
+    keep[gone] = False
+    didx = ds.store.nl.idx[:1792]
+    assert not torch.isin(didx[didx >= 0], gone).any()
+    _, dtruth = brute_force_knn(x[:1792][keep], x[:1792][keep], k)
+    dids = torch.nonzero(keep)[:, 0]
+    r_ds = recall_at_k(didx[keep], dids[dtruth.long()])
+    torch.cuda.synchronize()
+    return r_store, r_ds, _lib.LAUNCHES["knn_merge_rows"] - before
+
+
+def test_online_store_and_datastore_at_k91_on_card(dev):
+    """knn_insert / knn_delete and MutableKNNDatastore.append / .delete at
+    t-SNE's k = 91 (refinement and refill merges of k + k^2 = 8372 a row,
+    knn_merge_rows_kernel_wide) through the kernels, and through the plain
+    versions on the card with the same draws: no tombstone in a live
+    list, recall@91 of each within 0.01 of the plain run's and >= 0.84;
+    the plain run launches nothing."""
+    got = _k91_online(dev, "auto")
+    want = _k91_online(dev, "plain")
+    assert got[2] > 0 and want[2] == 0, (got, want)
+    for g, w in zip(got[:2], want[:2]):
+        assert abs(g - w) <= 0.01, (got, want)
+        assert min(g, w) >= 0.84, (got, want)
 
 
 def _ties_only(got, want, x2):

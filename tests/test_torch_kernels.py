@@ -103,13 +103,139 @@ def test_join_dists_plain_matches_jax(n, c, cn, dp, tb):
         assert int(tev.sum()) == 0
 
 
-def _join_slices(c):
-    """The feature slices per 4 x 4 tile that knn_join_dists_launch picks:
-    8, or 4 or 2 so that a block stays at most 512 threads; above C 64 the
-    wide kernel's two (kJoinWideSlices), which the same rule gives."""
+def _join_wide_fits(c, cn):
+    """launch_join_wide's choice above C 64: the wide kernel (its ring of
+    3, else 2, stages of 8-padded rows x 36 floats, H of cp x pad8(cn)
+    floats and the slot maps within a block's 232448 - 1024 bytes), or
+    None where it runs in panels (``join_panel_rounds``)."""
+    cp = -(-c // 8) * 8
+    cnp = -(-max(min(cn, c), 1) // 8) * 8
+    for stages in (3, 2):
+        if 4 * (stages * cp * 36 + cp * cnp + 3 * cp) <= 232448 - 1024:
+            return stages
+    return None
+
+
+def _join_slices(c, cn):
+    """The feature slices per tile that knn_join_dists_launch picks: up to
+    C 64, 8, or 4 or 2 so that a block stays at most 512 threads (4 x 4
+    tiles); above it the wide kernel's 8 lanes a 8 x 8 tile
+    (kJoinWideSlices), in panels too."""
+    if c > 64:
+        return 8
     nb = -(-c // 4)
     tiles = nb * (nb + 1) // 2
     return 8 if tiles * 8 <= 512 else 4 if tiles * 4 <= 512 else 2
+
+
+def join_wide_tiles(ids_row, cn):
+    """knn_join_dists_kernel_wide's work on one row: the valid slots
+    compacted, new ones (slot < cn) first, then old ones, each in slot
+    order (``order``: compacted index -> slot); vn new, V in all; the 8 x
+    8 tiles (bu, bv) of the V x vn block of cross terms G(u, v), v < vn,
+    that it computes: bv < ceil(vn / 8), bu >= bv, in its row-major walk,
+    32 a round."""
+    valid = ids_row >= 0
+    slots = np.arange(ids_row.shape[0])
+    order = np.concatenate([slots[valid & (slots < cn)],
+                            slots[valid & (slots >= cn)]])
+    vn = int((valid & (slots < cn)).sum())
+    nbn, nbv = -(-vn // 8), -(-len(order) // 8)
+    tiles = [(bu, bv) for bv in range(nbn) for bu in range(bv, nbv)]
+    assert len(tiles) == nbn * nbv - nbn * (nbn - 1) // 2
+    return order, vn, tiles
+
+
+def join_panel_rounds(vn, nv):
+    """The wide kernel's rounds in panels at vn new of nv valid compacted
+    slots: for each 4-block group of new columns bv0 = 0, 4, ..., the
+    rectangles of row blocks [bu0, bu0 + 8), bu0 = bv0, bv0 + 8, ...; each
+    round as (bu0, bv0, the tiles (bu, bv) it writes: bu < ceil(nv / 8),
+    bv < ceil(vn / 8), bu >= bv)."""
+    nbn, nbv = -(-vn // 8), -(-nv // 8)
+    rounds = []
+    for bv0 in range(0, nbn, 4):
+        for bu0 in range(bv0, nbv, 8):
+            rounds.append((bu0, bv0, [
+                (bu0 + t % 8, bv0 + t // 8) for t in range(32)
+                if bu0 + t % 8 < nbv and bv0 + t // 8 < nbn
+                and bu0 + t % 8 >= bv0 + t // 8]))
+    return rounds
+
+
+def join_panel_epilogue_np(gram, n2, ids, cn):
+    """knn_join_dists_kernel_wide in panels: the output filled with +inf,
+    then each round's tiles (``join_panel_rounds``), their rows staged from
+    compacted rows [8 bu0, 8 bu0 + 64) and [8 bv0, 8 bv0 + 32), write the
+    distance of each valid pair (u < nv, v < vn, u != v, distinct ids) at
+    (slot u, slot v) and (slot v, slot u), by the norm expansion in f32 with
+    no contraction, clamped at 0, and count it once (u old, or u > v); a
+    pair written twice (a diagonal tile) gets the same bits. gram: (n, C,
+    C) cross terms in slot order (symmetric). Returns (dists, evals)."""
+    n, c = ids.shape
+    out = np.full((n, c, c), np.inf, np.float32)
+    evals = np.zeros(n, np.int32)
+    for row in range(n):
+        order, vn, _ = join_wide_tiles(ids[row], cn)
+        nv = len(order)
+        g = gram[row][np.ix_(order, order)]
+        for bu0, bv0, tiles in join_panel_rounds(vn, nv):
+            for bu, bv in tiles:
+                assert 8 * bu0 <= 8 * bu < 8 * bu0 + 64
+                assert 8 * bv0 <= 8 * bv < 8 * bv0 + 32
+                for u in range(8 * bu, min(8 * bu + 8, nv)):
+                    for v in range(8 * bv, min(8 * bv + 8, vn)):
+                        if u == v or ids[row, order[u]] == ids[row, order[v]]:
+                            continue
+                        d = np.maximum(
+                            (n2[row, order[v]] + n2[row, order[u]])
+                            - np.float32(2.0) * g[u, v], np.float32(0.0))
+                        for a, b in ((order[u], order[v]),
+                                     (order[v], order[u])):
+                            assert np.isinf(out[row, a, b]) or (
+                                bu == bv and out[row, a, b] == d)
+                            out[row, a, b] = d
+                        evals[row] += u >= vn or u > v
+    return out, evals
+
+
+def join_wide_epilogue_np(gram, n2, ids, cn):
+    """knn_join_dists_kernel_wide's H and epilogue: each computed tile
+    (``join_wide_tiles``) writes G(u, v) at H[u, v] and, where u is new
+    too, at H[v, u]; the output (lo, hi) = (min, max) of (s, t) reads
+    H[pos[hi], pos[lo]] where lo < cn, both slots valid, distinct ids,
+    the distance by the norm expansion in f32 with no contraction,
+    clamped at 0, +inf elsewhere. Every H entry read must have been
+    written. gram: (n, C, C) cross terms in slot order (symmetric)."""
+    n, c = ids.shape
+    out = np.full((n, c, c), np.inf, np.float32)
+    evals = np.zeros(n, np.int32)
+    for row in range(n):
+        order, vn, tiles = join_wide_tiles(ids[row], cn)
+        vp = -(-len(order) // 8) * 8
+        h = np.full((vp, max(vn, 1)), np.nan, np.float32)
+        g = gram[row][np.ix_(order, order)]
+        for bu, bv in tiles:
+            for u in range(8 * bu, min(8 * bu + 8, len(order))):
+                for v in range(8 * bv, min(8 * bv + 8, vn)):
+                    h[u, v] = g[u, v]
+                    if bu < -(-vn // 8) and u < vn:
+                        h[v, u] = g[u, v]
+        pos = np.full(c, -1)
+        pos[order] = np.arange(len(order))
+        for s in range(c):
+            for t in range(c):
+                lo, hi = min(s, t), max(s, t)
+                if lo == hi or lo >= cn or pos[lo] < 0 or pos[hi] < 0 \
+                        or ids[row, lo] == ids[row, hi]:
+                    continue
+                gv = h[pos[hi], pos[lo]]
+                assert not np.isnan(gv), (row, s, t)
+                out[row, s, t] = np.maximum(
+                    (n2[row, lo] + n2[row, hi]) - np.float32(2.0) * gv,
+                    np.float32(0.0))
+                evals[row] += s < t
+    return out, evals
 
 
 def join_pieces(c, most, quantum):
@@ -179,8 +305,10 @@ def _join_gram_emulation(x, x2, ids, cn):
     rounded once to f32: the product is exact in f64); then a butterfly
     adds the S partial sums (lanes k and k ^ off, off = 1, 2, 4), then the
     epilogue. Ids outside [0, N) are invalid slots, zero rows. Above C 64
-    (the wide kernel) the sums are the same, and the epilogue runs piece
-    by piece (``join_pieces``, ``join_piece_epilogue_np``)."""
+    the wide kernel sums in the same order at S = 8 on its compacted
+    slots and reads its cross terms from H (``join_wide_epilogue_np``),
+    or, where its rows and H do not fit a block, writes them from its
+    tiles in panels (``join_panel_epilogue_np``)."""
     big_n, dp = x.shape
     n, c = ids.shape
     ids = np.where(ids >= big_n, -1, ids)
@@ -189,7 +317,7 @@ def _join_gram_emulation(x, x2, ids, cn):
     xg = np.zeros((n, c, 32 * chunks), np.float32)
     xg[:, :, :dp] = np.where(valid[:, :, None], x[np.where(valid, ids, 0)],
                              0.0)
-    s = _join_slices(c)
+    s = _join_slices(c, cn)
     part = np.zeros((s, n, c, c), np.float32)
     for kc in range(chunks):
         for j in range(8 // s):
@@ -204,23 +332,26 @@ def _join_gram_emulation(x, x2, ids, cn):
         part = (part + part[lane ^ off]).astype(np.float32)
         off *= 2
     x2g = np.where(valid, x2[np.where(valid, ids, 0)], 0.0).astype(np.float32)
+    if c > 64 and _join_wide_fits(c, cn):
+        return join_wide_epilogue_np(part[0], x2g, ids, cn)
     if c > 64:
-        return join_piece_epilogue_np(part[0], x2g, ids, cn,
-                                      join_pieces(c, 64, 4))
+        return join_panel_epilogue_np(part[0], x2g, ids, cn)
     return _join_epilogue_np(part[0], x2g, ids, cn)
 
 
 @pytest.mark.parametrize("cn_of", ["none", "half", "all"])
 @pytest.mark.parametrize("c,dp", [
     (1, 45), (17, 130), (20, 96), (40, 45), (64, 130),
-    (92, 45),               # the wide kernel: k 91's C, pieces 48 + 44
-    (180, 40)])             # three sets of 60: six pieces
+    (92, 45),               # the wide kernel: k 91's C
+    (180, 40),              # the wide kernel, two rounds of tiles at "all"
+    (320, 40)])             # panels at "half" and "all"
 def test_join_gram_emulation_matches_jax(c, dp, cn_of):
     """The fp32 kernel's order of sums (``_join_gram_emulation``) against
     the Pallas kernel in interpret mode and the port's plain version, with
     invalid slots (-1 and >= N), a repeated id and dp not a multiple of
-    the 32-feature chunk; above C 64, the wide kernel's pieces cover the
-    tensor once each, "half" puts cn inside a set."""
+    the 32-feature chunk; above C 64, the wide kernel's tiles (through H
+    or, in panels, straight out) write every valid entry, "half" puts cn
+    inside an 8-slot block."""
     cn = {"none": 0, "half": c // 2, "all": c}[cn_of]
     n, big_n = 6, 40
     rng = np.random.RandomState(7 * c + dp)
@@ -250,6 +381,49 @@ def test_join_gram_emulation_matches_jax(c, dp, cn_of):
     assert eev[3] == 0 and np.isinf(ed[3]).all()
     if cn == 0:
         assert eev.sum() == 0
+
+
+@pytest.mark.parametrize("c", [65, 92, 180, 256])
+@pytest.mark.parametrize("cn_of", ["none", "one", "half", "all"])
+def test_join_wide_tiles_cover_every_valid_pair_once(c, cn_of):
+    """The wide join's work (``join_wide_tiles``) on rows of every
+    validity (all valid, none, random, the new or the old half empty):
+    each valid unordered pair (s < t, s < cn, both ids valid) lies in
+    exactly one computed tile, once its slots are compacted; a tile holds
+    no pair of two old slots; the tiles of a row number at most its valid
+    pairs' tiles, and a row with no valid new slot computes none. In
+    panels (``join_panel_rounds``) the rounds write the same tiles, each
+    once."""
+    cn = {"none": 0, "one": 1, "half": c // 2, "all": c}[cn_of]
+    rng = np.random.RandomState(c + cn)
+    rows = [np.arange(c), -np.ones(c, np.int64),
+            np.where(rng.rand(c) < 0.57, np.arange(c), -1),
+            np.where(np.arange(c) < cn, -1, np.arange(c)),
+            np.where(np.arange(c) < cn, np.arange(c), -1)]
+    for ids in rows:
+        order, vn, tiles = join_wide_tiles(ids, cn)
+        pos = np.full(c, -1)
+        pos[order] = np.arange(len(order))
+        seen = {}
+        for bu, bv in tiles:
+            assert bv * 8 < vn and bu >= bv
+            for u in range(8 * bu, min(8 * bu + 8, len(order))):
+                for v in range(8 * bv, min(8 * bv + 8, vn)):
+                    if u != v:
+                        pair = (min(u, v), max(u, v))
+                        seen[pair] = seen.get(pair, 0) + (
+                            1 if bu != bv or u > v else 0)
+        want = {(min(pos[s], pos[t]), max(pos[s], pos[t]))
+                for s in range(c) for t in range(s + 1, c)
+                if s < cn and ids[s] >= 0 and ids[t] >= 0}
+        assert want <= set(seen)
+        assert all(seen[p] == 1 for p in want)
+        assert all(min(p) < vn for p in seen)      # never old x old
+        if vn == 0:
+            assert tiles == []
+        panel = [t for _, _, rd in join_panel_rounds(vn, len(order))
+                 for t in rd]
+        assert sorted(panel) == sorted(tiles)
 
 
 # ---------------------------------------------------------------------------
@@ -350,22 +524,29 @@ def _radix_winners(key, c, threads):
     return slots, (s, int(thr), need)
 
 
-def _stream_winners(key, c, threads=256):
-    """The streamed select's core (knn_join_select_kernel_stream) on one
-    row's keys in position order: the survivors counted over the whole
-    row, the four 8-bit passes (order-free histograms of the matching
-    keys) as ``_radix_winners``; then the winners compacted tile by tile
-    (``threads`` consecutive positions a tile, the counts of keys equal to
-    T and of winners carried from tile to tile), each put in the slot its
+def _block_winners(key, c, threads=256):
+    """The resident-row core (``block_select`` in csrc/knn_kernels.cu) on
+    one row's keys in position order: the core of the resident select,
+    the streamed select and the wide merges. Warp w of the block owns the
+    positions [w span, (w + 1) span), span = 32 ceil(W / threads). The
+    survivors are counted and the four 8-bit passes (order-free
+    histograms of the matching keys) give T and ``need`` as in
+    ``_radix_winners``; then each warp counts its keys below T and
+    equal to T, the counts give each warp's offsets (the keys equal to T
+    before it, its first winner's word), and each warp writes its winners
+    in position order, a ballot a 32 keys; each winner takes the slot its
     (key, position) rank names. Returns the winners' positions in slot
     order and (s, T, need)."""
     big = _order_bits(np.array([np.finfo(np.float32).max], np.float32))[0]
-    s = int((key < big).sum())
+    w = key.shape[0]
+    span = 32 * -(-w // threads)
+    surv = key < big
+    s = int(surv.sum())
     thr, need = big, 0
     if s > c:
         prefix, pmask, r = 0, 0, c - 1
         for shift in (24, 16, 8, 0):
-            cand = (key < big) & ((key & pmask) == prefix)
+            cand = surv & ((key & pmask) == prefix)
             hist = np.bincount(((key[cand] >> shift) & 0xFF)
                                .astype(np.int64), minlength=256)
             cum = np.cumsum(hist)
@@ -374,30 +555,40 @@ def _stream_winners(key, c, threads=256):
             prefix |= b << shift
             pmask |= 0xFF << shift
         thr, need = prefix, r + 1
-    words = []
-    run_e = 0
-    for base in range(0, key.shape[0], threads):
-        tile = key[base:base + threads]
-        eq = (tile == thr) & (need > 0)
-        eq_rank = run_e + np.cumsum(eq) - eq
-        win = (tile < thr) | (eq & (eq_rank < need))
-        run_e += int(eq.sum())
-        pos = base + np.nonzero(win)[0]
-        words.extend((tile[win].astype(np.uint64) << np.uint64(32))
-                     | pos.astype(np.uint64))
-    words = np.array(words, np.uint64)
-    rank = (words[None, :] < words[:, None]).sum(1)
-    slots = np.empty(len(words), np.int64)
-    slots[rank] = (words & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    ranges = [(min(g * span, w), min(g * span + span, w))
+              for g in range(threads // 32)]
+    lt = [int((key[a:b] < thr).sum()) for a, b in ranges]
+    eq = [int((key[a:b] == thr).sum()) if need else 0 for a, b in ranges]
+    e_at, w_at, e_run, nwin = [], [], 0, 0
+    for g in range(len(ranges)):
+        e_at.append(e_run)
+        w_at.append(nwin)
+        nwin += lt[g] + max(0, min(eq[g], need - e_run))
+        e_run += eq[g]
+    words = np.zeros(nwin, np.uint64)
+    for g, (a, b) in enumerate(ranges):
+        ea, wa = e_at[g], w_at[g]
+        for p in range(a, b):
+            is_eq = need > 0 and key[p] == thr
+            if key[p] < thr or (is_eq and ea < need):
+                words[wa] = (np.uint64(key[p]) << np.uint64(32)) \
+                    | np.uint64(p)
+                wa += 1
+            ea += is_eq
+        assert wa == (w_at[g + 1] if g + 1 < len(ranges) else nwin)
+    pos = (words & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    assert (np.diff(pos) > 0).all()             # position order
+    slots = pos[np.argsort(words, kind="stable")]
     return slots, (s, int(thr), need)
 
 
 def _radix_select_emulation(gd, gi, kth, c, threads):
     """csrc/knn_kernels.cu's knn_join_select, step by step, in numpy: each
-    row's keys (the FLT_MAX sentinel where the prefilter fails) through
-    ``_radix_winners``, or above a padded W of 8192 through the streamed
-    kernel's ``_stream_winners``. Returns (dist, idx) and the per-row (s,
-    T, need) for the test to inspect."""
+    row's keys (the FLT_MAX sentinel where the prefilter fails; -0.0 as
+    +0.0) through ``_radix_winners``, or above a padded W of 8192 (the
+    resident and the streamed kernels) through the resident-row core's
+    ``_block_winners``. Returns (dist, idx) and the per-row (s, T, need)
+    for the test to inspect."""
     n, w = gd.shape
     big = _order_bits(np.array([np.finfo(np.float32).max], np.float32))[0]
     od = np.full((n, c), np.inf, np.float32)
@@ -409,7 +600,7 @@ def _radix_select_emulation(gd, gi, kth, c, threads):
         ok = (gi[row] >= 0) & (gd[row] < kth[row])
         key[:w] = np.where(ok, _order_bits(gd[row]), big)
         if w > 8192:
-            pos, tr = _stream_winners(key[:w], c, threads)
+            pos, tr = _block_winners(key[:w], c, threads)
         else:
             pos, tr = _radix_winners(key, c, threads)
         od[row, :len(pos)] = gd[row, pos]
@@ -455,7 +646,8 @@ def _radix_rows(kind, n, w, c, seed):
     (800, 60, 32),      # receiver select
     (2048, 60, 256),    # one block per row
     (40, 100, 32),      # c > W
-    (16928, 273, 256),  # streamed: k 91's receiver select (2 C x C, 3k)
+    (16928, 273, 256),  # resident: k 91's receiver select (2 C x C, 3k)
+    (8281, 546, 256),   # resident: k 91's polish select (k^2, 6k)
     (64800, 540, 256),  # streamed: C 180's receiver select
 ])
 def test_radix_select_emulation_matches_jax(kind, w, c, threads):
@@ -476,7 +668,7 @@ def test_radix_select_emulation_matches_jax(kind, w, c, threads):
                                          jnp.asarray(kth), c=c, tr=2,
                                          interpret=True)
     else:
-        # the streamed widths: the interpreted kernel unrolls c steps of a
+        # the widths past 8192: the interpreted kernel unrolls c steps of a
         # min over W (tens of seconds), so there the oracle holds the
         # zeros with -0.0 written as +0.0, which the select ties with it
         jgd = np.where(gd == 0, np.float32(0), gd) if kind == "zeros" else gd
@@ -608,8 +800,10 @@ def _merge_emulation(cur_d, cur_i, cand_d, cand_i, seed=0):
     unless it is +-inf or >= FLT_MAX, a candidate's unless it is a dup or
     >= FLT_MAX, the sentinel else; then the select's core
     (``_radix_winners``) picks k, and the picks at positions >= k count.
-    Returns (dist, idx, accepted) as torch tensors, the dup masks and the
-    (s, T, need) per row."""
+    Above a pool of 8192 (the wide merge): a block of 256 threads, the
+    table the next power of two of 1.5 m slots, and the resident-row core
+    (``_block_winners``) on the pool's keys. Returns (dist, idx, accepted)
+    as torch tensors, the dup masks and the (s, T, need) per row."""
     cur_d, cur_i, cand_d, cand_i = (torch.as_tensor(a) for a in
                                     (cur_d, cur_i, cand_d, cand_i))
     n, k = cur_d.shape
@@ -618,6 +812,12 @@ def _merge_emulation(cur_d, cur_i, cand_d, cand_i, seed=0):
     while padded < m:
         padded *= 2
     threads = 32 if padded <= 128 else 256
+    wide = m > 8192
+    slots = 2 * padded
+    if wide:
+        slots = 1
+        while slots < m + m // 2:
+            slots *= 2
     big = int(_order_bits(np.array([np.finfo(np.float32).max],
                                    np.float32))[0])
     g = torch.Generator().manual_seed(seed)
@@ -630,15 +830,17 @@ def _merge_emulation(cur_d, cur_i, cand_d, cand_i, seed=0):
         pool_d = torch.cat([cur_d[row], cand_d[row]])
         pool_i = torch.cat([cur_i[row], cand_i[row]])
         dup, longest = _hash_dedup_emulation(
-            pool_i, k, 2 * padded, torch.randperm(m, generator=g))
-        assert longest < 2 * padded
+            pool_i, k, slots, torch.randperm(m, generator=g))
+        assert longest < slots
         bits = torch.from_numpy(_order_bits(pool_d.numpy()).astype(np.int64))
         live = pool_d < fmax
         live[:k] &= pool_d[:k] != -torch.inf
         live[k:] &= ~dup
         key = torch.full((padded,), big, dtype=torch.int64)
         key[:m] = torch.where(live, bits, big)
-        pos, tr = _radix_winners(key.numpy().astype(np.uint32), k, threads)
+        keys = key.numpy().astype(np.uint32)
+        pos, tr = _block_winners(keys[:m], k) if wide else \
+            _radix_winners(keys, k, threads)
         pos = torch.from_numpy(pos)
         od[row, :len(pos)] = pool_d[pos]
         oi[row, :len(pos)] = pool_i[pos]
@@ -690,7 +892,8 @@ def _merge_case(kind, n, k, c, seed):
     (20, 60),            # the build's merge: a warp per row
     (20, 400),           # the online refinement and delete refill: k^2
     (20, 500),           # the online self-join at the batch width
-    (20, 8172),          # the widest pool the kernel takes
+    (20, 8172),          # the widest pool in registers
+    (91, 8281),          # the wide merge: the online pool at k 91
 ])
 def test_merge_emulation_matches_jax(kind, k, c):
     """The merge kernel's hash dedup and radix selection, emulated, bitwise

@@ -7,7 +7,9 @@ the JAX build's own draws.
 Tolerances: ids, counts and evals exact; join distances rtol 1e-5 / atol
 1e-4 (sums in another order), int8 bitwise; selects bitwise; the build's
 lists slot by slot as tests/test_torch_build.py holds them; polish ids
-and counts exact, distances rtol 1e-5 / atol 1e-4."""
+and counts exact, distances rtol 1e-5 / atol 1e-4; the merges above a
+pool of 8192 (the online store's k + k^2 = 8372 at k 91) ids and counts
+exact, distances equal (a merge only copies them)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -189,3 +191,52 @@ def test_polish_chunk_by_bytes_is_one_chunk(monkeypatch):
     for a, b in zip(one[0], cut[0]):
         assert torch.equal(a, b)
     assert one[1:] == cut[1:]
+
+
+@pytest.mark.parametrize("form", ["dense", "rows"])
+@pytest.mark.parametrize("c", [K * K, 12000])
+def test_merge_plain_at_wide_pools_matches_jax(c, form):
+    """The plain merge and row merge at the online store's pool at k 91
+    (8372) and past the wide merge's shared-memory instance (12091)
+    against the JAX oracles on the same rows: ties, repeated candidate
+    ids, candidate ids from the list, ids -1, -0.0 / +0.0 and 3e38
+    placeholders; finite slots by id and value, the JAX oracle's +inf
+    slots -1 here, accepted counts exact."""
+    n, k = 6, K
+    rng = np.random.RandomState(c)
+    cur_d = np.sort(rng.rand(n, k).astype(np.float32), axis=1)
+    cur_i = rng.randint(0, 4 * c, size=(n, k)).astype(np.int32)
+    cand_d = (np.round(rng.rand(n, c) * 16) / 16).astype(np.float32)
+    cand_i = rng.randint(-1, 4 * c, size=(n, c)).astype(np.int32)
+    cur_d[0], cand_d[0] = 0.5, 0.5                        # ties
+    cand_i[1] = rng.randint(0, 8, size=c)                 # repeats
+    cand_i[2] = cur_i[2, rng.randint(0, k, size=c)]       # list ids
+    cand_i[3, rng.rand(c) < 0.5] = -1                     # invalid
+    cand_d[4] = np.where(rng.rand(c) < 0.5, -0.0, 0.0)    # signed zeros
+    cur_d[4, :10] = -0.0
+    cur_d[5, k - 4:] = np.float32(3.0e38)                 # placeholders
+    cand_d[5, ::3] = np.float32(3.0e38)
+    if form == "dense":
+        jd, ji, ju = jref.knn_merge(*(jnp.asarray(a) for a in (
+            cur_d, cur_i, cand_d, cand_i)))
+        td, ti, tu = tref.knn_merge(*(_t(a) for a in (cur_d, cur_i, cand_d,
+                                                      cand_i)))
+    else:
+        big_d = np.sort(rng.rand(3 * n, k).astype(np.float32), axis=1)
+        big_i = rng.randint(0, 4 * c, size=(3 * n, k)).astype(np.int32)
+        rows = rng.choice(3 * n, size=n, replace=False).astype(np.int32)
+        big_d[rows], big_i[rows] = cur_d, cur_i
+        rows[1] = -1                                      # a padding slot
+        jd, ji, ju = jref.knn_merge_rows(*(jnp.asarray(a) for a in (
+            big_d, big_i, rows, cand_d, cand_i)))
+        td, ti, tu = tref.knn_merge_rows(*(_t(a) for a in (
+            big_d, big_i, rows, cand_d, cand_i)))
+    jd, ji, ju = (np.asarray(a) for a in (jd, ji, ju))
+    td, ti, tu = td.numpy(), ti.numpy(), tu.numpy()
+    fin = np.isfinite(jd)
+    np.testing.assert_array_equal(np.isfinite(td), fin)
+    np.testing.assert_array_equal(td[fin], jd[fin])
+    np.testing.assert_array_equal(ti[fin], ji[fin])
+    assert (ti[~fin] == -1).all()
+    np.testing.assert_array_equal(tu, ju)
+    assert tu.sum() > 0

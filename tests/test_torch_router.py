@@ -257,19 +257,19 @@ def test_routed_graph_search_matches_jax(routed, case):
 
 
 def test_wide_routed_seeds_merge_in_slices(routed):
-    """8400 seeds are wider than the merge kernel's pool (8192 with the
-    beam): the sliced seed merge keeps what one wide merge keeps. Members
-    512 at t 4 give 2048 seeds, and the routed search still returns the
-    JAX package's ids (JAX merges all seeds at once)."""
+    """8400 seeds are wider than the pool the merge kernel holds in
+    registers (8192 with the beam): the seed merge keeps what the plain
+    merge keeps. Members 512 at t 4 give 2048 seeds, and the routed search
+    still returns the JAX package's ids (JAX merges all seeds at once)."""
     x, gidx, _ = routed
     jcfg, _ = _cfg_pair(n_centroids=4, sample=512, members=512)
     jrt = _jax_router(x, jcfg, jax.random.key(8))
     rng = np.random.default_rng(0)
     qb, beam, e = 2, 32, 8400
-    assert e > MERGE_MAX_POOL - beam              # two slices
+    assert e > MERGE_MAX_POOL - beam              # the wide merge
     ids = rng.integers(-1, 512, (qb, e)).astype(np.int32)
     # a seed's distance is a function of its id (one query, one row), with
-    # repeated ids and tied distances of distinct ids across the slices
+    # repeated ids and tied distances of distinct ids across the pool
     table = rng.random((qb, 512)).astype(np.float32)
     table[:, ::5] = table[:, 3:4]
     dd = np.take_along_axis(table, ids.clip(0), axis=1)

@@ -7,7 +7,16 @@ and saves each graph's distances and ids, its stats and the launches of
 each kernel to ``--out``. It also times the build's join (70000 x 20, dp
 896) and receiver select (2048 x 800, c 60) at those shapes on seeded
 inputs: one call's device time, ``--reps`` calls captured in a CUDA graph
-and replayed between two CUDA events. ``--compare A B`` holds two saved
+and replayed between two CUDA events. It also times, on seeded inputs,
+the k = 91 kernels at path 22's shapes (the fp32 join at
+70000 x 92, dp 896, cn 46: row 1d; the selects at 2048 x 16928, c 273 and
+70000 x 8281, c 546: rows 2m, 2n) and path 23's (the row merge of 500
+rows at c 8281 into 70000 x 91 lists: row 6e; the dense merge of 2048
+rows: row 3d; a tree whose merge refuses the pool records "refused"). The
+join is timed on four id sets that split its loss: each slot valid with
+probability 0.57 (about path 22's 1031 valid pairs a row) or all valid,
+ids drawn from the whole corpus or from a window of 2048 rows (whose
+gathers stay in L2). ``--compare A B`` holds two saved
 files against each other: distances and ids bitwise, the same stats and
 launches; it prints the kernel times side by side. Unpack the other tree
 under a directory that git ignores and run parent, change, change,
@@ -91,9 +100,59 @@ def build(args) -> dict:
     kth = torch.full((2048,), 0.5, device=dev)
     out["ms"]["select 2048 x 800, c 60"] = time_ms(
         lambda: ops.knn_join_select(gd, gi, kth, 60), args.reps)
+    out["ms"].update(large_k_ms(args, dev, xp, x2))
     torch.save(out, args.out)
     return {"src": args.src, "ms": out["ms"],
             "stats": {p: v["stats"] for p, v in out["graphs"].items()}}
+
+
+def large_k_ms(args, dev, xp, x2) -> dict:
+    """Device ms of the k = 91 kernels at paths 22's and 23's shapes on
+    seeded inputs; "refused" where the tree's wrapper refuses the call."""
+    import torch
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(2)
+    big_n, reps = xp.shape[0], max(2, args.reps // 4)
+    ms = {}
+
+    def timed(key, fn, r=reps):
+        try:
+            ms[key] = time_ms(fn, r)
+        except ValueError as err:          # a wrapper's refusal
+            ms[key] = f"refused: {err}"
+    for valid in (0.57, 1.0):
+        for span in (big_n, 2048):
+            ids = torch.randint(0, span, (big_n, 92), generator=g,
+                                device=dev, dtype=torch.int32)
+            ids[torch.rand(big_n, 92, generator=g, device=dev) > valid] = -1
+            timed(f"join 70000 x 92, dp 896, cn 46, valid {valid}, ids in "
+                  f"{span} rows", lambda i=ids: ops.knn_join_dists(
+                      xp, x2, i, 46), 2)
+            del ids
+    for n, w, c, th in ((2048, 16928, 273, 0.3), (70000, 8281, 546, 2.0)):
+        gd = torch.rand(n, w, generator=g, device=dev)
+        gi = torch.randint(-1, big_n, (n, w), generator=g, device=dev,
+                           dtype=torch.int32)
+        kth = torch.full((n,), th, device=dev)
+        timed(f"select {n} x {w}, c {c}",
+              lambda: ops.knn_join_select(gd, gi, kth, c))
+        del gd, gi
+    k, c = 91, 91 * 91
+    cd = torch.rand(big_n, k, generator=g, device=dev).sort(1).values
+    ci = torch.randint(0, big_n, (big_n, k), generator=g, device=dev,
+                       dtype=torch.int32)
+    for f in (500, 2048):
+        qd = torch.rand(f, c, generator=g, device=dev)
+        qi = torch.randint(-1, big_n, (f, c), generator=g, device=dev,
+                           dtype=torch.int32)
+        rows = torch.randperm(big_n, generator=g, device=dev)[:f].to(
+            torch.int32)
+        timed(f"merge_rows {f} of 70000 x 91, c {c}",
+              lambda: ops.knn_merge_rows(cd, ci, rows, qd, qi))
+        timed(f"merge {f} x 91, c {c}",
+              lambda: ops.knn_merge(cd[:f].contiguous(), ci[:f].contiguous(),
+                                    qd, qi))
+    return ms
 
 
 def compare(a_path: str, b_path: str) -> dict:
